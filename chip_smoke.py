@@ -1,0 +1,365 @@
+#!/usr/bin/env python3
+"""Chip smoke for the PyTorch/H100 port (``src/repro_torch``): the quickest
+proof that the port builds, agrees with itself and serves on one GPU.
+
+    python3 chip_smoke.py          # from the root of a checkout, one card
+
+Phases (each prints JSON lines; any failure raises, so the exit code is
+non-zero and no result line is printed):
+
+1. device   the card's name and ``nvidia-smi`` name / power limit;
+2. build    both CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+            ``nvcc`` for sm_90a, in parallel;
+3. kernels  each kernel against its plain PyTorch version on the card over
+            a grid of shapes, then timed at the serving path's shapes beside
+            its plain version and one library call (the yardstick only);
+4. port     smollm-360m at full width, 4 layers, pipe 2, fp32: the same
+            weights through the kernels on the card and through the plain
+            versions on the CPU, prefill + 4 decode steps, logits compared;
+5. serve    smollm-360m, all 32 layers, bf16, pipe 16, data 1, on one card:
+            batch 8 (m = 8), prompt 2048, 32 generated tokens through
+            ``repro_torch.launch.serve.serve``; the launch counters must
+            equal what the path implies.
+
+The line before the last is the ``kernels`` summary; the last line is
+``{"ok": true, "device": {...}}``.  It imports nothing of JAX or ``repro``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+PEAK_BF16_FLOPS = 989e12         # dense tensor-core bf16
+PEAK_FP32_FLOPS = 67e12          # fp32 outside the tensor cores
+D_MODEL = 960
+
+# Tolerances against the plain versions on the same card and inputs.
+# fp32: the kernels sum in another order than the plain versions (the norm's
+# warp reduction, the attention's 64-key tiles against 512-key blocks);
+# bf16: both round the fp32 result to bf16, which can land one ulp apart.
+NORM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+ATTN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+PORT_TOL = 1e-3   # whole model, fp32, kernels on the card vs plain on the CPU
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def device_ms(torch, fn, iters: int) -> float:
+    """Device time per call: events around ``iters`` back-to-back calls.
+
+    A sleep kernel first holds the stream while the host enqueues the calls,
+    so the events time the card's work and not the Python launch path."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if hasattr(torch.cuda, "_sleep"):
+        torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_err(torch, got, want) -> float:
+    return float((got.float() - want.float()).abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_device(torch):
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False; "
+                         "this script runs only on a GPU")
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    emit({"phase": "device", "name": name, "count": torch.cuda.device_count(),
+          "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+    return name, smi
+
+
+def phase_build():
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    logs = build.build_all(force=True)
+    dt = time.perf_counter() - t0
+    ptxas = {n: [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+             for n, log in logs.items()}
+    emit({"phase": "build", "seconds": dt, "nvcc": build.nvcc_path(),
+          "flags": list(build.NVCC_FLAGS), "ptxas": ptxas})
+
+
+def phase_kernels(torch):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    # -- RMSNorm grid ------------------------------------------------------
+    for rows in (1, 8, 2048):
+        for dname, dt in dtypes.items():
+            x = randn(rows, D_MODEL, dtype=dt) * 2
+            s = randn(D_MODEL, dtype=dt) + 1
+            got = rmsnorm(x, s)
+            torch.cuda.synchronize()
+            err = max_err(torch, got, rmsnorm_plain(x, s))
+            ok = torch.allclose(got.float(), rmsnorm_plain(x, s).float(),
+                                rtol=NORM_TOL[dname], atol=NORM_TOL[dname])
+            emit({"check": "rmsnorm", "rows": rows, "d": D_MODEL,
+                  "dtype": dname, "max_abs_err": err,
+                  "tol": NORM_TOL[dname], "ok": bool(ok)})
+            if not ok:
+                raise AssertionError(f"rmsnorm kernel disagrees: {err}")
+
+    # -- attention grid ----------------------------------------------------
+    for causal in (0, 1):
+        for window in (0, 128):
+            for sq, sk, q_offset in ((100, 100, 0), (2048, 2048, 0),
+                                     (100, 300, 200)):
+                for hq, hkv in ((15, 5), (4, 4)):
+                    for dname, dt in dtypes.items():
+                        q = randn(1, hq, sq, 64, dtype=dt)
+                        k = randn(1, hkv, sk, 64, dtype=dt)
+                        v = randn(1, hkv, sk, 64, dtype=dt)
+                        kw = dict(causal=bool(causal), window=window,
+                                  q_offset=q_offset)
+                        got = flash_attention(q, k, v, **kw)
+                        torch.cuda.synchronize()
+                        want = flash_attention_plain(q, k, v, **kw)
+                        err = max_err(torch, got, want)
+                        ok = torch.allclose(got.float(), want.float(),
+                                            rtol=ATTN_TOL[dname],
+                                            atol=ATTN_TOL[dname])
+                        emit({"check": "flash_attention", "causal": causal,
+                              "window": window, "sq": sq, "sk": sk,
+                              "q_offset": q_offset, "hq": hq, "hkv": hkv,
+                              "d": 64, "dtype": dname, "max_abs_err": err,
+                              "tol": ATTN_TOL[dname], "ok": bool(ok)})
+                        if not ok:
+                            raise AssertionError(
+                                f"flash_attention kernel disagrees: {err}")
+
+    # -- timing at the serving path's shapes (bf16, one micro-batch of the
+    #    2048-token prefill: mb = 1) ----------------------------------------
+    rows = 2048
+    x = randn(1, rows, D_MODEL, dtype=torch.bfloat16)
+    s = randn(D_MODEL, dtype=torch.bfloat16) + 1
+    err_n = max_err(torch, rmsnorm(x, s), rmsnorm_plain(x, s))
+    norm_bytes = (2 * rows * D_MODEL + D_MODEL) * 2
+    norm_flops = 4 * rows * D_MODEL
+    norm = {
+        "name": "rmsnorm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:22",
+        "max_abs_err": err_n,
+        "ms": device_ms(torch, lambda: rmsnorm(x, s), 500),
+        "plain_ms": device_ms(torch, lambda: rmsnorm_plain(x, s), 100),
+        "library_ms": device_ms(
+            torch, lambda: F.rms_norm(x, (D_MODEL,), s, 1e-6), 500),
+        "bound_ms": 1e3 * max(norm_bytes / HBM_BYTES_PER_S,
+                              norm_flops / PEAK_FP32_FLOPS),
+        "bound_by": ("bytes" if norm_bytes / HBM_BYTES_PER_S
+                     >= norm_flops / PEAK_FP32_FLOPS else "operations"),
+        "shape": [1, rows, D_MODEL], "dtype": "bfloat16",
+    }
+    hq, hkv, sq = 15, 5, 2048
+    q = randn(1, hq, sq, 64, dtype=torch.bfloat16)
+    k = randn(1, hkv, sq, 64, dtype=torch.bfloat16)
+    v = randn(1, hkv, sq, 64, dtype=torch.bfloat16)
+    err_a = max_err(torch, flash_attention(q, k, v, causal=True),
+                    flash_attention_plain(q, k, v, causal=True))
+    pairs = sq * (sq + 1) // 2                      # causal: visible (q, k)
+    attn_flops = 4 * 64 * hq * pairs                # q k^T and p v
+    attn_bytes = 2 * 64 * sq * (hq + hkv + hkv + hq)
+    attn = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:36",
+        "max_abs_err": err_a,
+        "ms": device_ms(torch, lambda: flash_attention(q, k, v, causal=True),
+                        50),
+        "plain_ms": device_ms(
+            torch, lambda: flash_attention_plain(q, k, v, causal=True), 10),
+        "library_ms": device_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), 50),
+        "bound_ms": 1e3 * max(attn_bytes / HBM_BYTES_PER_S,
+                              attn_flops / PEAK_BF16_FLOPS),
+        "bound_by": ("bytes" if attn_bytes / HBM_BYTES_PER_S
+                     >= attn_flops / PEAK_BF16_FLOPS else "operations"),
+        "shape": {"q": [1, hq, sq, 64], "kv": [1, hkv, sq, 64],
+                  "causal": True},
+        "dtype": "bfloat16", "flops": attn_flops,
+    }
+    for rec in (norm, attn):
+        emit({"phase": "kernel_timing", **rec})
+    return {"rmsnorm": norm, "flash_attention": attn}
+
+
+def phase_port(torch):
+    """The port against itself: kernels on the card vs plain on the CPU."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import LMModel
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch = dataclasses.replace(configs.get_arch("smollm-360m"), n_layers=4)
+    pcfg = configs.get_parallel("smollm-360m").with_(pipe=2, data=1,
+                                                      n_micro=2)
+    batch, prompt, n_dec = 2, 256, 4
+    pshape = ShapeConfig("p", prompt, batch, "prefill")
+    dshape = ShapeConfig("d", prompt + n_dec + 1, batch, "decode")
+    cpu = LMModel(arch, pcfg, dtype=torch.float32, device="cpu")
+    gpu = LMModel(arch, pcfg, dtype=torch.float32, device="cuda")
+    params_cpu = cpu.init(torch.Generator().manual_seed(0))
+    params_gpu = tree_map(lambda a: a.to("cuda"), params_cpu)
+    prompts = torch.randint(0, arch.vocab, (batch, prompt),
+                            generator=torch.Generator().manual_seed(1))
+    runs = {}
+    for tag, model, params in (("cpu", cpu, params_cpu),
+                               ("gpu", gpu, params_gpu)):
+        dev = model.device
+        prefill = steps.build_prefill_step(model, pcfg, dev, pshape)
+        decode = steps.build_serve_step(model, pcfg, dev, dshape)
+        cache = model.init_cache(dshape, pcfg.n_micro, filled=False)
+        logits, cache = prefill(params, cache, {"tokens": prompts.to(dev)})
+        runs[tag] = {"model": model, "decode": decode, "cache": cache,
+                     "params": params, "logits": [logits.float().cpu()]}
+    for _ in range(n_dec):
+        tok = torch.argmax(runs["cpu"]["logits"][-1], -1)
+        for tag, r in runs.items():
+            logits, r["cache"] = r["decode"](r["params"], r["cache"],
+                                             tok.to(r["model"].device))
+            r["logits"].append(logits.float().cpu())
+    errs = []
+    for i, (a, b) in enumerate(zip(runs["gpu"]["logits"],
+                                   runs["cpu"]["logits"])):
+        ok = torch.allclose(a, b, rtol=PORT_TOL, atol=PORT_TOL)
+        errs.append(max_err(torch, a, b))
+        if not ok or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"port GPU vs CPU step {i}: max err "
+                                 f"{errs[-1]} over tol {PORT_TOL}")
+    emit({"phase": "port_gpu_vs_cpu", "arch": "smollm-360m", "n_layers": 4,
+          "pipe": 2, "dtype": "float32", "batch": batch, "prompt": prompt,
+          "decode_steps": n_dec, "max_abs_err": errs, "tol": PORT_TOL,
+          "ok": True})
+
+
+def phase_serve(torch):
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.launch.serve import serve
+
+    arch = configs.get_arch("smollm-360m")
+    pcfg = configs.get_parallel("smollm-360m").with_(data=1)
+    batch, prompt, gen = 8, 2048, 32
+    flash_attention.launches = 0
+    rmsnorm.launches = 0
+    res = serve(arch, pcfg, prompt_len=prompt, gen=gen, batch=batch,
+                device="cuda", dtype=torch.bfloat16, seed=0)
+    totals = {"flash_attention": flash_attention.launches,
+              "rmsnorm": rmsnorm.launches}
+    m, layers = res["n_micro"], arch.n_layers
+    want = {
+        "prefill": {"flash_attention": layers * m,
+                    "rmsnorm": 3 * layers * m + 1},
+        "decode": {"flash_attention": 0,
+                   "rmsnorm": (gen - 1) * (2 * layers * m + 1)},
+    }
+    want_totals = {k: want["prefill"][k] + want["decode"][k] for k in totals}
+    logits = res["logits"]
+    toks = res["tokens"]
+    emit({"phase": "serve", "arch": arch.name, "n_layers": layers,
+          "pipe": pcfg.pipe, "data": pcfg.data, "n_micro": m,
+          "batch": batch, "prompt": prompt, "gen": gen, "dtype": "bfloat16",
+          "prefill_ms": res["prefill_s"] * 1e3,
+          "decode_s": res["decode_s"],
+          "decode_tok_per_s": res["decode_tok_per_s"],
+          "peak_mem_gib": res["peak_mem_bytes"] / 2 ** 30,
+          "launches": res["launches"], "launches_total": totals,
+          "launches_expected": want, "sample_tokens": toks[0][:8].tolist()})
+    if m != 8:
+        raise AssertionError(f"expected m = 8 at batch 8, got {m}")
+    if res["launches"] != want or totals != want_totals:
+        raise AssertionError(f"launch counts {res['launches']} / {totals} "
+                             f"differ from the path's {want}")
+    if tuple(logits.shape) != (batch, 1, arch.vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("serving logits are not finite [B, 1, V]")
+    if toks.shape != (batch, gen) or toks.min() < 0 \
+            or toks.max() >= arch.vocab:
+        raise AssertionError(f"bad generated tokens {toks.shape}")
+    return totals
+
+
+def main() -> int:
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke.py: run it from a checkout of the repository "
+              "(src/repro_torch is missing beside it)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    t0 = time.perf_counter()
+    name, smi = phase_device(torch)
+    phase_build()
+    timing = phase_kernels(torch)
+    phase_port(torch)
+    launches = phase_serve(torch)
+    kernels = []
+    for kname in ("flash_attention", "rmsnorm"):
+        rec = timing[kname]
+        kernels.append({k: rec[k] for k in (
+            "name", "route", "source", "replaces")}
+            | {"launches": launches[kname]}
+            | {k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")})
+        if launches[kname] == 0:
+            raise AssertionError(f"{kname} never launched on the main path")
+    emit({"phase": "done", "seconds": time.perf_counter() - t0})
+    emit({"kernels": kernels})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

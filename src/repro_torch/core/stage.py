@@ -1,0 +1,135 @@
+"""Layer -> stage assembly for homogeneous (stacked) stages.
+
+Counterpart of :mod:`repro.core.stage`'s stacked form: every block of a
+transformer LM shares one parameter structure, so per-layer trees stack to
+``[n_stages, L_per_stage, ...]`` tensors.  Layer counts that do not divide
+evenly are padded with identity layers (zero weights, ``mask`` 0), exactly
+as in the reference, so a stage runs ``L_per_stage`` uniform slots.
+
+:func:`restack` moves a stacked tree from one layout onto another (the
+counterpart of ``runtime/elastic.restack_stages``): a JAX model at pipe 1
+and the port at pipe 4 hold the same per-layer weights in different stacks.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_map
+
+
+@dataclass(frozen=True)
+class StageLayout:
+    """Layer -> (stage, slot) assignment for the stacked representation.
+
+    ``slot_layer[s, l]`` is the GLOBAL layer index living at stage ``s``,
+    slot ``l`` (``-1`` for identity padding); ``mask`` is its 1.0/0.0
+    float view (what the blocks gate their residual delta with).  With a
+    ``partition`` stages hold contiguous, possibly non-uniform runs of
+    layers padded to the largest stage; without one the uniform ceil
+    layout (front-to-back flat fill, padding in the tail stages).
+    """
+    L_per_stage: int
+    mask: np.ndarray              # [n_stages, L] float32
+    slot_layer: np.ndarray        # [n_stages, L] int32, -1 = padding
+    sizes: Tuple[int, ...]        # real layers per stage (sums to n_layers)
+    bounds: Tuple[int, ...]       # cumulative: stage s owns [b[s], b[s+1])
+
+    @property
+    def n_stages(self) -> int:
+        return len(self.sizes)
+
+    @property
+    def n_layers(self) -> int:
+        return self.bounds[-1]
+
+    def scatter(self, per_layer: np.ndarray, fill) -> np.ndarray:
+        """Spread a length-``n_layers`` per-layer array onto the
+        [n_stages, L] slot grid; padding slots take ``fill``."""
+        per_layer = np.asarray(per_layer)
+        out = np.full((len(self.sizes), self.L_per_stage), fill,
+                      per_layer.dtype)
+        valid = self.slot_layer >= 0
+        out[valid] = per_layer[self.slot_layer[valid]]
+        return out
+
+
+def partition_layout(n_layers: int, n_stages: int,
+                     partition: Optional[Sequence[int]] = None) -> StageLayout:
+    """Build the stacked-stage layout, uniform or balance-partitioned.
+
+    ``partition`` is per-stage layer counts (contiguous, len == n_stages,
+    sums to n_layers); ``None``/empty keeps the uniform ceil layout.
+    """
+    if partition:
+        sizes = tuple(int(p) for p in partition)
+        if len(sizes) != n_stages:
+            raise ValueError(f"partition has {len(sizes)} entries for "
+                             f"{n_stages} stages")
+        if sum(sizes) != n_layers:
+            raise ValueError(f"partition {sizes} sums to {sum(sizes)}, "
+                             f"model has {n_layers} layers")
+    else:
+        L = -(-n_layers // n_stages)  # ceil
+        sizes = tuple(min(L, max(0, n_layers - s * L))
+                      for s in range(n_stages))
+    Lp = max(max(sizes), 1)
+    bounds = [0]
+    for sz in sizes:
+        bounds.append(bounds[-1] + sz)
+    slot = np.full((n_stages, Lp), -1, np.int32)
+    for s, sz in enumerate(sizes):
+        slot[s, :sz] = np.arange(bounds[s], bounds[s] + sz)
+    mask = (slot >= 0).astype(np.float32)
+    return StageLayout(Lp, mask, slot, sizes, tuple(bounds))
+
+
+def stack_layer_params(layer_params: Sequence[Any], n_stages: int,
+                       partition: Optional[Sequence[int]] = None) -> Any:
+    """Stack per-layer trees (one per layer) into ``[n_stages, L, ...]``.
+
+    Padding slots are zero-filled.  With ``partition`` each stage's slots
+    hold its own contiguous layer run; without, the flat front-to-back fill.
+    """
+    lay = partition_layout(len(layer_params), n_stages, partition)
+    flat = tree_map(lambda *xs: torch.stack(xs), *layer_params)
+    return _place(flat, lay)
+
+
+def _place(per_layer: Any, lay: StageLayout) -> Any:
+    """[n_layers, ...] leaves -> [n_stages, L, ...] on ``lay``'s slots."""
+    valid = torch.from_numpy((lay.slot_layer >= 0).reshape(-1))
+    src = torch.from_numpy(lay.slot_layer.reshape(-1)[valid.numpy()]).long()
+
+    def one(a):
+        out = a.new_zeros((lay.n_stages * lay.L_per_stage,) + a.shape[1:])
+        out[valid.to(a.device)] = a[src.to(a.device)]
+        return out.reshape((lay.n_stages, lay.L_per_stage) + a.shape[1:])
+    return tree_map(one, per_layer)
+
+
+def unstack_layers(stacked: Any, lay: StageLayout) -> Any:
+    """[n_stages, L, ...] leaves -> [n_layers, ...] in global layer order."""
+    order = np.argsort(np.where(lay.slot_layer >= 0, lay.slot_layer,
+                                np.iinfo(np.int32).max).reshape(-1),
+                       kind="stable")[:lay.n_layers]
+    idx = torch.from_numpy(order).long()
+
+    def one(a):
+        if tuple(a.shape[:2]) != (lay.n_stages, lay.L_per_stage):
+            raise ValueError(f"leaf {tuple(a.shape)} is not stacked as "
+                             f"[{lay.n_stages}, {lay.L_per_stage}, ...]")
+        flat = a.reshape((lay.n_stages * lay.L_per_stage,) + a.shape[2:])
+        return flat[idx.to(a.device)]
+    return tree_map(one, stacked)
+
+
+def restack(stacked: Any, src: StageLayout, dst: StageLayout) -> Any:
+    """Move a stacked tree from layout ``src`` onto layout ``dst``."""
+    if src.n_layers != dst.n_layers:
+        raise ValueError(f"layouts hold {src.n_layers} and {dst.n_layers} "
+                         "layers")
+    return _place(unstack_layers(stacked, src), dst)

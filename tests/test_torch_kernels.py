@@ -1,0 +1,188 @@
+"""The port's kernels: plain versions against the JAX Pallas kernels.
+
+On the CPU each kernel module's plain version is held against the JAX
+package's Pallas kernel in interpret mode (and the attention also against
+the naive oracles), on the same numpy inputs.  The ``cuda`` cases hold the
+Hopper kernels against their plain versions and skip where there is no card;
+they need no JAX, so the GPU machine runs them with
+``python -m pytest -m cuda tests/test_torch_kernels.py``.
+"""
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_cuda,
+                                                 flash_attention_plain)
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_cuda, rmsnorm_plain
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# fp32: a different summation order (tests/test_kernels.py's 2e-5 for
+# attention, 1e-5 for the norm); bf16: one rounding of the output apart
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+NORM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Keep torch to two threads: the suite runs several workers at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def jx():
+    """The JAX reference kernels (imported here: the GPU machine has no JAX)."""
+    jax = pytest.importorskip("jax")
+    from repro.kernels import ref as jref
+    from repro.kernels.flash_attention import flash_attention
+    from repro.kernels.rmsnorm import rmsnorm_pallas
+    return types.SimpleNamespace(jnp=jax.numpy, ref=jref,
+                                 flash_attention=flash_attention,
+                                 rmsnorm_pallas=rmsnorm_pallas)
+
+
+def _pair(jx, a: np.ndarray, dtype: str):
+    """The same values as a torch tensor and a jax array of ``dtype``."""
+    t = torch.from_numpy(a).to(DTYPES[dtype])
+    j = jx.jnp.asarray(a).astype(getattr(jx.jnp, dtype))
+    return t, j
+
+
+def _np(x):
+    if torch.is_tensor(x):
+        return x.float().numpy()
+    return np.asarray(x.astype("float32"), np.float32)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(1, 960), (8, 960), (3, 7, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_plain_vs_pallas(jx, shape, dtype):
+    rng = np.random.default_rng(0)
+    x, jxx = _pair(jx, rng.normal(size=shape).astype(np.float32) * 2, dtype)
+    s, js = _pair(jx, rng.normal(size=shape[-1:]).astype(np.float32) + 1,
+                  dtype)
+    got = rmsnorm(x, s)                      # CPU tensor -> plain version
+    want = jx.rmsnorm_pallas(jxx, js, block_rows=32, interpret=True)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    np.testing.assert_allclose(_np(got), _np(want), rtol=NORM_TOL[dtype],
+                               atol=NORM_TOL[dtype])
+    np.testing.assert_array_equal(_np(ops.rmsnorm(x, s)), _np(got))
+
+
+# ---------------------------------------------------------------------------
+# Flash attention
+# ---------------------------------------------------------------------------
+
+HEADS = [(15, 5), (4, 2), (4, 4)]
+# (Sq, Sk, causal, window, q_offset): ragged Sq against 32-blocks, a later
+# query chunk (q_offset > 0, Sq < Sk), sliding windows with and without causal
+MASKS = [(40, 40, True, 0, 0), (40, 40, False, 0, 0), (40, 40, True, 16, 0),
+         (24, 56, True, 0, 32), (24, 56, False, 24, 32)]
+
+
+def _qkv(hq, hkv, sq, sk, d=64, b=1, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, hq, sq, d)).astype(np.float32),
+            rng.normal(size=(b, hkv, sk, d)).astype(np.float32),
+            rng.normal(size=(b, hkv, sk, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("heads", HEADS)
+@pytest.mark.parametrize("mask", MASKS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_vs_pallas(jx, heads, mask, dtype):
+    sq, sk, causal, window, q_offset = mask
+    qn, kn, vn = _qkv(*heads, sq, sk)
+    (q, jq), (k, jk), (v, jv) = (_pair(jx, a, dtype) for a in (qn, kn, vn))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = flash_attention(q, k, v, **kw)          # CPU -> plain version
+    want = jx.flash_attention(jq, jk, jv, block_q=32, block_k=32,
+                              interpret=True, **kw)
+    tol = ATTN_TOL[dtype]
+    assert got.dtype == q.dtype and got.shape == q.shape
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+    naive = ref.mha_naive(q, k, v, **kw)
+    np.testing.assert_allclose(_np(got), _np(naive), rtol=tol, atol=tol)
+    if dtype == "float32":
+        np.testing.assert_allclose(
+            _np(naive), _np(jx.ref.mha_naive(jq, jk, jv, **kw)), rtol=tol,
+            atol=tol)
+
+
+def test_ops_attention_rejects_traced_forms():
+    q, k, v = (torch.zeros(1, 2, 4, 64) for _ in range(3))
+    with pytest.raises(NotImplementedError, match="A6"):
+        ops.attention(q, k, v, kv_len=torch.tensor(3))
+    with pytest.raises(NotImplementedError, match="A6"):
+        ops.attention(q, k, v, causal=torch.tensor(1))
+    with pytest.raises(NotImplementedError, match="A8"):
+        ops.attention(q, k, v, window=torch.tensor(2))
+
+
+def test_wrappers_refuse_cpu_tensors_for_the_kernel():
+    """The CUDA entry points never run a plain version: CPU input raises."""
+    x = torch.ones(2, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm_cuda(x, torch.ones(64))
+    q = torch.zeros(1, 2, 4, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, q, q)
+
+
+# ---------------------------------------------------------------------------
+# Hopper kernels against their plain versions (need the card)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 2048])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_kernel_vs_plain(cuda_device, rows, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(rows)
+    dt = DTYPES[dtype]
+    x = torch.randn(rows, 960, generator=g, device=cuda_device).to(dt)
+    s = (torch.randn(960, generator=g, device=cuda_device) + 1).to(dt)
+    before = rmsnorm.launches
+    got = rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert rmsnorm.launches == before + 1
+    np.testing.assert_allclose(_np(got.cpu()), _np(rmsnorm_plain(x, s).cpu()),
+                               rtol=NORM_TOL[dtype], atol=NORM_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(15, 5), (4, 4)])
+@pytest.mark.parametrize("mask", [(100, 100, True, 0, 0),
+                                  (100, 100, False, 128, 0),
+                                  (100, 300, True, 0, 200),
+                                  (2048, 2048, True, 0, 0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_vs_plain(cuda_device, heads, mask, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sq, sk, causal, window, q_offset = mask
+    dt = DTYPES[dtype]
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dt)
+               for a in _qkv(*heads, sq, sk))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, **kw)
+    tol = {"float32": 2e-4, "bfloat16": 2e-2}[dtype]
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), rtol=tol,
+                               atol=tol)
