@@ -8,18 +8,23 @@ Phases (each prints JSON lines; any failure raises, so the exit code is
 non-zero and no result line is printed):
 
 1. device   the card's name and ``nvidia-smi`` name / power limit;
-2. build    both CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-            ``nvcc`` for sm_90a, in parallel;
+2. build    the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+            with ``nvcc`` for sm_90a, in parallel;
 3. kernels  each kernel against its plain PyTorch version on the card over
-            a grid of shapes, then timed at the serving path's shapes beside
-            its plain version and one library call (the yardstick only);
-4. port     smollm-360m at full width, 4 layers, pipe 2, fp32: the same
-            weights through the kernels on the card and through the plain
-            versions on the CPU, prefill + 4 decode steps, logits compared;
-5. serve    smollm-360m, all 32 layers, bf16, pipe 16, data 1, on one card:
-            batch 8 (m = 8), prompt 2048, 32 generated tokens through
-            ``repro_torch.launch.serve.serve``; the launch counters must
-            equal what the path implies.
+            a grid of shapes, then timed at the serving paths' shapes beside
+            its plain version and one library call where PyTorch has one
+            (the yardstick only);
+4. port     the same weights through the kernels on the card and through
+            the plain versions on the CPU, prefill + 4 decode steps, logits
+            compared: smollm-360m at full width, 4 layers, pipe 2, fp32;
+            rwkv6-1.6b at full width, 2 layers, pipe 2, fp32;
+5. serve    the main paths, each with the launch counters set to 0 just
+            before it and read just after, through
+            ``repro_torch.launch.serve.serve`` on one card with batch 8
+            (m = 8), prompt 2048 and 32 generated tokens: smollm-360m, all
+            32 layers, bf16, pipe 16, data 1; rwkv6-1.6b, all 24 layers,
+            bf16, pipe 8, tp 1, data 1.  The counters must equal what each
+            path implies.
 
 The line before the last is the ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or ``repro``.
@@ -47,7 +52,13 @@ D_MODEL = 960
 # bf16: both round the fp32 result to bf16, which can land one ulp apart.
 NORM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# WKV: fp32 sums in another order (the kernel splits the bonus term off and
+# sums r.S in four partial sums); a bf16 out is one rounding of the fp32
+# result apart; the fp32 state differs only by the summation order.
+WKV_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+WKV_STATE_TOL = 1e-4
 PORT_TOL = 1e-3   # whole model, fp32, kernels on the card vs plain on the CPU
+KERNELS = ("flash_attention", "rmsnorm", "wkv6")
 
 
 def emit(obj) -> None:
@@ -119,6 +130,7 @@ def phase_kernels(torch):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -129,21 +141,24 @@ def phase_kernels(torch):
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
-    # -- RMSNorm grid ------------------------------------------------------
-    for rows in (1, 8, 2048):
-        for dname, dt in dtypes.items():
-            x = randn(rows, D_MODEL, dtype=dt) * 2
-            s = randn(D_MODEL, dtype=dt) + 1
-            got = rmsnorm(x, s)
-            torch.cuda.synchronize()
-            err = max_err(torch, got, rmsnorm_plain(x, s))
-            ok = torch.allclose(got.float(), rmsnorm_plain(x, s).float(),
-                                rtol=NORM_TOL[dname], atol=NORM_TOL[dname])
-            emit({"check": "rmsnorm", "rows": rows, "d": D_MODEL,
-                  "dtype": dname, "max_abs_err": err,
-                  "tol": NORM_TOL[dname], "ok": bool(ok)})
-            if not ok:
-                raise AssertionError(f"rmsnorm kernel disagrees: {err}")
+    # -- RMSNorm grid: smollm's width and rwkv6's group norm ----------------
+    for d in (D_MODEL, 2048):
+        for rows in (1, 8, 2048):
+            for dname, dt in dtypes.items():
+                x = randn(rows, d, dtype=dt) * 2
+                s = randn(d, dtype=dt) + 1
+                got = rmsnorm(x, s)
+                torch.cuda.synchronize()
+                want = rmsnorm_plain(x, s)
+                err = max_err(torch, got, want)
+                ok = torch.allclose(got.float(), want.float(),
+                                    rtol=NORM_TOL[dname],
+                                    atol=NORM_TOL[dname])
+                emit({"check": "rmsnorm", "rows": rows, "d": d,
+                      "dtype": dname, "max_abs_err": err,
+                      "tol": NORM_TOL[dname], "ok": bool(ok)})
+                if not ok:
+                    raise AssertionError(f"rmsnorm kernel disagrees: {err}")
 
     # -- attention grid ----------------------------------------------------
     for causal in (0, 1):
@@ -173,7 +188,46 @@ def phase_kernels(torch):
                             raise AssertionError(
                                 f"flash_attention kernel disagrees: {err}")
 
-    # -- timing at the serving path's shapes (bf16, one micro-batch of the
+    # -- WKV grid: H = 32, K = V = 64 (rwkv6-1.6b's heads), w fp32 as on
+    #    the path; T = 1 is a decode step, T = 100 a ragged chunk -----------
+    def wkv_inputs(B, T, dt, s0_random):
+        r, k, v = (randn(B, 32, T, 64, dtype=dt) * 0.5 for _ in range(3))
+        w = torch.exp(-torch.exp(randn(B, 32, T, 64, dtype=torch.float32)
+                                 * 0.5))
+        u = randn(32, 64, dtype=torch.float32) * 0.5
+        s0 = (randn(B, 32, 64, 64, dtype=torch.float32) * 0.3 if s0_random
+              else torch.zeros(B, 32, 64, 64, device=dev))
+        return r, k, v, w, u, s0
+
+    for T in (1, 64, 100, 2048):
+        for B in (1, 2):
+            for s0_random in (False, True):
+                for dname, dt in dtypes.items():
+                    args = wkv_inputs(B, T, dt, s0_random)
+                    got_o, got_s = wkv6(*args)
+                    torch.cuda.synchronize()
+                    want_o, want_s = wkv6_plain(*args)
+                    err_o = max_err(torch, got_o, want_o)
+                    err_s = max_err(torch, got_s, want_s)
+                    ok = (got_o.dtype == dt
+                          and torch.allclose(got_o.float(), want_o.float(),
+                                             rtol=WKV_TOL[dname],
+                                             atol=WKV_TOL[dname])
+                          and torch.allclose(got_s, want_s,
+                                             rtol=WKV_STATE_TOL,
+                                             atol=WKV_STATE_TOL))
+                    emit({"check": "wkv6", "B": B, "H": 32, "T": T, "K": 64,
+                          "s0": "random" if s0_random else "zero",
+                          "dtype": dname, "w_dtype": "float32",
+                          "max_abs_err": err_o, "state_max_abs_err": err_s,
+                          "tol": WKV_TOL[dname],
+                          "state_tol": WKV_STATE_TOL, "ok": bool(ok)})
+                    if not ok:
+                        raise AssertionError(
+                            f"wkv6 kernel disagrees: out {err_o}, "
+                            f"state {err_s}")
+
+    # -- timing at the serving paths' shapes (bf16, one micro-batch of the
     #    2048-token prefill: mb = 1) ----------------------------------------
     rows = 2048
     x = randn(1, rows, D_MODEL, dtype=torch.bfloat16)
@@ -225,12 +279,35 @@ def phase_kernels(torch):
                   "causal": True},
         "dtype": "bfloat16", "flops": attn_flops,
     }
-    for rec in (norm, attn):
+    # rwkv6-1.6b prefill: B = mb = 1, H = 32, T = 2048, bf16 r/k/v/out,
+    # fp32 w, u and state; no PyTorch call computes WKV-6 (library: none)
+    B, H, T, n = 1, 32, 2048, 64
+    args = wkv_inputs(B, T, torch.bfloat16, True)
+    err_w = max_err(torch, wkv6(*args)[0], wkv6_plain(*args)[0])
+    wkv_bytes = (B * H * T * n * (3 * 2 + 4 + 2)   # r, k, v, w in; out
+                 + H * n * 4 + 2 * B * H * n * n * 4)   # u; s0 in, sT out
+    wkv_flops = 5 * B * H * T * n * n     # r.S (2) + w*S + k*v (3) per (k, v)
+    wkv = {
+        "name": "wkv6", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/rwkv6.py:35",
+        "max_abs_err": err_w,
+        "ms": device_ms(torch, lambda: wkv6(*args), 20),
+        "plain_ms": device_ms(torch, lambda: wkv6_plain(*args), 2),
+        "library_ms": None,
+        "bound_ms": 1e3 * max(wkv_bytes / HBM_BYTES_PER_S,
+                              wkv_flops / PEAK_FP32_FLOPS),
+        "bound_by": ("bytes" if wkv_bytes / HBM_BYTES_PER_S
+                     >= wkv_flops / PEAK_FP32_FLOPS else "operations"),
+        "shape": [B, H, T, n], "dtype": "bfloat16", "w_dtype": "float32",
+        "bytes": wkv_bytes, "flops": wkv_flops,
+    }
+    for rec in (norm, attn, wkv):
         emit({"phase": "kernel_timing", **rec})
-    return {"rmsnorm": norm, "flash_attention": attn}
+    return {"rmsnorm": norm, "flash_attention": attn, "wkv6": wkv}
 
 
-def phase_port(torch):
+def phase_port(torch, arch_name: str, n_layers: int, prompt: int):
     """The port against itself: kernels on the card vs plain on the CPU."""
     from repro_torch import configs
     from repro_torch.configs.base import ShapeConfig
@@ -239,10 +316,10 @@ def phase_port(torch):
     from repro_torch.tree import tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    arch = dataclasses.replace(configs.get_arch("smollm-360m"), n_layers=4)
-    pcfg = configs.get_parallel("smollm-360m").with_(pipe=2, data=1,
-                                                      n_micro=2)
-    batch, prompt, n_dec = 2, 256, 4
+    arch = dataclasses.replace(configs.get_arch(arch_name), n_layers=n_layers)
+    pcfg = configs.get_parallel(arch_name).with_(pipe=2, tp=1, data=1,
+                                                  n_micro=2)
+    batch, n_dec = 2, 4
     pshape = ShapeConfig("p", prompt, batch, "prefill")
     dshape = ShapeConfig("d", prompt + n_dec + 1, batch, "decode")
     cpu = LMModel(arch, pcfg, dtype=torch.float32, device="cpu")
@@ -273,48 +350,66 @@ def phase_port(torch):
         ok = torch.allclose(a, b, rtol=PORT_TOL, atol=PORT_TOL)
         errs.append(max_err(torch, a, b))
         if not ok or not bool(torch.isfinite(a).all()):
-            raise AssertionError(f"port GPU vs CPU step {i}: max err "
-                                 f"{errs[-1]} over tol {PORT_TOL}")
-    emit({"phase": "port_gpu_vs_cpu", "arch": "smollm-360m", "n_layers": 4,
-          "pipe": 2, "dtype": "float32", "batch": batch, "prompt": prompt,
-          "decode_steps": n_dec, "max_abs_err": errs, "tol": PORT_TOL,
-          "ok": True})
+            raise AssertionError(f"port GPU vs CPU {arch_name} step {i}: max "
+                                 f"err {errs[-1]} over tol {PORT_TOL}")
+    emit({"phase": "port_gpu_vs_cpu", "arch": arch_name,
+          "n_layers": n_layers, "pipe": 2, "dtype": "float32",
+          "batch": batch, "prompt": prompt, "decode_steps": n_dec,
+          "max_abs_err": errs, "tol": PORT_TOL, "ok": True})
 
 
-def phase_serve(torch):
+def expected_launches(family: str, layers: int, m: int, gen: int):
+    """Kernel launches the serving path implies, per prefill and over the
+    ``gen - 1`` decode steps.  dense: one attention per layer and
+    micro-batch in prefill (decode attention is plain torch), RMSNorm twice
+    per layer plus the head's; ssm: one WKV and one group RMSNorm per layer
+    and micro-batch (the block and head norms are LayerNorms)."""
+    lm, steps = layers * m, gen - 1
+    if family == "dense":
+        return {"prefill": {"flash_attention": lm, "rmsnorm": 3 * lm + 1,
+                            "wkv6": 0},
+                "decode": {"flash_attention": 0,
+                           "rmsnorm": steps * (2 * lm + 1), "wkv6": 0}}
+    return {"prefill": {"flash_attention": 0, "rmsnorm": lm, "wkv6": lm},
+            "decode": {"flash_attention": 0, "rmsnorm": steps * lm,
+                       "wkv6": steps * lm}}
+
+
+def phase_serve(torch, arch_name: str):
+    """One main path: counters set to 0 just before, read just after."""
     from repro_torch import configs
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.wkv6 import wkv6
     from repro_torch.launch.serve import serve
 
-    arch = configs.get_arch("smollm-360m")
-    pcfg = configs.get_parallel("smollm-360m").with_(data=1)
+    counters = {"flash_attention": flash_attention, "rmsnorm": rmsnorm,
+                "wkv6": wkv6}
+    arch = configs.get_arch(arch_name)
+    pcfg = configs.get_parallel(arch_name).with_(data=1, tp=1)
     batch, prompt, gen = 8, 2048, 32
-    flash_attention.launches = 0
-    rmsnorm.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     res = serve(arch, pcfg, prompt_len=prompt, gen=gen, batch=batch,
                 device="cuda", dtype=torch.bfloat16, seed=0)
-    totals = {"flash_attention": flash_attention.launches,
-              "rmsnorm": rmsnorm.launches}
+    totals = {k: fn.launches for k, fn in counters.items()}
     m, layers = res["n_micro"], arch.n_layers
-    want = {
-        "prefill": {"flash_attention": layers * m,
-                    "rmsnorm": 3 * layers * m + 1},
-        "decode": {"flash_attention": 0,
-                   "rmsnorm": (gen - 1) * (2 * layers * m + 1)},
-    }
+    want = expected_launches(arch.family, layers, m, gen)
     want_totals = {k: want["prefill"][k] + want["decode"][k] for k in totals}
+    per_step = {k: v / (gen - 1) for k, v in res["launches"]["decode"].items()}
     logits = res["logits"]
     toks = res["tokens"]
-    emit({"phase": "serve", "arch": arch.name, "n_layers": layers,
-          "pipe": pcfg.pipe, "data": pcfg.data, "n_micro": m,
-          "batch": batch, "prompt": prompt, "gen": gen, "dtype": "bfloat16",
+    emit({"phase": "serve", "arch": arch.name, "family": arch.family,
+          "n_layers": layers, "pipe": pcfg.pipe, "tp": pcfg.tp,
+          "data": pcfg.data, "n_micro": m, "batch": batch, "prompt": prompt,
+          "gen": gen, "dtype": "bfloat16",
           "prefill_ms": res["prefill_s"] * 1e3,
           "decode_s": res["decode_s"],
           "decode_tok_per_s": res["decode_tok_per_s"],
           "peak_mem_gib": res["peak_mem_bytes"] / 2 ** 30,
-          "launches": res["launches"], "launches_total": totals,
-          "launches_expected": want, "sample_tokens": toks[0][:8].tolist()})
+          "launches": res["launches"], "launches_per_decode_step": per_step,
+          "launches_total": totals, "launches_expected": want,
+          "sample_tokens": toks[0][:8].tolist()})
     if m != 8:
         raise AssertionError(f"expected m = 8 at batch 8, got {m}")
     if res["launches"] != want or totals != want_totals:
@@ -341,10 +436,14 @@ def main() -> int:
     name, smi = phase_device(torch)
     phase_build()
     timing = phase_kernels(torch)
-    phase_port(torch)
-    launches = phase_serve(torch)
+    phase_port(torch, "smollm-360m", n_layers=4, prompt=256)
+    phase_port(torch, "rwkv6-1.6b", n_layers=2, prompt=128)
+    launches = {k: 0 for k in KERNELS}
+    for arch_name in ("smollm-360m", "rwkv6-1.6b"):
+        for k, n in phase_serve(torch, arch_name).items():
+            launches[k] += n
     kernels = []
-    for kname in ("flash_attention", "rmsnorm"):
+    for kname in KERNELS:
         rec = timing[kname]
         kernels.append({k: rec[k] for k in (
             "name", "route", "source", "replaces")}

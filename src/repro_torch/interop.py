@@ -15,6 +15,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, ParallelConfig
 from repro_torch.core import stage as stage_lib
 from repro_torch.devices import DeviceLike, resolve_device
+from repro_torch.models.lm import LMModel
 from repro_torch.tree import tree_map
 
 
@@ -33,7 +34,10 @@ def params_from_jax(tree_of_numpy, *, arch: ArchConfig, src_pipe: int,
     """JAX params (numpy leaves, stacked for ``src_pipe`` stages) -> the
     port's params stacked for ``pcfg``, on ``device``.
 
-    ``dtype`` casts every leaf (default: keep the source dtype)."""
+    ``dtype`` is a model dtype (default: keep every source dtype): each leaf
+    takes the dtype the port's own ``LMModel.init`` gives it in a model of
+    that dtype, so the leaves a model keeps in fp32 whatever its dtype
+    (rwkv's ``tm/u`` and ``tm/w_base``) stay fp32."""
     dev = resolve_device(device)
     n_layers = arch.n_layers + arch.enc_layers
     src = stage_lib.partition_layout(n_layers, src_pipe, src_partition)
@@ -43,6 +47,9 @@ def params_from_jax(tree_of_numpy, *, arch: ArchConfig, src_pipe: int,
     tree = tree_map(to_tensor, tree_of_numpy)
     tree["stages"] = stage_lib.restack(tree["stages"], src, dst)
 
-    def place(t):
-        return t.to(device=dev, dtype=dtype or t.dtype)
-    return tree_map(place, tree)
+    if dtype is None:
+        return tree_map(lambda t: t.to(device=dev), tree)
+    like = LMModel(arch, pcfg, dtype=dtype, device="meta").init(
+        torch.Generator().manual_seed(0))
+    return tree_map(lambda t, ref: t.to(device=dev, dtype=ref.dtype),
+                    tree, like)

@@ -26,7 +26,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
 
-SOURCES = ("rmsnorm", "flash_attention")
+SOURCES = ("rmsnorm", "flash_attention", "wkv6")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
+from repro_torch.kernels.wkv6 import wkv6 as _wkv6
 
 
 def attention(q, k, v, *, causal=True, window=None, q_offset: int = 0,
@@ -36,3 +37,16 @@ def attention(q, k, v, *, causal=True, window=None, q_offset: int = 0,
 
 def rmsnorm(x, scale, eps: float = 1e-6):
     return _rmsnorm(x.contiguous(), scale.contiguous(), eps)
+
+
+def wkv6(r, k, v, w, u, state0=None):
+    """RWKV-6 recurrence: (out [B,H,T,V] in r's dtype, state [B,H,K,V] fp32).
+
+    ``state0`` defaults to zeros.  r/k/v/w usually arrive as transposed views
+    of [B, T, H, hd] projections; they are made contiguous here."""
+    if state0 is None:
+        B, H, _, K = r.shape
+        state0 = torch.zeros((B, H, K, v.shape[-1]), dtype=torch.float32,
+                             device=r.device)
+    return _wkv6(r.contiguous(), k.contiguous(), v.contiguous(),
+                 w.contiguous(), u.contiguous(), state0.contiguous())

@@ -6,6 +6,9 @@
   blocks with an online softmax, forward only: the plain version the CPU
   path runs and the kernel is held against on the card.
 * :func:`rmsnorm` with fp32 math and the input dtype kept for the output.
+* :func:`wkv6` is the RWKV-6 recurrence one step at a time: the oracle, and
+  the plain version the CPU path runs; :func:`wkv6_chunked` is the chunked
+  algorithm of the TPU kernel, held against it in the tests.
 
 GQA convention everywhere: q is [B, Hq, Sq, D]; k/v are [B, Hkv, Sk, D] with
 Hq % Hkv == 0 (kv heads broadcast over Hq // Hkv query groups).
@@ -105,3 +108,78 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 (Finch) WKV recurrence
+# ---------------------------------------------------------------------------
+
+def wkv6(r, k, v, w, u, state0=None):
+    """RWKV-6 recurrence, sequential oracle (fp32 math).
+
+    Shapes: r/k/w [B, H, T, K]; v [B, H, T, V]; u [H, K]; state [B, H, K, V].
+      out_t  = r_t · (state_t + u ⊙ k_t ⊗ v_t)
+      state' = diag(w_t) state_t + k_t ⊗ v_t            (w data-dependent)
+    Returns (out [B, H, T, V] fp32, state_T fp32).
+    """
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+    r, k, v, w = (x.float() for x in (r, k, v, w))
+    u = u.float()[None, :, :, None]
+    s = (torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device)
+         if state0 is None else state0.float())
+    outs = []
+    for t in range(T):
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]            # [B,H,K,V]
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, :, t], s + u * kv))
+        s = w[:, :, t, :, None] * s + kv
+    out = (torch.stack(outs, 2) if outs
+           else torch.zeros((B, H, 0, V), dtype=torch.float32, device=r.device))
+    return out, s
+
+
+def wkv6_chunked(r, k, v, w, u, state0=None, *, chunk: int = 64):
+    """Chunked WKV-6: T/C sequential steps, C x C parallel work per chunk.
+
+    The algorithm of the TPU kernel: within a chunk, with cumulative
+    log-decays cum_t = sum_{s<=t} log w_s,
+      out_t = r_t·(exp(cum_{t-1}) S_in) + sum_{i<t} exp(cum_{t-1} - cum_i)
+              (r_t·k_i) v_i + (r_t·(u ⊙ k_t)) v_t
+      S_out = exp(cum_C) S_in + sum_i exp(cum_C - cum_i) k_i ⊗ v_i
+    Needs T % min(chunk, T) == 0 and w bounded away from 0."""
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+    C = min(chunk, T)
+    if T % C:
+        raise ValueError(f"T={T} not divisible by chunk={C}")
+    n = T // C
+    r, k, v, w = (x.float() for x in (r, k, v, w))
+    u = u.float()
+    s = (torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device)
+         if state0 is None else state0.float())
+    logw = torch.log(torch.clamp(w, min=1e-30)).reshape(B, H, n, C, K)
+    rc = r.reshape(B, H, n, C, K)
+    kc = k.reshape(B, H, n, C, K)
+    vc = v.reshape(B, H, n, C, V)
+    cum = torch.cumsum(logw, dim=3)                           # [B,H,n,C,K]
+    tri = torch.tril(torch.ones((C, C), dtype=torch.bool, device=r.device),
+                     diagonal=-1)
+    outs = []
+    for c in range(n):
+        rC, kC, vC, cumC, logwC = (x[:, :, c] for x in (rc, kc, vc, cum,
+                                                         logw))
+        totC = cumC[:, :, -1]                                 # [B,H,K]
+        qd = cumC - logwC                                     # cum_{t-1}
+        inter = torch.einsum("bhck,bhkv->bhcv", rC * torch.exp(qd), s)
+        att = torch.einsum(
+            "bhctk->bhct",
+            rC[:, :, :, None, :] * kC[:, :, None, :, :]
+            * torch.exp(qd[:, :, :, None, :] - cumC[:, :, None, :, :]))
+        att = torch.where(tri[None, None], att, torch.zeros_like(att))
+        bonus = torch.einsum("bhck,bhck->bhc", rC, kC * u[None, :, None, :])
+        outs.append(inter + torch.einsum("bhct,bhtv->bhcv", att, vC)
+                    + bonus[..., None] * vC)
+        kdecay = torch.exp(totC[:, :, None, :] - cumC)       # prod_{j>i} w_j
+        s = torch.exp(totC)[..., None] * s + torch.einsum(
+            "bhck,bhcv->bhkv", kC * kdecay, vC)
+    return torch.stack(outs, 2).reshape(B, H, T, V), s

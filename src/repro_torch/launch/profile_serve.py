@@ -9,6 +9,8 @@ kernel family.  Prints one JSON object per line.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         --prompt-len 2048 --gen 8 --batch 8
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+        --arch rwkv6-1.6b
 """
 from __future__ import annotations
 
@@ -32,6 +34,10 @@ def _family(name: str) -> str:
         return "flash_attention (ours)"
     if "rmsnorm" in n:
         return "rmsnorm (ours)"
+    if "wkv6" in n:
+        return "wkv6 (ours)"
+    if "layer_norm" in n:
+        return "layer_norm (torch)"
     if any(t in n for t in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
         return "matmul (cuBLAS)"
     if "elementwise" in n or "vectorized" in n:
@@ -74,7 +80,8 @@ def _device_profile(fn, dev):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--arch", default="smollm-360m",
+                    choices=configs.ARCH_NAMES)
     ap.add_argument("--prompt-len", type=int, default=2048)
     ap.add_argument("--gen", type=int, default=8)
     ap.add_argument("--batch", type=int, default=8)
@@ -86,7 +93,7 @@ def main():
         raise SystemExit("profile_serve measures the card: pass a CUDA device")
 
     arch = configs.get_arch(args.arch)
-    pcfg = configs.get_parallel(args.arch).with_(data=1)
+    pcfg = configs.get_parallel(args.arch).with_(data=1, tp=1)
     pshape = ShapeConfig("prefill", args.prompt_len, args.batch, "prefill")
     dshape = ShapeConfig("decode", args.prompt_len + args.gen, args.batch,
                          "decode")

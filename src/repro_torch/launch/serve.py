@@ -1,14 +1,17 @@
 """Serving entry point: batched prefill + pipelined greedy decode loop.
 
 Counterpart of :mod:`repro.launch.serve`.  Both phases run the forward-only
-GPipe clock-cycle plan through ``pipeline_call``; the resident KV caches are
-read and updated on each stage's forward ticks, per micro-batch slot.  The
-full configs run with ``data=1``: all pipeline stages on the one card given
-by ``--device`` (the default ``cuda``; ``cpu`` runs the plain versions of
-the kernels).
+GPipe clock-cycle plan through ``pipeline_call``; the resident caches (ring
+KV caches, or RWKV-6 states) are read and updated on each stage's forward
+ticks, per micro-batch slot.  The full configs run with ``data=1`` and
+``tp=1`` (the port has no tensor parallelism): all pipeline stages on the
+one card given by ``--device`` (the default ``cuda``; ``cpu`` runs the plain
+versions of the kernels).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --prompt-len 2048 \\
         --gen 32 --batch 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+        --prompt-len 2048 --gen 32 --batch 8
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 """
 from __future__ import annotations
@@ -24,13 +27,14 @@ from repro_torch.configs.base import ArchConfig, ParallelConfig, ShapeConfig
 from repro_torch.devices import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.launch import steps
 from repro_torch.models.lm import LMModel
 
 
 def _launches() -> Dict[str, int]:
     return {"flash_attention": flash_attention.launches,
-            "rmsnorm": rmsnorm.launches}
+            "rmsnorm": rmsnorm.launches, "wkv6": wkv6.launches}
 
 
 def _sync(dev: torch.device) -> None:
@@ -123,7 +127,7 @@ def main():
         dtype = torch.float32
     else:
         arch = configs.get_arch(args.arch)
-        pcfg = configs.get_parallel(args.arch).with_(data=1)
+        pcfg = configs.get_parallel(args.arch).with_(data=1, tp=1)
         dtype = torch.bfloat16
     dev = resolve_device(args.device)
     res = serve(arch, pcfg, prompt_len=args.prompt_len, gen=args.gen,

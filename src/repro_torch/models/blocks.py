@@ -1,18 +1,23 @@
-"""Transformer blocks: the ``dense`` family (counterpart of ``repro.models.blocks``).
+"""Blocks of the ``dense`` and ``ssm`` (RWKV-6) families (counterpart of
+``repro.models.blocks``).
 
 A family exposes init / apply / decode / cache_proto / prefill so the LM
 assembly and the pipeline stage program stay family-agnostic.  ``consts``
 is the per-layer constant record (identity mask, window, ...) as host
-scalars.  The other families (moe, ssm, hybrid, encdec, vlm) are later
-slices of the port (ROADMAP A6 and A8).
+scalars.  Prefill and decode write each layer's cache in place: the stage
+program hands them views into the resident caches and drops what they
+return.  The other families (moe, hybrid, encdec, vlm) are later slices of
+the port (ROADMAP A6 and A8).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 
@@ -37,7 +42,7 @@ def check_ported(arch: ArchConfig):
     if arch.family not in FAMILIES:
         raise NotImplementedError(
             f"{arch.name}: the {arch.family!r} family is not ported yet "
-            "(ROADMAP A6 / A8); the port runs the dense family")
+            "(ROADMAP A6 / A8); the port runs the dense and ssm families")
     if arch.frontend != "none" or arch.name.startswith("gemma"):
         raise NotImplementedError(
             f"{arch.name}: frontend stubs and gemma's embedding scale are "
@@ -130,7 +135,131 @@ def dense_prefill(p, h, consts, arch: ArchConfig, cache
     return dense_apply(p, h, consts, arch), cache
 
 
+# ---------------------------------------------------------------------------
+# RWKV-6 (Finch)
+# ---------------------------------------------------------------------------
+
+RWKV_HEAD = 64
+RWKV_LORA = 64
+
+
+def rwkv_init(generator, arch: ArchConfig, dtype, device):
+    """The reference's tree; ``tm/w_base`` and ``tm/u`` stay fp32."""
+    d, f = arch.d_model, arch.d_ff
+    H = d // RWKV_HEAD
+    out_scale = (2 * arch.n_layers) ** -0.5
+
+    def dense(din, dout, scale=1.0):
+        return L.dense_init(generator, din, dout, dtype, device, scale)
+
+    return {
+        "ln1": L.norm_init(d, arch.norm, dtype, device),
+        "tm": {
+            "mu": (L.uniform(generator, (5, d), device) * 0.5).to(dtype),
+            "wr": dense(d, d),
+            "wk": dense(d, d),
+            "wv": dense(d, d),
+            "wg": dense(d, d),
+            "w_base": torch.zeros((d,), dtype=torch.float32, device=device),
+            "ww1": dense(d, RWKV_LORA),
+            "ww2": dense(RWKV_LORA, d, 0.1),
+            "u": L.randn(generator, (H, RWKV_HEAD), device) * 0.1,
+            "gn_scale": torch.ones((d,), dtype=dtype, device=device),
+            "wo": dense(d, d, out_scale),
+        },
+        "ln2": L.norm_init(d, arch.norm, dtype, device),
+        "cm": {
+            "mu": (L.uniform(generator, (2, d), device) * 0.5).to(dtype),
+            "wk": dense(d, f),
+            "wv": dense(f, d, out_scale),
+            "wr": dense(d, d),
+        },
+    }
+
+
+def _token_shift(x, last=None):
+    """Previous-token features: shift right by one along S."""
+    if last is None:
+        last = torch.zeros_like(x[:, :1])
+    return torch.cat([last, x[:, :-1]], dim=1)
+
+
+def _rwkv_time_mix(tm, x, state0=None, last=None):
+    """Returns (out [B, S, D], state_T fp32, x's last row)."""
+    B, S, D = x.shape
+    H = D // RWKV_HEAD
+    xs = _token_shift(x, last)
+    mu = tm["mu"].to(x.dtype)
+    xr, xk, xv, xw, xg = (x + mu[i] * (xs - x) for i in range(5))
+
+    def heads(y):                       # [B, S, D] -> [B, H, S, hd] (a view)
+        return y.reshape(B, S, H, RWKV_HEAD).transpose(1, 2)
+
+    r, k, v = heads(xr @ tm["wr"]), heads(xk @ tm["wk"]), heads(xv @ tm["wv"])
+    g = F.silu(xg @ tm["wg"])
+    wlog = tm["w_base"] + torch.tanh(xw @ tm["ww1"]) @ tm["ww2"]
+    w = heads(torch.exp(-torch.exp(wlog.float())))
+    out, state = ops.wkv6(r, k, v, w, tm["u"], state0)
+    out = out.transpose(1, 2).reshape(B, S, D)
+    out = ops.rmsnorm(out.to(x.dtype), tm["gn_scale"])
+    return (out * g.to(out.dtype)) @ tm["wo"], state, x[:, -1:]
+
+
+def _rwkv_channel_mix(cm, x, last=None):
+    xs = _token_shift(x, last)
+    mu = cm["mu"].to(x.dtype)
+    xk = x + mu[0] * (xs - x)
+    xr = x + mu[1] * (xs - x)
+    k = torch.square(torch.relu(xk @ cm["wk"]))
+    return torch.sigmoid(xr @ cm["wr"]) * (k @ cm["wv"]), x[:, -1:]
+
+
+def rwkv_apply(p, h, consts, arch: ArchConfig):
+    mask = consts["mask"]
+    tmix, _, _ = _rwkv_time_mix(p["tm"], L.norm_apply(p["ln1"], h, arch.norm))
+    h = _res(h, mask, tmix)
+    cmix, _ = _rwkv_channel_mix(p["cm"], L.norm_apply(p["ln2"], h, arch.norm))
+    return _res(h, mask, cmix)
+
+
+def _rwkv_step(p, h, consts, arch: ArchConfig, cache, *, carried: bool):
+    """One block over h, from the cached state (``carried``) or from zero;
+    the new state and the last normed rows are copied into ``cache``."""
+    mask = consts["mask"]
+    x1 = L.norm_apply(p["ln1"], h, arch.norm)
+    tmix, state, last = _rwkv_time_mix(
+        p["tm"], x1, state0=cache["state"] if carried else None,
+        last=cache["last_tm"] if carried else None)
+    cache["state"].copy_(state)
+    cache["last_tm"].copy_(last)
+    h = _res(h, mask, tmix)
+    x2 = L.norm_apply(p["ln2"], h, arch.norm)
+    cmix, last2 = _rwkv_channel_mix(
+        p["cm"], x2, last=cache["last_cm"] if carried else None)
+    cache["last_cm"].copy_(last2)
+    return _res(h, mask, cmix), cache
+
+
+def rwkv_decode(p, h, consts, arch: ArchConfig, cache):
+    return _rwkv_step(p, h, consts, arch, cache, carried=True)
+
+
+def rwkv_prefill(p, h, consts, arch: ArchConfig, cache):
+    return _rwkv_step(p, h, consts, arch, cache, carried=False)
+
+
+def rwkv_cache_proto(arch: ArchConfig, batch: int, max_len: int, dtype
+                     ) -> Dict[str, Any]:
+    d = arch.d_model
+    H = d // RWKV_HEAD
+    return {"state": ((batch, H, RWKV_HEAD, RWKV_HEAD), torch.float32),
+            "last_tm": ((batch, 1, d), dtype),
+            "last_cm": ((batch, 1, d), dtype)}
+
+
 FAMILIES = {
     "dense": (dense_init, dense_apply, dense_decode, dense_cache_proto,
               dense_prefill),
+    "ssm": (rwkv_init, rwkv_apply, rwkv_decode, rwkv_cache_proto,
+            rwkv_prefill),
 }

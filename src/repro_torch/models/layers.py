@@ -1,9 +1,9 @@
-"""Model primitives for the dense family: norms, RoPE, attention, MLP.
+"""Model primitives: norms, RoPE, attention, MLP.
 
-Counterpart of :mod:`repro.models.layers` (dense subset).  Per-layer
-constants (identity-pad mask, window, causal flag) are host values here:
-the port runs each layer eagerly, so what the reference keeps as traced data
-is a Python scalar.  The reference's sharding constraints have no
+Counterpart of :mod:`repro.models.layers` (the dense and ssm subset).
+Per-layer constants (identity-pad mask, window, causal flag) are host values
+here: the port runs each layer eagerly, so what the reference keeps as
+traced data is a Python scalar.  The reference's sharding constraints have no
 counterpart on one card and are left out.
 """
 from __future__ import annotations
@@ -18,26 +18,36 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF, _expand_kv
 
 
-def _check_kind(what: str, got: str, ported: str) -> None:
-    if got != ported:
+def _check_kind(what: str, got: str, ported: tuple) -> None:
+    if got not in ported:
         raise NotImplementedError(
-            f"{what}={got!r} is not ported yet (only {ported!r}): the "
-            "LayerNorm / GELU / GeGLU archs are ROADMAP A6 and A8")
+            f"{what}={got!r} is not ported yet (only {ported}): the "
+            "GELU / GeGLU archs are ROADMAP A6 and A8")
 
 
 # ---------------------------------------------------------------------------
 # Initializers
 # ---------------------------------------------------------------------------
 
-def randn(generator: torch.Generator, shape, device: torch.device):
-    """Standard normal fp32 draws from ``generator``, placed on ``device``.
+def _draw(sample, generator: torch.Generator, shape, device: torch.device):
+    """fp32 draws of ``sample`` from ``generator``, placed on ``device``.
 
     Drawn on the generator's own device (a CUDA generator for weights on the
     card), so one seed gives one set of weights wherever they land."""
     if device.type == "meta":
         return torch.empty(shape, device=device)
-    x = torch.randn(shape, generator=generator, device=generator.device)
+    x = sample(shape, generator=generator, device=generator.device)
     return x.to(device)
+
+
+def randn(generator: torch.Generator, shape, device: torch.device):
+    """Standard normal draws (see :func:`_draw`)."""
+    return _draw(torch.randn, generator, shape, device)
+
+
+def uniform(generator: torch.Generator, shape, device: torch.device):
+    """Uniform [0, 1) draws (see :func:`_draw`)."""
+    return _draw(torch.rand, generator, shape, device)
 
 
 def dense_init(generator, din: int, dout: int, dtype, device, scale=1.0):
@@ -50,13 +60,21 @@ def dense_init(generator, din: int, dout: int, dtype, device, scale=1.0):
 # ---------------------------------------------------------------------------
 
 def norm_init(d: int, kind: str, dtype, device):
-    _check_kind("norm", kind, "rms")
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    _check_kind("norm", kind, ("rms", "ln"))
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "ln":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
 
 
 def norm_apply(p, x, kind: str, eps: float = 1e-6):
-    _check_kind("norm", kind, "rms")
-    return ops.rmsnorm(x, p["scale"], eps)
+    """RMSNorm through the kernel, or LayerNorm with bias in fp32 (plain
+    torch, as the reference is plain jnp there); output in x's dtype."""
+    _check_kind("norm", kind, ("rms", "ln"))
+    if kind == "rms":
+        return ops.rmsnorm(x, p["scale"], eps)
+    return F.layer_norm(x.float(), x.shape[-1:], p["scale"].float(),
+                        p["bias"].float(), eps).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -177,7 +195,7 @@ def attn_decode(p, x, cache, a: AttentionConfig, *,
 
 def mlp_init(generator, d: int, f: int, act: str, dtype, device, *,
              out_scale=1.0):
-    _check_kind("act", act, "silu")
+    _check_kind("act", act, ("silu",))
     return {"wg": dense_init(generator, d, f, dtype, device),
             "wu": dense_init(generator, d, f, dtype, device),
             "wd": dense_init(generator, f, d, dtype, device, out_scale)}
@@ -185,5 +203,5 @@ def mlp_init(generator, d: int, f: int, act: str, dtype, device, *,
 
 def mlp_apply(p, x, act: str):
     """SwiGLU: (silu(x wg) * (x wu)) wd."""
-    _check_kind("act", act, "silu")
+    _check_kind("act", act, ("silu",))
     return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]

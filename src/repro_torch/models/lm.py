@@ -1,6 +1,6 @@
 """LM assembly: params, stacked stages, embed / head, caches.
 
-Counterpart of :mod:`repro.models.lm` for the dense family.  Blocks are
+Counterpart of :mod:`repro.models.lm` for the dense and ssm families.  Blocks are
 stacked ``[n_stages, L_per_stage]`` for the pipeline (identity-padded per
 :func:`repro_torch.core.stage.partition_layout`); embed and head run outside
 the pipeline.  Parameters are nested dicts of tensors with the reference's
@@ -98,9 +98,11 @@ class LMModel:
         return {"h": _embed_lookup(emb["tok"], batch["tokens"], self.dtype)}
 
     def embed_decode(self, emb, tokens, pos):
-        """Embed one decode token (``pos`` matters only without RoPE)."""
+        """Embed one decode token.  RoPE archs and the ssm family add no
+        positions here, so ``pos`` matters only to the non-RoPE attention
+        archs, whose sinusoidal positions are not ported yet."""
         a = self.arch
-        if not (a.attn and a.attn.use_rope):
+        if a.family != "ssm" and not (a.attn and a.attn.use_rope):
             raise NotImplementedError("sinusoidal positions (non-RoPE archs) "
                                       "are not ported yet: ROADMAP A6")
         return _embed_lookup(emb["tok"], tokens, self.dtype)

@@ -18,12 +18,18 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_cuda, rmsnorm_plain
+from repro_torch.kernels.wkv6 import wkv6, wkv6_cuda, wkv6_plain
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # fp32: a different summation order (tests/test_kernels.py's 2e-5 for
 # attention, 1e-5 for the norm); bf16: one rounding of the output apart
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 NORM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# WKV on the card: fp32 sums in another order (the kernel splits the bonus
+# term off and sums r.S in four partial sums); bf16 out is one rounding of
+# the fp32 result apart, the fp32 state only the summation order
+WKV_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+WKV_STATE_TOL = 1e-4
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -137,6 +143,8 @@ def test_wrappers_refuse_cpu_tensors_for_the_kernel():
     q = torch.zeros(1, 2, 4, 64)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv6_cuda(q, q, q, q, torch.zeros(2, 64), torch.zeros(1, 2, 64, 64))
 
 
 # ---------------------------------------------------------------------------
@@ -186,3 +194,34 @@ def test_flash_attention_kernel_vs_plain(cuda_device, heads, mask, dtype):
     tol = {"float32": 2e-4, "bfloat16": 2e-2}[dtype]
     np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), rtol=tol,
                                atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 64, 100, 2048])
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("s0_kind", ["zero", "random"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_kernel_vs_plain(cuda_device, T, B, s0_kind, dtype):
+    """chip_smoke.py's WKV grid: H = 32, K = V = 64, w fp32 (the path's)."""
+    torch.backends.cuda.matmul.allow_tf32 = False     # the plain einsum
+    H, n = 32, 64
+    g = torch.Generator(device=cuda_device).manual_seed(T * 10 + B)
+
+    def randn(*shape, scale):
+        return torch.randn(*shape, generator=g, device=cuda_device) * scale
+    dt = DTYPES[dtype]
+    r, k, v = (randn(B, H, T, n, scale=0.5).to(dt) for _ in range(3))
+    w = torch.exp(-torch.exp(randn(B, H, T, n, scale=0.5)))
+    u = randn(H, n, scale=0.5)
+    s0 = (randn(B, H, n, n, scale=0.3) if s0_kind == "random"
+          else torch.zeros(B, H, n, n, device=cuda_device))
+    before = wkv6.launches
+    out, state = wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    assert out.dtype == dt and state.dtype == torch.float32
+    want_o, want_s = wkv6_plain(r, k, v, w, u, s0)
+    np.testing.assert_allclose(_np(out.cpu()), _np(want_o.cpu()),
+                               rtol=WKV_TOL[dtype], atol=WKV_TOL[dtype])
+    np.testing.assert_allclose(_np(state.cpu()), _np(want_s.cpu()),
+                               rtol=WKV_STATE_TOL, atol=WKV_STATE_TOL)

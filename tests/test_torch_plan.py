@@ -4,8 +4,8 @@
   reference's, element for element.
 * No module of ``src/repro_torch`` (nor ``chip_smoke.py``) imports ``jax``
   or anything of ``repro``.
-* With ``jax`` made unimportable, ``repro_torch`` still imports and runs a
-  CPU prefill.
+* With ``jax`` made unimportable, ``repro_torch`` still imports and serves
+  both ported families (smollm and rwkv6) on the CPU.
 """
 import ast
 import dataclasses
@@ -87,12 +87,14 @@ def test_port_runs_with_jax_unimportable():
         import torch
         from repro_torch import configs
         from repro_torch.launch.serve import serve
-        res = serve(configs.smoke_arch("smollm-360m"),
-                    configs.smoke_parallel("smollm-360m").with_(pipe=2),
-                    prompt_len=8, gen=3, batch=2, device="cpu",
-                    dtype=torch.float32)
-        assert res["tokens"].shape == (2, 3), res["tokens"].shape
-        assert bool(torch.isfinite(res["logits"]).all())
+        for arch in ("smollm-360m", "rwkv6-1.6b"):
+            res = serve(configs.smoke_arch(arch),
+                        configs.smoke_parallel(arch).with_(pipe=2),
+                        prompt_len=8, gen=3, batch=2, device="cpu",
+                        dtype=torch.float32)
+            assert res["tokens"].shape == (2, 3), res["tokens"].shape
+            assert bool(torch.isfinite(res["logits"]).all())
+        import repro_torch.kernels.wkv6, repro_torch.interop  # noqa: F401
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro")
                      and sys.modules[m] is not None)

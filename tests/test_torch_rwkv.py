@@ -1,0 +1,405 @@
+"""The port's rwkv6 serving slice against the JAX package, on the CPU.
+
+* The WKV-6 oracles and the kernel wrapper's plain version against the JAX
+  oracle and ``wkv6_pallas`` in interpret mode, on the same numpy inputs
+  (fp32, and bf16 r/k/v with fp32 or bf16 w), with state chaining.
+* The whole slice: rwkv6 prefill logits, every cache leaf after prefill and
+  after three greedy decode steps, and the decode logits, against the JAX
+  ``build_prefill_step`` / ``build_serve_step`` at pipe 1, for the port at
+  several (pipe, m), with the same weights moved across by
+  ``params_from_jax``; once more with the JAX side through its Pallas
+  kernels in interpret mode.  The smoke arch is widened to d_model 128 (two
+  heads of 64) on both sides so that the head indexing is exercised.
+* The full-width parameter tree (meta device) against ``jax.eval_shape``,
+  the dtype rule of ``params_from_jax``, and the kernel contracts and
+  launch formulas on the CPU path.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.compat import set_mesh
+from repro.configs.base import ShapeConfig as JShape
+from repro.kernels import ref as jref
+from repro.kernels.rwkv6 import wkv6_pallas
+from repro.launch import mesh as jmesh
+from repro.launch import steps as jsteps
+from repro.models.lm import LMModel as JLMModel
+
+from repro_torch import configs
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core import stage as stage_lib
+from repro_torch.interop import params_from_jax, to_tensor
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import wkv6 as wkv_mod
+from repro_torch.launch import steps
+from repro_torch.models.lm import LMModel
+from repro_torch.tree import tree_items
+
+# tests/test_oracle.py's fp32 TOL: same math, different graphs and sum order
+TOL = dict(rtol=5e-4, atol=5e-5)
+# kernel-level WKV comparisons: tests/test_kernels.py's fp32 tolerance; a
+# bf16 output is one rounding of the fp32 result apart (its 4e-2)
+WKV_TOL = 5e-4
+WKV_BF16_OUT_TOL = 4e-2
+ARCH = "rwkv6-1.6b"
+D_MODEL = 128
+BATCH, PROMPT, STEPS = 4, 12, 3
+DECODE_LEN = PROMPT + STEPS + 1
+JAX_MICRO = 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Keep torch to two threads: the suite runs several workers at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+# ---------------------------------------------------------------------------
+# WKV-6 kernel level
+# ---------------------------------------------------------------------------
+
+WKV_SHAPES = [
+    # B, H, T, K, V, chunk: tests/test_kernels.py's shapes, T = 1 (decode)
+    # and a ragged T (the Pallas kernel then takes one chunk of T steps)
+    (1, 1, 64, 8, 8, 16),
+    (2, 3, 128, 16, 16, 32),
+    (1, 2, 96, 32, 32, 32),
+    (2, 2, 1, 64, 64, 64),
+    (1, 2, 37, 64, 64, 64),
+]
+# (r/k/v dtype, w dtype)
+WKV_DTYPES = {"float32": ("float32", "float32"),
+              "bf16_rkv": ("bfloat16", "float32"),
+              "bf16": ("bfloat16", "bfloat16")}
+
+
+def _wkv_inputs(B, H, T, K, V, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def n(*shape, scale):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+    return dict(r=n(B, H, T, K, scale=0.5), k=n(B, H, T, K, scale=0.5),
+                v=n(B, H, T, V, scale=0.5),
+                w=np.exp(-np.exp(n(B, H, T, K, scale=0.5))),
+                u=n(H, K, scale=0.5), s0=n(B, H, K, V, scale=0.3))
+
+
+def _cast(inputs, kind):
+    """The inputs as torch tensors and jax arrays of the case's dtypes."""
+    dt, wdt = WKV_DTYPES[kind]
+    dts = {"r": dt, "k": dt, "v": dt, "w": wdt, "u": "float32",
+           "s0": "float32"}
+    tor = {n: torch.from_numpy(a).to(getattr(torch, dts[n]))
+           for n, a in inputs.items()}
+    jx = {n: jnp.asarray(a).astype(getattr(jnp, dts[n]))
+          for n, a in inputs.items()}
+    return tor, jx
+
+
+def _np(x):
+    if torch.is_tensor(x):
+        return x.float().numpy()
+    return np.asarray(x.astype(jnp.float32), np.float32)
+
+
+def _close(got, want, tol, what):
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol,
+                               err_msg=what)
+
+
+# every shape in fp32; bf16 r/k/v (the path's form) on a narrow and the
+# 64-wide ragged shape; all-bf16 (as tests/test_kernels.py passes w) once
+WKV_CASES = ([("float32", s) for s in WKV_SHAPES]
+             + [("bf16_rkv", WKV_SHAPES[1]), ("bf16_rkv", WKV_SHAPES[4]),
+                ("bf16", WKV_SHAPES[4])])
+
+
+@pytest.mark.parametrize("kind,shape", WKV_CASES, ids=str)
+def test_wkv6_vs_jax_oracle_and_pallas(kind, shape):
+    B, H, T, K, V, C = shape
+    t, j = _cast(_wkv_inputs(B, H, T, K, V), kind)
+    args = ("r", "k", "v", "w", "u", "s0")
+    o_ref, s_ref = ref.wkv6(*(t[a] for a in args))
+    o_jref, s_jref = jref.wkv6(*(j[a] for a in args))
+    _close(o_ref, o_jref, WKV_TOL, "oracle out")
+    _close(s_ref, s_jref, WKV_TOL, "oracle state")
+    o_pl, s_pl = wkv6_pallas(*(j[a] for a in args), chunk=C, interpret=True)
+    o_k, s_k = wkv_mod.wkv6(*(t[a] for a in args))    # CPU -> plain version
+    assert o_k.dtype == t["r"].dtype and s_k.dtype == torch.float32
+    out_tol = WKV_TOL if kind == "float32" else WKV_BF16_OUT_TOL
+    _close(o_k, o_pl, out_tol, "wkv6 out vs Pallas")
+    _close(s_k, s_pl, WKV_TOL, "wkv6 state vs Pallas")
+    if K == V == wkv_mod.HEAD_SIZE:
+        wkv_mod.check_inputs(*(t[a] for a in args))
+
+
+def test_wkv6_state_chaining_and_zero_default():
+    """[0:T/2] then [T/2:T] with the carried state == one pass; ops.wkv6
+    without a state starts from zeros."""
+    t, _ = _cast(_wkv_inputs(2, 2, 64, 64, 64, seed=2), "float32")
+    r, k, v, w, u = (t[a] for a in ("r", "k", "v", "w", "u"))
+    o_full, s_full = ops.wkv6(r, k, v, w, u)
+    _close(o_full, ref.wkv6(r, k, v, w, u)[0], 0, "zero default")
+    h = 32
+    halves = [x[:, :, :h] for x in (r, k, v, w)], [x[:, :, h:]
+                                                   for x in (r, k, v, w)]
+    o1, s1 = ops.wkv6(*halves[0], u)
+    o2, s2 = ops.wkv6(*halves[1], u, s1)
+    _close(torch.cat([o1, o2], 2), o_full, WKV_TOL, "chained out")
+    _close(s2, s_full, WKV_TOL, "chained state")
+
+
+def test_wkv6_chunked_matches_sequential():
+    t, _ = _cast(_wkv_inputs(2, 2, 128, 16, 16, seed=1), "float32")
+    args = [t[a] for a in ("r", "k", "v", "w", "u", "s0")]
+    o1, s1 = ref.wkv6(*args)
+    o2, s2 = ref.wkv6_chunked(*args, chunk=32)
+    _close(o2, o1, 2e-4, "chunked out")      # tests/test_kernels.py's 2e-4
+    _close(s2, s1, 2e-4, "chunked state")
+
+
+def test_wkv6_contract_rejects():
+    good = {n: torch.zeros(s, dtype=torch.float32) for n, s in (
+        ("r", (1, 2, 3, 64)), ("k", (1, 2, 3, 64)), ("v", (1, 2, 3, 64)),
+        ("w", (1, 2, 3, 64)), ("u", (2, 64)), ("s0", (1, 2, 64, 64)))}
+    wkv_mod.check_inputs(**good)
+    bad = [("r", torch.zeros(1, 2, 3, 32)),                  # K != 64
+           ("u", torch.zeros(2, 64, dtype=torch.bfloat16)),  # u not fp32
+           ("w", torch.zeros(1, 2, 3, 64, dtype=torch.float64)),
+           ("s0", torch.zeros(1, 2, 64, 64).transpose(2, 3)),  # layout
+           ("r", torch.zeros(1, 2, 3, 64, dtype=torch.bfloat16))]
+    for name, val in bad:
+        with pytest.raises((TypeError, ValueError)):
+            wkv_mod.check_inputs(**{**good, name: val})
+    empty = {n: (x[:, :, :0] if x.dim() == 4 and n != "s0" else x)
+             for n, x in good.items()}
+    with pytest.raises(ValueError, match="T >= 1"):
+        wkv_mod.check_inputs(**empty)
+
+
+# ---------------------------------------------------------------------------
+# The slice: rwkv6 serving against JAX
+# ---------------------------------------------------------------------------
+
+def _widen(arch):
+    return dataclasses.replace(arch, d_model=D_MODEL)
+
+
+def _jax_run(interpret: bool, monkeypatch):
+    """JAX prefill + STEPS greedy decode steps at pipe 1 (numpy results)."""
+    if interpret:
+        monkeypatch.setenv("REPRO_PALLAS_INTERPRET", "1")
+    else:
+        monkeypatch.delenv("REPRO_PALLAS_INTERPRET", raising=False)
+    arch = _widen(jconfigs.smoke_arch(ARCH))
+    pcfg = jconfigs.smoke_parallel(ARCH).with_(n_micro=JAX_MICRO)
+    mesh = jmesh.make_smoke_mesh(pcfg)
+    model = JLMModel(arch, pcfg, dtype=jnp.float32)
+    params = model.init(jax.random.PRNGKey(0))
+    pshape = JShape("p", PROMPT, BATCH, "prefill")
+    dshape = JShape("d", DECODE_LEN, BATCH, "decode")
+    prompts = np.random.default_rng(0).integers(
+        0, arch.vocab, (BATCH, PROMPT)).astype(np.int32)
+    with set_mesh(mesh):
+        prefill = jax.jit(jsteps.build_prefill_step(model, pcfg, mesh, pshape))
+        decode = jax.jit(jsteps.build_serve_step(model, pcfg, mesh, dshape))
+        cache = model.init_cache(dshape, pcfg.n_micro, filled=False)
+        logits, cache = prefill(params, cache, {"tokens": jnp.asarray(prompts)})
+        out = {"prefill": np.asarray(logits),
+               "cache": jax.device_get(cache), "tokens": [], "decode": []}
+        for _ in range(STEPS):
+            tok = jnp.argmax(logits, -1).astype(jnp.int32)
+            out["tokens"].append(np.asarray(tok))
+            logits, cache = decode(params, cache, tok)
+            out["decode"].append(np.asarray(logits))
+        out["cache_end"] = jax.device_get(cache)
+    out["params"] = jax.device_get(params)
+    out["prompts"] = prompts
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_ref():
+    mp = pytest.MonkeyPatch()
+    try:
+        yield _jax_run(False, mp)
+    finally:
+        mp.undo()
+
+
+def _canon_cache(cache, layout: stage_lib.StageLayout):
+    """[n_stages, L, m, mb, ...] leaves (numpy or torch) -> [layers, B, ...]."""
+    out = {}
+    for path, leaf in tree_items(cache):
+        t = leaf if torch.is_tensor(leaf) else to_tensor(leaf)
+        per_layer = stage_lib.unstack_layers(t, layout)
+        out[path] = per_layer.reshape(
+            (per_layer.shape[0], -1) + tuple(per_layer.shape[3:])).numpy()
+    return out
+
+
+def _port_run(ref_out, pipe: int, m: int):
+    arch = _widen(configs.smoke_arch(ARCH))
+    pcfg = configs.smoke_parallel(ARCH).with_(pipe=pipe, n_micro=m)
+    model = LMModel(arch, pcfg, dtype=torch.float32, device="cpu")
+    params = params_from_jax(ref_out["params"], arch=arch, src_pipe=1,
+                             pcfg=pcfg, device="cpu")
+    pshape = ShapeConfig("p", PROMPT, BATCH, "prefill")
+    dshape = ShapeConfig("d", DECODE_LEN, BATCH, "decode")
+    prefill = steps.build_prefill_step(model, pcfg, "cpu", pshape)
+    decode = steps.build_serve_step(model, pcfg, "cpu", dshape)
+    cache = model.init_cache(dshape, m, filled=False)
+    logits, cache = prefill(params, cache,
+                            {"tokens": torch.from_numpy(ref_out["prompts"])})
+    out = {"prefill": logits.numpy(),
+           "cache": _canon_cache(cache, model.layout), "decode": []}
+    for tok in ref_out["tokens"]:
+        logits, cache = decode(params, cache, torch.tensor(tok))
+        out["decode"].append(logits.numpy())
+    out["cache_end"] = _canon_cache(cache, model.layout)
+    return out
+
+
+def _assert_matches(ref_out, got):
+    jax_layout = stage_lib.partition_layout(
+        configs.smoke_arch(ARCH).n_layers, 1)
+    np.testing.assert_allclose(got["prefill"], ref_out["prefill"], **TOL,
+                               err_msg="prefill logits")
+    for tag in ("cache", "cache_end"):
+        want = _canon_cache(ref_out[tag], jax_layout)
+        assert want.keys() == got[tag].keys() == {"state", "last_tm",
+                                                  "last_cm"}
+        for path, w in want.items():
+            assert np.abs(w).max() > 0, f"{tag} {path} is all zero"
+            np.testing.assert_allclose(got[tag][path], w, **TOL,
+                                       err_msg=f"{tag} {path}")
+    assert len(got["decode"]) == STEPS
+    for i, (g, w) in enumerate(zip(got["decode"], ref_out["decode"])):
+        np.testing.assert_allclose(g, w, **TOL, err_msg=f"decode step {i}")
+
+
+@pytest.mark.parametrize("pipe,m", [(1, 2), (2, 2), (2, 4), (4, 4)])
+def test_rwkv_serve_matches_jax(jax_ref, pipe, m):
+    _assert_matches(jax_ref, _port_run(jax_ref, pipe, m))
+
+
+def test_rwkv_serve_matches_jax_pallas_interpret(monkeypatch):
+    """The JAX side through wkv6_pallas and rmsnorm_pallas (interpret)."""
+    ref_out = _jax_run(True, monkeypatch)
+    _assert_matches(ref_out, _port_run(ref_out, 2, 2))
+
+
+# ---------------------------------------------------------------------------
+# Parameters: full-width tree, dtype rule of params_from_jax
+# ---------------------------------------------------------------------------
+
+def _flat_jax(tree):
+    return {"/".join(str(getattr(k, "key", k)) for k in path): leaf
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def test_full_width_param_tree_matches_jax():
+    """Full rwkv6-1.6b: the port's parameter tree (meta device, nothing
+    allocated) has jax.eval_shape(model.init)'s leaves, shapes and dtypes
+    (tm/u and tm/w_base fp32 in a bf16 model)."""
+    jarch = jconfigs.get_arch(ARCH)
+    jpcfg = jconfigs.get_parallel(ARCH).with_(data=1, tp=1)
+    want = _flat_jax(jax.eval_shape(JLMModel(jarch, jpcfg).init,
+                                    jax.random.PRNGKey(0)))
+    pcfg = configs.get_parallel(ARCH).with_(data=1, tp=1)
+    model = LMModel(configs.get_arch(ARCH), pcfg, dtype=torch.bfloat16,
+                    device="meta")
+    got = dict(tree_items(model.init(torch.Generator().manual_seed(0))))
+    assert got.keys() == want.keys()
+    for path, leaf in want.items():
+        assert tuple(got[path].shape) == tuple(leaf.shape), path
+        assert str(got[path].dtype).split(".")[-1] == str(leaf.dtype), path
+        assert got[path].device.type == "meta"
+    assert str(want["stages/tm/u"].dtype) == "float32"
+    assert str(want["stages/tm/w_base"].dtype) == "float32"
+
+
+def test_params_from_jax_dtype_keeps_fp32_leaves():
+    """A bf16 JAX rwkv tree (zeros with the leaves, shapes and dtypes of the
+    JAX init): ``dtype=`` casts to the port's own leaf dtypes for that model
+    dtype, so tm/u and tm/w_base stay fp32."""
+    arch = _widen(jconfigs.smoke_arch(ARCH))
+    jpcfg = jconfigs.smoke_parallel(ARCH)
+    protos = jax.eval_shape(JLMModel(arch, jpcfg, dtype=jnp.bfloat16).init,
+                            jax.random.PRNGKey(0))
+    tree = jax.tree_util.tree_map(lambda p: np.zeros(p.shape, p.dtype),
+                                  protos)
+    src = _flat_jax(tree)
+    assert str(src["stages/tm/wr"].dtype) == "bfloat16"
+    pcfg = configs.smoke_parallel(ARCH).with_(pipe=2)
+    for dtype in (None, torch.bfloat16, torch.float32):
+        got = dict(tree_items(params_from_jax(
+            tree, arch=_widen(configs.smoke_arch(ARCH)), src_pipe=1,
+            pcfg=pcfg, device="cpu", dtype=dtype)))
+        assert got.keys() == src.keys()
+        for path, leaf in got.items():
+            fp32_leaf = path in ("stages/tm/u", "stages/tm/w_base")
+            if dtype is None:
+                want = str(src[path].dtype)
+            elif fp32_leaf or dtype == torch.float32:
+                want = "float32"
+            else:
+                want = "bfloat16"
+            assert str(leaf.dtype).split(".")[-1] == want, (dtype, path)
+
+
+# ---------------------------------------------------------------------------
+# Kernel contracts and launch formulas on the CPU path
+# ---------------------------------------------------------------------------
+
+def test_kernel_contract_and_call_counts_on_cpu(monkeypatch):
+    """Every call that reaches a kernel's plain version meets the CUDA
+    kernel's contract, and the calls follow the formulas chip_smoke.py checks
+    on the card: wkv6 = rmsnorm = L*m per prefill and per decode step,
+    flash_attention 0.  Full width (d_model 2048, 32 heads, d_ff 7168),
+    2 layers, bf16; the vocabulary is cut to 4096, which no kernel sees."""
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import rmsnorm as rn_mod
+    from repro_torch.launch.serve import serve
+
+    calls = {"flash_attention": 0, "rmsnorm": 0, "wkv6": 0}
+
+    def norm(x, scale, eps=1e-6, _plain=rn_mod.rmsnorm_plain):
+        rn_mod.check_inputs(x, scale)
+        calls["rmsnorm"] += 1
+        return _plain(x, scale, eps)
+
+    def attn(q, k, v, _plain=fa_mod.flash_attention_plain, **kw):
+        calls["flash_attention"] += 1
+        return _plain(q, k, v, **kw)
+
+    def wkv(r, k, v, w, u, s0, _plain=wkv_mod.wkv6_plain):
+        wkv_mod.check_inputs(r, k, v, w, u, s0)
+        assert (r.dtype, w.dtype) == (torch.bfloat16, torch.float32)
+        calls["wkv6"] += 1
+        return _plain(r, k, v, w, u, s0)
+
+    monkeypatch.setattr(rn_mod, "rmsnorm_plain", norm)
+    monkeypatch.setattr(fa_mod, "flash_attention_plain", attn)
+    monkeypatch.setattr(wkv_mod, "wkv6_plain", wkv)
+    arch = dataclasses.replace(configs.get_arch(ARCH), n_layers=2, vocab=4096)
+    pcfg = configs.get_parallel(ARCH).with_(pipe=2, data=1, tp=1)
+    gen = 3
+    res = serve(arch, pcfg, prompt_len=8, gen=gen, batch=4, device="cpu",
+                dtype=torch.bfloat16)
+    m, n_layers = res["n_micro"], arch.n_layers
+    assert m == 4
+    per_call = n_layers * m
+    assert calls == {"flash_attention": 0, "rmsnorm": gen * per_call,
+                     "wkv6": gen * per_call}
+    assert res["tokens"].shape == (4, gen)
+    assert bool(torch.isfinite(res["logits"].float()).all())
