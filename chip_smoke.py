@@ -9,11 +9,14 @@ non-zero and no result line is printed):
 
 1. device   the card's name and ``nvidia-smi`` name / power limit;
 2. build    the three CUDA kernels from ``src/repro_torch/kernels/csrc``
-            with ``nvcc`` for sm_90a, in parallel;
+            with ``nvcc`` for sm_90a, in parallel; the count of wgmma
+            (HGMMA) instructions in the attention library, which must not
+            be 0;
 3. kernels  each kernel against its plain PyTorch version on the card over
             a grid of shapes, then timed at the serving paths' shapes beside
             its plain version and one library call where PyTorch has one
-            (the yardstick only);
+            (the yardstick only); RMSNorm at both paths' widths (960 and
+            2048);
 4. port     the same weights through the kernels on the card and through
             the plain versions on the CPU, prefill + 4 decode steps, logits
             compared: smollm-360m at full width, 4 layers, pipe 2, fp32;
@@ -49,7 +52,8 @@ D_MODEL = 960
 # Tolerances against the plain versions on the same card and inputs.
 # fp32: the kernels sum in another order than the plain versions (the norm's
 # warp reduction, the attention's 64-key tiles against 512-key blocks);
-# bf16: both round the fp32 result to bf16, which can land one ulp apart.
+# bf16: both round the fp32 result to bf16, which can land one ulp apart
+# (the attention kernel also rounds p to bf16 for the tensor cores).
 NORM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # WKV: fp32 sums in another order (the kernel splits the bonus term off and
@@ -121,8 +125,18 @@ def phase_build():
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
              for n, log in logs.items()}
+    # the bf16 attention kernel runs both products on tensor cores: its
+    # library must hold wgmma instructions (HGMMA in the SASS)
+    sass = subprocess.run(
+        [str(Path(build.nvcc_path()).parent / "cuobjdump"), "--dump-sass",
+         str(build.lib_path("flash_attention"))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
     emit({"phase": "build", "seconds": dt, "nvcc": build.nvcc_path(),
-          "flags": list(build.NVCC_FLAGS), "ptxas": ptxas})
+          "flags": list(build.NVCC_FLAGS), "ptxas": ptxas,
+          "hgmma": {"flash_attention": hgmma}})
+    if hgmma == 0:
+        raise AssertionError("libflash_attention.so holds no HGMMA")
 
 
 def phase_kernels(torch):
@@ -141,8 +155,9 @@ def phase_kernels(torch):
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
-    # -- RMSNorm grid: smollm's width and rwkv6's group norm ----------------
-    for d in (D_MODEL, 2048):
+    # -- RMSNorm grid: smollm's width, rwkv6's group norm (both compiled for
+    #    their D) and a width that takes the kernel's generic-D form -------
+    for d in (D_MODEL, 2048, 448):
         for rows in (1, 8, 2048):
             for dname, dt in dtypes.items():
                 x = randn(rows, d, dtype=dt) * 2
@@ -160,33 +175,33 @@ def phase_kernels(torch):
                 if not ok:
                     raise AssertionError(f"rmsnorm kernel disagrees: {err}")
 
-    # -- attention grid ----------------------------------------------------
-    for causal in (0, 1):
-        for window in (0, 128):
-            for sq, sk, q_offset in ((100, 100, 0), (2048, 2048, 0),
-                                     (100, 300, 200)):
-                for hq, hkv in ((15, 5), (4, 4)):
-                    for dname, dt in dtypes.items():
-                        q = randn(1, hq, sq, 64, dtype=dt)
-                        k = randn(1, hkv, sk, 64, dtype=dt)
-                        v = randn(1, hkv, sk, 64, dtype=dt)
-                        kw = dict(causal=bool(causal), window=window,
-                                  q_offset=q_offset)
-                        got = flash_attention(q, k, v, **kw)
-                        torch.cuda.synchronize()
-                        want = flash_attention_plain(q, k, v, **kw)
-                        err = max_err(torch, got, want)
-                        ok = torch.allclose(got.float(), want.float(),
-                                            rtol=ATTN_TOL[dname],
-                                            atol=ATTN_TOL[dname])
-                        emit({"check": "flash_attention", "causal": causal,
-                              "window": window, "sq": sq, "sk": sk,
-                              "q_offset": q_offset, "hq": hq, "hkv": hkv,
-                              "d": 64, "dtype": dname, "max_abs_err": err,
-                              "tol": ATTN_TOL[dname], "ok": bool(ok)})
-                        if not ok:
-                            raise AssertionError(
-                                f"flash_attention kernel disagrees: {err}")
+    # -- attention grid: D = 64 over masks and heads; D = 128 causal with a
+    #    ragged Sq (not a multiple of the 128-row q tile) ------------------
+    seqs = ((100, 100, 0), (2048, 2048, 0), (100, 300, 200))
+    cases = [(causal, window, sq, sk, q_offset, hq, hkv, 64)
+             for causal in (0, 1) for window in (0, 128)
+             for sq, sk, q_offset in seqs for hq, hkv in ((15, 5), (4, 4))]
+    cases += [(1, 0, sq, sk, q_offset, 15, 5, 128)
+              for sq, sk, q_offset in ((100, 100, 0), (1000, 1000, 0),
+                                       (100, 300, 200))]
+    for causal, window, sq, sk, q_offset, hq, hkv, d in cases:
+        for dname, dt in dtypes.items():
+            q = randn(1, hq, sq, d, dtype=dt)
+            k = randn(1, hkv, sk, d, dtype=dt)
+            v = randn(1, hkv, sk, d, dtype=dt)
+            kw = dict(causal=bool(causal), window=window, q_offset=q_offset)
+            got = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            want = flash_attention_plain(q, k, v, **kw)
+            err = max_err(torch, got, want)
+            ok = torch.allclose(got.float(), want.float(),
+                                rtol=ATTN_TOL[dname], atol=ATTN_TOL[dname])
+            emit({"check": "flash_attention", "causal": causal,
+                  "window": window, "sq": sq, "sk": sk, "q_offset": q_offset,
+                  "hq": hq, "hkv": hkv, "d": d, "dtype": dname,
+                  "max_abs_err": err, "tol": ATTN_TOL[dname], "ok": bool(ok)})
+            if not ok:
+                raise AssertionError(f"flash_attention kernel disagrees: {err}")
 
     # -- WKV grid: H = 32, K = V = 64 (rwkv6-1.6b's heads), w fp32 as on
     #    the path; T = 1 is a decode step, T = 100 a ragged chunk -----------
@@ -229,27 +244,37 @@ def phase_kernels(torch):
 
     # -- timing at the serving paths' shapes (bf16, one micro-batch of the
     #    2048-token prefill: mb = 1) ----------------------------------------
-    rows = 2048
-    x = randn(1, rows, D_MODEL, dtype=torch.bfloat16)
-    s = randn(D_MODEL, dtype=torch.bfloat16) + 1
-    err_n = max_err(torch, rmsnorm(x, s), rmsnorm_plain(x, s))
-    norm_bytes = (2 * rows * D_MODEL + D_MODEL) * 2
-    norm_flops = 4 * rows * D_MODEL
-    norm = {
-        "name": "rmsnorm", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
-        "replaces": "src/repro/kernels/rmsnorm.py:22",
-        "max_abs_err": err_n,
-        "ms": device_ms(torch, lambda: rmsnorm(x, s), 500),
-        "plain_ms": device_ms(torch, lambda: rmsnorm_plain(x, s), 100),
-        "library_ms": device_ms(
-            torch, lambda: F.rms_norm(x, (D_MODEL,), s, 1e-6), 500),
-        "bound_ms": 1e3 * max(norm_bytes / HBM_BYTES_PER_S,
-                              norm_flops / PEAK_FP32_FLOPS),
-        "bound_by": ("bytes" if norm_bytes / HBM_BYTES_PER_S
-                     >= norm_flops / PEAK_FP32_FLOPS else "operations"),
-        "shape": [1, rows, D_MODEL], "dtype": "bfloat16",
-    }
+    def norm_timing(d):
+        """RMSNorm at [1, 2048, d] (a prefill micro-batch) and one decode row."""
+        rows = 2048
+        x = randn(1, rows, d, dtype=torch.bfloat16)
+        s = randn(d, dtype=torch.bfloat16) + 1
+        x1 = x[:, :1].contiguous()
+        err_n = max_err(torch, rmsnorm(x, s), rmsnorm_plain(x, s))
+        norm_bytes = (2 * rows * d + d) * 2
+        norm_flops = 4 * rows * d
+        bound_s = max(norm_bytes / HBM_BYTES_PER_S,
+                      norm_flops / PEAK_FP32_FLOPS)
+        rec = {
+            "name": "rmsnorm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+            "replaces": "src/repro/kernels/rmsnorm.py:22",
+            "max_abs_err": err_n,
+            "ms": device_ms(torch, lambda: rmsnorm(x, s), 500),
+            "plain_ms": device_ms(torch, lambda: rmsnorm_plain(x, s), 100),
+            "library_ms": device_ms(
+                torch, lambda: F.rms_norm(x, (d,), s, 1e-6), 500),
+            "bound_ms": 1e3 * bound_s,
+            "bound_by": ("bytes" if norm_bytes / HBM_BYTES_PER_S
+                         >= norm_flops / PEAK_FP32_FLOPS else "operations"),
+            "shape": [1, rows, d], "dtype": "bfloat16",
+            "decode_row_ms": device_ms(torch, lambda: rmsnorm(x1, s), 500),
+        }
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        return rec
+
+    norm = norm_timing(D_MODEL)           # smollm-360m
+    norm_rwkv = norm_timing(2048)         # rwkv6-1.6b's group norm
     hq, hkv, sq = 15, 5, 2048
     q = randn(1, hq, sq, 64, dtype=torch.bfloat16)
     k = randn(1, hkv, sq, 64, dtype=torch.bfloat16)
@@ -302,7 +327,7 @@ def phase_kernels(torch):
         "shape": [B, H, T, n], "dtype": "bfloat16", "w_dtype": "float32",
         "bytes": wkv_bytes, "flops": wkv_flops,
     }
-    for rec in (norm, attn, wkv):
+    for rec in (norm, norm_rwkv, attn, wkv):
         emit({"phase": "kernel_timing", **rec})
     return {"rmsnorm": norm, "flash_attention": attn, "wkv6": wkv}
 

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exports a plain C entry point and becomes
 ``build/lib<name>.so`` at the repository root (``build/`` is git-ignored).
-A library is rebuilt when it is missing or older than its source.  Nothing
+A library is rebuilt when it is missing or older than its source or than
+any header ``csrc/*.cuh`` (the sources share them).  Nothing
 is built at import time: the first call that needs a kernel builds it, or a
 caller builds them all up front with :func:`build_all` (one ``nvcc`` process
 per source, all started together).
@@ -49,9 +50,12 @@ def lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """Missing, or older than its source or any shared ``csrc/*.cuh``."""
     lib = lib_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+    if not lib.exists():
+        return True
+    deps = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in deps)
 
 
 def _start(name: str) -> Tuple[subprocess.Popen, Path]:
