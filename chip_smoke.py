@@ -8,15 +8,18 @@ Phases (each prints JSON lines; any failure raises, so the exit code is
 non-zero and no result line is printed):
 
 1. device   the card's name and ``nvidia-smi`` name / power limit;
-2. build    the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. build    the three CUDA sources from ``src/repro_torch/kernels/csrc``
             with ``nvcc`` for sm_90a, in parallel; the count of wgmma
-            (HGMMA) instructions in the attention library, which must not
-            be 0;
+            (HGMMA) instructions in the attention library and of mma.sync
+            (HMMA) instructions in the WKV library, neither of which may be
+            0; each WKV kernel's registers and spills (none may spill);
 3. kernels  each kernel against its plain PyTorch version on the card over
-            a grid of shapes, then timed at the serving paths' shapes beside
-            its plain version and one library call where PyTorch has one
-            (the yardstick only); RMSNorm at both paths' widths (960 and
-            2048);
+            a grid of shapes (WKV in both its chunked and its serial form,
+            with masked tails and decays that underflow to 0), then timed at
+            the serving paths' shapes beside its plain version and one
+            library call where PyTorch has one (the yardstick only); RMSNorm
+            at both paths' widths (960 and 2048); WKV also at one decode
+            step, and by kernel from a profiler trace;
 4. port     the same weights through the kernels on the card and through
             the plain versions on the CPU, prefill + 4 decode steps, logits
             compared: smollm-360m at full width, 4 layers, pipe 2, fp32;
@@ -36,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -56,9 +60,11 @@ D_MODEL = 960
 # (the attention kernel also rounds p to bf16 for the tensor cores).
 NORM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
-# WKV: fp32 sums in another order (the kernel splits the bonus term off and
-# sums r.S in four partial sums); a bf16 out is one rounding of the fp32
-# result apart; the fp32 state differs only by the summation order.
+# WKV: fp32 (serial form) sums in another order (r.S in eight partial sums
+# joined by shuffles, the bonus term apart); bf16 with T >= 64 (chunked
+# form) runs its products on tensor cores with each fp32 operand split into
+# bf16 hi + lo (~2^-16 relative), so its fp32 state is the summation order
+# and that split apart, and its bf16 out one rounding of the fp32 result.
 WKV_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 WKV_STATE_TOL = 1e-4
 PORT_TOL = 1e-3   # whole model, fp32, kernels on the card vs plain on the CPU
@@ -97,6 +103,24 @@ def device_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_us(torch, fn, iters: int):
+    """Device µs per call of each kernel that ``fn`` launches, by name, from
+    a profiler trace of ``iters`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            key = evt.name[:60]
+            per[key] = per.get(key, 0.0) + evt.device_time / iters
+    return per
+
+
 def max_err(torch, got, want) -> float:
     return float((got.float() - want.float()).abs().max().item())
 
@@ -117,6 +141,33 @@ def phase_device(torch):
     return name, smi
 
 
+def ptxas_kernels(log: str):
+    """Per kernel (mangled name): registers and spill bytes from ``-Xptxas -v``."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?([\w.$]+)", ln)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_count(build, lib: str, op: str) -> int:
+    """Lines of ``op`` (e.g. HGMMA, HMMA) in a built library's SASS."""
+    sass = subprocess.run(
+        [str(Path(build.nvcc_path()).parent / "cuobjdump"), "--dump-sass",
+         str(build.lib_path(lib))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    return sum(op in ln for ln in sass.splitlines())
+
+
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -125,18 +176,24 @@ def phase_build():
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
              for n, log in logs.items()}
-    # the bf16 attention kernel runs both products on tensor cores: its
-    # library must hold wgmma instructions (HGMMA in the SASS)
-    sass = subprocess.run(
-        [str(Path(build.nvcc_path()).parent / "cuobjdump"), "--dump-sass",
-         str(build.lib_path("flash_attention"))],
-        capture_output=True, text=True, timeout=300, check=True).stdout
-    hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
+    # the bf16 attention kernel runs both products on wgmma (HGMMA in the
+    # SASS); the chunked WKV form runs its products on mma.sync (HMMA)
+    hgmma = sass_count(build, "flash_attention", "HGMMA")
+    hmma = sass_count(build, "wkv6", "HMMA")
+    wkv_kernels = ptxas_kernels(logs["wkv6"])
     emit({"phase": "build", "seconds": dt, "nvcc": build.nvcc_path(),
           "flags": list(build.NVCC_FLAGS), "ptxas": ptxas,
-          "hgmma": {"flash_attention": hgmma}})
+          "hgmma": {"flash_attention": hgmma}, "hmma": {"wkv6": hmma},
+          "wkv6_kernels": wkv_kernels})
     if hgmma == 0:
         raise AssertionError("libflash_attention.so holds no HGMMA")
+    if hmma == 0:
+        raise AssertionError("libwkv6.so holds no HMMA")
+    spilled = {n: k for n, k in wkv_kernels.items()
+               if k.get("spill_bytes", 0) > 0}
+    if not wkv_kernels or spilled:
+        raise AssertionError(f"WKV kernels spill or were not reported: "
+                             f"{spilled or wkv_kernels}")
 
 
 def phase_kernels(torch):
@@ -144,7 +201,8 @@ def phase_kernels(torch):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
-    from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
+    from repro_torch.kernels.wkv6 import (uses_chunked_form, wkv6,
+                                          wkv6_plain)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -204,43 +262,53 @@ def phase_kernels(torch):
                 raise AssertionError(f"flash_attention kernel disagrees: {err}")
 
     # -- WKV grid: H = 32, K = V = 64 (rwkv6-1.6b's heads), w fp32 as on
-    #    the path; T = 1 is a decode step, T = 100 a ragged chunk -----------
-    def wkv_inputs(B, T, dt, s0_random):
+    #    the path.  bf16 with T >= 64 takes the chunked form, fp32 and
+    #    T < 64 the serial form; T = 1 is a decode step, 65 / 100 / 130
+    #    leave a masked tail (130: a tail of one step past two chunks);
+    #    "extreme" decays w = exp(-exp(3 N(0, 1))) underflow to w = 0 -----
+    def wkv_inputs(B, T, dt, s0_random, decay="normal"):
         r, k, v = (randn(B, 32, T, 64, dtype=dt) * 0.5 for _ in range(3))
         w = torch.exp(-torch.exp(randn(B, 32, T, 64, dtype=torch.float32)
-                                 * 0.5))
+                                 * (0.5 if decay == "normal" else 3.0)))
         u = randn(32, 64, dtype=torch.float32) * 0.5
         s0 = (randn(B, 32, 64, 64, dtype=torch.float32) * 0.3 if s0_random
               else torch.zeros(B, 32, 64, 64, device=dev))
         return r, k, v, w, u, s0
 
-    for T in (1, 64, 100, 2048):
+    for T in (1, 16, 64, 65, 100, 130, 2048):
         for B in (1, 2):
             for s0_random in (False, True):
-                for dname, dt in dtypes.items():
-                    args = wkv_inputs(B, T, dt, s0_random)
-                    got_o, got_s = wkv6(*args)
-                    torch.cuda.synchronize()
-                    want_o, want_s = wkv6_plain(*args)
-                    err_o = max_err(torch, got_o, want_o)
-                    err_s = max_err(torch, got_s, want_s)
-                    ok = (got_o.dtype == dt
-                          and torch.allclose(got_o.float(), want_o.float(),
-                                             rtol=WKV_TOL[dname],
-                                             atol=WKV_TOL[dname])
-                          and torch.allclose(got_s, want_s,
-                                             rtol=WKV_STATE_TOL,
-                                             atol=WKV_STATE_TOL))
-                    emit({"check": "wkv6", "B": B, "H": 32, "T": T, "K": 64,
-                          "s0": "random" if s0_random else "zero",
-                          "dtype": dname, "w_dtype": "float32",
-                          "max_abs_err": err_o, "state_max_abs_err": err_s,
-                          "tol": WKV_TOL[dname],
-                          "state_tol": WKV_STATE_TOL, "ok": bool(ok)})
-                    if not ok:
-                        raise AssertionError(
-                            f"wkv6 kernel disagrees: out {err_o}, "
-                            f"state {err_s}")
+                for decay in ("normal", "extreme"):
+                    for dname, dt in dtypes.items():
+                        args = wkv_inputs(B, T, dt, s0_random, decay)
+                        got_o, got_s = wkv6(*args)
+                        torch.cuda.synchronize()
+                        want_o, want_s = wkv6_plain(*args)
+                        err_o = max_err(torch, got_o, want_o)
+                        err_s = max_err(torch, got_s, want_s)
+                        ok = (got_o.dtype == dt
+                              and bool(torch.isfinite(got_o.float()).all())
+                              and torch.allclose(got_o.float(),
+                                                 want_o.float(),
+                                                 rtol=WKV_TOL[dname],
+                                                 atol=WKV_TOL[dname])
+                              and torch.allclose(got_s, want_s,
+                                                 rtol=WKV_STATE_TOL,
+                                                 atol=WKV_STATE_TOL))
+                        emit({"check": "wkv6", "B": B, "H": 32, "T": T,
+                              "K": 64, "s0": "random" if s0_random
+                              else "zero", "decay": decay, "dtype": dname,
+                              "w_dtype": "float32",
+                              "form": ("chunked" if uses_chunked_form(dt, T)
+                                       else "serial"),
+                              "max_abs_err": err_o,
+                              "state_max_abs_err": err_s,
+                              "tol": WKV_TOL[dname],
+                              "state_tol": WKV_STATE_TOL, "ok": bool(ok)})
+                        if not ok:
+                            raise AssertionError(
+                                f"wkv6 kernel disagrees: out {err_o}, "
+                                f"state {err_s}")
 
     # -- timing at the serving paths' shapes (bf16, one micro-batch of the
     #    2048-token prefill: mb = 1) ----------------------------------------
@@ -311,21 +379,34 @@ def phase_kernels(torch):
     err_w = max_err(torch, wkv6(*args)[0], wkv6_plain(*args)[0])
     wkv_bytes = (B * H * T * n * (3 * 2 + 4 + 2)   # r, k, v, w in; out
                  + H * n * 4 + 2 * B * H * n * n * 4)   # u; s0 in, sT out
-    wkv_flops = 5 * B * H * T * n * n     # r.S (2) + w*S + k*v (3) per (k, v)
+    # the chunked form's four 64 x 64 x 64 products a chunk (r S_in, r k^T,
+    # A v, k~^T v) on bf16 tensor cores; the serial form's 5 fp32 operations
+    # per (k, v) a step (r.S, w*S + k*v) on the CUDA cores, beside it
+    wkv_tc_flops = 4 * 2 * n ** 3 * B * H * (-(-T // 64))
+    wkv_serial_flops = 5 * B * H * T * n * n
+    bytes_s = wkv_bytes / HBM_BYTES_PER_S
+    ops_s = wkv_tc_flops / PEAK_BF16_FLOPS
+    dec = wkv_inputs(1, 1, torch.bfloat16, True)      # one decode step
+    dec_bytes = (32 * n * (3 * 2 + 4 + 2) + 32 * n * 4
+                 + 2 * 32 * n * n * 4)
     wkv = {
         "name": "wkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/rwkv6.py:35",
         "max_abs_err": err_w,
-        "ms": device_ms(torch, lambda: wkv6(*args), 20),
+        "ms": device_ms(torch, lambda: wkv6(*args), 200),
         "plain_ms": device_ms(torch, lambda: wkv6_plain(*args), 2),
         "library_ms": None,
-        "bound_ms": 1e3 * max(wkv_bytes / HBM_BYTES_PER_S,
-                              wkv_flops / PEAK_FP32_FLOPS),
-        "bound_by": ("bytes" if wkv_bytes / HBM_BYTES_PER_S
-                     >= wkv_flops / PEAK_FP32_FLOPS else "operations"),
+        "bound_ms": 1e3 * max(bytes_s, ops_s),
+        "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+        "serial_fp32_ops_bound_ms": 1e3 * wkv_serial_flops / PEAK_FP32_FLOPS,
         "shape": [B, H, T, n], "dtype": "bfloat16", "w_dtype": "float32",
-        "bytes": wkv_bytes, "flops": wkv_flops,
+        "bytes": wkv_bytes, "tc_flops": wkv_tc_flops,
+        "serial_flops": wkv_serial_flops,
+        "per_kernel_us": kernel_us(torch, lambda: wkv6(*args), 20),
+        "decode_shape": [1, 32, 1, n],
+        "decode_ms": device_ms(torch, lambda: wkv6(*dec), 500),
+        "decode_bound_ms": 1e3 * dec_bytes / HBM_BYTES_PER_S,
     }
     for rec in (norm, norm_rwkv, attn, wkv):
         emit({"phase": "kernel_timing", **rec})

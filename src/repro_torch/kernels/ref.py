@@ -8,7 +8,9 @@
 * :func:`rmsnorm` with fp32 math and the input dtype kept for the output.
 * :func:`wkv6` is the RWKV-6 recurrence one step at a time: the oracle, and
   the plain version the CPU path runs; :func:`wkv6_chunked` is the chunked
-  algorithm of the TPU kernel, held against it in the tests.
+  algorithm of the TPU kernel, held against it in the tests;
+  :func:`wkv6_subchunked` mirrors the arithmetic of the Hopper kernel's
+  chunked form (tests only: nothing on the path calls it).
 
 GQA convention everywhere: q is [B, Hq, Sq, D]; k/v are [B, Hkv, Sk, D] with
 Hq % Hkv == 0 (kv heads broadcast over Hq // Hkv query groups).
@@ -183,3 +185,118 @@ def wkv6_chunked(r, k, v, w, u, state0=None, *, chunk: int = 64):
         s = torch.exp(totC)[..., None] * s + torch.einsum(
             "bhck,bhcv->bhkv", kC * kdecay, vC)
     return torch.stack(outs, 2).reshape(B, H, T, V), s
+
+
+def _split_bf16(x: torch.Tensor):
+    """x as a bf16 pair hi + lo (both returned in fp32): hi = bf16(x),
+    lo = bf16(x - hi), as the kernel feeds one fp32 operand to the tensor
+    cores."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def wkv6_subchunked(r, k, v, w, u, state0=None, *, split_bf16: bool = False):
+    """The chunked form of ``csrc/wkv6.cu`` in plain fp32 torch (tests only).
+
+    Chunks of 64 steps, each cut into four sub-chunks of 16; the last chunk
+    is masked past T (k = v = 0, log w = 0, nothing stored).  Log-decays are
+    ``lw = log2(max(w, 1e-30))``.  Every decay factor is referenced to the
+    boundary between the two positions it joins, so it is ``2^x`` with
+    ``x <= 0``: nothing overflows and w = 0 gives no NaN.
+
+    State, per chunk: ``S <- 2^G S + U`` with ``U = sum_i (k_i 2^{D_i})
+    v_i^T``, ``D_i`` the sum of lw after step i in the chunk and ``G`` the
+    chunk's sum.
+    Output pass, per sub-chunk p (rows t) with ``c'`` the inclusive prefix of
+    lw within each sub-chunk, ``x_t = c'_{t-1}`` (0 at its first row), ``C_p``
+    the sum of lw of the sub-chunks before p and ``G_m`` each sub-chunk's sum:
+      inter    (r_t 2^{x_t} 2^{C_p}) S_in
+      off-diag keys i of sub-chunk q < p: (r_t 2^{x_t}) . (k_i 2^{E_i}),
+               E_i = (G_q - c'_i) + sum_{q<m<p} G_m
+      diagonal 16 x 16: its lower-left 8 x 8 quadrant as the product
+               (r_t 2^{x_t - c'_7}) . (k_i 2^{c'_7 - c'_i}); the rest pairwise,
+               sum_k r_t k_i 2^{x_t - c'_i} for i < t, and the bonus
+               r_t . (u * k_t) at i = t
+    out = inter + A v.  ``split_bf16`` rounds each tensor-core operand to a
+    bf16 hi + lo pair and forms hi*hi + hi*lo + lo*hi in fp32, as the kernel
+    does; the output is then rounded once to bf16.  Returns (out, state_T)
+    like :func:`wkv6`, out in fp32 (bf16-rounded values with ``split_bf16``).
+    """
+    C, P = 64, 16
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+    n = -(-T // C)
+    pad = n * C - T
+    r, k, v = (torch.nn.functional.pad(x.float(), (0, 0, 0, pad))
+               for x in (r, k, v))
+    lw = torch.nn.functional.pad(
+        torch.log2(torch.clamp(w.float(), min=1e-30)), (0, 0, 0, pad))
+    u = u.float()[None]                                       # [1, H, K]
+    s = (torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device)
+         if state0 is None else state0.float())
+
+    def tc(eq, a, b):
+        """A tensor-core product: fp32, or bf16 hi/lo operand pairs."""
+        if not split_bf16:
+            return torch.einsum(eq, a, b)
+        (ah, al), (bh, bl) = _split_bf16(a), _split_bf16(b)
+        return (torch.einsum(eq, ah, bh) + torch.einsum(eq, ah, bl)
+                + torch.einsum(eq, al, bh))
+
+    outs = []
+    for c in range(n):
+        sl = slice(c * C, (c + 1) * C)
+        rc, kc, vc, lc = r[:, :, sl], k[:, :, sl], v[:, :, sl], lw[:, :, sl]
+        # sub-chunk prefixes: c' inclusive, x exclusive; G per sub-chunk
+        lsub = lc.reshape(B, H, C // P, P, K)
+        cin = torch.cumsum(lsub, dim=3)
+        cex = torch.nn.functional.pad(cin[:, :, :, :-1],
+                                      (0, 0, 1, 0)).reshape(B, H, C, K)
+        G = cin[:, :, :, -1]                                  # [B,H,4,K]
+        cin = cin.reshape(B, H, C, K)
+        out_c = []
+        for p in range(C // P):
+            rows = slice(p * P, (p + 1) * P)
+            rt, xt = rc[:, :, rows], cex[:, :, rows]
+            Cp = G[:, :, :p].sum(2, keepdim=True)             # [B,H,1,K]
+            rhat = rt * torch.exp2(xt)
+            acc = tc("bhtk,bhkv->bhtv", rhat * torch.exp2(Cp), s)
+            blocks = []
+            for q in range(p):
+                keys = slice(q * P, (q + 1) * P)
+                E = G[:, :, q:q + 1] - cin[:, :, keys]
+                for m in range(q + 1, p):
+                    E = E + G[:, :, m:m + 1]
+                blocks.append(tc("bhtk,bhik->bhti", rhat,
+                                 kc[:, :, keys] * torch.exp2(E)))
+            kd, cd = kc[:, :, rows], cin[:, :, rows]
+            diag = torch.zeros((B, H, P, P), dtype=torch.float32,
+                               device=r.device)
+            h = P // 2       # lower-left quadrant, referenced at step h - 1
+            mid = cd[:, :, h - 1:h]
+            diag[:, :, h:, :h] = tc(
+                "bhtk,bhik->bhti", rt[:, :, h:] * torch.exp2(xt[:, :, h:] - mid),
+                kd[:, :, :h] * torch.exp2(mid - cd[:, :, :h]))
+            for t in range(P):
+                for i in range(h if t >= h else 0, t):
+                    fac = torch.exp2(torch.clamp(xt[:, :, t] - cd[:, :, i],
+                                                 max=0.0))
+                    diag[:, :, t, i] = (rt[:, :, t] * kd[:, :, i]
+                                        * fac).sum(-1)
+                diag[:, :, t, t] = (rt[:, :, t] * u * kd[:, :, t]).sum(-1)
+            blocks.append(diag)
+            att = torch.cat(blocks, dim=3)                    # [B,H,P,16(p+1)]
+            acc = acc + tc("bhti,bhiv->bhtv", att, vc[:, :, :(p + 1) * P])
+            out_c.append(acc)
+        outs.append(torch.cat(out_c, dim=2))
+        # state pass: D_i = sum of lw after step i within the chunk
+        D = torch.nn.functional.pad(
+            torch.flip(torch.cumsum(torch.flip(lc[:, :, 1:], [2]), 2), [2]),
+            (0, 0, 0, 1))
+        Gc = lc.sum(2)                                        # [B,H,K]
+        s = torch.exp2(Gc)[..., None] * s + tc(
+            "bhtk,bhtv->bhkv", kc * torch.exp2(D), vc)
+    out = torch.cat(outs, dim=2)[:, :, :T]
+    if split_bf16:
+        out = out.to(torch.bfloat16).float()
+    return out, s

@@ -25,9 +25,10 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # attention, 1e-5 for the norm); bf16: one rounding of the output apart
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 NORM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
-# WKV on the card: fp32 sums in another order (the kernel splits the bonus
-# term off and sums r.S in four partial sums); bf16 out is one rounding of
-# the fp32 result apart, the fp32 state only the summation order
+# WKV on the card (chip_smoke.py's): fp32 (serial form) sums in another
+# order; bf16 with T >= 64 (chunked form) splits each fp32 tensor-core
+# operand into bf16 hi + lo (~2^-16 relative), so the fp32 state is the sum
+# order and that split apart, the bf16 out one rounding of the fp32 result
 WKV_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 WKV_STATE_TOL = 1e-4
 
@@ -204,12 +205,16 @@ def test_flash_attention_kernel_vs_plain(cuda_device, heads, mask, d, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [1, 64, 100, 2048])
+@pytest.mark.parametrize("T", [1, 16, 64, 65, 100, 130, 2048])
 @pytest.mark.parametrize("B", [1, 2])
 @pytest.mark.parametrize("s0_kind", ["zero", "random"])
+@pytest.mark.parametrize("decay", ["normal", "extreme"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_wkv6_kernel_vs_plain(cuda_device, T, B, s0_kind, dtype):
-    """chip_smoke.py's WKV grid: H = 32, K = V = 64, w fp32 (the path's)."""
+def test_wkv6_kernel_vs_plain(cuda_device, T, B, s0_kind, decay, dtype):
+    """chip_smoke.py's WKV grid: H = 32, K = V = 64, w fp32 (the path's).
+    bf16 with T >= 64 takes the chunked form, the rest the serial form;
+    65, 100 and 130 leave a masked tail; extreme decays
+    w = exp(-exp(3 N(0, 1))) underflow to w = 0."""
     torch.backends.cuda.matmul.allow_tf32 = False     # the plain einsum
     H, n = 32, 64
     g = torch.Generator(device=cuda_device).manual_seed(T * 10 + B)
@@ -218,7 +223,8 @@ def test_wkv6_kernel_vs_plain(cuda_device, T, B, s0_kind, dtype):
         return torch.randn(*shape, generator=g, device=cuda_device) * scale
     dt = DTYPES[dtype]
     r, k, v = (randn(B, H, T, n, scale=0.5).to(dt) for _ in range(3))
-    w = torch.exp(-torch.exp(randn(B, H, T, n, scale=0.5)))
+    w = torch.exp(-torch.exp(randn(B, H, T, n, scale=(
+        0.5 if decay == "normal" else 3.0))))
     u = randn(H, n, scale=0.5)
     s0 = (randn(B, H, n, n, scale=0.3) if s0_kind == "random"
           else torch.zeros(B, H, n, n, device=cuda_device))
@@ -227,9 +233,34 @@ def test_wkv6_kernel_vs_plain(cuda_device, T, B, s0_kind, dtype):
     torch.cuda.synchronize()
     assert wkv6.launches == before + 1
     assert out.dtype == dt and state.dtype == torch.float32
+    assert bool(torch.isfinite(out.float()).all())
     want_o, want_s = wkv6_plain(r, k, v, w, u, s0)
     np.testing.assert_allclose(_np(out.cpu()), _np(want_o.cpu()),
                                rtol=WKV_TOL[dtype], atol=WKV_TOL[dtype])
+    np.testing.assert_allclose(_np(state.cpu()), _np(want_s.cpu()),
+                               rtol=WKV_STATE_TOL, atol=WKV_STATE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 64, 130])
+def test_wkv6_kernel_bf16_w_vs_plain(cuda_device, T):
+    """w in bf16 (the wrapper's other w dtype) through both forms."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    H, n = 32, 64
+    g = torch.Generator(device=cuda_device).manual_seed(T)
+
+    def randn(*shape, scale):
+        return torch.randn(*shape, generator=g, device=cuda_device) * scale
+    r, k, v = (randn(1, H, T, n, scale=0.5).bfloat16() for _ in range(3))
+    w = torch.exp(-torch.exp(randn(1, H, T, n, scale=0.5))).bfloat16()
+    u = randn(H, n, scale=0.5)
+    s0 = randn(1, H, n, n, scale=0.3)
+    out, state = wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    want_o, want_s = wkv6_plain(r, k, v, w, u, s0)
+    tol = WKV_TOL["bfloat16"]
+    np.testing.assert_allclose(_np(out.cpu()), _np(want_o.cpu()), rtol=tol,
+                               atol=tol)
     np.testing.assert_allclose(_np(state.cpu()), _np(want_s.cpu()),
                                rtol=WKV_STATE_TOL, atol=WKV_STATE_TOL)
 
@@ -252,6 +283,18 @@ def test_wkv6_kernel_vs_plain(cuda_device, T, B, s0_kind, dtype):
      "float const*, float*, int, int, float)", "rmsnorm (ours)"),
     ("void (anonymous namespace)::wkv6_kernel<__nv_bfloat16, float>(...)",
      "wkv6 (ours)"),
+    ("void (anonymous namespace)::wkv6_update_kernel<float>(__nv_bfloat16 "
+     "const*, __nv_bfloat16 const*, float const*, float*, float*, int, int)",
+     "wkv6 (ours)"),
+    ("(anonymous namespace)::wkv6_scan_kernel(float const*, float const*, "
+     "float const*, float*, float*, int)", "wkv6 (ours)"),
+    ("void (anonymous namespace)::wkv6_out_kernel<float>(__nv_bfloat16 "
+     "const*, __nv_bfloat16 const*, __nv_bfloat16 const*, float const*, "
+     "float const*, float const*, __nv_bfloat16*, int, int, int)",
+     "wkv6 (ours)"),
+    ("void (anonymous namespace)::wkv6_serial_kernel<float, float>(float "
+     "const*, float const*, float const*, float const*, float const*, "
+     "float const*, float*, float*, int, int)", "wkv6 (ours)"),
 ])
 def test_profile_labels_the_kernel_symbols(name, family):
     """The trace's kernel names (demangled, as the profiler shows them) land

@@ -167,6 +167,42 @@ def test_wkv6_chunked_matches_sequential():
     _close(s2, s1, 2e-4, "chunked state")
 
 
+# the Hopper kernel's chunked form (ref.wkv6_subchunked) against the JAX
+# oracle: fp32 math at the fp32 kernel tolerance; with its tensor-core
+# operands rounded to bf16 hi + lo pairs, at chip_smoke.py's bf16 WKV_TOL for
+# the (bf16-rounded) output and WKV_STATE_TOL for the state
+SUBCHUNK_TOL = {False: (1e-4, 1e-4), True: (2e-2, 1e-4)}
+
+
+@pytest.mark.parametrize("decay", ["normal", "extreme"])
+@pytest.mark.parametrize("T", [1, 16, 63, 64, 65, 100, 130])
+def test_wkv6_subchunked_vs_jax_oracle(T, decay):
+    """Masked tails (T % 64 != 0), zero and random s0; extreme decays
+    w = exp(-exp(3 N(0, 1))) underflow to w = 0, which must give no NaN."""
+    inputs = _wkv_inputs(1, 2, T, 64, 64, seed=T)
+    if decay == "extreme":
+        rng = np.random.default_rng(T + 1)
+        inputs["w"] = np.exp(-np.exp(
+            3 * rng.standard_normal(inputs["w"].shape))).astype(np.float32)
+        assert T < 16 or (inputs["w"] == 0).any()
+    args = ("r", "k", "v", "w", "u", "s0")
+    for s0_zero in (True, False):
+        case = dict(inputs, s0=inputs["s0"] * (not s0_zero))
+        for split in (False, True):
+            if split:      # the kernel's inputs: bf16 r/k/v, fp32 w
+                case = {a: (torch.from_numpy(x).to(torch.bfloat16).float()
+                            .numpy() if a in "rkv" else x)
+                        for a, x in case.items()}
+            o_j, s_j = jref.wkv6(*(jnp.asarray(case[a]) for a in args))
+            o, s = ref.wkv6_subchunked(
+                *(torch.from_numpy(case[a]) for a in args), split_bf16=split)
+            assert bool(torch.isfinite(o).all() and torch.isfinite(s).all())
+            tol_o, tol_s = SUBCHUNK_TOL[split]
+            what = f"split_bf16={split} s0_zero={s0_zero}"
+            _close(o, o_j, tol_o, f"out, {what}")
+            _close(s, s_j, tol_s, f"state, {what}")
+
+
 def test_wkv6_contract_rejects():
     good = {n: torch.zeros(s, dtype=torch.float32) for n, s in (
         ("r", (1, 2, 3, 64)), ("k", (1, 2, 3, 64)), ("v", (1, 2, 3, 64)),
