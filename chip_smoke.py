@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/H100 port (``src/repro_torch``): the quickest
-proof that the port builds, agrees with itself and serves on one GPU.
+proof that the port builds, agrees with itself, serves and trains on one GPU.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -10,35 +10,63 @@ non-zero and no result line is printed):
 1. device   the card's name and ``nvidia-smi`` name / power limit;
 2. build    the three CUDA sources from ``src/repro_torch/kernels/csrc``
             with ``nvcc`` for sm_90a, in parallel; the count of wgmma
-            (HGMMA) instructions in the attention library and of mma.sync
-            (HMMA) instructions in the WKV library, neither of which may be
-            0; each WKV kernel's registers and spills (none may spill);
+            (HGMMA) instructions in the attention library (its bf16
+            forward) and of mma.sync (HMMA) instructions in it (its bf16
+            backward) and in the WKV library, none of which may be 0; each
+            WKV and attention kernel's registers and spills (no WKV kernel
+            may spill);
 3. kernels  each kernel against its plain PyTorch version on the card over
             a grid of shapes (WKV in both its chunked and its serial form,
-            with masked tails and decays that underflow to 0), then timed at
+            with masked tails and decays that underflow to 0; attention
+            also at the training path's q [2,15,4096,64] with the lse the
+            backward reads), then timed at
             the serving paths' shapes beside its plain version and one
             library call where PyTorch has one (the yardstick only); RMSNorm
             at both paths' widths (960 and 2048); WKV also at one decode
             step, and by kernel from a profiler trace;
+   backward the attention and RMSNorm backward kernels against their plain
+            versions over a grid that holds the training path's shapes, and
+            again at every timed shape, the autograd checks (the
+            Functions' outputs carry a grad_fn, a CUDA WKV-6 call under
+            grad raises), then both
+            timed beside the bound and the PyTorch call that computes the
+            same backward (SDPA's, F.rms_norm's: yardsticks only);
 4. port     the same weights through the kernels on the card and through
             the plain versions on the CPU, prefill + 4 decode steps, logits
             compared: smollm-360m at full width, 4 layers, pipe 2, fp32;
-            rwkv6-1.6b at full width, 2 layers, pipe 2, fp32;
+            rwkv6-1.6b at full width, 2 layers, pipe 2, fp32; and training:
+            smollm-360m at full width, 4 layers, pipe 2, seq 256, fp32, the
+            GPipe loss and every gradient leaf compared (each leaf also
+            within 1e-4 of its own largest entry);
 5. serve    the main paths, each with the launch counters set to 0 just
             before it and read just after, through
             ``repro_torch.launch.serve.serve`` on one card with batch 8
             (m = 8), prompt 2048 and 32 generated tokens: smollm-360m, all
             32 layers, bf16, pipe 16, data 1; rwkv6-1.6b, all 24 layers,
             bf16, pipe 8, tp 1, data 1.  The counters must equal what each
-            path implies.
+            path implies;
+6. train    the training main path with the counters set to 0 just before
+            and read just after, through ``repro_torch.launch.train.train``:
+            smollm-360m, all 32 layers, bf16, pipe 16, data 1, seq 4096,
+            batch 16 (m = 8), remat "full", AdamW at a constant lr, 5 steps
+            on one fixed batch and a sixth under the profiler: finite loss
+            and grad norm, the step-5 loss below step 1's, each step's
+            launches equal to the path's formulas; step ms, tokens/s, the
+            model-FLOPs share and the traced step's device ms by kernel
+            family and idle share;
+7. memory   peak device memory of one train step with remat "full" and
+            with "none" (all 32 layers, seq 4096, batch 4, m 4, where
+            "none" fits on the card): "full" must be the lower.
 
-The line before the last is the ``kernels`` summary; the last line is
-``{"ok": true, "device": {...}}``.  It imports nothing of JAX or ``repro``.
+The kernels summary line, then the card's ``nvidia-smi`` name and power
+limit, then the last line ``{"ok": true, "device": {...}}``.  It imports
+nothing of JAX or ``repro``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -67,8 +95,16 @@ ATTN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # and that split apart, and its bf16 out one rounding of the fp32 result.
 WKV_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 WKV_STATE_TOL = 1e-4
+# Backward kernels: fp32 sums in another order (tiles of 64 keys against
+# blocks of 512, a warp reduction); bf16 rounds dq / dk / dv once from fp32,
+# so each output is held within 2e-2 of its own largest magnitude.
+BWD_FP32_TOL = 1e-3
+BWD_BF16_REL = 2e-2
+LSE_TOL = 1e-4     # the forward's fp32 log-sum-exp, both dtypes
 PORT_TOL = 1e-3   # whole model, fp32, kernels on the card vs plain on the CPU
-KERNELS = ("flash_attention", "rmsnorm", "wkv6")
+GRAD_REL = 1e-4   # training: each grad leaf's gap over its largest entry
+KERNELS = ("flash_attention", "rmsnorm", "wkv6", "flash_attention_bwd",
+           "rmsnorm_bwd")
 
 
 def emit(obj) -> None:
@@ -176,19 +212,21 @@ def phase_build():
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
              for n, log in logs.items()}
-    # the bf16 attention kernel runs both products on wgmma (HGMMA in the
-    # SASS); the chunked WKV form runs its products on mma.sync (HMMA)
+    # the bf16 attention forward runs both products on wgmma (HGMMA in the
+    # SASS), its backward on mma.sync (HMMA); so do the chunked WKV form's
     hgmma = sass_count(build, "flash_attention", "HGMMA")
-    hmma = sass_count(build, "wkv6", "HMMA")
+    hmma = {lib: sass_count(build, lib, "HMMA")
+            for lib in ("flash_attention", "wkv6")}
     wkv_kernels = ptxas_kernels(logs["wkv6"])
     emit({"phase": "build", "seconds": dt, "nvcc": build.nvcc_path(),
           "flags": list(build.NVCC_FLAGS), "ptxas": ptxas,
-          "hgmma": {"flash_attention": hgmma}, "hmma": {"wkv6": hmma},
-          "wkv6_kernels": wkv_kernels})
+          "hgmma": {"flash_attention": hgmma}, "hmma": hmma,
+          "wkv6_kernels": wkv_kernels,
+          "flash_attention_kernels": ptxas_kernels(logs["flash_attention"])})
     if hgmma == 0:
         raise AssertionError("libflash_attention.so holds no HGMMA")
-    if hmma == 0:
-        raise AssertionError("libwkv6.so holds no HMMA")
+    if not all(hmma.values()):
+        raise AssertionError(f"a library holds no HMMA: {hmma}")
     spilled = {n: k for n, k in wkv_kernels.items()
                if k.get("spill_bytes", 0) > 0}
     if not wkv_kernels or spilled:
@@ -198,7 +236,9 @@ def phase_build():
 
 def phase_kernels(torch):
     import torch.nn.functional as F
+    from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_cuda,
                                                      flash_attention_plain)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
     from repro_torch.kernels.wkv6 import (uses_chunked_form, wkv6,
@@ -260,6 +300,27 @@ def phase_kernels(torch):
                   "max_abs_err": err, "tol": ATTN_TOL[dname], "ok": bool(ok)})
             if not ok:
                 raise AssertionError(f"flash_attention kernel disagrees: {err}")
+
+    # -- the training path's shape, q [2,15,4096,64] causal, with the lse
+    #    the backward reads (natural log, fp32) -----------------------------
+    for dname, dt in dtypes.items():
+        q = randn(2, 15, 4096, 64, dtype=dt)
+        k, v = (randn(2, 5, 4096, 64, dtype=dt) for _ in range(2))
+        got, lse = flash_attention_cuda(q, k, v, return_lse=True)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(q, k, v)
+        err = max_err(torch, got, want)
+        lse_err = max_err(torch, lse, ref.mha_blocked_fwd(q, k, v)[1])
+        ok = (torch.allclose(got.float(), want.float(), rtol=ATTN_TOL[dname],
+                             atol=ATTN_TOL[dname]) and lse_err <= LSE_TOL)
+        emit({"check": "flash_attention", "causal": 1, "window": 0,
+              "b": 2, "sq": 4096, "sk": 4096, "q_offset": 0, "hq": 15,
+              "hkv": 5, "d": 64, "dtype": dname, "lse": True,
+              "max_abs_err": err, "tol": ATTN_TOL[dname],
+              "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL, "ok": ok})
+        if not ok:
+            raise AssertionError(f"flash_attention kernel disagrees at the "
+                                 f"training shape: {err}, lse {lse_err}")
 
     # -- WKV grid: H = 32, K = V = 64 (rwkv6-1.6b's heads), w fp32 as on
     #    the path.  bf16 with T >= 64 takes the chunked form, fp32 and
@@ -413,6 +474,200 @@ def phase_kernels(torch):
     return {"rmsnorm": norm, "flash_attention": attn, "wkv6": wkv}
 
 
+def bwd_close(torch, dname, got, want):
+    """(ok, max |got - want|, max |want|) by the backward tolerances."""
+    err = max_err(torch, got, want)
+    top = float(want.float().abs().max().item())
+    if dname == "float32":
+        ok = torch.allclose(got.float(), want.float(), rtol=BWD_FP32_TOL,
+                            atol=BWD_FP32_TOL)
+    else:
+        ok = err <= BWD_BF16_REL * top
+    return bool(ok) and bool(torch.isfinite(got.float()).all()), err, top
+
+
+def checked_max_err(torch, dname, what, pairs) -> float:
+    """Hold each (kernel, plain) output pair to :func:`bwd_close`; returns
+    the largest |kernel - plain| over them."""
+    res = [bwd_close(torch, dname, g, w) for g, w in pairs]
+    if not all(r[0] for r in res):
+        raise AssertionError(f"{what} disagrees at a timed shape: {res}")
+    return max(r[1] for r in res)
+
+
+def grad_ms(torch, out, inputs, grad_out, iters: int) -> float:
+    """Device ms of the backward alone: autograd.grad over a kept graph."""
+    return device_ms(torch, lambda: torch.autograd.grad(
+        out, inputs, grad_out, retain_graph=True), iters)
+
+
+def phase_backward(torch):
+    """Backward kernels vs plain, the autograd checks, and their timings."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_cuda)
+    from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd,
+                                             rmsnorm_bwd_plain)
+    from repro_torch.kernels.wkv6 import wkv6
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    # -- attention: GQA 3:1 and MHA, causal / full / window, ragged S -------
+    cases = [(b, hq, hkv, sq, d, causal, window)
+             for b, hq, hkv in ((1, 15, 5), (2, 4, 4))
+             for sq in (100, 256, 2048) for d in (64, 128)
+             for causal, window in ((True, 0), (False, 0), (True, 128))]
+    cases.append((2, 15, 5, 4096, 64, True, 0))       # the training path's
+    for b, hq, hkv, sq, d, causal, window in cases:
+        for dname, dt in dtypes.items():
+            q = randn(b, hq, sq, d, dtype=dt)
+            k, v = (randn(b, hkv, sq, d, dtype=dt) for _ in range(2))
+            do = randn(b, hq, sq, d, dtype=dt)
+            kw = dict(causal=causal, window=window)
+            out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            torch.cuda.synchronize()
+            want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+            lse_err = max_err(torch, lse,
+                              ref.mha_blocked_fwd(q, k, v, **kw)[1])
+            res = [bwd_close(torch, dname, g, w) for g, w in zip(got, want)]
+            ok = all(r[0] for r in res) and lse_err <= LSE_TOL
+            emit({"check": "flash_attention_bwd", "b": b, "hq": hq,
+                  "hkv": hkv, "s": sq, "d": d, "causal": causal,
+                  "window": window, "dtype": dname,
+                  "max_abs_err": {n: r[1] for n, r in zip("qkv", res)},
+                  "max_abs_ref": {n: r[2] for n, r in zip("qkv", res)},
+                  "lse_max_abs_err": lse_err, "ok": ok})
+            if not ok:
+                raise AssertionError(f"attention backward disagrees: {res}, "
+                                     f"lse {lse_err}")
+
+    # -- RMSNorm: both widths compiled for the forward and a generic one ----
+    for d in (D_MODEL, 2048, 448):
+        for rows in (1, 3, 2048, 8192):
+            for dname, dt in dtypes.items():
+                x = randn(rows, d, dtype=dt) * 2
+                s = randn(d, dtype=dt) + 1
+                dy = randn(rows, d, dtype=dt)
+                got = rmsnorm_bwd(x, s, dy)
+                torch.cuda.synchronize()
+                want = rmsnorm_bwd_plain(x, s, dy)
+                res = [bwd_close(torch, dname, g, w)
+                       for g, w in zip(got, want)]
+                ok = all(r[0] for r in res)
+                emit({"check": "rmsnorm_bwd", "rows": rows, "d": d,
+                      "dtype": dname,
+                      "max_abs_err": {"x": res[0][1], "scale": res[1][1]},
+                      "max_abs_ref": {"x": res[0][2], "scale": res[1][2]},
+                      "ok": ok})
+                if not ok:
+                    raise AssertionError(f"rmsnorm backward disagrees: {res}")
+
+    # -- autograd: the Functions carry grad_fn; WKV under grad raises -------
+    q = randn(1, 15, 64, 64, dtype=torch.bfloat16).requires_grad_()
+    k, v = (randn(1, 5, 64, 64, dtype=torch.bfloat16) for _ in range(2))
+    x = randn(4, D_MODEL, dtype=torch.bfloat16).requires_grad_()
+    s = randn(D_MODEL, dtype=torch.bfloat16)
+    a_out, n_out = flash_attention(q, k, v), rmsnorm(x, s)
+    if a_out.grad_fn is None or n_out.grad_fn is None:
+        raise AssertionError("a kernel Function's output has no grad_fn")
+    r = randn(1, 32, 64, 64, dtype=torch.bfloat16).requires_grad_()
+    w = torch.full((1, 32, 64, 64), 0.9, device=dev)
+    u = torch.zeros(32, 64, device=dev)
+    s0 = torch.zeros(1, 32, 64, 64, device=dev)
+    try:
+        wkv6(r, r.detach(), r.detach(), w, u, s0)
+    except NotImplementedError as e:
+        wkv_msg = str(e)
+    else:
+        raise AssertionError("wkv6 on CUDA under grad did not raise")
+    emit({"check": "autograd", "attention_grad_fn": type(a_out.grad_fn).__name__,
+          "rmsnorm_grad_fn": type(n_out.grad_fn).__name__,
+          "wkv6_under_grad": wkv_msg, "ok": True})
+
+    # -- timing: attention at q [1,15,S,64] causal (S 2048, 4096; bf16 and
+    #    fp32) and at the training path's [2,15,4096,64] bf16; RMSNorm at
+    #    [1,2048,960], [16,4096,960] and the path's [2,4096,960] bf16 ------
+    def attn_timing(b, sq, dname):
+        dt = dtypes[dname]
+        q = randn(b, 15, sq, 64, dtype=dt)
+        k, v = (randn(b, 5, sq, 64, dtype=dt) for _ in range(2))
+        do = randn(b, 15, sq, 64, dtype=dt)
+        out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+        err = checked_max_err(torch, dname, "flash_attention_bwd", zip(
+            flash_attention_bwd(q, k, v, out, lse, do),
+            flash_attention_bwd_plain(q, k, v, out, lse, do)))
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                              enable_gqa=True)
+        flops = 5 * 2 * 64 * 15 * b * sq * (sq + 1) // 2
+        nbytes = q.element_size() * 64 * b * sq * (4 * 15 + 4 * 5) + 4 * b * 15 * sq
+        peak = PEAK_BF16_FLOPS if dname == "bfloat16" else PEAK_FP32_FLOPS
+        iters = 20 if sq <= 2048 else 5
+        rec = {
+            "name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/ref.py:138",
+            "max_abs_err": err,
+            "ms": device_ms(torch, lambda: flash_attention_bwd(
+                q, k, v, out, lse, do), iters),
+            "plain_ms": device_ms(torch, lambda: flash_attention_bwd_plain(
+                q, k, v, out, lse, do), 2),
+            "library_ms": grad_ms(torch, sdpa, (qg, kg, vg), do, iters),
+            "bound_ms": 1e3 * max(flops / peak, nbytes / HBM_BYTES_PER_S),
+            "bound_by": ("operations" if flops / peak >= nbytes / HBM_BYTES_PER_S
+                         else "bytes"),
+            "shape": {"q": [b, 15, sq, 64], "kv": [b, 5, sq, 64],
+                      "causal": True}, "dtype": dname, "flops": flops,
+        }
+        emit({"phase": "kernel_timing", **rec})
+        return rec
+
+    def norm_timing(shape):
+        x = randn(*shape, dtype=torch.bfloat16)
+        s = randn(shape[-1], dtype=torch.bfloat16) + 1
+        dy = randn(*shape, dtype=torch.bfloat16)
+        err = checked_max_err(torch, "bfloat16", "rmsnorm_bwd", zip(
+            rmsnorm_bwd(x, s, dy), rmsnorm_bwd_plain(x, s, dy)))
+        xg, sg = x.clone().requires_grad_(), s.clone().requires_grad_()
+        lib = F.rms_norm(xg, (shape[-1],), sg, 1e-6)
+        nbytes = 2 * (3 * x.numel() + 2 * shape[-1])
+        flops = 10 * x.numel()
+        rec = {
+            "name": "rmsnorm_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+            "replaces": "src/repro/kernels/ops.py:122",
+            "max_abs_err": err,
+            "ms": device_ms(torch, lambda: rmsnorm_bwd(x, s, dy), 200),
+            "plain_ms": device_ms(torch, lambda: rmsnorm_bwd_plain(x, s, dy),
+                                  20),
+            "library_ms": grad_ms(torch, lib, (xg, sg), dy, 200),
+            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                  flops / PEAK_FP32_FLOPS),
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= flops / PEAK_FP32_FLOPS else "operations"),
+            "shape": list(shape), "dtype": "bfloat16",
+        }
+        emit({"phase": "kernel_timing", **rec})
+        return rec
+
+    for sq in (2048, 4096):
+        for dname in ("bfloat16", "float32"):
+            attn_timing(1, sq, dname)
+    norm_timing((1, 2048, D_MODEL))
+    norm_timing((16, 4096, D_MODEL))
+    return {"flash_attention_bwd": attn_timing(2, 4096, "bfloat16"),
+            "rmsnorm_bwd": norm_timing((2, 4096, D_MODEL))}
+
+
 def phase_port(torch, arch_name: str, n_layers: int, prompt: int):
     """The port against itself: kernels on the card vs plain on the CPU."""
     from repro_torch import configs
@@ -464,6 +719,180 @@ def phase_port(torch, arch_name: str, n_layers: int, prompt: int):
           "max_abs_err": errs, "tol": PORT_TOL, "ok": True})
 
 
+def phase_train_port(torch, n_layers: int = 4, seq: int = 256):
+    """Training, the port against itself: the GPipe loss and every gradient
+    leaf through the kernels on the card vs the plain versions on the CPU,
+    same weights and batch (fp32), so a dropped gradient cannot pass."""
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import LMModel
+    from repro_torch.tree import tree_items, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch = dataclasses.replace(configs.get_arch("smollm-360m"),
+                               n_layers=n_layers)
+    pcfg = configs.get_parallel("smollm-360m").with_(pipe=2, data=1,
+                                                      n_micro=2)
+    batch = 2
+    g = torch.Generator().manual_seed(3)
+    data = {k: torch.randint(0, arch.vocab, (batch, seq), generator=g)
+            for k in ("tokens", "labels")}
+    params_cpu = LMModel(arch, pcfg, dtype=torch.float32, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = LMModel(arch, pcfg, dtype=torch.float32, device=dev)
+        params = tree_map(lambda a: a.to(dev).requires_grad_(), params_cpu)
+        leaves = [p for _, p in tree_items(params)]
+        loss = steps.build_loss_fn(model, pcfg, model.device)(
+            params, {k: v.to(dev) for k, v in data.items()})
+        grads = torch.autograd.grad(loss, leaves)
+        runs[dev] = (loss.detach().cpu(), [gr.cpu() for gr in grads])
+    paths = [p for p, _ in tree_items(params_cpu)]
+    errs = {"loss": max_err(torch, runs["cuda"][0], runs["cpu"][0])}
+    tops, bad = {}, []
+    if not torch.allclose(runs["cuda"][0], runs["cpu"][0], rtol=PORT_TOL,
+                          atol=PORT_TOL):
+        bad.append("loss")
+    for path, a, b in zip(paths, runs["cuda"][1], runs["cpu"][1]):
+        errs[path] = max_err(torch, a, b)
+        tops[path] = float(b.abs().max())
+        # each leaf at 1e-3 and within GRAD_REL of its own largest entry,
+        # so a leaf of small gradients cannot pass zeroed
+        if not (torch.allclose(a, b, rtol=PORT_TOL, atol=PORT_TOL)
+                and errs[path] <= GRAD_REL * tops[path]
+                and bool(torch.isfinite(a).all()) and tops[path] > 0):
+            bad.append(path)
+    emit({"phase": "train_gpu_vs_cpu", "arch": arch.name,
+          "n_layers": n_layers, "pipe": 2, "n_micro": 2, "batch": batch,
+          "seq": seq, "dtype": "float32", "loss": float(runs["cuda"][0]),
+          "max_abs_err": errs, "max_abs_ref": tops, "tol": PORT_TOL,
+          "rel_tol": GRAD_REL, "ok": not bad})
+    if bad:
+        raise AssertionError(f"training GPU vs CPU disagrees at {bad}: "
+                             f"{errs}")
+
+
+def head_chunks(seq: int) -> int:
+    """The head loss's chunks over the sequence (``LMModel.head_loss``)."""
+    from repro_torch.models.lm import head_loss_chunk
+    return seq // head_loss_chunk(seq)
+
+
+def expected_train_launches(layers: int, m: int, seq: int, remat: str,
+                            remat_last_micro: bool = True):
+    """Kernel launches one train step implies: attention once per layer and
+    micro-batch forward, again for each micro-batch recomputed before its
+    backward (all m with remat "full", m - 1 without the last when
+    ``remat_last_micro`` is False, none with "none"), and once backward;
+    RMSNorm twice per layer and micro-batch in each of those, plus the
+    head's once per loss chunk forward and again in that chunk's recompute
+    (the chunks are always checkpointed) and once backward."""
+    lm, nc = layers * m, head_chunks(seq)
+    replays = 0 if remat == "none" else (m if remat_last_micro else m - 1)
+    fwd = lm + layers * replays
+    return {"flash_attention": fwd, "flash_attention_bwd": lm,
+            "rmsnorm": 2 * fwd + 2 * nc, "rmsnorm_bwd": 2 * lm + nc}
+
+
+def phase_train(torch):
+    """The training main path: counters set to 0 just before, read after."""
+    from repro_torch import configs
+    from repro_torch.launch.train import launches, train
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+
+    arch = configs.get_arch("smollm-360m")
+    pcfg = configs.get_parallel("smollm-360m").with_(data=1, tp=1, n_micro=8,
+                                                      remat="full")
+    seq, batch, n_steps = 4096, 16, 5
+    ocfg = OptimizerConfig(lr=5e-4, warmup_steps=0, min_lr_ratio=1.0,
+                           dynamic_loss_scale=True)
+    for fn in (flash_attention, flash_attention_bwd, rmsnorm, rmsnorm_bwd):
+        fn.launches = 0
+    res = train(arch, pcfg, seq_len=seq, batch=batch, steps=n_steps,
+                device="cuda", dtype=torch.bfloat16, seed=0, ocfg=ocfg,
+                fixed_batch=True, trace=True)
+    totals = launches()
+    hist = res["history"]
+    want = expected_train_launches(arch.n_layers, pcfg.n_micro, seq,
+                                   pcfg.remat, pcfg.remat_last_micro)
+    warm = sorted(r["step_s"] for r in hist[1:])
+    step_s = warm[len(warm) // 2]                  # median of steps 2..5
+    rec = {"phase": "train", "arch": arch.name, "n_layers": arch.n_layers,
+           "pipe": pcfg.pipe, "tp": pcfg.tp, "data": pcfg.data,
+           "n_micro": pcfg.n_micro, "remat": pcfg.remat, "seq": seq,
+           "batch": batch, "dtype": "bfloat16", "optimizer": "adamw",
+           "lr": ocfg.lr, "losses": [r["loss"] for r in hist],
+           "grad_norms": [r["grad_norm"] for r in hist],
+           "skipped": hist[-1]["skipped"],
+           "step_ms": [r["step_s"] * 1e3 for r in hist],
+           "step_ms_median_warm": step_s * 1e3,
+           "tokens_per_s": res["tokens_per_step"] / step_s,
+           "model_flops_per_step": res["model_flops_per_step"],
+           "model_flops_share": (res["model_flops_per_step"] / step_s
+                                 / PEAK_BF16_FLOPS),
+           "model_flops_formula": "3 x (2 x matmul weights x tokens + 2 x 2 "
+                                  "x hd x Hq x S (S + 1) / 2 x layers x "
+                                  "batch) over the step time and 989 TFLOP/s",
+           "peak_mem_gib": res["peak_mem_bytes"] / 2 ** 30,
+           "launches_per_step": [r["launches"] for r in hist],
+           "launches_expected_per_step": want, "launches_total": totals,
+           "trace": res["trace"]}
+    emit(rec)
+    losses = rec["losses"]
+    if not all(math.isfinite(x) for x in losses + rec["grad_norms"]):
+        raise AssertionError(f"non-finite training: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"step-5 loss {losses[-1]} not below step 1's "
+                             f"{losses[0]}")
+    per_step = [r["launches"] for r in hist] + [res["trace"]["launches"]]
+    if any(n != want for n in per_step) or totals != {
+            k: (n_steps + 1) * v for k, v in want.items()}:
+        raise AssertionError(f"train launches {rec['launches_per_step']} / "
+                             f"{totals} differ from the path's {want}")
+    return totals
+
+
+def phase_memory(torch):
+    """Peak memory of one train step, remat "full" against "none".
+
+    The bytes first (smollm-360m, bf16, 32 layers, seq 4096, batch 4, m 4:
+    16,384 tokens).  "none" keeps every layer's saved activations until its
+    backward: ~40 KB a token a layer (norm inputs and outputs, q / k / v and
+    their contiguous copies, the attention output twice, four d_ff-wide MLP
+    tensors), ~21 GB, plus ~6 GB of weights, gradients and fp32 AdamW
+    state: it fits on the 80 GB card.  "full" keeps each stage's input
+    (16 stages x 4 micro-batches x 7.9 MB) and one stage's recompute at a
+    time beside ~6 GB of weights, gradients and optimizer state, which the
+    optimizer updates in place one leaf at a time: ~8 GB."""
+    from repro_torch import configs
+    from repro_torch.launch.train import train
+    from repro_torch.optim.optimizers import OptimizerConfig
+
+    arch = configs.get_arch("smollm-360m")
+    peaks = {}
+    for remat in ("full", "none"):
+        pcfg = configs.get_parallel("smollm-360m").with_(
+            data=1, tp=1, n_micro=4, remat=remat)
+        res = train(arch, pcfg, seq_len=4096, batch=4, steps=1,
+                    device="cuda", dtype=torch.bfloat16, seed=0,
+                    ocfg=OptimizerConfig(dynamic_loss_scale=True),
+                    fixed_batch=True)
+        peaks[remat] = res["peak_mem_bytes"] / 2 ** 30
+        if not math.isfinite(res["history"][0]["loss"]):
+            raise AssertionError(f"remat {remat}: non-finite loss")
+        torch.cuda.empty_cache()
+    emit({"phase": "memory", "arch": arch.name, "seq": 4096, "batch": 4,
+          "n_micro": 4, "pipe": 16, "dtype": "bfloat16",
+          "peak_mem_gib": peaks, "ok": peaks["full"] < peaks["none"]})
+    if not peaks["full"] < peaks["none"]:
+        raise AssertionError(f"remat full peak {peaks['full']} GiB is not "
+                             f"below none's {peaks['none']} GiB")
+
+
 def expected_launches(family: str, layers: int, m: int, gen: int):
     """Kernel launches the serving path implies, per prefill and over the
     ``gen - 1`` decode steps.  dense: one attention per layer and
@@ -484,17 +913,19 @@ def expected_launches(family: str, layers: int, m: int, gen: int):
 def phase_serve(torch, arch_name: str):
     """One main path: counters set to 0 just before, read just after."""
     from repro_torch import configs
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
     from repro_torch.kernels.wkv6 import wkv6
     from repro_torch.launch.serve import serve
 
     counters = {"flash_attention": flash_attention, "rmsnorm": rmsnorm,
                 "wkv6": wkv6}
+    backward = (flash_attention_bwd, rmsnorm_bwd)   # serving runs none
     arch = configs.get_arch(arch_name)
     pcfg = configs.get_parallel(arch_name).with_(data=1, tp=1)
     batch, prompt, gen = 8, 2048, 32
-    for fn in counters.values():
+    for fn in (*counters.values(), *backward):
         fn.launches = 0
     res = serve(arch, pcfg, prompt_len=prompt, gen=gen, batch=batch,
                 device="cuda", dtype=torch.bfloat16, seed=0)
@@ -518,6 +949,8 @@ def phase_serve(torch, arch_name: str):
           "sample_tokens": toks[0][:8].tolist()})
     if m != 8:
         raise AssertionError(f"expected m = 8 at batch 8, got {m}")
+    if any(fn.launches for fn in backward):
+        raise AssertionError("serving launched a backward kernel")
     if res["launches"] != want or totals != want_totals:
         raise AssertionError(f"launch counts {res['launches']} / {totals} "
                              f"differ from the path's {want}")
@@ -542,12 +975,17 @@ def main() -> int:
     name, smi = phase_device(torch)
     phase_build()
     timing = phase_kernels(torch)
+    timing.update(phase_backward(torch))
     phase_port(torch, "smollm-360m", n_layers=4, prompt=256)
     phase_port(torch, "rwkv6-1.6b", n_layers=2, prompt=128)
+    phase_train_port(torch)
     launches = {k: 0 for k in KERNELS}
     for arch_name in ("smollm-360m", "rwkv6-1.6b"):
         for k, n in phase_serve(torch, arch_name).items():
             launches[k] += n
+    for k, n in phase_train(torch).items():
+        launches[k] += n
+    phase_memory(torch)
     kernels = []
     for kname in KERNELS:
         rec = timing[kname]

@@ -376,7 +376,10 @@ class ParallelConfig:
     #   step (ZeRO-1-style comm) instead of re-gathering every clock tick
     #   (ZeRO-3).  Trades +unsharded-stage-weights memory for ~T x fewer
     #   all-gather bytes; the dominant lever for collective-bound cells.
-    remat_last_micro: bool = False  # paper §2.1: skip F'_{m,j} (unrolled only)
+    remat_last_micro: bool = True  # False: paper §2.1, the executor runs
+    #   each stage's last micro-batch bare, skipping its recompute F'_{m,j}
+    #   (torchgpipe's checkpoint="except_last").  True, the default, wraps
+    #   every micro-batch as the reference's scan executor does.
     unroll_ticks: bool = False
     overlap: bool = True          # async send-before-compute (paper C3 analogue)
     portals: bool = True          # paper C4

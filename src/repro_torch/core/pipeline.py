@@ -10,9 +10,19 @@ caches) is read and updated on each rank's forward ticks, per micro-batch.
 
 Placement follows torchgpipe: ``devices[s]`` holds stage ``s`` and the
 boundary hop is ``.to(devices[s + 1])``, a no-op when every stage sits on
-one card.  The whole tick loop runs in one process under
-``torch.inference_mode()``.  Plans with backward tasks, skip routes, stream
-injection or interleaved chunks are later slices (ROADMAP A2-A6).
+one card.  The whole tick loop runs in one process.
+
+Training (``schedule="gpipe"``, paper Algorithm 1): with grad mode on, each
+forward tick's stage application is wrapped by
+:func:`repro_torch.core.checkpointing.wrap_stage_for_micro` under
+``cfg.remat``: every micro-batch, the last one included, as the reference
+wraps it, unless ``cfg.remat_last_micro`` is False (paper §2.1: each
+stage's last micro-batch then runs bare).  Autograd induces the reverse
+clock-cycle, recomputing each stage forward right before its backward.
+Serving callers hold ``torch.inference_mode()`` themselves.
+Plans with backward tasks, skip routes, stream injection or interleaved
+chunks are later slices (ROADMAP A3-A6), and so are data and tensor
+parallelism (A9).
 """
 from __future__ import annotations
 
@@ -22,6 +32,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.configs.base import ParallelConfig
+from repro_torch.core import checkpointing
 from repro_torch.core import plan as plan_lib
 from repro_torch.core.plan import FWD, NOP
 from repro_torch.core.skip import SkipSpec
@@ -48,11 +59,21 @@ class TickCtx:
 StageApplyFn = Callable[..., Tuple[Any, Dict[str, Any], Any]]
 
 
+def check_single_replica(cfg: ParallelConfig) -> None:
+    """The port runs one replica of one model copy: tp, data and pod 1."""
+    if (cfg.tp, cfg.data, cfg.pod) != (1, 1, 1):
+        raise NotImplementedError(
+            f"tp={cfg.tp}, data={cfg.data}, pod={cfg.pod}: tensor and data "
+            "parallelism are not ported yet (ROADMAP A9); pass tp=1, data=1, "
+            "pod=1")
+
+
 def _check_forward_plan(tplan: plan_lib.TaskPlan, cfg: ParallelConfig):
     if tplan.has_backward or (tplan.kind > FWD).any():
         raise NotImplementedError(
             "plans with backward tasks (gpipe_tasked / 1f1b / zb) are not "
-            "ported yet: ROADMAP A2 (autograd through gpipe_fwd) and A3")
+            "ported yet: ROADMAP A3 (the port trains through gpipe_fwd with "
+            "autograd)")
     if tplan.routes:
         raise NotImplementedError("skip routes / portals are not ported "
                                   "yet: ROADMAP A6")
@@ -83,9 +104,12 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
     holding the ``[m, ...]`` carry tree at the last stage and ``None``
     elsewhere (outputs are valid on the last rank, as in the reference).
     Pass a dict as ``park_info`` to receive ``per_stage_park``, the park
-    slots each rank held at once at most in this run.
+    slots each rank held at once at most in this run.  With grad mode on,
+    every forward tick runs under ``cfg.remat`` (:mod:`checkpointing`).
     """
+    check_single_replica(cfg)
     _check_forward_plan(tplan, cfg)
+    remat = cfg.remat if torch.is_grad_enabled() else "none"
     R, m = tplan.n_ranks, tplan.n_micro
     if (R, m) != (cfg.pipe, cfg.n_micro):
         raise ValueError(f"plan is for pipe={R}, m={m}; config has "
@@ -133,8 +157,12 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
             fresh = tree_map(lambda a: a[i].to(devices[r]), inputs_mb)
             ctx = TickCtx(stage=r, micro=i, valid=True, t=t, fresh=fresh,
                           n_stages=tplan.n_stages, n_micro=m)
-            carry_out, skips_out, resident_s[r] = stage_apply(
-                params_s[r], carry, {}, resident_s[r], ctx)
+            wrapped = checkpointing.wrap_stage_for_micro(
+                lambda p, c, si, rr, ctx=ctx: stage_apply(p, c, si, rr, ctx),
+                remat, micro=i, n_micro=m,
+                remat_last_micro=cfg.remat_last_micro)
+            carry_out, skips_out, resident_s[r] = wrapped(
+                params_s[r], carry, {}, resident_s[r])
             if skips_out:
                 raise NotImplementedError("skip outputs need skip routes: "
                                           "ROADMAP A6")
@@ -160,7 +188,7 @@ def run_pipeline(stage_apply: StageApplyFn,
                  skips: Sequence[SkipSpec] = (),
                  resident=None,
                  park_info: Optional[Dict[str, Any]] = None):
-    """Forward-only wrapper: lower the GPipe clock-cycle plan and run it."""
+    """Lower the GPipe clock-cycle plan and run it."""
     tplan = plan_lib.plan_for("gpipe_fwd", cfg.n_micro, cfg.pipe,
                               skips=skips, portals=cfg.portals,
                               wire=cfg.wire)
@@ -180,8 +208,11 @@ def pipeline_call(stage_apply: StageApplyFn,
     ``devices`` is one device per stage (or one device for all).  Forward
     execution always runs the GPipe clock-cycle plan; the plan is lowered
     once here.  ``outputs[-1]`` is the last stage's ``[m, ...]`` collection
-    (:func:`last_stage_output`).
+    (:func:`last_stage_output`).  The call is differentiable: under grad
+    mode autograd records the clock-cycle and its backward is the reverse
+    one, with each stage recomputed under ``cfg.remat``.
     """
+    check_single_replica(cfg)
     if cfg.virtual_stages > 1:
         raise ValueError("interleaved schedules are train-only; forward "
                          "execution runs the clock-cycle plan")
@@ -190,13 +221,21 @@ def pipeline_call(stage_apply: StageApplyFn,
     _check_forward_plan(tplan, cfg)
 
     def call(stage_params, inputs_mb, resident=None):
-        with torch.inference_mode():
-            return run_pipeline_tasks(stage_apply, stage_params, inputs_mb,
-                                      cfg, tplan=tplan, devices=devices,
-                                      resident=resident, park_info=park_info)
+        return run_pipeline_tasks(stage_apply, stage_params, inputs_mb, cfg,
+                                  tplan=tplan, devices=devices,
+                                  resident=resident, park_info=park_info)
 
     call.tplan = tplan
     return call
+
+
+def pipeline_grad_call(*args, **kwargs):
+    """The fused scheduler's entry point (backward tasks inside the tick
+    loop): not ported yet."""
+    raise NotImplementedError(
+        "pipeline_grad_call (fused F+B schedules gpipe_tasked / 1f1b / "
+        "interleaved / zb) is not ported yet: ROADMAP A3; schedule='gpipe' "
+        "trains through pipeline_call and autograd")
 
 
 def last_stage_output(outputs):

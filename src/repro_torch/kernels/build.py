@@ -120,6 +120,20 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+def on_one_card(tensors, what: str) -> None:
+    """Raise unless every tensor lies on one CUDA device."""
+    dev = tensors[0].device
+    if not all(t.is_cuda and t.device == dev for t in tensors):
+        raise ValueError(f"{what} needs its tensors on one CUDA device")
+
+
+def aligned(tensors, what: str) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary (the kernels'
+    vector loads)."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what} needs 16-byte aligned tensors")
+
+
 def c_args(*types: str) -> List[type]:
     """ctypes argtypes from short codes: p pointer/stream, i int, f float."""
     table = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}

@@ -5,7 +5,7 @@
 // with no KV repeat, static causal / window / q_offset, fully masked k-blocks
 // skipped, fp32 running max / sum / accumulator, output in q's dtype.
 //
-// What it computes (the same recurrence as the TPU kernel and ref.mha_blocked):
+// What it computes (the same recurrence as the TPU kernel and ref.mha_blocked_fwd):
 //   s = (q * scale) k^T, masked to -1e30 where col >= Sk, (causal and col > row)
 //   or (window > 0 and col <= row - window), with row = q index + q_offset;
 //   m' = max(m, rowmax s); a = exp(m - m'); p = exp(s - m');
@@ -46,7 +46,40 @@
 //
 // Both mask the q and k edges that do not fill a tile inside the kernel;
 // nothing is padded in memory.  They launch on the caller's stream and
-// allocate nothing.
+// allocate nothing.  Given an ``lse`` pointer, both also write each row's
+// natural-log log-sum-exp ``m + log(max(l, 1e-30))`` in fp32 (the reference's
+// _mha_blocked_fwd_pass residual), which the backward reads; serving passes
+// none.
+//
+// Backward (flash_attention_bwd; the reference has no Pallas backward: its
+// rule is ref._mha_core_bwd, the VJP of the plain blocked forward).  P is
+// recomputed from the saved lse, never stored whole:
+//   delta = rowsum(dO * O);  P = exp(s scale - lse);  dV = P^T dO;
+//   dS = P (dO V^T - delta) scale;  dK = dS^T Q;  dQ = dS K.
+// Bound on this card: operations.  Five S x S x D products; causal at
+// Sq = Sk = 2048, Hq 15, D 64 that is ~20.1 GFLOP (20.3 us at the bf16
+// tensor-core peak).  Without atomics the kernels below compute seven (S and
+// dP twice: once for dK / dV, once for dQ).  Three kernels, none with
+// atomics, so the result is the same bit for bit from run to run:
+//   (a) delta: one warp a row, delta in fp32;
+//   (b) dK / dV: one block per (b, kv head, 64-key tile); it loops over the q
+//       heads of its GQA group and the 64-row q tiles that can see the key
+//       tile, accumulates dK and dV in fp32 registers and writes them once,
+//       so the group sum never leaves the block;
+//   (c) dQ: one block per (b, q head, 64-row q tile), looping over the key
+//       tiles it can see.
+// Two forms of (b) and (c), chosen by dtype like the forward:
+//   bf16 (namespace bwd_tc): mma.sync m16n8k16 tensor cores with fp32
+//     accumulators, 4 warps a block, a warp owning 16 keys (b: it computes
+//     S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T come out as A fragments
+//     of dV += P^T dO and dK += dS^T Q) or 16 q rows (c).  Tiles are staged
+//     as bf16 in shared memory with rows 16 bytes longer than the data, so
+//     the 8 rows an ldmatrix reads fall in distinct banks.  P and dS are
+//     rounded to bf16 for their products, as the forward rounds P.
+//   fp32 (namespace bwd): SIMT, because tensor cores would take fp32 through
+//     TF32; a 256-thread block gives each thread a 4 x 4 patch of the 64 x 64
+//     score tile (row-major Q / dO against transposed K / V in shared memory,
+//     16-byte reads) and a 4 x (4 D / 64) patch of the tile it accumulates.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -108,8 +141,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ out,
-                      int hq, int hkv, int sq, int sk, float scale,
-                      int causal, int window, int q_offset) {
+                      float* __restrict__ lse, int hq, int hkv, int sq, int sk,
+                      float scale, int causal, int window, int q_offset) {
   constexpr int DC = D / 64;      // output column chunks of 64 per thread row
   constexpr int LQ = kBQ + kPad;
   constexpr int LK = kBK + kPad;
@@ -235,6 +268,9 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = q0 + 4 * tr + i;
     if (r >= sq) continue;
     const float inv = 1.f / fmaxf(l_run[i], 1e-30f);
+    // every lane of the row's half-warp holds the reduced m and l
+    if (lse != nullptr && tc == 0)
+      lse[(size_t)bh * sq + r] = m_run[i] + logf(fmaxf(l_run[i], 1e-30f));
     float* orow = out + ((size_t)bh * sq + r) * D;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
@@ -244,8 +280,8 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b, int hq,
-                   int hkv, int sq, int sk, float scale, int causal, int window,
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+                   int hq, int hkv, int sq, int sk, float scale, int causal, int window,
                    int q_offset, cudaStream_t stream) {
   auto kern = flash_fwd_simt_kernel<D>;
   const size_t smem = Smem<D>::kBytes;
@@ -255,8 +291,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   dim3 grid((sq + kBQ - 1) / kBQ, b * hq);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), hq, hkv, sq, sk, scale, causal,
-      window, q_offset);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, hq, hkv, sq, sk, scale,
+      causal, window, q_offset);
   return cudaGetLastError();
 }
 
@@ -297,8 +333,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
-                       int hq, int hkv, int sq, int sk, float scale_log2, int causal,
-                       int window, int q_offset) {
+                       float* __restrict__ lse, int hq, int hkv, int sq, int sk,
+                       float scale_log2, int causal, int window, int q_offset) {
   using L = Smem<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -493,6 +529,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
   const int r0 = q0 + 64 * wg + r_lo;
   const int r1 = r0 + 8;
+  if (lse != nullptr && lane % 4 == 0) {
+    // m and l are in base 2 here: lse = (m + log2 l) ln 2
+    constexpr float kLn2 = 0.6931471805599453f;
+    if (r0 < sq) lse[(size_t)bh * sq + r0] = (m0 + __log2f(fmaxf(l0, 1e-30f))) * kLn2;
+    if (r1 < sq) lse[(size_t)bh * sq + r1] = (m1 + __log2f(fmaxf(l1, 1e-30f))) * kLn2;
+  }
   bf16* out0 = out + ((size_t)bh * sq + r0) * D + col_lane;
   bf16* out1 = out0 + 8 * D;
 #pragma unroll
@@ -545,8 +587,8 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int heads, 
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b, int hq,
-                   int hkv, int sq, int sk, float scale, int causal, int window,
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+                   int hq, int hkv, int sq, int sk, float scale, int causal, int window,
                    int q_offset, cudaStream_t stream) {
   static_assert(kBM == 128 && kBN == 128, "the maps' boxes are 128 rows");
   const EncodeTiled encode = encode_tiled();
@@ -561,36 +603,722 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
                                          (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(b * hq, (sq + kBM - 1) / kBM);
-  kern<<<grid, kThreads, smem, stream>>>(tq, tk, tv, static_cast<bf16*>(out), hq, hkv, sq, sk,
-                                         scale * 1.4426950408889634f, causal, window, q_offset);
+  kern<<<grid, kThreads, smem, stream>>>(tq, tk, tv, static_cast<bf16*>(out), lse, hq, hkv, sq,
+                                         sk, scale * 1.4426950408889634f, causal, window,
+                                         q_offset);
   return cudaGetLastError();
 }
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// backward: the delta kernel (both dtypes) and the fp32 SIMT kernels
+// ---------------------------------------------------------------------------
+
+namespace bwd {
+
+constexpr int kB = 64;          // q rows per q tile, keys per k tile
+constexpr int kThreads = 256;   // 16 x 16 threads, each a 4 x 4 patch of a tile
+constexpr int kLT = kB + 4;     // row length of [.][kB] tiles: K^T, V^T, P, dS
+
+template <int D>
+struct Smem {
+  static constexpr int kLR = D + 4;   // row length of row-major [kB][D] tiles
+  // dK/dV: K^T, V^T [D][kLT]; Q, dO [kB][kLR]; P, dS [kB][kLT]; lse, delta [kB]
+  static constexpr size_t kDkdv =
+      sizeof(float) * (2 * D * kLT + 2 * kB * kLR + 2 * kB * kLT + 2 * kB);
+  // dQ: Q, dO, K [kB][kLR]; K^T, V^T [D][kLT]; dS^T [kB][kLT]; lse, delta [kB]
+  static constexpr size_t kDq =
+      sizeof(float) * (3 * kB * kLR + 2 * D * kLT + kB * kLT + 2 * kB);
+};
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void unpack(const float4& v, float (&f)[4]) {
+  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+}
+
+// Rows [0, rows_valid) of a [kB, D] fp32 tile at src into shared memory,
+// row-major (dst[r * ld + d]) or transposed (dst[d * ld + r]); rows past the
+// edge are zero.
+template <int D, bool TRANSPOSE>
+__device__ __forceinline__ void stage(const float* __restrict__ src, int rows_valid, float* dst,
+                                      int ld) {
+  constexpr int kVecs = kB * D / 4;
+  for (int e = threadIdx.x; e < kVecs; e += kThreads) {
+    const int r = (e * 4) / D;
+    const int d0 = (e * 4) % D;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < rows_valid) v = load4(src + (size_t)r * D + d0);
+    if (TRANSPOSE) {
+      dst[(d0 + 0) * ld + r] = v.x;
+      dst[(d0 + 1) * ld + r] = v.y;
+      dst[(d0 + 2) * ld + r] = v.z;
+      dst[(d0 + 3) * ld + r] = v.w;
+    } else {
+      store4(dst + r * ld + d0, v);
+    }
+  }
+}
+
+__device__ __forceinline__ void stage_rows(const float* __restrict__ src, int n_valid,
+                                           float* dst) {
+  for (int i = threadIdx.x; i < kB; i += kThreads) dst[i] = i < n_valid ? src[i] : 0.f;
+}
+
+// acc[i][j] = sum_d A[4 tr + i][d] Bt[d][4 tc + j]; A row-major [kB][lda], Bt [D][kLT]
+template <int D>
+__device__ __forceinline__ void patch_abt(const float* A, int lda, const float* Bt, int tr,
+                                          int tc, float (&acc)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float a[4][4], b[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) unpack(load4(A + (4 * tr + i) * lda + d), a[i]);
+#pragma unroll
+    for (int dd = 0; dd < 4; ++dd) unpack(load4(Bt + (d + dd) * kLT + 4 * tc), b[dd]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int dd = 0; dd < 4; ++dd) acc[i][j] = fmaf(a[i][dd], b[dd][j], acc[i][j]);
+  }
+}
+
+// acc[i][4 c + j] += sum_r X[r][4 tr + i] Y[r][64 c + 4 tc + j];
+// X [kB][kLT], Y row-major [kB][ldy]
+template <int D>
+__device__ __forceinline__ void patch_atb(const float* X, const float* Y, int ldy, int tr,
+                                          int tc, float (&acc)[4][D / 16]) {
+#pragma unroll 4
+  for (int r = 0; r < kB; ++r) {
+    float x[4];
+    unpack(load4(X + r * kLT + 4 * tr), x);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) {
+      float y[4];
+      unpack(load4(Y + r * ldy + 64 * c + 4 * tc), y);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][4 * c + j] = fmaf(x[i], y[j], acc[i][4 * c + j]);
+    }
+  }
+}
+
+// The forward's block-skip test for a (q tile, k tile) pair
+__device__ __forceinline__ bool tile_needed(int q_first, int k_first, int causal, int window) {
+  bool needed = true;
+  if (causal) needed = needed && (k_first <= q_first + kB - 1);
+  if (window > 0) needed = needed && (k_first + kB - 1 > q_first - window);
+  return needed;
+}
+
+// s (scores) -> P = exp(s scale - lse), masked to 0; dp (dO V^T) -> dS =
+// P (dp - delta) scale.  Rows are q0 + 4 tr + i, keys k0 + 4 tc + j.
+__device__ __forceinline__ void probs_and_dscores(float (&s)[4][4], float (&dp)[4][4],
+                                                  const float* sLse, const float* sDelta,
+                                                  int q0, int k0, int tr, int tc, int sq,
+                                                  int sk, float scale, int causal, int window,
+                                                  int q_offset) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * tr + i;
+    const int pos = row + q_offset;
+    const float lse_i = sLse[4 * tr + i];
+    const float delta_i = sDelta[4 * tr + i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = k0 + 4 * tc + j;
+      bool ok = row < sq && col < sk;
+      if (causal) ok = ok && col <= pos;
+      if (window > 0) ok = ok && col > pos - window;
+      const float p = ok ? __expf(s[i][j] * scale - lse_i) : 0.f;
+      s[i][j] = p;
+      dp[i][j] = p * (dp[i][j] - delta_i) * scale;
+    }
+  }
+}
+
+// (a) delta[row] = sum_d dO[row][d] O[row][d], one warp a row
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+                       float* __restrict__ delta, int rows) {
+  const int row = (blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const T* o = out + (size_t)row * D;
+  const T* g = dout + (size_t)row * D;
+  float acc = 0.f;
+  for (int c = 4 * lane; c < D; c += 128) {
+    const float4 a = load4(o + c), b = load4(g + c);
+    acc += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+// (b) dK, dV for one (b, kv head, key tile), summed over its GQA group
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv, int hq, int hkv, int sq,
+                      int sk, float scale, int causal, int window, int q_offset) {
+  constexpr int LR = Smem<D>::kLR;
+  constexpr int DC = D / 16;
+  extern __shared__ float4 smem4[];
+  float* sKt = reinterpret_cast<float*>(smem4);
+  float* sVt = sKt + D * kLT;
+  float* sQ = sVt + D * kLT;
+  float* sdO = sQ + kB * LR;
+  float* sP = sdO + kB * LR;
+  float* sdS = sP + kB * kLT;
+  float* sLse = sdS + kB * kLT;
+  float* sDelta = sLse + kB;
+
+  const int tid = threadIdx.x;
+  const int tr = tid >> 4;
+  const int tc = tid & 15;
+  const int bkv = blockIdx.y;               // b * hkv + kv head
+  const int b = bkv / hkv;
+  const int group = hq / hkv;
+  const int k0 = blockIdx.x * kB;
+  const int k_valid = min(kB, sk - k0);
+  stage<D, true>(k + ((size_t)bkv * sk + k0) * D, k_valid, sKt, kLT);
+  stage<D, true>(v + ((size_t)bkv * sk + k0) * D, k_valid, sVt, kLT);
+
+  float dk_acc[4][DC], dv_acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DC; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+
+  const int nq = (sq + kB - 1) / kB;
+  for (int g = 0; g < group; ++g) {
+    const int bh = b * hq + (bkv % hkv) * group + g;
+    for (int qt = 0; qt < nq; ++qt) {
+      const int q0 = qt * kB;
+      if (!tile_needed(q0 + q_offset, k0, causal, window)) continue;   // uniform
+      const int q_valid = min(kB, sq - q0);
+      __syncthreads();   // the previous tile's reads of sQ .. sDelta are done
+      stage<D, false>(q + ((size_t)bh * sq + q0) * D, q_valid, sQ, LR);
+      stage<D, false>(dout + ((size_t)bh * sq + q0) * D, q_valid, sdO, LR);
+      stage_rows(lse + (size_t)bh * sq + q0, q_valid, sLse);
+      stage_rows(delta + (size_t)bh * sq + q0, q_valid, sDelta);
+      __syncthreads();
+
+      float s[4][4], dp[4][4];
+      patch_abt<D>(sQ, LR, sKt, tr, tc, s);
+      patch_abt<D>(sdO, LR, sVt, tr, tc, dp);
+      probs_and_dscores(s, dp, sLse, sDelta, q0, k0, tr, tc, sq, sk, scale, causal, window,
+                        q_offset);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        store4(sP + (4 * tr + i) * kLT + 4 * tc, make_float4(s[i][0], s[i][1], s[i][2], s[i][3]));
+        store4(sdS + (4 * tr + i) * kLT + 4 * tc,
+               make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]));
+      }
+      __syncthreads();
+      patch_atb<D>(sP, sdO, LR, tr, tc, dv_acc);    // dV += P^T dO
+      patch_atb<D>(sdS, sQ, LR, tr, tc, dk_acc);    // dK += dS^T Q
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + 4 * tr + i;
+    if (key >= sk) continue;
+    const size_t base = ((size_t)bkv * sk + key) * D + 4 * tc;
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) {
+      store4(dk + base + 64 * c, make_float4(dk_acc[i][4 * c], dk_acc[i][4 * c + 1],
+                                             dk_acc[i][4 * c + 2], dk_acc[i][4 * c + 3]));
+      store4(dv + base + 64 * c, make_float4(dv_acc[i][4 * c], dv_acc[i][4 * c + 1],
+                                             dv_acc[i][4 * c + 2], dv_acc[i][4 * c + 3]));
+    }
+  }
+}
+
+// (c) dQ for one (b, q head, q tile)
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, int hq, int hkv, int sq, int sk, float scale,
+                    int causal, int window, int q_offset) {
+  constexpr int LR = Smem<D>::kLR;
+  constexpr int DC = D / 16;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sdO = sQ + kB * LR;
+  float* sK = sdO + kB * LR;
+  float* sKt = sK + kB * LR;
+  float* sVt = sKt + D * kLT;
+  float* sdSt = sVt + D * kLT;
+  float* sLse = sdSt + kB * kLT;
+  float* sDelta = sLse + kB;
+
+  const int tid = threadIdx.x;
+  const int tr = tid >> 4;
+  const int tc = tid & 15;
+  const int bh = blockIdx.y;
+  const int kv_bh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;   // heaviest causal tiles first
+  const int q_valid = min(kB, sq - q0);
+  stage<D, false>(q + ((size_t)bh * sq + q0) * D, q_valid, sQ, LR);
+  stage<D, false>(dout + ((size_t)bh * sq + q0) * D, q_valid, sdO, LR);
+  stage_rows(lse + (size_t)bh * sq + q0, q_valid, sLse);
+  stage_rows(delta + (size_t)bh * sq + q0, q_valid, sDelta);
+
+  float dq_acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DC; ++j) dq_acc[i][j] = 0.f;
+
+  const int nk = (sk + kB - 1) / kB;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kB;
+    if (!tile_needed(q0 + q_offset, k0, causal, window)) continue;   // uniform
+    const int k_valid = min(kB, sk - k0);
+    const float* kg = k + ((size_t)kv_bh * sk + k0) * D;
+    __syncthreads();   // the previous tile's reads of sK, sKt, sVt, sdSt are done
+    stage<D, false>(kg, k_valid, sK, LR);
+    stage<D, true>(kg, k_valid, sKt, kLT);
+    stage<D, true>(v + ((size_t)kv_bh * sk + k0) * D, k_valid, sVt, kLT);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+    patch_abt<D>(sQ, LR, sKt, tr, tc, s);
+    patch_abt<D>(sdO, LR, sVt, tr, tc, dp);
+    probs_and_dscores(s, dp, sLse, sDelta, q0, k0, tr, tc, sq, sk, scale, causal, window,
+                      q_offset);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      store4(sdSt + (4 * tc + j) * kLT + 4 * tr,
+             make_float4(dp[0][j], dp[1][j], dp[2][j], dp[3][j]));
+    __syncthreads();
+    patch_atb<D>(sdSt, sK, LR, tr, tc, dq_acc);     // dQ += dS K
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * tr + i;
+    if (row >= sq) continue;
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+      store4(dq + ((size_t)bh * sq + row) * D + 64 * c + 4 * tc,
+             make_float4(dq_acc[i][4 * c], dq_acc[i][4 * c + 1], dq_acc[i][4 * c + 2],
+                         dq_acc[i][4 * c + 3]));
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_delta(const void* out, const void* dout, float* delta, int rows,
+                         cudaStream_t stream) {
+  flash_bwd_delta_kernel<T, D><<<(rows + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0,
+                                 stream>>>(static_cast<const T*>(out),
+                                           static_cast<const T*>(dout), delta, rows);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
+                   const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                   void* dv, int b, int hq, int hkv, int sq, int sk, float scale, int causal,
+                   int window, int q_offset, cudaStream_t stream) {
+  const float* tq = static_cast<const float*>(q);
+  const float* tk = static_cast<const float*>(k);
+  const float* tv = static_cast<const float*>(v);
+  const float* tdo = static_cast<const float*>(dout);
+  cudaError_t err = launch_delta<float, D>(out, dout, delta, b * hq * sq, stream);
+  if (err != cudaSuccess) return err;
+
+  auto dkdv = flash_bwd_dkdv_kernel<D>;
+  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)Smem<D>::kDkdv);
+  if (err != cudaSuccess) return err;
+  dkdv<<<dim3((sk + kB - 1) / kB, b * hkv), kThreads, Smem<D>::kDkdv, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), hq, hkv,
+      sq, sk, scale, causal, window, q_offset);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto dqk = flash_bwd_dq_kernel<D>;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)Smem<D>::kDq);
+  if (err != cudaSuccess) return err;
+  dqk<<<dim3((sq + kB - 1) / kB, b * hq), kThreads, Smem<D>::kDq, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<float*>(dq), hq, hkv, sq, sk, scale, causal,
+      window, q_offset);
+  return cudaGetLastError();
+}
+
+}  // namespace bwd
+
+// ---------------------------------------------------------------------------
+// backward, bf16: mma.sync tensor cores, fp32 accumulators
+// ---------------------------------------------------------------------------
+
+namespace bwd_tc {
+
+using bf16 = __nv_bfloat16;
+using hopper::frag_row;
+using hopper::ldsm;
+using hopper::ldsm_t;
+using hopper::mma;
+using hopper::pack_bf16;
+
+constexpr int kB = 64;                  // q rows per q tile, keys per k tile
+constexpr int kWarps = 4;               // a warp: 16 rows (dQ) or 16 keys (dK, dV)
+constexpr int kThreads = 32 * kWarps;
+
+template <int D>
+struct Smem {
+  static constexpr int kLd = D + 8;     // bf16 row stride (16 bytes of padding)
+  static constexpr int kTile = kB * kLd;
+  // four bf16 tiles [kB][kLd], then lse and delta [kB] in fp32
+  static constexpr size_t kBytes = 4 * kTile * sizeof(bf16) + 2 * kB * sizeof(float);
+};
+
+// Rows [0, rows_valid) of a [kB, D] bf16 tile at src into a padded shared
+// tile, 16 bytes a thread at a time; rows past the edge are zero.
+template <int D>
+__device__ __forceinline__ void stage(const bf16* __restrict__ src, int rows_valid, bf16* dst) {
+  constexpr int kChunks = D / 8;
+  for (int e = threadIdx.x; e < kB * kChunks; e += kThreads) {
+    const int r = e / kChunks;
+    const int col = (e % kChunks) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows_valid) v = *reinterpret_cast<const uint4*>(src + (size_t)r * D + col);
+    *reinterpret_cast<uint4*>(dst + r * Smem<D>::kLd + col) = v;
+  }
+}
+
+__device__ __forceinline__ void stage_rows(const float* __restrict__ src, int n_valid,
+                                           float* dst) {
+  for (int i = threadIdx.x; i < kB; i += kThreads) dst[i] = i < n_valid ? src[i] : 0.f;
+}
+
+// acc[j] = block j (16 x 8) of A[a_row0 .. a_row0 + 15][:] B^T: a 16 x 64
+// product of two row-major [.][D] shared tiles; B's 64 rows are its columns.
+// Read as B^T, ldmatrix of B's rows gives b0 and b1 of two column blocks.
+template <int D>
+__device__ __forceinline__ void rows_times_tile_t(const bf16* A, int a_row0, const bf16* B,
+                                                  int lane, float (&acc)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    uint32_t a[4];
+    ldsm(a, frag_row(A, Smem<D>::kLd, a_row0, 16 * ks, lane));
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      uint32_t b[4];     // b0 of columns 16 nb, b0 of 16 nb + 8, b1 of 16 nb, b1 of 16 nb + 8
+      ldsm(b, frag_row(B, Smem<D>::kLd, 16 * nb, 16 * ks, lane));
+      mma(acc[2 * nb], a, b[0], b[2]);
+      mma(acc[2 * nb + 1], a, b[1], b[3]);
+    }
+  }
+}
+
+// acc[j] (block j, 16 x 8, of a 16 x D product) += X B: X is 16 x 64 as four
+// A fragments (k steps of 16), B a row-major [64][D] shared tile.
+template <int D>
+__device__ __forceinline__ void frags_times_tile(const uint32_t (&x)[4][4], const bf16* B,
+                                                 int lane, float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int nb = 0; nb < D / 16; ++nb) {
+      uint32_t b[4];
+      ldsm_t(b, frag_row(B, Smem<D>::kLd, 16 * kk, 16 * nb, lane));
+      mma(acc[2 * nb], x[kk], b[0], b[1]);
+      mma(acc[2 * nb + 1], x[kk], b[2], b[3]);
+    }
+}
+
+// A 16 x 64 accumulator (blocks of 16 x 8) as the A fragments of four k
+// steps of 16, rounded to bf16: the accumulator layout of two neighbouring
+// blocks is the A fragment layout of one k step.
+__device__ __forceinline__ void to_frags(const float (&x)[8][4], uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    f[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+    f[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+    f[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    f[kk][3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+  }
+}
+
+// Rows row_lo and row_lo + 8 (those below n_rows) of a 16 x D accumulator
+// into a row-major [.][D] bf16 tensor at base.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ base, const float (&acc)[D / 8][4],
+                                           int row_lo, int n_rows, int lane) {
+  const int col = 2 * (lane % 4);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_lo + 8 * h;
+    if (row >= n_rows) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(base + (size_t)row * D + 8 * j + col) =
+          __floats2bfloat162_rn(acc[j][2 * h], acc[j][2 * h + 1]);
+  }
+}
+
+__device__ __forceinline__ bool visible(int row, int pos, int key, int sq, int sk, int causal,
+                                        int window) {
+  bool ok = row < sq && key < sk;
+  if (causal) ok = ok && key <= pos;
+  if (window > 0) ok = ok && key > pos - window;
+  return ok;
+}
+
+// (b) dK, dV for one (b, kv head, key tile), summed over its GQA group
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int hq, int hkv,
+                          int sq, int sk, float scale, int causal, int window, int q_offset) {
+  using L = Smem<D>;
+  extern __shared__ uint4 smem_u4[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_u4);
+  bf16* sV = sK + L::kTile;
+  bf16* sQ = sV + L::kTile;
+  bf16* sdO = sQ + L::kTile;
+  float* sLse = reinterpret_cast<float*>(sdO + L::kTile);
+  float* sDelta = sLse + kB;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int bkv = blockIdx.y;               // b * hkv + kv head
+  const int b = bkv / hkv;
+  const int group = hq / hkv;
+  const int k0 = blockIdx.x * kB;
+  const int k_valid = min(kB, sk - k0);
+  const int key_lo = k0 + 16 * warp + lane / 4;   // this lane's keys: key_lo, key_lo + 8
+  stage<D>(k + ((size_t)bkv * sk + k0) * D, k_valid, sK);
+  stage<D>(v + ((size_t)bkv * sk + k0) * D, k_valid, sV);
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  const int nq = (sq + kB - 1) / kB;
+  for (int gi = 0; gi < group; ++gi) {
+    const int bh = b * hq + (bkv % hkv) * group + gi;
+    for (int qt = 0; qt < nq; ++qt) {
+      const int q0 = qt * kB;
+      if (!bwd::tile_needed(q0 + q_offset, k0, causal, window)) continue;   // uniform
+      const int q_valid = min(kB, sq - q0);
+      __syncthreads();   // the previous tile's reads of sQ .. sDelta are done
+      stage<D>(q + ((size_t)bh * sq + q0) * D, q_valid, sQ);
+      stage<D>(dout + ((size_t)bh * sq + q0) * D, q_valid, sdO);
+      stage_rows(lse + (size_t)bh * sq + q0, q_valid, sLse);
+      stage_rows(delta + (size_t)bh * sq + q0, q_valid, sDelta);
+      __syncthreads();
+
+      float s[8][4], dp[8][4];
+      rows_times_tile_t<D>(sK, 16 * warp, sQ, lane, s);     // S^T = K Q^T
+      rows_times_tile_t<D>(sV, 16 * warp, sdO, lane, dp);   // dP^T = V dO^T
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key_lo + 8 * (e >> 1);
+          const int col = 8 * j + 2 * (lane % 4) + (e & 1);    // q row in the tile
+          const int row = q0 + col;
+          const float p = visible(row, row + q_offset, key, sq, sk, causal, window)
+                              ? __expf(s[j][e] * scale - sLse[col]) : 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - sDelta[col]) * scale;
+        }
+      uint32_t pf[4][4], dsf[4][4];
+      to_frags(s, pf);
+      to_frags(dp, dsf);
+      frags_times_tile<D>(pf, sdO, lane, dv_acc);    // dV += P^T dO
+      frags_times_tile<D>(dsf, sQ, lane, dk_acc);    // dK += dS^T Q
+    }
+  }
+  const size_t plane = ((size_t)bkv * sk + k0) * D;
+  store_rows<D>(dk + plane, dk_acc, 16 * warp + lane / 4, k_valid, lane);
+  store_rows<D>(dv + plane, dv_acc, 16 * warp + lane / 4, k_valid, lane);
+}
+
+// (c) dQ for one (b, q head, q tile)
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int hq, int hkv, int sq, int sk, float scale,
+                        int causal, int window, int q_offset) {
+  using L = Smem<D>;
+  extern __shared__ uint4 smem_u4[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_u4);
+  bf16* sdO = sQ + L::kTile;
+  bf16* sK = sdO + L::kTile;
+  bf16* sV = sK + L::kTile;
+  float* sLse = reinterpret_cast<float*>(sV + L::kTile);
+  float* sDelta = sLse + kB;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int bh = blockIdx.y;
+  const int kv_bh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;   // heaviest causal tiles first
+  const int q_valid = min(kB, sq - q0);
+  const int row_lo = 16 * warp + lane / 4;            // this lane's tile rows: row_lo, + 8
+  stage<D>(q + ((size_t)bh * sq + q0) * D, q_valid, sQ);
+  stage<D>(dout + ((size_t)bh * sq + q0) * D, q_valid, sdO);
+  stage_rows(lse + (size_t)bh * sq + q0, q_valid, sLse);
+  stage_rows(delta + (size_t)bh * sq + q0, q_valid, sDelta);
+
+  float dq_acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[j][e] = 0.f;
+
+  const int nk = (sk + kB - 1) / kB;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kB;
+    if (!bwd::tile_needed(q0 + q_offset, k0, causal, window)) continue;   // uniform
+    __syncthreads();   // the previous tile's reads of sK, sV are done
+    stage<D>(k + ((size_t)kv_bh * sk + k0) * D, min(kB, sk - k0), sK);
+    stage<D>(v + ((size_t)kv_bh * sk + k0) * D, min(kB, sk - k0), sV);
+    __syncthreads();
+
+    float s[8][4], dp[8][4];
+    rows_times_tile_t<D>(sQ, 16 * warp, sK, lane, s);      // S = Q K^T
+    rows_times_tile_t<D>(sdO, 16 * warp, sV, lane, dp);    // dP = dO V^T
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rt = row_lo + 8 * (e >> 1);
+        const int row = q0 + rt;
+        const int key = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
+        const float p = visible(row, row + q_offset, key, sq, sk, causal, window)
+                            ? __expf(s[j][e] * scale - sLse[rt]) : 0.f;
+        dp[j][e] = p * (dp[j][e] - sDelta[rt]) * scale;
+      }
+    uint32_t dsf[4][4];
+    to_frags(dp, dsf);
+    frags_times_tile<D>(dsf, sK, lane, dq_acc);       // dQ += dS K
+  }
+  store_rows<D>(dq + ((size_t)bh * sq + q0) * D, dq_acc, row_lo, q_valid, lane);
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
+                   const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                   void* dv, int b, int hq, int hkv, int sq, int sk, float scale, int causal,
+                   int window, int q_offset, cudaStream_t stream) {
+  const bf16* tq = static_cast<const bf16*>(q);
+  const bf16* tk = static_cast<const bf16*>(k);
+  const bf16* tv = static_cast<const bf16*>(v);
+  const bf16* tdo = static_cast<const bf16*>(dout);
+  cudaError_t err = bwd::launch_delta<bf16, D>(out, dout, delta, b * hq * sq, stream);
+  if (err != cudaSuccess) return err;
+  const size_t smem = Smem<D>::kBytes;
+  auto dkdv = flash_bwd_dkdv_mma_kernel<D>;
+  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dkdv<<<dim3((sk + kB - 1) / kB, b * hkv), kThreads, smem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), hq, hkv,
+      sq, sk, scale, causal, window, q_offset);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto dqk = flash_bwd_dq_mma_kernel<D>;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dqk<<<dim3((sq + kB - 1) / kB, b * hq), kThreads, smem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), hq, hkv, sq, sk, scale, causal,
+      window, q_offset);
+  return cudaGetLastError();
+}
+
+}  // namespace bwd_tc
+
 }  // namespace
 
 // dtype: 0 = float32 (SIMT kernel), 1 = bfloat16 (wgmma + TMA kernel); q, k, v
-// and out share it; d in {64, 128}.  The caller guarantees contiguous
-// [B, H, S, D] tensors, 16-byte aligned pointers, hq % hkv == 0 and
-// b * hq <= 65535.  Returns a cudaError_t.
+// and out share it; d in {64, 128}.  ``lse`` ([B, Hq, Sq] fp32) may be null.
+// The caller guarantees contiguous [B, H, S, D] tensors, 16-byte aligned
+// pointers, hq % hkv == 0 and b * hq <= 65535.  Returns a cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                   int b, int hq, int hkv, int sq, int sk, int d,
+                                   float* lse, int b, int hq, int hkv, int sq, int sk, int d,
                                    float scale, int causal, int window, int q_offset,
                                    int dtype, void* stream) {
   if (b <= 0 || sq <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = d == 64 ? simt::launch<64>(q, k, v, out, b, hq, hkv, sq, sk, scale, causal, window,
-                                     q_offset, s)
-                  : simt::launch<128>(q, k, v, out, b, hq, hkv, sq, sk, scale, causal, window,
-                                      q_offset, s);
+    err = d == 64 ? simt::launch<64>(q, k, v, out, lse, b, hq, hkv, sq, sk, scale, causal,
+                                     window, q_offset, s)
+                  : simt::launch<128>(q, k, v, out, lse, b, hq, hkv, sq, sk, scale, causal,
+                                      window, q_offset, s);
   } else {
-    err = d == 64 ? tc::launch<64>(q, k, v, out, b, hq, hkv, sq, sk, scale, causal, window,
-                                   q_offset, s)
-                  : tc::launch<128>(q, k, v, out, b, hq, hkv, sq, sk, scale, causal, window,
-                                    q_offset, s);
+    err = d == 64 ? tc::launch<64>(q, k, v, out, lse, b, hq, hkv, sq, sk, scale, causal,
+                                   window, q_offset, s)
+                  : tc::launch<128>(q, k, v, out, lse, b, hq, hkv, sq, sk, scale, causal,
+                                    window, q_offset, s);
+  }
+  return static_cast<int>(err);
+}
+
+// The backward of flash_attention_fwd: dq [B, Hq, Sq, D], dk / dv [B, Hkv, Sk, D]
+// from q, k, v, the forward's out and lse, and dout; dtype 0 = float32 (SIMT),
+// 1 = bfloat16 (mma.sync).  ``delta`` is a caller's
+// fp32 scratch of B * Hq * Sq floats.  Same dtypes, shapes and guarantees as
+// the forward; d in {64, 128}.  Returns a cudaError_t.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
+                                   const void* out, const void* dout, const float* lse,
+                                   float* delta, void* dq, void* dk, void* dv, int b, int hq,
+                                   int hkv, int sq, int sk, int d, float scale, int causal,
+                                   int window, int q_offset, int dtype, void* stream) {
+  if (b <= 0 || sq <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = d == 64 ? bwd::launch<64>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, hq, hkv, sq,
+                                    sk, scale, causal, window, q_offset, s)
+                  : bwd::launch<128>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, hq, hkv, sq,
+                                     sk, scale, causal, window, q_offset, s);
+  } else {
+    err = d == 64 ? bwd_tc::launch<64>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, hq, hkv,
+                                       sq, sk, scale, causal, window, q_offset, s)
+                  : bwd_tc::launch<128>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, hq,
+                                        hkv, sq, sk, scale, causal, window, q_offset, s);
   }
   return static_cast<int>(err);
 }

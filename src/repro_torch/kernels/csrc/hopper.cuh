@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor loads,
 // wgmma shared-memory descriptors and the three wgmma shapes that
-// flash_attention.cu uses.  Device code only; no host API.
+// flash_attention.cu uses; the warp-level mma.sync m16n8k16 and its ldmatrix
+// fragment loads (wkv6.cu, the bf16 attention backward).  Device code only; no
+// host API.
 //
 // Shared-memory tiles are stored as TMA writes them with 128-byte swizzle: a
 // tile of R rows x 64 bf16 (128 bytes a row) is one "panel", rows 128 bytes
@@ -171,6 +173,43 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// -- mma.sync and ldmatrix (warp-level tensor-core products) -----------------
+
+// d += A B, m16n8k16, bf16 operands, fp32 accumulators.  For lane l
+// (g = l / 4, c = l % 4): a[0] = A[g][2c..2c+1], a[1] = A[g+8][2c..],
+// a[2] = A[g][2c+8..], a[3] = A[g+8][2c+8..]; b0 = B[2c..2c+1][g],
+// b1 = B[2c+8..2c+9][g]; d[0..1] = D[g][2c..2c+1], d[2..3] = D[g+8][2c..].
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// This lane's row address for an ldmatrix.x4 of the 16 x 16 tile at (row0,
+// col0) of a row-major bf16 tile: lanes 8 m .. 8 m + 7 give the rows of
+// matrix m, which covers rows + 8 (m & 1) and columns + 8 (m >> 1).  So the
+// plain form returns the A fragment of the tile (a[0..3]); the .trans form
+// returns the B fragments of the tile read as B[k = row][n = column]:
+// {b0, b1} of columns col0 .. col0 + 7 in r[0..1], of col0 + 8 .. in r[2..3].
+__device__ __forceinline__ const __nv_bfloat16* frag_row(const __nv_bfloat16* tile, int stride,
+                                                         int row0, int col0, int lane) {
+  return tile + (row0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * stride + col0 + 8 * (lane >> 4);
+}
+__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)) : "memory");
+}
+__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)) : "memory");
 }
 
 }  // namespace hopper

@@ -78,6 +78,10 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 using hopper::ex2;
+using hopper::frag_row;
+using hopper::ldsm;
+using hopper::ldsm_t;
+using hopper::mma;
 using hopper::pack_bf16;
 
 constexpr int kN = 64;        // K = V = head size
@@ -105,19 +109,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// d += A B, m16n8k16, bf16 operands, fp32 accumulators.  For lane l
-// (g = l / 4, c = l % 4): a[0] = A[g][2c..2c+1], a[1] = A[g+8][2c..],
-// a[2] = A[g][2c+8..], a[3] = A[g+8][2c+8..]; b0 = B[2c..2c+1][g],
-// b1 = B[2c+8..2c+9][g]; d[0..1] = D[g][2c..2c+1], d[2..3] = D[g+8][2c..].
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Two fp32 values as bf16 pairs hi = bf16(x), lo = bf16(x - hi).
@@ -277,26 +268,6 @@ constexpr int kPad = 72;      // bf16 row stride of staged 64-wide tiles (144 B)
 constexpr int kPadF = 68;     // fp32 row stride (272 B)
 constexpr int kSubs = kChunk / kSub;
 
-// This lane's row address for an ldmatrix.x4 of the 16 x 16 tile at (row0,
-// col0) of a row-major bf16 tile: lanes 8 m .. 8 m + 7 give the rows of
-// matrix m, which covers rows + 8 (m & 1) and columns + 8 (m >> 1).  So the
-// plain form returns the A fragment of the tile (a[0..3]); the .trans form
-// returns the B fragments of the tile read as B[k = row][n = column]:
-// {b0, b1} of columns col0 .. col0 + 7 in r[0..1], of col0 + 8 .. in r[2..3].
-__device__ __forceinline__ const bf16* frag_row(const bf16* tile, int stride, int row0, int col0,
-                                                int lane) {
-  return tile + (row0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * stride + col0 + 8 * (lane >> 4);
-}
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(hopper::smem_u32(p)) : "memory");
-}
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(hopper::smem_u32(p)) : "memory");
-}
 __device__ __forceinline__ float2 unpack(uint32_t x) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
 }

@@ -2,10 +2,16 @@
 
 * :func:`mha_naive` materializes the full [*, Sq, Sk] score matrix: the
   ground-truth oracle for tests.
-* :func:`mha_blocked` is the flash-attention recurrence over key/value
-  blocks with an online softmax, forward only: the plain version the CPU
-  path runs and the kernel is held against on the card.
-* :func:`rmsnorm` with fp32 math and the input dtype kept for the output.
+* :func:`mha_blocked_fwd` is the flash-attention recurrence over key/value
+  blocks with an online softmax (the reference's ``mha_blocked`` forward),
+  returning the output and the per-row log-sum-exp: the plain forward the
+  CPU path runs and the kernel is held against on the card;
+  :func:`mha_blocked_bwd` is the blocked backward of the reference's
+  ``_mha_core_bwd`` (P recomputed from the log-sum-exp, never the whole
+  [Sq, Sk] matrix).
+* :func:`rmsnorm` with fp32 math and the input dtype kept for the output;
+  :func:`rmsnorm_bwd` its gradient (the reference has no rule of its own:
+  this is the VJP of its plain ``ref.rmsnorm``).
 * :func:`wkv6` is the RWKV-6 recurrence one step at a time: the oracle, and
   the plain version the CPU path runs; :func:`wkv6_chunked` is the chunked
   algorithm of the TPU kernel, held against it in the tests;
@@ -62,15 +68,30 @@ def mha_naive(q, k, v, *, causal: bool = True, window: int = 0,
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
-def mha_blocked(q, k, v, *, causal: bool = True, window: int = 0,
-                q_offset: int = 0, scale: Optional[float] = None,
-                block_k: int = 512):
+def _key_mask(qi, start: int, n: int, *, causal: bool, window: int,
+              device) -> torch.Tensor:
+    """[Sq, n] mask of keys ``start .. start + n`` for query positions ``qi``."""
+    ki = torch.arange(start, start + n, device=device)[None, :]
+    msk = torch.ones((qi.shape[0], n), dtype=torch.bool, device=device)
+    if causal:
+        msk &= ki <= qi
+    if window and window > 0:
+        msk &= ki > qi - window
+    return msk
+
+
+def mha_blocked_fwd(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0, scale: Optional[float] = None,
+                    block_k: int = 512):
     """Flash-attention forward in plain torch: loop over KV blocks with the
     online-softmax recurrence, fp32 running max / sum / accumulator.
 
-    ``window`` 0 means unlimited.  A row whose keys are all masked in a
-    visited block takes the same values the recurrence gives in the
-    reference (the -1e30 fill keeps ``exp(m_prev - m_new)`` finite)."""
+    Returns ``(out in q.dtype, lse [B, Hq, Sq] fp32)`` with the natural-log
+    ``lse = m + log(max(l, 1e-30))`` (the reference's
+    ``_mha_blocked_fwd_pass``).  ``window`` 0 means unlimited.  A row whose
+    keys are all masked in a visited block takes the same values the
+    recurrence gives in the reference (the -1e30 fill keeps
+    ``exp(m_prev - m_new)`` finite)."""
     B, Hq, Sq, D = q.shape
     scale = scale if scale is not None else D ** -0.5
     k = _expand_kv(k, Hq)
@@ -88,12 +109,8 @@ def mha_blocked(q, k, v, *, causal: bool = True, window: int = 0,
         # masked in every block (not a case the kernels' callers produce)
         kb = k[:, :, start:start + bk].float()
         vb = v[:, :, start:start + bk].float()
-        ki = torch.arange(start, start + kb.shape[2], device=q.device)[None, :]
-        msk = torch.ones((Sq, kb.shape[2]), dtype=torch.bool, device=q.device)
-        if causal:
-            msk &= ki <= qi
-        if window and window > 0:
-            msk &= ki > qi - window
+        msk = _key_mask(qi, start, kb.shape[2], causal=causal, window=window,
+                        device=q.device)
         s = torch.einsum("bhqd,bhkd->bhqk", qf, kb)
         s = torch.where(msk[None, None], s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(-1))
@@ -103,13 +120,70 @@ def mha_blocked(q, k, v, *, causal: bool = True, window: int = 0,
         acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vb)
         m = m_new
     l = torch.clamp(l, min=1e-30)
-    return (acc / l[..., None]).to(q.dtype)
+    return (acc / l[..., None]).to(q.dtype), m + torch.log(l)
+
+
+def mha_blocked_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                    window: int = 0, q_offset: int = 0,
+                    scale: Optional[float] = None, block_k: int = 512):
+    """Flash-attention backward (the reference's ``_mha_core_bwd``).
+
+    Per KV block, P is recomputed from the saved log-sum-exp,
+    ``delta = rowsum(dO * O)``, ``dS = P (dO V^T - delta) * scale``;
+    dq accumulates over blocks, dk = dS^T q and dv = P^T dO per block, all in
+    fp32.  GQA: dk and dv are summed over each kv head's query group.
+    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    ke = _expand_kv(k, Hq)
+    ve = _expand_kv(v, Hq)
+    bk = min(block_k, Sk)
+    qf = q.float()
+    dof = dout.float()
+    delta = (dof * out.float()).sum(-1)                      # [B, Hq, Sq]
+    qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    dq = torch.zeros((B, Hq, Sq, D), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for start in range(0, Sk, bk):
+        kb = ke[:, :, start:start + bk].float()
+        vb = ve[:, :, start:start + bk].float()
+        msk = _key_mask(qi, start, kb.shape[2], causal=causal, window=window,
+                        device=q.device)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf * scale, kb)
+        s = torch.where(msk[None, None], s, torch.full_like(s, NEG_INF))
+        p = torch.exp(s - lse[..., None])
+        dvs.append(torch.einsum("bhqk,bhqd->bhkd", p, dof))
+        dp = torch.einsum("bhqd,bhkd->bhqk", dof, vb)
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + torch.einsum("bhqk,bhkd->bhqd", ds, kb)
+        dks.append(torch.einsum("bhqk,bhqd->bhkd", ds, qf))
+    g = Hq // Hkv
+    dk = torch.cat(dks, 2).reshape(B, Hkv, g, Sk, -1).sum(2)
+    dv = torch.cat(dvs, 2).reshape(B, Hkv, g, Sk, -1).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                eps: float = 1e-6):
+    """Gradient of :func:`rmsnorm` in fp32: with ``xhat = x * rstd`` and
+    ``g = dy * scale``, ``dx = rstd * (g - xhat * mean(g * xhat))`` and
+    ``dscale = sum over rows of dy * xhat``; results in the dtypes of x and
+    scale."""
+    x32 = x.float()
+    dy32 = dy.float()
+    rstd = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    xhat = x32 * rstd
+    g = dy32 * scale.float()
+    dx = rstd * (g - xhat * torch.mean(g * xhat, dim=-1, keepdim=True))
+    dscale = (dy32 * xhat).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
 
 
 # ---------------------------------------------------------------------------

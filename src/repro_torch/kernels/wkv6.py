@@ -86,12 +86,9 @@ def check_inputs(r, k, v, w, u, s0) -> None:
 def wkv6_cuda(r, k, v, w, u, s0):
     """Launch ``csrc/wkv6.cu``; returns (out in r.dtype, state_T fp32)."""
     tensors = (r, k, v, w, u, s0)
-    if not all(t.is_cuda and t.device == r.device for t in tensors):
-        raise ValueError("wkv6_cuda needs r, k, v, w, u, s0 on one CUDA "
-                         "device")
+    build.on_one_card(tensors, "wkv6_cuda")
     check_inputs(r, k, v, w, u, s0)
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("wkv6 kernel needs 16-byte aligned tensors")
+    build.aligned(tensors, "wkv6_cuda")
     B, H, T, _ = r.shape
     out = torch.empty_like(v)
     state = torch.empty_like(s0)
@@ -117,8 +114,17 @@ def wkv6_cuda(r, k, v, w, u, s0):
 
 
 def wkv6(r, k, v, w, u, s0):
-    """WKV-6 forward from state ``s0``: the kernel on CUDA, plain on CPU."""
+    """WKV-6 forward from state ``s0``: the kernel on CUDA, plain on CPU.
+
+    The kernel has no backward yet, so on CUDA a call that would need one
+    (grad mode on and an input that requires grad) raises here, at the
+    forward; the plain version on the CPU differentiates through torch."""
     if r.is_cuda:
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (r, k, v, w, u, s0)):
+            raise NotImplementedError(
+                "the WKV-6 kernel has no backward yet: rwkv6 training is "
+                "ROADMAP B3 (the kernel) and A8 (ssm training)")
         return wkv6_cuda(r, k, v, w, u, s0)
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, s0)

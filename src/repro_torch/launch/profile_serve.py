@@ -32,6 +32,10 @@ def _family(name: str) -> str:
     n = name.lower()
     if "flash_fwd" in n:
         return "flash_attention (ours)"
+    if "flash_bwd" in n:
+        return "flash_attention_bwd (ours)"
+    if "rmsnorm_bwd" in n or "rmsnorm_dscale" in n:
+        return "rmsnorm_bwd (ours)"
     if "rmsnorm" in n:
         return "rmsnorm (ours)"
     if "wkv6" in n:
@@ -49,7 +53,7 @@ def _family(name: str) -> str:
     return "other"
 
 
-def _device_profile(fn, dev):
+def device_profile(fn, dev):
     """Run ``fn`` under the profiler; wall ms and device ms by family."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -148,9 +152,9 @@ def main():
         state["tok"], state["cache"] = run_prefill()
 
     print(json.dumps({"phase": "trace_prefill",
-                      **_device_profile(prof_prefill, dev)}), flush=True)
+                      **device_profile(prof_prefill, dev)}), flush=True)
     print(json.dumps({"phase": "trace_decode", "steps": n_dec,
-                      **_device_profile(lambda: run_decode(state["tok"],
+                      **device_profile(lambda: run_decode(state["tok"],
                                                            state["cache"]),
                                         dev)}), flush=True)
 

@@ -15,12 +15,26 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ParallelConfig, ShapeConfig
+from repro_torch.core import checkpointing
 from repro_torch.core import stage as stage_lib
 from repro_torch.core.pipeline import TickCtx
 from repro_torch.devices import DeviceLike, resolve_device, stage_devices
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.tree import tree_map
+
+
+# positions per head-loss chunk: the reference's measured sweet spot
+HEAD_LOSS_CHUNK = 512
+
+
+def head_loss_chunk(seq: int) -> int:
+    """Positions per head-loss chunk: ``HEAD_LOSS_CHUNK``, or the largest
+    length below it that divides ``seq``."""
+    c = min(HEAD_LOSS_CHUNK, seq)
+    while seq % c:
+        c -= 1
+    return c
 
 
 def _embed_lookup(table, tokens, dtype):
@@ -112,8 +126,11 @@ class LMModel:
         """stage_apply for the pipeline runner (forward, or prefill + caches).
 
         Prefill writes each layer's cache slice for ``ctx.micro`` in place
-        (the reference returns an updated copy)."""
+        (the reference returns an updated copy).  With
+        ``pcfg.remat_layers`` each layer of the forward is checkpointed
+        on its own as well (nested inside the stage's remat)."""
         model, a = self, self.arch
+        per_layer = "full" if self.pcfg.remat_layers else "none"
 
         def stage_apply(stage_params, carry, skips_in, resident,
                         ctx: TickCtx):
@@ -125,7 +142,9 @@ class LMModel:
                     cache = tree_map(lambda x: x[l, ctx.micro], resident)
                     h, _ = model.block_prefill(lp, h, c, a, cache)
                 else:
-                    h = model.block_apply(lp, h, c, a)
+                    h = checkpointing.wrap_stage(
+                        lambda lp_, h_, c=c: model.block_apply(lp_, h_, c, a),
+                        per_layer)(lp, h)
             return {"h": h}, {}, resident
 
         return stage_apply
@@ -153,6 +172,29 @@ class LMModel:
         if w is None:
             w = params["embed"]["tok"].T       # tied embeddings
         return hn @ w
+
+    def head_loss(self, params, h, labels):
+        """Chunked softmax cross-entropy over the sequence, mean over all
+        ``B * S`` positions in fp32 (reference ``LMModel.head_loss``).
+
+        Chunks of :func:`head_loss_chunk` positions, each under
+        ``torch.utils.checkpoint``: the forward keeps no chunk's logits and
+        the backward recomputes them one chunk at a time, so [B, S, V] is
+        never whole."""
+        Bsz, S, _ = h.shape
+        c = head_loss_chunk(S)
+        labels = labels.long()
+
+        def chunk_ce(hx, lx):
+            logits = self.head_logits(params, hx).float()
+            gold = torch.gather(logits, -1, lx[..., None])[..., 0]
+            return (torch.logsumexp(logits, -1) - gold).sum()
+
+        ce = checkpointing.wrap_stage(chunk_ce, "full")
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for start in range(0, S, c):
+            total = total + ce(h[:, start:start + c], labels[:, start:start + c])
+        return total / (Bsz * S)
 
     # ----------------------------------------------------------------- caches
     def cache_protos(self, shape: ShapeConfig, n_micro: int):

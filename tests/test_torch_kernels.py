@@ -14,10 +14,16 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (check_bwd_inputs,
+                                                 flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_cuda,
+                                                 flash_attention_bwd_plain,
                                                  flash_attention_cuda,
                                                  flash_attention_plain)
-from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_cuda, rmsnorm_plain
+from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd,
+                                         rmsnorm_bwd_cuda, rmsnorm_bwd_plain,
+                                         rmsnorm_cuda, rmsnorm_plain)
 from repro_torch.kernels.wkv6 import wkv6, wkv6_cuda, wkv6_plain
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -31,6 +37,11 @@ NORM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # order and that split apart, the bf16 out one rounding of the fp32 result
 WKV_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 WKV_STATE_TOL = 1e-4
+# backward kernels on the card (chip_smoke.py's): fp32 sums in another order;
+# bf16 rounds each gradient once from fp32, so it is held within 2e-2 of
+# its own largest magnitude
+BWD_FP32_TOL = 1e-3
+BWD_BF16_REL = 2e-2
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -265,9 +276,141 @@ def test_wkv6_kernel_bf16_w_vs_plain(cuda_device, T):
                                rtol=WKV_STATE_TOL, atol=WKV_STATE_TOL)
 
 
+def _assert_bwd_close(got, want, dtype, what):
+    g, w = _np(got.cpu()), _np(want.cpu())
+    assert np.isfinite(g).all(), what
+    if dtype == "float32":
+        np.testing.assert_allclose(g, w, rtol=BWD_FP32_TOL, atol=BWD_FP32_TOL,
+                                   err_msg=what)
+    else:
+        assert np.abs(g - w).max() <= BWD_BF16_REL * np.abs(w).max(), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(15, 5), (4, 4)])
+@pytest.mark.parametrize("s", [100, 256, 2048, 4096])
+@pytest.mark.parametrize("mask", [(True, 0), (False, 0), (True, 128)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_kernel_vs_plain(cuda_device, heads, s, mask, d,
+                                             dtype):
+    """dq / dk / dv and the forward's lse on the card against the plain
+    backward on the same inputs; S = 100 is ragged against the 64-row tiles,
+    GQA 3:1 sums dk / dv over each kv head's group."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    causal, window = mask
+    dt = DTYPES[dtype]
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dt)
+               for a in _qkv(*heads, s, s, d=d, b=2))
+    do = torch.from_numpy(_qkv(*heads, s, s, d=d, b=2, seed=1)[0]).to(
+        cuda_device, dt)
+    kw = dict(causal=causal, window=window)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == dt and g.shape == w.shape
+        _assert_bwd_close(g, w, dtype, name)
+    np.testing.assert_allclose(lse.cpu().numpy(), ref.mha_blocked_fwd(
+        q, k, v, **kw)[1].cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [960, 2048, 448])
+@pytest.mark.parametrize("rows", [1, 3, 2048, 8192])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_bwd_kernel_vs_plain(cuda_device, d, rows, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(rows + d)
+    dt = DTYPES[dtype]
+    x = (torch.randn(rows, d, generator=g, device=cuda_device) * 2).to(dt)
+    s = (torch.randn(d, generator=g, device=cuda_device) + 1).to(dt)
+    dy = torch.randn(rows, d, generator=g, device=cuda_device).to(dt)
+    before = rmsnorm_bwd.launches
+    got = rmsnorm_bwd(x, s, dy)
+    torch.cuda.synchronize()
+    assert rmsnorm_bwd.launches == before + 1
+    for g_, w, name in zip(got, rmsnorm_bwd_plain(x, s, dy), ("dx", "dscale")):
+        assert g_.dtype == dt and g_.shape == w.shape
+        _assert_bwd_close(g_, w, dtype, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_functions_carry_autograd_on_the_card(cuda_device, dtype):
+    """The outputs of the attention and RMSNorm Functions carry a grad_fn on
+    the card, and their backward runs the backward kernels: the gradients
+    through both equal the plain Functions' on the CPU."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = DTYPES[dtype]
+    qn, kn, vn = _qkv(15, 5, 130, 130, d=64)
+    xn = np.random.default_rng(3).normal(size=(130, 960)).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        launched = (flash_attention_bwd.launches, rmsnorm_bwd.launches)
+        q, k, v = (torch.from_numpy(a).to(dev, dt).requires_grad_()
+                   for a in (qn, kn, vn))
+        x = torch.from_numpy(xn).to(dev, dt).requires_grad_()
+        scale = torch.ones(960, device=dev, dtype=dt, requires_grad=True)
+        out = flash_attention(q, k, v, causal=True)
+        y = rmsnorm(x, scale)
+        assert out.grad_fn is not None and y.grad_fn is not None
+        loss = (out.float() ** 2).sum() + (y.float() ** 2).sum()
+        grads[str(dev)] = torch.autograd.grad(loss, (q, k, v, x, scale))
+    assert (flash_attention_bwd.launches, rmsnorm_bwd.launches) == (
+        launched[0] + 1, launched[1] + 1)
+    for g, w, name in zip(grads[str(cuda_device)], grads["cpu"],
+                          ("dq", "dk", "dv", "dx", "dscale")):
+        _assert_bwd_close(g, w, dtype, name)
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_under_grad_raises_at_the_forward(cuda_device):
+    r = torch.zeros(1, 32, 64, 64, device=cuda_device, requires_grad=True)
+    w = torch.full((1, 32, 64, 64), 0.9, device=cuda_device)
+    u = torch.zeros(32, 64, device=cuda_device)
+    s0 = torch.zeros(1, 32, 64, 64, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="B3"):
+        wkv6(r, r.detach(), r.detach(), w, u, s0)
+    with torch.no_grad():
+        out, _ = wkv6(r, r, r, w, u, s0)
+    assert out.grad_fn is None
+
+
 # ---------------------------------------------------------------------------
 # Around the kernels (CPU)
 # ---------------------------------------------------------------------------
+
+def test_backward_wrappers_refuse_cpu_tensors_and_their_contract():
+    """The backward entry points never run a plain version: CPU input
+    raises; the attention backward kernel takes the training case only."""
+    x = torch.ones(2, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm_bwd_cuda(x, torch.ones(64), x)
+    q = torch.zeros(1, 2, 4, 64)
+    lse = torch.zeros(1, 2, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd_cuda(q, q, q, q, lse, q)
+    with pytest.raises(ValueError, match="q_offset"):
+        check_bwd_inputs(q, q, q, q, lse, q, q_offset=2)
+    k = torch.zeros(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        check_bwd_inputs(q, k, k, q, lse, q, q_offset=0)
+    with pytest.raises(ValueError, match="lse"):
+        check_bwd_inputs(q, q, q, q, lse.double(), q, q_offset=0)
+    check_bwd_inputs(q, q, q, q, lse, q, q_offset=0)
+
+
+def test_wkv6_on_cpu_differentiates_through_the_plain_version():
+    """Only the card's WKV lacks a backward: the CPU plain version keeps
+    torch's autograd (the rwkv6 CPU tests train nothing, but may)."""
+    r = torch.randn(1, 2, 5, 8, requires_grad=True)
+    w = torch.full((1, 2, 5, 8), 0.9)
+    out, _ = wkv6(r, r, r, w, torch.zeros(2, 8), torch.zeros(1, 2, 8, 8))
+    assert out.grad_fn is not None
+
 
 @pytest.mark.parametrize("name, family", [
     ("void (anonymous namespace)::tc::flash_fwd_wgmma_kernel<64>("
@@ -281,6 +424,17 @@ def test_wkv6_kernel_bf16_w_vs_plain(cuda_device, T):
      "float)", "rmsnorm (ours)"),
     ("void (anonymous namespace)::rmsnorm_kernel<float, 0>(float const*, "
      "float const*, float*, int, int, float)", "rmsnorm (ours)"),
+    ("void (anonymous namespace)::bwd_tc::flash_bwd_dkdv_mma_kernel<64>("
+     "__nv_bfloat16 const*, ...)", "flash_attention_bwd (ours)"),
+    ("void (anonymous namespace)::bwd::flash_bwd_dq_kernel<float, 64>("
+     "float const*, ...)", "flash_attention_bwd (ours)"),
+    ("void (anonymous namespace)::bwd::flash_bwd_delta_kernel<__nv_bfloat16, "
+     "64>(__nv_bfloat16 const*, __nv_bfloat16 const*, float*, int)",
+     "flash_attention_bwd (ours)"),
+    ("void (anonymous namespace)::rmsnorm_bwd_kernel<__nv_bfloat16>("
+     "__nv_bfloat16 const*, ...)", "rmsnorm_bwd (ours)"),
+    ("void (anonymous namespace)::rmsnorm_dscale_kernel<float>(float const*, "
+     "float*, int, int)", "rmsnorm_bwd (ours)"),
     ("void (anonymous namespace)::wkv6_kernel<__nv_bfloat16, float>(...)",
      "wkv6 (ours)"),
     ("void (anonymous namespace)::wkv6_update_kernel<float>(__nv_bfloat16 "
