@@ -9,12 +9,12 @@ non-zero and no result line is printed):
 
 1. device   the card's name and ``nvidia-smi`` name / power limit;
 2. build    the three CUDA sources from ``src/repro_torch/kernels/csrc``
-            with ``nvcc`` for sm_90a, in parallel; the count of wgmma
-            (HGMMA) instructions in the attention library (its bf16
-            forward) and of mma.sync (HMMA) instructions in it (its bf16
-            backward) and in the WKV library, none of which may be 0; each
-            WKV and attention kernel's registers and spills (no WKV kernel
-            may spill);
+            with ``nvcc`` for sm_90a, in parallel; per kernel function, the
+            count of wgmma (HGMMA) and mma.sync (HMMA) instructions in the
+            SASS: the bf16 attention forward, dQ and dK/dV kernels must hold
+            HGMMA (the backward ones no HMMA), the chunked WKV passes HMMA;
+            each kernel's registers and spills (no WKV or backward kernel
+            may spill) and any wgmma that ptxas serialised;
 3. kernels  each kernel against its plain PyTorch version on the card over
             a grid of shapes (WKV in both its chunked and its serial form,
             with masked tails and decays that underflow to 0; attention
@@ -26,11 +26,13 @@ non-zero and no result line is printed):
             step, and by kernel from a profiler trace;
    backward the attention and RMSNorm backward kernels against their plain
             versions over a grid that holds the training path's shapes, and
-            again at every timed shape, the autograd checks (the
+            again at every timed shape, the bf16 attention backward twice
+            at the training call (bitwise equal), the autograd checks (the
             Functions' outputs carry a grad_fn, a CUDA WKV-6 call under
             grad raises), then both
             timed beside the bound and the PyTorch call that computes the
-            same backward (SDPA's, F.rms_norm's: yardsticks only);
+            same backward (SDPA's, F.rms_norm's: yardsticks only), with the
+            achieved TFLOP/s and the bound's share of the time;
 4. port     the same weights through the kernels on the card and through
             the plain versions on the CPU, prefill + 4 decode steps, logits
             compared: smollm-360m at full width, 4 layers, pipe 2, fp32;
@@ -157,6 +159,13 @@ def kernel_us(torch, fn, iters: int):
     return per
 
 
+def with_rates(rec, flops):
+    """A kernel_timing record with its achieved TFLOP/s (``flops`` over the
+    measured time) and its bound share (bound over time)."""
+    return rec | {"tflops": flops / (rec["ms"] * 1e-3) / 1e12,
+                  "bound_share": rec["bound_ms"] / rec["ms"]}
+
+
 def max_err(torch, got, want) -> float:
     return float((got.float() - want.float()).abs().max().item())
 
@@ -195,13 +204,56 @@ def ptxas_kernels(log: str):
     return out
 
 
-def sass_count(build, lib: str, op: str) -> int:
-    """Lines of ``op`` (e.g. HGMMA, HMMA) in a built library's SASS."""
+SASS_OPS = ("HGMMA", "HMMA")
+
+
+def sass_by_function(build, lib: str):
+    """Per kernel function of a built library: the lines of each op in
+    ``SASS_OPS`` (wgmma is HGMMA, mma.sync HMMA), from ``cuobjdump
+    --dump-sass`` split at its ``Function :`` headers."""
     sass = subprocess.run(
         [str(Path(build.nvcc_path()).parent / "cuobjdump"), "--dump-sass",
          str(build.lib_path(lib))],
         capture_output=True, text=True, timeout=300, check=True).stdout
-    return sum(op in ln for ln in sass.splitlines())
+    out, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = m.group(1)
+            out[name] = dict.fromkeys(SASS_OPS, 0)
+        elif name is not None:
+            for op in SASS_OPS:
+                out[name][op] += op in ln
+    return out
+
+
+# Kernel functions (a substring of the mangled name) and the tensor-core
+# instructions each must hold: the bf16 attention kernels run on wgmma
+# (HGMMA) and none on mma.sync (HMMA); the chunked WKV form's update and
+# output passes on mma.sync.
+SASS_GATES = {
+    "flash_fwd_wgmma_kernel": {"HGMMA": True},
+    "flash_bwd_dkdv_wgmma_kernel": {"HGMMA": True, "HMMA": False},
+    "flash_bwd_dq_wgmma_kernel": {"HGMMA": True, "HMMA": False},
+    "wkv6_update_kernel": {"HMMA": True},
+    "wkv6_out_kernel": {"HMMA": True},
+}
+BWD_KERNELS = ("flash_bwd_", "rmsnorm_bwd_kernel", "rmsnorm_dscale_kernel")
+
+
+def sass_gate(funcs):
+    """Check each function named in ``SASS_GATES`` (both head dims where
+    templated); returns the failures."""
+    bad = []
+    for key, want in SASS_GATES.items():
+        hits = {n: c for n, c in funcs.items() if key in n}
+        if not hits:
+            bad.append(f"no function {key}")
+        for n, counts in hits.items():
+            for op, present in want.items():
+                if (counts[op] > 0) != present:
+                    bad.append(f"{n}: {op} {counts[op]}")
+    return bad
 
 
 def phase_build():
@@ -212,26 +264,29 @@ def phase_build():
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
              for n, log in logs.items()}
-    # the bf16 attention forward runs both products on wgmma (HGMMA in the
-    # SASS), its backward on mma.sync (HMMA); so do the chunked WKV form's
-    hgmma = sass_count(build, "flash_attention", "HGMMA")
-    hmma = {lib: sass_count(build, lib, "HMMA")
-            for lib in ("flash_attention", "wkv6")}
-    wkv_kernels = ptxas_kernels(logs["wkv6"])
+    # ptxas names any kernel whose wgmma it had to serialise (C7518)
+    wgmma_warnings = [ln.strip() for log in logs.values()
+                      for ln in log.splitlines() if "serialized" in ln]
+    funcs = {}
+    for lib in ("flash_attention", "wkv6"):
+        funcs.update(sass_by_function(build, lib))
+    kernels = {n: k for lib in ("flash_attention", "rmsnorm", "wkv6")
+               for n, k in ptxas_kernels(logs[lib]).items()}
+    sass = {n: c for n, c in funcs.items() if any(c.values())}
     emit({"phase": "build", "seconds": dt, "nvcc": build.nvcc_path(),
           "flags": list(build.NVCC_FLAGS), "ptxas": ptxas,
-          "hgmma": {"flash_attention": hgmma}, "hmma": hmma,
-          "wkv6_kernels": wkv_kernels,
-          "flash_attention_kernels": ptxas_kernels(logs["flash_attention"])})
-    if hgmma == 0:
-        raise AssertionError("libflash_attention.so holds no HGMMA")
-    if not all(hmma.values()):
-        raise AssertionError(f"a library holds no HMMA: {hmma}")
-    spilled = {n: k for n, k in wkv_kernels.items()
-               if k.get("spill_bytes", 0) > 0}
-    if not wkv_kernels or spilled:
-        raise AssertionError(f"WKV kernels spill or were not reported: "
-                             f"{spilled or wkv_kernels}")
+          "wgmma_warnings": wgmma_warnings, "sass_count": sass,
+          "kernels": kernels})
+    bad = sass_gate(funcs)
+    if bad:
+        raise AssertionError(f"SASS gate: {bad}")
+    # no WKV or backward kernel may spill
+    checked = {n: k for n, k in kernels.items()
+               if "wkv6" in n or any(b in n for b in BWD_KERNELS)}
+    spilled = {n: k for n, k in checked.items() if k.get("spill_bytes", 0) > 0}
+    if not checked or spilled:
+        raise AssertionError(f"kernels spill or were not reported: "
+                             f"{spilled or checked}")
 
 
 def phase_kernels(torch):
@@ -399,8 +454,7 @@ def phase_kernels(torch):
             "shape": [1, rows, d], "dtype": "bfloat16",
             "decode_row_ms": device_ms(torch, lambda: rmsnorm(x1, s), 500),
         }
-        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-        return rec
+        return with_rates(rec, norm_flops)
 
     norm = norm_timing(D_MODEL)           # smollm-360m
     norm_rwkv = norm_timing(2048)         # rwkv6-1.6b's group norm
@@ -469,6 +523,8 @@ def phase_kernels(torch):
         "decode_ms": device_ms(torch, lambda: wkv6(*dec), 500),
         "decode_bound_ms": 1e3 * dec_bytes / HBM_BYTES_PER_S,
     }
+    attn = with_rates(attn, attn_flops)
+    wkv = with_rates(wkv, wkv_tc_flops)
     for rec in (norm, norm_rwkv, attn, wkv):
         emit({"phase": "kernel_timing", **rec})
     return {"rmsnorm": norm, "flash_attention": attn, "wkv6": wkv}
@@ -520,11 +576,14 @@ def phase_backward(torch):
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
-    # -- attention: GQA 3:1 and MHA, causal / full / window, ragged S -------
+    # -- attention: GQA 3:1, 5:1 and MHA, causal / full / window, ragged S:
+    #    100 and 192 are not multiples of the 128-row tiles, a window of 100
+    #    straddles the 128-key blocks -----------------------------------------
     cases = [(b, hq, hkv, sq, d, causal, window)
-             for b, hq, hkv in ((1, 15, 5), (2, 4, 4))
-             for sq in (100, 256, 2048) for d in (64, 128)
-             for causal, window in ((True, 0), (False, 0), (True, 128))]
+             for b, hq, hkv in ((1, 15, 5), (2, 4, 4), (1, 15, 3))
+             for sq in (100, 192, 256, 2048) for d in (64, 128)
+             for causal, window in ((True, 0), (False, 0), (True, 128),
+                                    (True, 100))]
     cases.append((2, 15, 5, 4096, 64, True, 0))       # the training path's
     for b, hq, hkv, sq, d, causal, window in cases:
         for dname, dt in dtypes.items():
@@ -550,9 +609,26 @@ def phase_backward(torch):
                 raise AssertionError(f"attention backward disagrees: {res}, "
                                      f"lse {lse_err}")
 
-    # -- RMSNorm: both widths compiled for the forward and a generic one ----
+    # -- the bf16 backward at the training call, twice on the same inputs:
+    #    no atomics, so dq, dk and dv are bitwise equal -----------------------
+    q = randn(2, 15, 4096, 64, dtype=torch.bfloat16)
+    k, v = (randn(2, 5, 4096, 64, dtype=torch.bfloat16) for _ in range(2))
+    do = randn(2, 15, 4096, 64, dtype=torch.bfloat16)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    first = flash_attention_bwd(q, k, v, out, lse, do)
+    again = flash_attention_bwd(q, k, v, out, lse, do)
+    same = [bool(torch.equal(a, b)) for a, b in zip(first, again)]
+    emit({"check": "flash_attention_bwd_bitwise", "b": 2, "hq": 15, "hkv": 5,
+          "s": 4096, "d": 64, "dtype": "bfloat16",
+          "equal": dict(zip(("dq", "dk", "dv"), same)), "ok": all(same)})
+    if not all(same):
+        raise AssertionError(f"attention backward differs between calls: "
+                             f"{same}")
+
+    # -- RMSNorm: both widths compiled for the forward and a generic one;
+    #    5 and 33 rows are ragged shares of the backward's grid --------------
     for d in (D_MODEL, 2048, 448):
-        for rows in (1, 3, 2048, 8192):
+        for rows in (1, 3, 5, 33, 2048, 8192):
             for dname, dt in dtypes.items():
                 x = randn(rows, d, dtype=dt) * 2
                 s = randn(d, dtype=dt) + 1
@@ -628,6 +704,7 @@ def phase_backward(torch):
             "shape": {"q": [b, 15, sq, 64], "kv": [b, 5, sq, 64],
                       "causal": True}, "dtype": dname, "flops": flops,
         }
+        rec = with_rates(rec, flops)
         emit({"phase": "kernel_timing", **rec})
         return rec
 
@@ -656,6 +733,7 @@ def phase_backward(torch):
                          >= flops / PEAK_FP32_FLOPS else "operations"),
             "shape": list(shape), "dtype": "bfloat16",
         }
+        rec = with_rates(rec, flops)
         emit({"phase": "kernel_timing", **rec})
         return rec
 

@@ -57,25 +57,44 @@
 //   delta = rowsum(dO * O);  P = exp(s scale - lse);  dV = P^T dO;
 //   dS = P (dO V^T - delta) scale;  dK = dS^T Q;  dQ = dS K.
 // Bound on this card: operations.  Five S x S x D products; causal at
-// Sq = Sk = 2048, Hq 15, D 64 that is ~20.1 GFLOP (20.3 us at the bf16
-// tensor-core peak).  Without atomics the kernels below compute seven (S and
-// dP twice: once for dK / dV, once for dQ).  Three kernels, none with
-// atomics, so the result is the same bit for bit from run to run:
-//   (a) delta: one warp a row, delta in fp32;
-//   (b) dK / dV: one block per (b, kv head, 64-key tile); it loops over the q
-//       heads of its GQA group and the 64-row q tiles that can see the key
-//       tile, accumulates dK and dV in fp32 registers and writes them once,
-//       so the group sum never leaves the block;
-//   (c) dQ: one block per (b, q head, 64-row q tile), looping over the key
-//       tiles it can see.
+// Sq = Sk = 4096, B 2, Hq 15, D 64 (the training call) that is ~161 GFLOP
+// (163 us at the bf16 tensor-core peak).  Without atomics the kernels below
+// compute seven (S and dP twice: once for dK / dV, once for dQ), a floor of
+// ~228 us there.  Three kernels, none with atomics, so the result is the
+// same bit for bit from run to run:
+//   (a) delta: 16 bytes of O and dO a lane, several rows a warp, fp32;
+//   (b) dK / dV: one block per (b, kv head, key tile), looping over the q
+//       heads of its GQA group and the q tiles that can see the key tile; it
+//       accumulates dK and dV in fp32 registers and writes them once, so the
+//       group sum never leaves the block;
+//   (c) dQ: one block per (b, q head, q tile), looping over the key tiles it
+//       can see.
 // Two forms of (b) and (c), chosen by dtype like the forward:
-//   bf16 (namespace bwd_tc): mma.sync m16n8k16 tensor cores with fp32
-//     accumulators, 4 warps a block, a warp owning 16 keys (b: it computes
-//     S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T come out as A fragments
-//     of dV += P^T dO and dK += dS^T Q) or 16 q rows (c).  Tiles are staged
-//     as bf16 in shared memory with rows 16 bytes longer than the data, so
-//     the 8 rows an ldmatrix reads fall in distinct banks.  P and dS are
-//     rounded to bf16 for their products, as the forward rounds P.
+//   bf16 (namespace bwd_tc): wgmma fed by TMA, the forward's shape.  Warps
+//     0-7 are two consumer warpgroups; warpgroup 2 is the producer, one
+//     thread of which issues every copy (128-byte swizzle, zero fill past Sq
+//     / Sk) through a 3-stage mbarrier ring, while the warpgroup hands its
+//     registers to the consumers (setmaxnreg: 24 a thread for it, 240 for
+//     them).  (b): 128 keys a block, 64 per warpgroup; K and V stay
+//     resident; the producer streams one (q head, q tile) pair after another
+//     over the whole group: Q, dO and the tile's lse and delta (1-d maps).
+//     A warpgroup computes S^T = K Q^T (wgmma, both operands K-major), so P^T
+//     leaves the accumulators already as the register A operand of
+//     dV += P^T dO, issued together with dP^T = V dO^T; then
+//     dS^T = P^T (dP^T - delta) scale feeds dK += dS^T Q the same way.  The
+//     same Q and dO tiles are read MN-major for those (the transpose bit): no
+//     transposed copy.  q tiles are 128 rows at D 64, 32 at D 128, where the
+//     dK and dV accumulators take 64 registers each.  Key block 0, which a
+//     causal mask shows every q tile, starts first.  (c): 128 q rows a
+//     block, 64 per warpgroup, Q and dO resident, K and V streamed in tiles
+//     of 128 keys (64 at D 128); S = Q K^T and dP = dO V^T as two groups,
+//     then dQ += dS K with K read MN-major; heaviest causal tiles first.
+//     Only the tiles that straddle a mask edge, Sq or Sk are masked, after
+//     the exponentials (no branch among them); a tile a warpgroup cannot see
+//     at all is skipped.  P and dS are rounded to bf16 for their products,
+//     as the forward rounds P; the dK / dV kernel forms dS^T from that bf16
+//     P^T too (registers).  A tile's products are issued and awaited inside
+//     one branch: ptxas serialises wgmma whose groups span two.
 //   fp32 (namespace bwd): SIMT, because tensor cores would take fp32 through
 //     TF32; a 256-thread block gives each thread a 4 x 4 patch of the 64 x 64
 //     score tile (row-major Q / dO against transposed K / V in shared memory,
@@ -432,7 +451,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                     kk > 0);
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     reg_fence(s);
 
     // scores in base 2: s c with c = scale * log2(e), then the -1e30 mask, so
@@ -498,12 +517,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // (LBO: the next 64-wide panel of d; SBO: the next 8 keys)
     uint32_t pa[8][4];
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-    }
+    for (int kk = 0; kk < 8; ++kk) to_a_frag(s, kk, pa[kk]);
     mbar_wait(v_full(st), ph);
     wgmma_fence();
     reg_fence(o);
@@ -514,7 +528,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       else wgmma_rs_n128(o, pa[kk], dv);
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     reg_fence(o);
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(st));
@@ -573,12 +587,13 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-d map over a contiguous [heads, s, d] bf16 tensor, boxes of 128 rows x 64
-// columns (one swizzle panel); rows past s arrive as zeros.
-bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int heads, int s, int d) {
+// A 3-d map over a contiguous [heads, s, d] bf16 tensor, boxes of `rows` rows x
+// 64 columns (one swizzle panel); rows past s arrive as zeros.
+bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int heads, int s, int d,
+              int rows = 128) {
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
-  const cuuint32_t box[3] = {64, 128, 1};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
                 strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -755,24 +770,31 @@ __device__ __forceinline__ void probs_and_dscores(float (&s)[4][4], float (&dp)[
   }
 }
 
-// (a) delta[row] = sum_d dO[row][d] O[row][d], one warp a row
+// (a) delta[row] = sum_d dO[row][d] O[row][d]: a row is D * sizeof(T) / 16
+// lanes, each with 16 bytes of O and of dO, so a warp takes 32 / that rows
+// (4 at bf16 D 64) with full 16-byte loads; the lanes of a row reduce by
+// shuffles in a fixed order
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
                        float* __restrict__ delta, int rows) {
-  const int row = (blockIdx.x * kThreads + threadIdx.x) >> 5;
+  constexpr int kVec = 16 / sizeof(T);        // elements a lane loads
+  constexpr int kLanes = D / kVec;            // lanes a row
   const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const T* o = out + (size_t)row * D;
-  const T* g = dout + (size_t)row * D;
+  const int row = ((blockIdx.x * kThreads + threadIdx.x) >> 5) * (32 / kLanes) + lane / kLanes;
+  const int c = (lane % kLanes) * kVec;
   float acc = 0.f;
-  for (int c = 4 * lane; c < D; c += 128) {
-    const float4 a = load4(o + c), b = load4(g + c);
-    acc += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+  if (row < rows) {
+#pragma unroll
+    for (int i = 0; i < kVec; i += 4) {
+      const float4 a = load4(out + (size_t)row * D + c + i);
+      const float4 b = load4(dout + (size_t)row * D + c + i);
+      acc += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+    }
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;
+  for (int off = kLanes / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && lane % kLanes == 0) delta[row] = acc;
 }
 
 // (b) dK, dV for one (b, kv head, key tile), summed over its GQA group
@@ -936,7 +958,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch_delta(const void* out, const void* dout, float* delta, int rows,
                          cudaStream_t stream) {
-  flash_bwd_delta_kernel<T, D><<<(rows + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0,
+  constexpr int kRowsPerBlock = kThreads / 32 * (32 / (D * (int)sizeof(T) / 16));
+  flash_bwd_delta_kernel<T, D><<<(rows + kRowsPerBlock - 1) / kRowsPerBlock, kThreads, 0,
                                  stream>>>(static_cast<const T*>(out),
                                            static_cast<const T*>(dout), delta, rows);
   return cudaGetLastError();
@@ -977,118 +1000,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
 }  // namespace bwd
 
 // ---------------------------------------------------------------------------
-// backward, bf16: mma.sync tensor cores, fp32 accumulators
+// backward, bf16: wgmma + TMA
 // ---------------------------------------------------------------------------
 
 namespace bwd_tc {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
-using hopper::frag_row;
-using hopper::ldsm;
-using hopper::ldsm_t;
-using hopper::mma;
-using hopper::pack_bf16;
+using tc::kRowBytes;
 
-constexpr int kB = 64;                  // q rows per q tile, keys per k tile
-constexpr int kWarps = 4;               // a warp: 16 rows (dQ) or 16 keys (dK, dV)
-constexpr int kThreads = 32 * kWarps;
-
-template <int D>
-struct Smem {
-  static constexpr int kLd = D + 8;     // bf16 row stride (16 bytes of padding)
-  static constexpr int kTile = kB * kLd;
-  // four bf16 tiles [kB][kLd], then lse and delta [kB] in fp32
-  static constexpr size_t kBytes = 4 * kTile * sizeof(bf16) + 2 * kB * sizeof(float);
-};
-
-// Rows [0, rows_valid) of a [kB, D] bf16 tile at src into a padded shared
-// tile, 16 bytes a thread at a time; rows past the edge are zero.
-template <int D>
-__device__ __forceinline__ void stage(const bf16* __restrict__ src, int rows_valid, bf16* dst) {
-  constexpr int kChunks = D / 8;
-  for (int e = threadIdx.x; e < kB * kChunks; e += kThreads) {
-    const int r = e / kChunks;
-    const int col = (e % kChunks) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_valid) v = *reinterpret_cast<const uint4*>(src + (size_t)r * D + col);
-    *reinterpret_cast<uint4*>(dst + r * Smem<D>::kLd + col) = v;
-  }
-}
-
-__device__ __forceinline__ void stage_rows(const float* __restrict__ src, int n_valid,
-                                           float* dst) {
-  for (int i = threadIdx.x; i < kB; i += kThreads) dst[i] = i < n_valid ? src[i] : 0.f;
-}
-
-// acc[j] = block j (16 x 8) of A[a_row0 .. a_row0 + 15][:] B^T: a 16 x 64
-// product of two row-major [.][D] shared tiles; B's 64 rows are its columns.
-// Read as B^T, ldmatrix of B's rows gives b0 and b1 of two column blocks.
-template <int D>
-__device__ __forceinline__ void rows_times_tile_t(const bf16* A, int a_row0, const bf16* B,
-                                                  int lane, float (&acc)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    uint32_t a[4];
-    ldsm(a, frag_row(A, Smem<D>::kLd, a_row0, 16 * ks, lane));
-#pragma unroll
-    for (int nb = 0; nb < 4; ++nb) {
-      uint32_t b[4];     // b0 of columns 16 nb, b0 of 16 nb + 8, b1 of 16 nb, b1 of 16 nb + 8
-      ldsm(b, frag_row(B, Smem<D>::kLd, 16 * nb, 16 * ks, lane));
-      mma(acc[2 * nb], a, b[0], b[2]);
-      mma(acc[2 * nb + 1], a, b[1], b[3]);
-    }
-  }
-}
-
-// acc[j] (block j, 16 x 8, of a 16 x D product) += X B: X is 16 x 64 as four
-// A fragments (k steps of 16), B a row-major [64][D] shared tile.
-template <int D>
-__device__ __forceinline__ void frags_times_tile(const uint32_t (&x)[4][4], const bf16* B,
-                                                 int lane, float (&acc)[D / 8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int nb = 0; nb < D / 16; ++nb) {
-      uint32_t b[4];
-      ldsm_t(b, frag_row(B, Smem<D>::kLd, 16 * kk, 16 * nb, lane));
-      mma(acc[2 * nb], x[kk], b[0], b[1]);
-      mma(acc[2 * nb + 1], x[kk], b[2], b[3]);
-    }
-}
-
-// A 16 x 64 accumulator (blocks of 16 x 8) as the A fragments of four k
-// steps of 16, rounded to bf16: the accumulator layout of two neighbouring
-// blocks is the A fragment layout of one k step.
-__device__ __forceinline__ void to_frags(const float (&x)[8][4], uint32_t (&f)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    f[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    f[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    f[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    f[kk][3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-  }
-}
-
-// Rows row_lo and row_lo + 8 (those below n_rows) of a 16 x D accumulator
-// into a row-major [.][D] bf16 tensor at base.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ base, const float (&acc)[D / 8][4],
-                                           int row_lo, int n_rows, int lane) {
-  const int col = 2 * (lane % 4);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row_lo + 8 * h;
-    if (row >= n_rows) continue;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(base + (size_t)row * D + 8 * j + col) =
-          __floats2bfloat162_rn(acc[j][2 * h], acc[j][2 * h + 1]);
-  }
-}
+constexpr int kConsumers = 256;             // warps 0-7: two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup (one thread copies)
+constexpr int kProducerRegs = 24;           // setmaxnreg: the producer gives registers
+constexpr int kConsumerRegs = 240;          // back, each consumer thread takes 240
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ bool visible(int row, int pos, int key, int sq, int sk, int causal,
                                         int window) {
@@ -1098,144 +1023,458 @@ __device__ __forceinline__ bool visible(int row, int pos, int key, int sq, int s
   return ok;
 }
 
-// (b) dK, dV for one (b, kv head, key tile), summed over its GQA group
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int hq, int hkv,
-                          int sq, int sk, float scale, int causal, int window, int q_offset) {
-  using L = Smem<D>;
-  extern __shared__ uint4 smem_u4[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_u4);
-  bf16* sV = sK + L::kTile;
-  bf16* sQ = sV + L::kTile;
-  bf16* sdO = sQ + L::kTile;
-  float* sLse = reinterpret_cast<float*>(sdO + L::kTile);
-  float* sDelta = sLse + kB;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int bkv = blockIdx.y;               // b * hkv + kv head
-  const int b = bkv / hkv;
-  const int group = hq / hkv;
-  const int k0 = blockIdx.x * kB;
-  const int k_valid = min(kB, sk - k0);
-  const int key_lo = k0 + 16 * warp + lane / 4;   // this lane's keys: key_lo, key_lo + 8
-  stage<D>(k + ((size_t)bkv * sk + k0) * D, k_valid, sK);
-  stage<D>(v + ((size_t)bkv * sk + k0) * D, k_valid, sV);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-
-  const int nq = (sq + kB - 1) / kB;
-  for (int gi = 0; gi < group; ++gi) {
-    const int bh = b * hq + (bkv % hkv) * group + gi;
-    for (int qt = 0; qt < nq; ++qt) {
-      const int q0 = qt * kB;
-      if (!bwd::tile_needed(q0 + q_offset, k0, causal, window)) continue;   // uniform
-      const int q_valid = min(kB, sq - q0);
-      __syncthreads();   // the previous tile's reads of sQ .. sDelta are done
-      stage<D>(q + ((size_t)bh * sq + q0) * D, q_valid, sQ);
-      stage<D>(dout + ((size_t)bh * sq + q0) * D, q_valid, sdO);
-      stage_rows(lse + (size_t)bh * sq + q0, q_valid, sLse);
-      stage_rows(delta + (size_t)bh * sq + q0, q_valid, sDelta);
-      __syncthreads();
-
-      float s[8][4], dp[8][4];
-      rows_times_tile_t<D>(sK, 16 * warp, sQ, lane, s);     // S^T = K Q^T
-      rows_times_tile_t<D>(sV, 16 * warp, sdO, lane, dp);   // dP^T = V dO^T
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key_lo + 8 * (e >> 1);
-          const int col = 8 * j + 2 * (lane % 4) + (e & 1);    // q row in the tile
-          const int row = q0 + col;
-          const float p = visible(row, row + q_offset, key, sq, sk, causal, window)
-                              ? __expf(s[j][e] * scale - sLse[col]) : 0.f;
-          s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - sDelta[col]) * scale;
-        }
-      uint32_t pf[4][4], dsf[4][4];
-      to_frags(s, pf);
-      to_frags(dp, dsf);
-      frags_times_tile<D>(pf, sdO, lane, dv_acc);    // dV += P^T dO
-      frags_times_tile<D>(dsf, sQ, lane, dk_acc);    // dK += dS^T Q
-    }
-  }
-  const size_t plane = ((size_t)bkv * sk + k0) * D;
-  store_rows<D>(dk + plane, dk_acc, 16 * warp + lane / 4, k_valid, lane);
-  store_rows<D>(dv + plane, dv_acc, 16 * warp + lane / 4, k_valid, lane);
+// Descriptors of a swizzled [rows, D] bf16 tile (64-column panels of `rows`
+// rows) at k16 step kk.  K-major (d is k): 32 bytes a step, the next panel
+// after four.  MN-major (rows are k, d is n): 16 rows a step, the next
+// 64-wide panel of d `rows` rows further.
+__device__ __forceinline__ uint64_t k_desc(uint32_t tile, int kk, int rows) {
+  return sw128_desc(tile + (kk / 4) * rows * kRowBytes + (kk % 4) * 32, 16, 1024);
+}
+__device__ __forceinline__ uint64_t mn_desc(uint32_t tile, int kk, int rows) {
+  return sw128_desc(tile + kk * 16 * kRowBytes, rows * kRowBytes, 1024);
 }
 
-// (c) dQ for one (b, q head, q tile)
+// (b) dK / dV: one block per (b, kv head, 128 keys)
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dq, int hq, int hkv, int sq, int sk, float scale,
-                        int causal, int window, int q_offset) {
-  using L = Smem<D>;
-  extern __shared__ uint4 smem_u4[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_u4);
-  bf16* sdO = sQ + L::kTile;
-  bf16* sK = sdO + L::kTile;
-  bf16* sV = sK + L::kTile;
-  float* sLse = reinterpret_cast<float*>(sV + L::kTile);
-  float* sDelta = sLse + kB;
+struct Dkdv {
+  static constexpr int kBK = 128;                 // keys a block: two warpgroups x 64
+  static constexpr int kBQ = D == 64 ? 128 : 32;  // q rows a streamed tile (registers at D 128)
+  static constexpr int kStages = 3;
+  static constexpr int kPanels = D / 64;
+  static constexpr int kKVBytes = kBK * D * 2;    // the K or the V block
+  static constexpr int kQBytes = kBQ * D * 2;     // one Q or dO tile
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kKVBytes;
+  static constexpr int kQ = kV + kKVBytes;        // stage s at kQ + s * kQBytes
+  static constexpr int kdO = kQ + kStages * kQBytes;
+  // a tile's lse and delta: a 1-d box that starts on a 16-byte boundary at or
+  // before the tile's first row (TMA takes no other start), so 4 more
+  static constexpr int kRowBox = kBQ + 4;
+  static constexpr int kRowSlot = (kRowBox * 4 + 127) / 128 * 128;   // bytes a stage
+  static constexpr int kLse = kdO + kStages * kQBytes;
+  static constexpr int kDelta = kLse + kStages * kRowSlot;
+  static constexpr int kStageBytes = 2 * kQBytes + 2 * kRowBox * 4;   // TMA bytes a stage
+  static constexpr int kBar = kDelta + kStages * kRowSlot;  // kv_full, full[], empty[]
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages);
+  static constexpr size_t kAlloc = kBytes + 1024;           // slack to align the base
+};
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int bh = blockIdx.y;
-  const int kv_bh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;   // heaviest causal tiles first
-  const int q_valid = min(kB, sq - q0);
-  const int row_lo = 16 * warp + lane / 4;            // this lane's tile rows: row_lo, + 8
-  stage<D>(q + ((size_t)bh * sq + q0) * D, q_valid, sQ);
-  stage<D>(dout + ((size_t)bh * sq + q0) * D, q_valid, sdO);
-  stage_rows(lse + (size_t)bh * sq + q0, q_valid, sLse);
-  stage_rows(delta + (size_t)bh * sq + q0, q_valid, sDelta);
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const __grid_constant__ CUtensorMap tlse,
+                            const __grid_constant__ CUtensorMap tdelta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv, int hq, int hkv,
+                            int sq, int sk, float scale, int causal, int window, int q_offset) {
+  using L = Dkdv<D>;
+  constexpr int BQ = L::kBQ;
+  using ScoreMma = Wgmma<BQ>;   // S^T, dP^T: 64 keys x BQ q rows
+  using GradMma = Wgmma<D>;     // dV, dK: 64 keys x D
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const float* s_lse = reinterpret_cast<const float*>(smem_raw + (base - raw) + L::kLse);
+  const float* s_delta = reinterpret_cast<const float*>(smem_raw + (base - raw) + L::kDelta);
+  const uint32_t sK = base + L::kK;
+  const uint32_t sV = base + L::kV;
+  auto sQ = [&](int s) { return base + L::kQ + s * L::kQBytes; };
+  auto sdO = [&](int s) { return base + L::kdO + s * L::kQBytes; };
+  const uint32_t kv_full = base + L::kBar;
+  auto full = [&](int s) { return kv_full + 8u * (1 + s); };
+  auto empty = [&](int s) { return kv_full + 8u * (1 + L::kStages + s); };
 
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[j][e] = 0.f;
+  const int tid = threadIdx.x;
+  const int bkv = blockIdx.x;                                // b * hkv + kv head
+  const int group = hq / hkv;
+  const int bh0 = (bkv / hkv) * hq + (bkv % hkv) * group;    // the group's first q head
+  const int k0 = blockIdx.y * L::kBK;   // key block 0 first: causal, it sees every q tile
+  // q tiles the forward's block-skip test keeps for these keys (positions
+  // q0 + q_offset ..): causal, the tile's last position at or past k0; a
+  // window, its first position before the last key + window
+  const int nq = (sq + BQ - 1) / BQ;
+  const int qt_lo = causal ? max(0, floor_div(k0 - q_offset, BQ)) : 0;
+  const int qt_hi = window > 0
+                        ? min(nq - 1, floor_div(k0 + L::kBK - 2 + window - q_offset, BQ))
+                        : nq - 1;
+  const int n_qt = max(0, qt_hi - qt_lo + 1);
+  const int n_items = group * n_qt;     // (q head, q tile) pairs, heads outer
 
-  const int nk = (sk + kB - 1) / kB;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kB;
-    if (!bwd::tile_needed(q0 + q_offset, k0, causal, window)) continue;   // uniform
-    __syncthreads();   // the previous tile's reads of sK, sV are done
-    stage<D>(k + ((size_t)kv_bh * sk + k0) * D, min(kB, sk - k0), sK);
-    stage<D>(v + ((size_t)kv_bh * sk + k0) * D, min(kB, sk - k0), sV);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    rows_times_tile_t<D>(sQ, 16 * warp, sK, lane, s);      // S = Q K^T
-    rows_times_tile_t<D>(sdO, 16 * warp, sV, lane, dp);    // dP = dO V^T
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rt = row_lo + 8 * (e >> 1);
-        const int row = q0 + rt;
-        const int key = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
-        const float p = visible(row, row + q_offset, key, sq, sk, causal, window)
-                            ? __expf(s[j][e] * scale - sLse[rt]) : 0.f;
-        dp[j][e] = p * (dp[j][e] - sDelta[rt]) * scale;
-      }
-    uint32_t dsf[4][4];
-    to_frags(dp, dsf);
-    frags_times_tile<D>(dsf, sK, lane, dq_acc);       // dQ += dS K
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers / 32);    // one arrival per consumer warp
+    }
+    mbar_init_fence();
   }
-  store_rows<D>(dq + ((size_t)bh * sq + q0) * D, dq_acc, row_lo, q_valid, lane);
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // ---- producer warpgroup: one thread issues every copy; the (q head, q
+    //      tile) pairs in order, each Q, dO, lse and delta tile on one barrier
+    //      (rows past Sq: zeros for Q and dO, the next head's lse and delta,
+    //      which the mask discards; lse and delta from the 16-byte boundary
+    //      at or before the tile's first row) ----
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == kConsumers) {
+      mbar_arrive_expect_tx(kv_full, 2 * L::kKVBytes);
+      for (int p = 0; p < L::kPanels; ++p) {
+        tma_load_3d(sK + p * L::kBK * kRowBytes, &tk, kv_full, 64 * p, k0, bkv);
+        tma_load_3d(sV + p * L::kBK * kRowBytes, &tv, kv_full, 64 * p, k0, bkv);
+      }
+      for (int it = 0; it < n_items; ++it) {
+        const int s = it % L::kStages;
+        const int bh = bh0 + it / n_qt;
+        const int q0 = (qt_lo + it % n_qt) * BQ;
+        mbar_wait(empty(s), ((it / L::kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(full(s), L::kStageBytes);
+        for (int p = 0; p < L::kPanels; ++p) {
+          tma_load_3d(sQ(s) + p * BQ * kRowBytes, &tq, full(s), 64 * p, q0, bh);
+          tma_load_3d(sdO(s) + p * BQ * kRowBytes, &tdo, full(s), 64 * p, q0, bh);
+        }
+        const int row_box = (bh * sq + q0) & ~3;
+        tma_load_1d(base + L::kLse + s * L::kRowSlot, &tlse, full(s), row_box);
+        tma_load_1d(base + L::kDelta + s * L::kRowSlot, &tdelta, full(s), row_box);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  // ---- consumers: warpgroup wg owns keys k0 + 64 wg .. k0 + 64 wg + 63 ----
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int kw0 = k0 + 64 * wg;
+  const int key0 = kw0 + 16 * warp + lane / 4;    // this thread's keys: key0, key0 + 8
+  const int col_lane = 2 * (lane % 4);
+  const float scale_log2 = scale * kLog2e;
+  const uint32_t ka = sK + wg * 64 * kRowBytes;   // this warpgroup's rows of K and V
+  const uint32_t va = sV + wg * 64 * kRowBytes;
+
+  float dk_acc[D / 2], dv_acc[D / 2], st[BQ / 2], dpt[BQ / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BQ / 2; ++i) st[i] = dpt[i] = 0.f;
+  mbar_wait(kv_full, 0);
+
+  for (int it = 0; it < n_items; ++it) {
+    const int s = it % L::kStages;
+    const int q0 = (qt_lo + it % n_qt) * BQ;
+    const int p0 = q0 + q_offset;                 // the tile's first q position
+    const int row_off = (bh0 + it / n_qt) * sq + q0;   // lse / delta of the tile's rows
+    // a tile these 64 keys cannot see at all is skipped (uniform over the
+    // warpgroup); one that straddles a mask edge, Sq or Sk is masked (with
+    // selects: past Sq, lse and delta are another head's)
+    const bool dead = kw0 >= sk || (causal && p0 + BQ - 1 < kw0) ||
+                      (window > 0 && p0 - (kw0 + 63) >= window);
+    const bool edge = q0 + BQ > sq || kw0 + 64 > sk || (causal && p0 < kw0 + 63) ||
+                      (window > 0 && p0 + BQ - 1 - kw0 >= window);
+    mbar_wait(full(s), (it / L::kStages) & 1);
+    if (!dead) {
+      const uint32_t qs = sQ(s);
+      const uint32_t dos = sdO(s);
+      const float* lse_s = s_lse + s * (L::kRowSlot / 4) + (row_off & 3);
+      const float* delta_s = s_delta + s * (L::kRowSlot / 4) + (row_off & 3);
+      // S^T = K Q^T (both operands K-major)
+      wgmma_fence();
+      reg_fence(st);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ScoreMma::ss(st, k_desc(ka, kk, L::kBK), k_desc(qs, kk, BQ), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(st);
+      // P^T = 2^(S^T scale log2 e - lse log2 e), a column is a q row (no
+      // branch inside: the exponentials of a tile issue back to back); kept
+      // as bf16 only, the A operand of dV and the P of dS^T
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float l0 = lse_s[8 * j + col_lane] * kLog2e;
+        const float l1 = lse_s[8 * j + col_lane + 1] * kLog2e;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          st[4 * j + 2 * h] = ex2(fmaf(st[4 * j + 2 * h], scale_log2, -l0));
+          st[4 * j + 2 * h + 1] = ex2(fmaf(st[4 * j + 2 * h + 1], scale_log2, -l1));
+        }
+      }
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + col_lane + e;
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              if (!visible(q0 + c, p0 + c, key0 + 8 * h, sq, sk, causal, window))
+                st[4 * j + 2 * h + e] = 0.f;
+          }
+      }
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) to_a_frag(st, kk, pa[kk]);
+      // dP^T = V dO^T (K-major) and dV += P^T dO (A from registers, the dO
+      // tile read MN-major), one group
+      wgmma_fence();
+      reg_fence(dpt);
+      reg_fence(dv_acc);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ScoreMma::ss(dpt, k_desc(va, kk, L::kBK), k_desc(dos, kk, BQ), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) GradMma::rs(dv_acc, pa[kk], mn_desc(dos, kk, BQ));
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dpt);
+      reg_fence(dv_acc);
+      // dS^T = P^T (dP^T - delta) scale, then dK += dS^T Q (Q read MN-major)
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 dl = make_float2(delta_s[8 * j + col_lane], delta_s[8 * j + col_lane + 1]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const __nv_bfloat162 p2 =
+              *reinterpret_cast<const __nv_bfloat162*>(&pa[j / 2][2 * (j % 2) + h]);
+          const float2 pf = __bfloat1622float2(p2);
+          dpt[4 * j + 2 * h] = pf.x * (dpt[4 * j + 2 * h] - dl.x) * scale;
+          dpt[4 * j + 2 * h + 1] = pf.y * (dpt[4 * j + 2 * h + 1] - dl.y) * scale;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) to_a_frag(dpt, kk, da[kk]);
+      wgmma_fence();
+      reg_fence(dk_acc);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) GradMma::rs(dk_acc, da[kk], mn_desc(qs, kk, BQ));
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dk_acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+
+  // dK and dV of keys key0 and key0 + 8 (those below Sk), rounded to bf16 once
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + 8 * h;
+    if (key >= sk) continue;
+    const size_t row = ((size_t)bkv * sk + key) * D + col_lane;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + row + 8 * j) =
+          __floats2bfloat162_rn(dk_acc[4 * j + 2 * h], dk_acc[4 * j + 2 * h + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + row + 8 * j) =
+          __floats2bfloat162_rn(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// (c) dQ: one block per (b, q head, 128 q rows)
+template <int D>
+struct Dq {
+  static constexpr int kBM = 128;                 // q rows a block: two warpgroups x 64
+  static constexpr int kBN = D == 64 ? 128 : 64;  // keys a streamed K / V tile
+  static constexpr int kStages = 3;
+  static constexpr int kPanels = D / 64;
+  static constexpr int kQBytes = kBM * D * 2;     // Q or dO
+  static constexpr int kTileBytes = kBN * D * 2;  // one K or V tile
+  static constexpr int kQ = 0;
+  static constexpr int kdO = kQ + kQBytes;
+  static constexpr int kK = kdO + kQBytes;        // stage s at kK + s * kTileBytes
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBar = kV + kStages * kTileBytes;    // q_full, k_full[], v_full[], empty[]
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages);
+  static constexpr size_t kAlloc = kBytes + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int hq, int hkv, int sq, int sk, float scale,
+                          int causal, int window, int q_offset) {
+  using L = Dq<D>;
+  using ScoreMma = Wgmma<L::kBN>;   // S, dP: 64 q rows x kBN keys
+  using GradMma = Wgmma<D>;         // dQ: 64 q rows x D
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::kQ;
+  const uint32_t sdO = base + L::kdO;
+  auto sK = [&](int s) { return base + L::kK + s * L::kTileBytes; };
+  auto sV = [&](int s) { return base + L::kV + s * L::kTileBytes; };
+  const uint32_t q_full = base + L::kBar;
+  auto k_full = [&](int s) { return q_full + 8u * (1 + s); };
+  auto v_full = [&](int s) { return q_full + 8u * (1 + L::kStages + s); };
+  auto empty = [&](int s) { return q_full + 8u * (1 + 2 * L::kStages + s); };
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int kv_bh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * L::kBM;   // heaviest causal tiles first
+  const int q_first = q0 + q_offset;
+  // the forward's block-skip bounds, for 128 rows against 64-key tiles
+  int kt_hi = (sk + L::kBN - 1) / L::kBN - 1;
+  if (causal) kt_hi = min(kt_hi, floor_div(q_first + L::kBM - 1, L::kBN));
+  const int kt_lo =
+      window > 0 ? max(0, floor_div(q_first - window - L::kBN + 1, L::kBN) + 1) : 0;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), kConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // ---- producer warpgroup: one thread issues every copy ----
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == kConsumers) {
+      mbar_arrive_expect_tx(q_full, 2 * L::kQBytes);
+      for (int p = 0; p < L::kPanels; ++p) {
+        tma_load_3d(sQ + p * L::kBM * kRowBytes, &tq, q_full, 64 * p, q0, bh);
+        tma_load_3d(sdO + p * L::kBM * kRowBytes, &tdo, q_full, 64 * p, q0, bh);
+      }
+      for (int it = 0, kt = kt_lo; kt <= kt_hi; ++it, ++kt) {
+        const int s = it % L::kStages;
+        mbar_wait(empty(s), ((it / L::kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(k_full(s), L::kTileBytes);
+        for (int p = 0; p < L::kPanels; ++p)
+          tma_load_3d(sK(s) + p * L::kBN * kRowBytes, &tk, k_full(s), 64 * p, kt * L::kBN, kv_bh);
+        mbar_arrive_expect_tx(v_full(s), L::kTileBytes);
+        for (int p = 0; p < L::kPanels; ++p)
+          tma_load_3d(sV(s) + p * L::kBN * kRowBytes, &tv, v_full(s), 64 * p, kt * L::kBN, kv_bh);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  // ---- consumers: warpgroup wg owns q rows q0 + 64 wg .. q0 + 64 wg + 63 ----
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int qw0 = q0 + 64 * wg;
+  const int pw0 = qw0 + q_offset;
+  const int row0 = qw0 + 16 * warp + lane / 4;    // this thread's rows: row0, row0 + 8
+  const int row1 = row0 + 8;
+  const int col_lane = 2 * (lane % 4);
+  const float scale_log2 = scale * kLog2e;
+  const float lse0 = row0 < sq ? lse[(size_t)bh * sq + row0] * kLog2e : 0.f;
+  const float lse1 = row1 < sq ? lse[(size_t)bh * sq + row1] * kLog2e : 0.f;
+  const float delta0 = row0 < sq ? delta[(size_t)bh * sq + row0] : 0.f;
+  const float delta1 = row1 < sq ? delta[(size_t)bh * sq + row1] : 0.f;
+  const uint32_t qa = sQ + wg * 64 * kRowBytes;   // this warpgroup's rows of Q and dO
+  const uint32_t doa = sdO + wg * 64 * kRowBytes;
+
+  float dq_acc[D / 2], sc[L::kBN / 2], dp[L::kBN / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < L::kBN / 2; ++i) sc[i] = dp[i] = 0.f;
+  mbar_wait(q_full, 0);
+
+  for (int it = 0, kt = kt_lo; kt <= kt_hi; ++it, ++kt) {
+    const int s = it % L::kStages;
+    const uint32_t ph = (it / L::kStages) & 1;
+    const int k_first = kt * L::kBN;
+    const uint32_t ks = sK(s);
+    const bool dead = qw0 >= sq || (causal && k_first > pw0 + 63) ||
+                      (window > 0 && k_first + L::kBN - 1 <= pw0 - window);
+    const bool edge = qw0 + 64 > sq || k_first + L::kBN > sk ||
+                      (causal && k_first + L::kBN - 1 > pw0) ||
+                      (window > 0 && k_first <= pw0 + 63 - window);
+    // S = Q K^T and dP = dO V^T (K-major operands) as two groups; a tile's
+    // products are issued and awaited inside one branch (wgmma spread over
+    // two branches is serialised by ptxas)
+    mbar_wait(k_full(s), ph);
+    mbar_wait(v_full(s), ph);
+    if (!dead) {
+      wgmma_fence();
+      reg_fence(sc);
+      reg_fence(dp);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ScoreMma::ss(sc, k_desc(qa, kk, L::kBM), k_desc(ks, kk, L::kBN), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ScoreMma::ss(dp, k_desc(doa, kk, L::kBM), k_desc(sV(s), kk, L::kBN), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      reg_fence(sc);
+      // P = 2^(S scale log2 e - lse log2 e)
+#pragma unroll
+      for (int i = 0; i < L::kBN / 2; ++i)
+        sc[i] = ex2(fmaf(sc[i], scale_log2, (i & 2) ? -lse1 : -lse0));
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < L::kBN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = k_first + 8 * j + col_lane + e;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = h ? row1 : row0;
+              if (!visible(row, row + q_offset, key, sq, sk, causal, window))
+                sc[4 * j + 2 * h + e] = 0.f;
+            }
+          }
+      }
+      wgmma_wait<0>();
+      reg_fence(dp);
+      // dS = P (dP - delta) scale, then dQ += dS K with K read MN-major
+#pragma unroll
+      for (int i = 0; i < L::kBN / 2; ++i)
+        dp[i] = sc[i] * (dp[i] - ((i & 2) ? delta1 : delta0)) * scale;
+      uint32_t da[L::kBN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < L::kBN / 16; ++kk) to_a_frag(dp, kk, da[kk]);
+      wgmma_fence();
+      reg_fence(dq_acc);
+#pragma unroll
+      for (int kk = 0; kk < L::kBN / 16; ++kk) GradMma::rs(dq_acc, da[kk], mn_desc(ks, kk, L::kBN));
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dq_acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+
+  // dQ rows row0 and row0 + 8 (those below Sq), rounded to bf16 once
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = h ? row1 : row0;
+    if (row >= sq) continue;
+    bf16* out = dq + ((size_t)bh * sq + row) * D + col_lane;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+          __floats2bfloat162_rn(dq_acc[4 * j + 2 * h], dq_acc[4 * j + 2 * h + 1]);
+  }
+}
+
+// A 1-d map over n fp32 values, boxes of `box`; past n arrive as zeros.
+bool make_map_1d(tc::EncodeTiled encode, CUtensorMap* map, const float* ptr, size_t n, int box) {
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * 4};   // rank 1: not read
+  const cuuint32_t boxes[1] = {(cuuint32_t)box};
+  const cuuint32_t elem[1] = {1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(ptr), dims, strides,
+                boxes, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>
@@ -1243,25 +1482,41 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
                    const void* dout, const float* lse, float* delta, void* dq, void* dk,
                    void* dv, int b, int hq, int hkv, int sq, int sk, float scale, int causal,
                    int window, int q_offset, cudaStream_t stream) {
-  const bf16* tq = static_cast<const bf16*>(q);
-  const bf16* tk = static_cast<const bf16*>(k);
-  const bf16* tv = static_cast<const bf16*>(v);
-  const bf16* tdo = static_cast<const bf16*>(dout);
+  const tc::EncodeTiled encode = tc::encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
   cudaError_t err = bwd::launch_delta<bf16, D>(out, dout, delta, b * hq * sq, stream);
   if (err != cudaSuccess) return err;
-  const size_t smem = Smem<D>::kBytes;
-  auto dkdv = flash_bwd_dkdv_mma_kernel<D>;
-  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+
+  using KV = Dkdv<D>;
+  CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
+  const size_t rows = (size_t)b * hq * sq;
+  if (!tc::make_map(encode, &tq, q, b * hq, sq, D, KV::kBQ) ||
+      !tc::make_map(encode, &tdo, dout, b * hq, sq, D, KV::kBQ) ||
+      !tc::make_map(encode, &tk, k, b * hkv, sk, D, KV::kBK) ||
+      !tc::make_map(encode, &tv, v, b * hkv, sk, D, KV::kBK) ||
+      !make_map_1d(encode, &tlse, lse, rows, KV::kRowBox) ||
+      !make_map_1d(encode, &tdelta, delta, rows, KV::kRowBox))
+    return cudaErrorInvalidValue;
+  auto dkdv = flash_bwd_dkdv_wgmma_kernel<D>;
+  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)KV::kAlloc);
   if (err != cudaSuccess) return err;
-  dkdv<<<dim3((sk + kB - 1) / kB, b * hkv), kThreads, smem, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), hq, hkv,
+  dkdv<<<dim3(b * hkv, (sk + KV::kBK - 1) / KV::kBK), kThreads, KV::kAlloc, stream>>>(
+      tq, tk, tv, tdo, tlse, tdelta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), hq, hkv,
       sq, sk, scale, causal, window, q_offset);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto dqk = flash_bwd_dq_mma_kernel<D>;
-  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+
+  using Q = Dq<D>;
+  if (!tc::make_map(encode, &tq, q, b * hq, sq, D, Q::kBM) ||
+      !tc::make_map(encode, &tdo, dout, b * hq, sq, D, Q::kBM) ||
+      !tc::make_map(encode, &tk, k, b * hkv, sk, D, Q::kBN) ||
+      !tc::make_map(encode, &tv, v, b * hkv, sk, D, Q::kBN))
+    return cudaErrorInvalidValue;
+  auto dqk = flash_bwd_dq_wgmma_kernel<D>;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Q::kAlloc);
   if (err != cudaSuccess) return err;
-  dqk<<<dim3((sq + kB - 1) / kB, b * hq), kThreads, smem, stream>>>(
+  dqk<<<dim3(b * hq, (sq + Q::kBM - 1) / Q::kBM), kThreads, Q::kAlloc, stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), hq, hkv, sq, sk, scale, causal,
       window, q_offset);
   return cudaGetLastError();
@@ -1298,7 +1553,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 
 // The backward of flash_attention_fwd: dq [B, Hq, Sq, D], dk / dv [B, Hkv, Sk, D]
 // from q, k, v, the forward's out and lse, and dout; dtype 0 = float32 (SIMT),
-// 1 = bfloat16 (mma.sync).  ``delta`` is a caller's
+// 1 = bfloat16 (wgmma + TMA).  ``delta`` is a caller's
 // fp32 scratch of B * Hq * Sq floats.  Same dtypes, shapes and guarantees as
 // the forward; d in {64, 128}.  Returns a cudaError_t.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,

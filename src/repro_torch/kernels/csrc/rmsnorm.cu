@@ -29,16 +29,24 @@
 //   dx = rstd (g - xhat mean(g xhat)) = rstd g - x rstd^3 sum(g x) / D,
 //   dscale = sum over rows of dy xhat.
 // Bound: bytes, as the forward (x and dy read, dx written: 11.8 MB, 3.5 us at
-// [2048, 960] bf16).  Two kernels, no atomics, so dscale is the same bit for
-// bit from run to run:
-//   rmsnorm_bwd_kernel: each block takes a contiguous run of rows, one warp a
-//     row at a time with 16-byte vector loads; a row is read twice (the two
-//     dot products, then dx), the second time from L1.  Each warp adds its
-//     rows' dy xhat into its own fp32 columns in shared memory (laid out so
-//     that every lane has its own bank); the block then sums its warps in a
-//     fixed order into its row of a [n_blocks, D] fp32 scratch;
+// [2048, 960] bf16; 47 MB, 14.1 us at the training call [8192, 960]).  Two
+// kernels, no atomics, so dscale is the same bit for bit from run to run:
+//   rmsnorm_bwd_kernel: each block (8 warps) takes a contiguous run of rows,
+//     one warp a row at a time.  With D known at compile time (960, the
+//     width that trains, in bf16) the row stays in registers, as in the
+//     forward: a lane issues every 16-byte load of its share of x and dy (no
+//     L1 allocation) before the first reduction, and the two row sums, dx
+//     and the dscale contribution all come from those registers; scale is
+//     read once a warp.  A lane's columns are the same for every row it
+//     takes, so it adds dy xhat into its own fp32 registers across its rows.
+//     Any other width (at 2048 the row and the sums need more registers than
+//     a thread has), and fp32, takes the generic form (D = 0): runtime loops
+//     that read a row twice (the dot products, then dx, the second time from
+//     L1), sums in shared memory.  Every warp's sums end in shared memory and
+//     the block adds its warps in a fixed order into its row of a
+//     [n_blocks, D] fp32 scratch;
 //   rmsnorm_dscale_kernel: each column of the scratch summed in a fixed
-//     order (8 interleaved partial sums per column, then a fixed tree).
+//     order (16 interleaved partial sums per column, then a fixed order).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -196,7 +204,7 @@ cudaError_t launch(const void* x, const void* scale, void* out, int rows, int d,
 // backward
 // ---------------------------------------------------------------------------
 
-constexpr int kBwdWarps = 4;      // warps per block of rmsnorm_bwd_kernel
+constexpr int kBwdWarps = 8;      // warps per block of rmsnorm_bwd_kernel
 
 template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
@@ -204,7 +212,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
   return __float2bfloat16(v);
 }
 constexpr int kColBlock = 32;     // columns per block of rmsnorm_dscale_kernel
-constexpr int kColSplit = 8;      // partial sums per column
+constexpr int kColSplit = 16;     // partial sums per column
 
 // A warp's fp32 column sums: vector v = lane + 32 i of the row, element e of
 // it, at (i * N + e) * 32 + lane, so the 32 lanes touch 32 banks.
@@ -212,8 +220,13 @@ template <typename T> __host__ __device__ int acc_floats_per_warp(int d) {
   return (d / Vec<T>::N + 31) / 32 * Vec<T>::N * 32;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kBwdWarps * 32)
+// D > 0: the row and the dscale sums live in registers; D == 0: runtime d,
+// two passes, the sums in shared memory (vector v = lane + 32 i of the row,
+// element e at (i N + e) 32 + lane: every lane its own bank).  Either way
+// each warp's sums end in shared memory (column by column for D > 0), and
+// the block adds its warps there in a fixed order.
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdWarps * 32, D > 0 ? 2 : 1)
 rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ scale,
                    const T* __restrict__ dy, T* __restrict__ dx,
                    float* __restrict__ partial, int rows, int d, int rows_per_block,
@@ -221,56 +234,130 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ scale,
   constexpr int N = Vec<T>::N;
   extern __shared__ float4 smem4[];
   float* acc = reinterpret_cast<float*>(smem4);
-  const int per_warp = acc_floats_per_warp<T>(d);
+  const int dd = D > 0 ? D : d;
+  const int per_warp = acc_floats_per_warp<T>(dd);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int nvec = d / N;
-  float* my = acc + warp * per_warp;
-  for (int i = lane; i < per_warp; i += 32) my[i] = 0.f;
-
   const int r_begin = blockIdx.x * rows_per_block;
   const int r_end = min(rows, r_begin + rows_per_block);
-  for (int r = r_begin + warp; r < r_end; r += kBwdWarps) {
-    const T* xr = x + (size_t)r * d;
-    const T* gr = dy + (size_t)r * d;
-    float ss = 0.f, sgx = 0.f;
-    for (int v = lane; v < nvec; v += 32) {
-      float xf[N], gf[N], sf[N];
-      Vec<T>::unpack(*reinterpret_cast<const uint4*>(xr + v * N), xf);
-      Vec<T>::unpack(*reinterpret_cast<const uint4*>(gr + v * N), gf);
-      Vec<T>::unpack(*reinterpret_cast<const uint4*>(scale + v * N), sf);
+  float* my = acc + warp * per_warp;
+
+  if constexpr (D > 0) {
+    constexpr int kVecs = D / N;                 // 16-byte vectors per row
+    constexpr int kPer = (kVecs + 31) / 32;      // per lane, at most
+    uint4 sv[kPer];
+    float ds[kPer][N];
 #pragma unroll
-      for (int e = 0; e < N; ++e) {
-        ss += xf[e] * xf[e];
-        sgx += gf[e] * sf[e] * xf[e];
+    for (int i = 0; i < kPer; ++i) {
+      const int v = lane + 32 * i;
+      if (v < kVecs) sv[i] = *reinterpret_cast<const uint4*>(scale + v * N);
+#pragma unroll
+      for (int e = 0; e < N; ++e) ds[i][e] = 0.f;
+    }
+    for (int r = r_begin + warp; r < r_end; r += kBwdWarps) {
+      const T* xr = x + (size_t)r * D;
+      const T* gr = dy + (size_t)r * D;
+      uint4 xv[kPer], gv[kPer];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int v = lane + 32 * i;
+        if (v < kVecs) {
+          xv[i] = load_stream(xr + v * N);
+          gv[i] = load_stream(gr + v * N);
+        }
+      }
+      float ss = 0.f, sgx = 0.f;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        if (lane + 32 * i < kVecs) {
+          float xf[N], gf[N], sf[N];
+          Vec<T>::unpack(xv[i], xf);
+          Vec<T>::unpack(gv[i], gf);
+          Vec<T>::unpack(sv[i], sf);
+#pragma unroll
+          for (int e = 0; e < N; ++e) {
+            ss += xf[e] * xf[e];
+            sgx += gf[e] * sf[e] * xf[e];
+          }
+        }
+      }
+      ss = warp_sum(ss);
+      sgx = warp_sum(sgx);
+      const float rstd = rsqrtf(ss / (float)D + eps);
+      const float c = rstd * rstd * rstd * sgx / (float)D;
+      T* dxr = dx + (size_t)r * D;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int v = lane + 32 * i;
+        if (v < kVecs) {
+          float xf[N], gf[N], sf[N], out[N];
+          Vec<T>::unpack(xv[i], xf);
+          Vec<T>::unpack(gv[i], gf);
+          Vec<T>::unpack(sv[i], sf);
+#pragma unroll
+          for (int e = 0; e < N; ++e) {
+            out[e] = rstd * (gf[e] * sf[e]) - xf[e] * c;
+            ds[i][e] += gf[e] * (xf[e] * rstd);
+          }
+          *reinterpret_cast<uint4*>(dxr + v * N) = Vec<T>::pack(out);
+        }
       }
     }
-    ss = warp_sum(ss);
-    sgx = warp_sum(sgx);
-    const float rstd = rsqrtf(ss / (float)d + eps);
-    const float c = rstd * rstd * rstd * sgx / (float)d;
-    T* dxr = dx + (size_t)r * d;
-    for (int v = lane, i = 0; v < nvec; v += 32, ++i) {
-      float xf[N], gf[N], sf[N], out[N];
-      Vec<T>::unpack(*reinterpret_cast<const uint4*>(xr + v * N), xf);
-      Vec<T>::unpack(*reinterpret_cast<const uint4*>(gr + v * N), gf);
-      Vec<T>::unpack(*reinterpret_cast<const uint4*>(scale + v * N), sf);
+    // the sums column by column (16-byte stores), reduced below in order
 #pragma unroll
-      for (int e = 0; e < N; ++e) {
-        out[e] = rstd * (gf[e] * sf[e]) - xf[e] * c;
-        my[(i * N + e) * 32 + lane] += gf[e] * (xf[e] * rstd);
+    for (int i = 0; i < kPer; ++i) {
+      const int v = lane + 32 * i;
+      if (v < kVecs)
+#pragma unroll
+        for (int e = 0; e < N; e += 4)
+          *reinterpret_cast<float4*>(my + v * N + e) =
+              make_float4(ds[i][e], ds[i][e + 1], ds[i][e + 2], ds[i][e + 3]);
+    }
+  } else {
+    const int nvec = d / N;
+    for (int i = lane; i < per_warp; i += 32) my[i] = 0.f;
+    for (int r = r_begin + warp; r < r_end; r += kBwdWarps) {
+      const T* xr = x + (size_t)r * d;
+      const T* gr = dy + (size_t)r * d;
+      float ss = 0.f, sgx = 0.f;
+      for (int v = lane; v < nvec; v += 32) {
+        float xf[N], gf[N], sf[N];
+        Vec<T>::unpack(*reinterpret_cast<const uint4*>(xr + v * N), xf);
+        Vec<T>::unpack(*reinterpret_cast<const uint4*>(gr + v * N), gf);
+        Vec<T>::unpack(*reinterpret_cast<const uint4*>(scale + v * N), sf);
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          ss += xf[e] * xf[e];
+          sgx += gf[e] * sf[e] * xf[e];
+        }
       }
-      *reinterpret_cast<uint4*>(dxr + v * N) = Vec<T>::pack(out);
+      ss = warp_sum(ss);
+      sgx = warp_sum(sgx);
+      const float rstd = rsqrtf(ss / (float)d + eps);
+      const float c = rstd * rstd * rstd * sgx / (float)d;
+      T* dxr = dx + (size_t)r * d;
+      for (int v = lane, i = 0; v < nvec; v += 32, ++i) {
+        float xf[N], gf[N], sf[N], out[N];
+        Vec<T>::unpack(*reinterpret_cast<const uint4*>(xr + v * N), xf);
+        Vec<T>::unpack(*reinterpret_cast<const uint4*>(gr + v * N), gf);
+        Vec<T>::unpack(*reinterpret_cast<const uint4*>(scale + v * N), sf);
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          out[e] = rstd * (gf[e] * sf[e]) - xf[e] * c;
+          my[(i * N + e) * 32 + lane] += gf[e] * (xf[e] * rstd);
+        }
+        *reinterpret_cast<uint4*>(dxr + v * N) = Vec<T>::pack(out);
+      }
     }
   }
   __syncthreads();
   // this block's column sums, warps added in a fixed order
-  for (int col = threadIdx.x; col < d; col += kBwdWarps * 32) {
+  for (int col = threadIdx.x; col < dd; col += kBwdWarps * 32) {
     const int v = col / N;
-    const int idx = ((v / 32) * N + col % N) * 32 + v % 32;
+    const int idx = D > 0 ? col : ((v / 32) * N + col % N) * 32 + v % 32;
     float sum = 0.f;
     for (int w = 0; w < kBwdWarps; ++w) sum += acc[w * per_warp + idx];
-    partial[(size_t)blockIdx.x * d + col] = sum;
+    partial[(size_t)blockIdx.x * dd + col] = sum;
   }
 }
 
@@ -300,8 +387,16 @@ cudaError_t launch_bwd(const void* x, const void* scale, const void* dy, void* d
                        void* dscale, float* partial, int n_blocks, int rows, int d, float eps,
                        cudaStream_t stream) {
   const int rows_per_block = (rows + n_blocks - 1) / n_blocks;
+  // the row in registers for bf16 at 960 and 2048; fp32 rows take twice the
+  // registers, so fp32 and any other width take the generic form
+  // the row in registers for bf16 at 960; at 2048 the row and the sums need
+  // more registers than a thread has (ptxas spilled), and fp32 rows take twice
+  // those of bf16: the generic form
+  auto kern = rmsnorm_bwd_kernel<T, 0>;
+  if constexpr (sizeof(T) == 2) {
+    if (d == 960) kern = rmsnorm_bwd_kernel<T, 960>;
+  }
   const size_t smem = sizeof(float) * kBwdWarps * acc_floats_per_warp<T>(d);
-  auto kern = rmsnorm_bwd_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;

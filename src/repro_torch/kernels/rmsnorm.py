@@ -18,7 +18,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BWD_MIN_ROWS_PER_BLOCK = 4      # rows a block of the backward takes, at least
+BWD_MIN_ROWS_PER_BLOCK = 16     # rows a block of the backward takes, at least
+BWD_BLOCKS_PER_SM = 2           # resident blocks of 8 warps the grid aims at
 
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
@@ -84,7 +85,8 @@ def rmsnorm_bwd_cuda(x, scale, dy, eps: float = 1e-6):
         return dx, torch.zeros_like(scale)
     dscale = torch.empty_like(scale)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    n_blocks = min(2 * sms, -(-rows // BWD_MIN_ROWS_PER_BLOCK))
+    n_blocks = min(BWD_BLOCKS_PER_SM * sms,
+                   -(-rows // BWD_MIN_ROWS_PER_BLOCK))
     partial = torch.empty((n_blocks, d), dtype=torch.float32, device=x.device)
     build.aligned((x, scale, dy, dx, dscale, partial), "rmsnorm_bwd_cuda")
     lib = build.load("rmsnorm")

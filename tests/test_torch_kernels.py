@@ -287,16 +287,18 @@ def _assert_bwd_close(got, want, dtype, what):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("heads", [(15, 5), (4, 4)])
-@pytest.mark.parametrize("s", [100, 256, 2048, 4096])
-@pytest.mark.parametrize("mask", [(True, 0), (False, 0), (True, 128)])
+@pytest.mark.parametrize("heads", [(15, 5), (4, 4), (15, 3)])
+@pytest.mark.parametrize("s", [100, 192, 256, 2048, 4096])
+@pytest.mark.parametrize("mask", [(True, 0), (False, 0), (True, 128),
+                                  (True, 100)])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_bwd_kernel_vs_plain(cuda_device, heads, s, mask, d,
                                              dtype):
     """dq / dk / dv and the forward's lse on the card against the plain
-    backward on the same inputs; S = 100 is ragged against the 64-row tiles,
-    GQA 3:1 sums dk / dv over each kv head's group."""
+    backward on the same inputs; S = 100 and 192 are ragged against the
+    128-row / 128-key tiles, a window of 100 straddles them, GQA 3:1 and 5:1
+    sum dk / dv over each kv head's group."""
     torch.backends.cuda.matmul.allow_tf32 = False
     causal, window = mask
     dt = DTYPES[dtype]
@@ -319,8 +321,28 @@ def test_flash_attention_bwd_kernel_vs_plain(cuda_device, heads, s, mask, d,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(15, 5), (4, 4)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_is_bitwise_deterministic(cuda_device, heads,
+                                                      dtype):
+    """No atomics: two calls on the same inputs give the same dq, dk and dv
+    bit for bit (the GQA sums run in one block, in a fixed order)."""
+    dt = DTYPES[dtype]
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dt)
+               for a in _qkv(*heads, 1000, 1000, b=2))
+    do = torch.from_numpy(_qkv(*heads, 1000, 1000, b=2, seed=1)[0]).to(
+        cuda_device, dt)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    first = flash_attention_bwd(q, k, v, out, lse, do)
+    again = flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, again, ("dq", "dk", "dv")):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [960, 2048, 448])
-@pytest.mark.parametrize("rows", [1, 3, 2048, 8192])
+@pytest.mark.parametrize("rows", [1, 3, 5, 33, 2048, 8192])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_bwd_kernel_vs_plain(cuda_device, d, rows, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(rows + d)
@@ -426,6 +448,12 @@ def test_wkv6_on_cpu_differentiates_through_the_plain_version():
      "float const*, float*, int, int, float)", "rmsnorm (ours)"),
     ("void (anonymous namespace)::bwd_tc::flash_bwd_dkdv_mma_kernel<64>("
      "__nv_bfloat16 const*, ...)", "flash_attention_bwd (ours)"),
+    ("void (anonymous namespace)::bwd_tc::flash_bwd_dkdv_wgmma_kernel<64>("
+     "CUtensorMap_st, CUtensorMap_st, ...)", "flash_attention_bwd (ours)"),
+    ("void (anonymous namespace)::bwd_tc::flash_bwd_dq_wgmma_kernel<128>("
+     "CUtensorMap_st, CUtensorMap_st, ...)", "flash_attention_bwd (ours)"),
+    ("void (anonymous namespace)::rmsnorm_bwd_kernel<__nv_bfloat16, 960>("
+     "__nv_bfloat16 const*, ...)", "rmsnorm_bwd (ours)"),
     ("void (anonymous namespace)::bwd::flash_bwd_dq_kernel<float, 64>("
      "float const*, ...)", "flash_attention_bwd (ours)"),
     ("void (anonymous namespace)::bwd::flash_bwd_delta_kernel<__nv_bfloat16, "
