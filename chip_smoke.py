@@ -16,7 +16,9 @@ non-zero and no result line is printed):
             each kernel's registers and spills (no WKV or backward kernel
             may spill) and any wgmma that ptxas serialised;
 3. kernels  each kernel against its plain PyTorch version on the card over
-            a grid of shapes (WKV in both its chunked and its serial form,
+            a grid of shapes (RMSNorm, forward and backward, at the row
+            counts both training paths give it; WKV in both its chunked and
+            its serial form,
             with masked tails and decays that underflow to 0; attention
             also at the training path's q [2,15,4096,64] with the lse the
             backward reads), then timed at
@@ -39,7 +41,12 @@ non-zero and no result line is printed):
             rwkv6-1.6b at full width, 2 layers, pipe 2, fp32; and training:
             smollm-360m at full width, 4 layers, pipe 2, seq 256, fp32, the
             GPipe loss and every gradient leaf compared (each leaf also
-            within 1e-4 of its own largest entry);
+            within 1e-4 of its own largest entry); then the fused F+B
+            executor the same way (``train_fused_gpu_vs_cpu``, batch 4):
+            1f1b (m 2), zb with residuals "reuse" under remat "none" and
+            "full" (m 4) and interleaved:2 (m 2), and 1f1b against
+            gpipe_tasked on the card, bitwise equal but for the embedding's
+            leaf;
 5. serve    the main paths, each with the launch counters set to 0 just
             before it and read just after, through
             ``repro_torch.launch.serve.serve`` on one card with batch 8
@@ -55,7 +62,9 @@ non-zero and no result line is printed):
             and grad norm, the step-5 loss below step 1's, each step's
             launches equal to the path's formulas; step ms, tokens/s, the
             model-FLOPs share and the traced step's device ms by kernel
-            family and idle share;
+            family and idle share; then the same cell through the fused
+            executor with schedule "1f1b" (``train_fused``), whose park
+            high-water per rank must also equal the plan's;
 7. memory   peak device memory of one train step with remat "full" and
             with "none" (all 32 layers, seq 4096, batch 4, m 4, where
             "none" fits on the card): "full" must be the lower.
@@ -105,6 +114,10 @@ BWD_BF16_REL = 2e-2
 LSE_TOL = 1e-4     # the forward's fp32 log-sum-exp, both dtypes
 PORT_TOL = 1e-3   # whole model, fp32, kernels on the card vs plain on the CPU
 GRAD_REL = 1e-4   # training: each grad leaf's gap over its largest entry
+# Leaves whose card result may differ between two schedules of one
+# computation: the embedding's gradient comes from index_select's backward,
+# an index_add_ of fp32 atomics over repeated tokens on CUDA.
+NONDETERMINISTIC_LEAVES = ("embed/tok",)
 KERNELS = ("flash_attention", "rmsnorm", "wkv6", "flash_attention_bwd",
            "rmsnorm_bwd")
 
@@ -309,9 +322,11 @@ def phase_kernels(torch):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
     # -- RMSNorm grid: smollm's width, rwkv6's group norm (both compiled for
-    #    their D) and a width that takes the kernel's generic-D form -------
+    #    their D) and a width that takes the kernel's generic-D form; 1024
+    #    rows are the fused schedules' head norm (one micro-batch), 8192 the
+    #    gpipe path's layers and head chunks --------------------------------
     for d in (D_MODEL, 2048, 448):
-        for rows in (1, 8, 2048):
+        for rows in (1, 8, 1024, 2048, 8192):
             for dname, dt in dtypes.items():
                 x = randn(rows, d, dtype=dt) * 2
                 s = randn(d, dtype=dt) + 1
@@ -626,9 +641,10 @@ def phase_backward(torch):
                              f"{same}")
 
     # -- RMSNorm: both widths compiled for the forward and a generic one;
-    #    5 and 33 rows are ragged shares of the backward's grid --------------
+    #    5 and 33 rows are ragged shares of the backward's grid, 1024 the
+    #    fused schedules' head norm ------------------------------------------
     for d in (D_MODEL, 2048, 448):
-        for rows in (1, 3, 5, 33, 2048, 8192):
+        for rows in (1, 3, 5, 33, 1024, 2048, 8192):
             for dname, dt in dtypes.items():
                 x = randn(rows, d, dtype=dt) * 2
                 s = randn(d, dtype=dt) + 1
@@ -797,6 +813,26 @@ def phase_port(torch, arch_name: str, n_layers: int, prompt: int):
           "max_abs_err": errs, "tol": PORT_TOL, "ok": True})
 
 
+def grad_gaps(torch, paths, got, want):
+    """GPU-vs-CPU training check: ``got`` and ``want`` are (loss, grad
+    leaves in ``paths`` order).  Returns each gap, each leaf's largest
+    entry, and what fails: the loss at ``PORT_TOL``, each leaf at
+    ``PORT_TOL`` and within ``GRAD_REL`` of its own largest entry, so a
+    leaf of small gradients cannot pass zeroed."""
+    errs = {"loss": max_err(torch, got[0], want[0])}
+    tops, bad = {}, []
+    if not torch.allclose(got[0], want[0], rtol=PORT_TOL, atol=PORT_TOL):
+        bad.append("loss")
+    for path, a, b in zip(paths, got[1], want[1]):
+        errs[path] = max_err(torch, a, b)
+        tops[path] = float(b.abs().max())
+        if not (torch.allclose(a, b, rtol=PORT_TOL, atol=PORT_TOL)
+                and errs[path] <= GRAD_REL * tops[path]
+                and bool(torch.isfinite(a).all()) and tops[path] > 0):
+            bad.append(path)
+    return errs, tops, bad
+
+
 def phase_train_port(torch, n_layers: int = 4, seq: int = 256):
     """Training, the port against itself: the GPipe loss and every gradient
     leaf through the kernels on the card vs the plain versions on the CPU,
@@ -827,20 +863,7 @@ def phase_train_port(torch, n_layers: int = 4, seq: int = 256):
         grads = torch.autograd.grad(loss, leaves)
         runs[dev] = (loss.detach().cpu(), [gr.cpu() for gr in grads])
     paths = [p for p, _ in tree_items(params_cpu)]
-    errs = {"loss": max_err(torch, runs["cuda"][0], runs["cpu"][0])}
-    tops, bad = {}, []
-    if not torch.allclose(runs["cuda"][0], runs["cpu"][0], rtol=PORT_TOL,
-                          atol=PORT_TOL):
-        bad.append("loss")
-    for path, a, b in zip(paths, runs["cuda"][1], runs["cpu"][1]):
-        errs[path] = max_err(torch, a, b)
-        tops[path] = float(b.abs().max())
-        # each leaf at 1e-3 and within GRAD_REL of its own largest entry,
-        # so a leaf of small gradients cannot pass zeroed
-        if not (torch.allclose(a, b, rtol=PORT_TOL, atol=PORT_TOL)
-                and errs[path] <= GRAD_REL * tops[path]
-                and bool(torch.isfinite(a).all()) and tops[path] > 0):
-            bad.append(path)
+    errs, tops, bad = grad_gaps(torch, paths, runs["cuda"], runs["cpu"])
     emit({"phase": "train_gpu_vs_cpu", "arch": arch.name,
           "n_layers": n_layers, "pipe": 2, "n_micro": 2, "batch": batch,
           "seq": seq, "dtype": "float32", "loss": float(runs["cuda"][0]),
@@ -851,40 +874,97 @@ def phase_train_port(torch, n_layers: int = 4, seq: int = 256):
                              f"{errs}")
 
 
-def head_chunks(seq: int) -> int:
-    """The head loss's chunks over the sequence (``LMModel.head_loss``)."""
-    from repro_torch.models.lm import head_loss_chunk
-    return seq // head_loss_chunk(seq)
-
-
-def expected_train_launches(layers: int, m: int, seq: int, remat: str,
-                            remat_last_micro: bool = True):
-    """Kernel launches one train step implies: attention once per layer and
-    micro-batch forward, again for each micro-batch recomputed before its
-    backward (all m with remat "full", m - 1 without the last when
-    ``remat_last_micro`` is False, none with "none"), and once backward;
-    RMSNorm twice per layer and micro-batch in each of those, plus the
-    head's once per loss chunk forward and again in that chunk's recompute
-    (the chunks are always checkpointed) and once backward."""
-    lm, nc = layers * m, head_chunks(seq)
-    replays = 0 if remat == "none" else (m if remat_last_micro else m - 1)
-    fwd = lm + layers * replays
-    return {"flash_attention": fwd, "flash_attention_bwd": lm,
-            "rmsnorm": 2 * fwd + 2 * nc, "rmsnorm_bwd": 2 * lm + nc}
-
-
-def phase_train(torch):
-    """The training main path: counters set to 0 just before, read after."""
+def phase_train_fused_port(torch, n_layers: int = 4, seq: int = 256,
+                           batch: int = 4):
+    """The fused F+B executor, the port against itself: loss and every
+    gradient leaf of 1f1b (m 2), zb with residuals "reuse" under remat
+    "none" and "full" (m 4) and interleaved:2 (m 2) through the kernels on
+    the card vs the
+    plain versions on the CPU, same weights and batch (fp32), as in
+    :func:`phase_train_port`; then 1f1b against gpipe_tasked on the card,
+    which must be bitwise equal under grad_reduce "ordered" except in the
+    leaves of ``NONDETERMINISTIC_LEAVES``, held at ``GRAD_REL``."""
     from repro_torch import configs
-    from repro_torch.launch.train import launches, train
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import LMModel
+    from repro_torch.tree import tree_items, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch = dataclasses.replace(configs.get_arch("smollm-360m"),
+                               n_layers=n_layers)
+    g = torch.Generator().manual_seed(4)
+    data = {k: torch.randint(0, arch.vocab, (batch, seq), generator=g)
+            for k in ("tokens", "labels")}
+    cases = {"1f1b": dict(schedule="1f1b", n_micro=2),
+             "zb-reuse": dict(schedule="zb", residuals="reuse",
+                              remat="none", n_micro=4),
+             "zb-reuse-full": dict(schedule="zb", residuals="reuse",
+                                   remat="full", n_micro=4),
+             "interleaved:2": dict(schedule="interleaved:2", n_micro=2),
+             "gpipe_tasked": dict(schedule="gpipe_tasked", n_micro=2)}
+    runs = {}
+    for name, kw in cases.items():
+        pcfg = configs.get_parallel("smollm-360m").with_(pipe=2, data=1,
+                                                          **kw)
+        # the same weights in every case, stacked for its stages
+        params_cpu = LMModel(arch, pcfg, dtype=torch.float32,
+                             device="cpu").init(
+            torch.Generator().manual_seed(0))
+        for d in (("cpu", "cuda") if name != "gpipe_tasked" else ("cuda",)):
+            model = LMModel(arch, pcfg, dtype=torch.float32, device=d)
+            params = tree_map(lambda a: a.to(model.device), params_cpu)
+            grad_fn = steps.build_grad_fn(model, pcfg, model.device)
+            loss, grads = grad_fn(params, {k: v.to(model.device)
+                                           for k, v in data.items()})
+            runs[name, d] = (loss.cpu(), [gr.cpu() for _, gr in
+                                          tree_items(grads)])
+            del params, grads
+    paths = [p for p, _ in tree_items(params_cpu)]
+    bad, recs = [], {}
+    for name in ("1f1b", "zb-reuse", "zb-reuse-full", "interleaved:2"):
+        errs, _, failed = grad_gaps(torch, paths, runs[name, "cuda"],
+                                    runs[name, "cpu"])
+        bad += [f"{name} {f}" for f in failed]
+        recs[name] = {"loss": float(runs[name, "cuda"][0]),
+                      "max_abs_err": errs}
+    # 1f1b and gpipe_tasked on the card: the same per-(stage, micro) work,
+    # folded in micro order
+    (l1, g1), (l0, g0) = runs["1f1b", "cuda"], runs["gpipe_tasked", "cuda"]
+    unequal = {} if torch.equal(l1, l0) else {"loss": max_err(torch, l1, l0)}
+    for path, a, b in zip(paths, g1, g0):
+        if not torch.equal(a, b):
+            unequal[path] = max_err(torch, a, b)
+            if path not in NONDETERMINISTIC_LEAVES or unequal[path] > \
+                    GRAD_REL * float(b.abs().max()):
+                bad.append(f"1f1b vs gpipe_tasked {path}")
+    if "loss" in unequal:
+        bad.append("1f1b vs gpipe_tasked loss")
+    emit({"phase": "train_fused_gpu_vs_cpu", "arch": arch.name,
+          "n_layers": n_layers, "pipe": 2, "batch": batch, "seq": seq,
+          "dtype": "float32", "schedules": recs, "tol": PORT_TOL,
+          "rel_tol": GRAD_REL, "bitwise_1f1b_vs_gpipe_tasked": not unequal,
+          "unequal_leaves": unequal, "ok": not bad})
+    if bad:
+        raise AssertionError(f"fused training disagrees at {bad}")
+
+
+def phase_train(torch, schedule: str = "gpipe"):
+    """A training main path: counters set to 0 just before, read after.
+    ``schedule`` "gpipe" is phase ``train``; a fused schedule is phase
+    ``train_fused``, which also holds the executor's park high-water per
+    rank to the plan's."""
+    from repro_torch import configs
+    from repro_torch.core.plan import plan_for
+    from repro_torch.launch.train import (expected_train_launches,
+                                          launches, train)
     from repro_torch.optim.optimizers import OptimizerConfig
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
 
     arch = configs.get_arch("smollm-360m")
-    pcfg = configs.get_parallel("smollm-360m").with_(data=1, tp=1, n_micro=8,
-                                                      remat="full")
+    pcfg = configs.get_parallel("smollm-360m").with_(
+        data=1, tp=1, n_micro=8, remat="full", schedule=schedule)
     seq, batch, n_steps = 4096, 16, 5
     ocfg = OptimizerConfig(lr=5e-4, warmup_steps=0, min_lr_ratio=1.0,
                            dynamic_loss_scale=True)
@@ -895,13 +975,16 @@ def phase_train(torch):
                 fixed_batch=True, trace=True)
     totals = launches()
     hist = res["history"]
-    want = expected_train_launches(arch.n_layers, pcfg.n_micro, seq,
-                                   pcfg.remat, pcfg.remat_last_micro)
+    want = expected_train_launches(pcfg, arch.n_layers, seq)
     warm = sorted(r["step_s"] for r in hist[1:])
     step_s = warm[len(warm) // 2]                  # median of steps 2..5
-    rec = {"phase": "train", "arch": arch.name, "n_layers": arch.n_layers,
+    plan_park = plan_for(schedule if schedule != "gpipe" else "gpipe_fwd",
+                         pcfg.n_micro, pcfg.pipe).per_stage_park
+    rec = {"phase": "train" if schedule == "gpipe" else "train_fused",
+           "arch": arch.name, "n_layers": arch.n_layers,
            "pipe": pcfg.pipe, "tp": pcfg.tp, "data": pcfg.data,
-           "n_micro": pcfg.n_micro, "remat": pcfg.remat, "seq": seq,
+           "n_micro": pcfg.n_micro, "schedule": schedule,
+           "grad_reduce": pcfg.grad_reduce, "remat": pcfg.remat, "seq": seq,
            "batch": batch, "dtype": "bfloat16", "optimizer": "adamw",
            "lr": ocfg.lr, "losses": [r["loss"] for r in hist],
            "grad_norms": [r["grad_norm"] for r in hist],
@@ -916,6 +999,8 @@ def phase_train(torch):
                                   "x hd x Hq x S (S + 1) / 2 x layers x "
                                   "batch) over the step time and 989 TFLOP/s",
            "peak_mem_gib": res["peak_mem_bytes"] / 2 ** 30,
+           "park_high_water": res["park_info"],
+           "park_plan": plan_park,
            "launches_per_step": [r["launches"] for r in hist],
            "launches_expected_per_step": want, "launches_total": totals,
            "trace": res["trace"]}
@@ -931,6 +1016,9 @@ def phase_train(torch):
             k: (n_steps + 1) * v for k, v in want.items()}:
         raise AssertionError(f"train launches {rec['launches_per_step']} / "
                              f"{totals} differ from the path's {want}")
+    if tuple(res["park_info"]["per_stage_park"]) != tuple(plan_park):
+        raise AssertionError(f"park high-water {res['park_info']} differs "
+                             f"from the plan's {plan_park}")
     return totals
 
 
@@ -1057,12 +1145,14 @@ def main() -> int:
     phase_port(torch, "smollm-360m", n_layers=4, prompt=256)
     phase_port(torch, "rwkv6-1.6b", n_layers=2, prompt=128)
     phase_train_port(torch)
+    phase_train_fused_port(torch)
     launches = {k: 0 for k in KERNELS}
     for arch_name in ("smollm-360m", "rwkv6-1.6b"):
         for k, n in phase_serve(torch, arch_name).items():
             launches[k] += n
-    for k, n in phase_train(torch).items():
-        launches[k] += n
+    for schedule in ("gpipe", "1f1b"):
+        for k, n in phase_train(torch, schedule).items():
+            launches[k] += n
     phase_memory(torch)
     kernels = []
     for kname in KERNELS:

@@ -13,6 +13,15 @@ Policies (``ParallelConfig.remat``):
     boundary input, recompute everything in backward.
   * ``dots`` / ``dots_no_batch`` — store matmul outputs only: not ported yet
     (ROADMAP A14); they raise.
+
+Split-backward residual handling (``ParallelConfig.residuals``) crosses with
+the policy, as in the reference: under ``residuals="reuse"`` the fused
+executor's Bx tick builds the stage graph through the policy-wrapped
+function and keeps it until the Bw tick, so the policy decides what the
+graph holds.  ``none`` keeps every activation the weight gradient needs (Bw
+runs no forward); ``full`` keeps only the stage inputs, which are parked
+anyway, so Bw recomputes the stage inside its backward: recompute
+semantics.
 """
 from __future__ import annotations
 
@@ -20,25 +29,46 @@ from typing import Callable
 
 import torch.utils.checkpoint
 
-from repro_torch.configs.base import REMAT_POLICIES
+from repro_torch.configs.base import REMAT_POLICIES, RESIDUAL_MODES
 
 POLICIES = REMAT_POLICIES
 
 
-def wrap_stage(stage_fn: Callable, policy: str) -> Callable:
-    """Wrap a per-tick stage application according to the remat policy."""
-    if policy == "none":
-        return stage_fn
-    if policy == "full":
-        def checkpointed(*args):
-            return torch.utils.checkpoint.checkpoint(stage_fn, *args,
-                                                     use_reentrant=False)
-        return checkpointed
+def check_policy(policy: str) -> None:
+    """Raise for a policy the port cannot run: unknown, or not ported."""
     if policy in ("dots", "dots_no_batch"):
         raise NotImplementedError(
             f"remat policy {policy!r} (save matmul outputs only) is not "
             "ported yet: ROADMAP A14; use 'full' or 'none'")
-    raise ValueError(f"unknown remat policy {policy!r}; want one of {POLICIES}")
+    if policy not in ("none", "full"):
+        raise ValueError(f"unknown remat policy {policy!r}; "
+                         f"want one of {POLICIES}")
+
+
+def wrap_stage(stage_fn: Callable, policy: str) -> Callable:
+    """Wrap a per-tick stage application according to the remat policy."""
+    check_policy(policy)
+    if policy == "none":
+        return stage_fn
+
+    def checkpointed(*args):
+        return torch.utils.checkpoint.checkpoint(stage_fn, *args,
+                                                 use_reentrant=False)
+    return checkpointed
+
+
+def wrap_for_residuals(fn: Callable, policy: str, residuals: str) -> Callable:
+    """Wrap the function the fused executor differentiates on a backward
+    tick.  ``"recompute"`` leaves ``fn`` bare: each backward tick rebuilds
+    its graph and drops it.  ``"reuse"`` wraps it by the policy, since the
+    Bx tick's graph is the residual stash the Bw tick reads (module
+    docstring)."""
+    if residuals not in RESIDUAL_MODES:
+        raise ValueError(f"unknown residuals mode {residuals!r}; "
+                         f"want one of {RESIDUAL_MODES}")
+    if residuals == "recompute":
+        return fn
+    return wrap_stage(fn, policy)
 
 
 def wrap_stage_for_micro(stage_fn: Callable, policy: str, *, micro: int,

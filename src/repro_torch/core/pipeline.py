@@ -1,28 +1,49 @@
-"""GPipe forward clock-cycle executor on torch tensors (paper Algorithm 1).
+"""Pipeline executors on torch tensors: the GPipe forward clock-cycle (paper
+Algorithm 1) and the fused F+B scheduler.
 
-Counterpart of :mod:`repro.core.pipeline` for forward-only event plans.  It
-runs the SAME plan the JAX executor lowers, ``plan_for("gpipe_fwd", m, n)``
-from :mod:`repro_torch.core.plan`: on tick ``t`` rank ``r`` runs the task in
-``kind[t, r]`` on micro-batch ``micro[t, r]``; a boundary activation shipped
-at the end of tick ``t - 1`` parks in slot ``park_recv[t, r]`` and the
-consuming forward reads slot ``park_read[t, r]``.  Resident state (KV
-caches) is read and updated on each rank's forward ticks, per micro-batch.
+Counterpart of :mod:`repro.core.pipeline`.  Both executors run the SAME
+plans the JAX executor lowers (:func:`repro_torch.core.plan.plan_for`): on
+tick ``t`` rank ``r`` runs the task in ``kind[t, r]`` on micro-batch
+``micro[t, r]``, touching its chunk ``chunk[t, r]`` (global stage
+``chunk * R + r``); a boundary activation shipped at the end of tick
+``t - 1`` parks in slot ``park_recv[t, r]`` and the tasks of that stage read
+slot ``park_read[t, r]``.  The plan's columns are read directly each tick:
+there are no segments, switches or masks, and the whole tick loop runs in
+one process.
 
-Placement follows torchgpipe: ``devices[s]`` holds stage ``s`` and the
-boundary hop is ``.to(devices[s + 1])``, a no-op when every stage sits on
-one card.  The whole tick loop runs in one process.
+Placement follows torchgpipe: ``devices[s]`` holds global stage ``s`` and
+the boundary hop is ``.to(devices[s + 1])``, a no-op when every stage sits
+on one card.
 
-Training (``schedule="gpipe"``, paper Algorithm 1): with grad mode on, each
+Forward-only plans (``gpipe_fwd``, :func:`pipeline_call`): resident state
+(KV caches) is read and updated on each rank's forward ticks, per
+micro-batch.  Training (``schedule="gpipe"``): with grad mode on, each
 forward tick's stage application is wrapped by
 :func:`repro_torch.core.checkpointing.wrap_stage_for_micro` under
-``cfg.remat``: every micro-batch, the last one included, as the reference
-wraps it, unless ``cfg.remat_last_micro`` is False (paper §2.1: each
-stage's last micro-batch then runs bare).  Autograd induces the reverse
-clock-cycle, recomputing each stage forward right before its backward.
-Serving callers hold ``torch.inference_mode()`` themselves.
-Plans with backward tasks, skip routes, stream injection or interleaved
-chunks are later slices (ROADMAP A3-A6), and so are data and tensor
-parallelism (A9).
+``cfg.remat`` (every micro-batch unless ``cfg.remat_last_micro`` is False,
+paper §2.1) and autograd induces the reverse clock-cycle, recomputing each
+stage forward right before its backward.  Serving callers hold
+``torch.inference_mode()`` themselves.
+
+F+B plans (``gpipe_tasked`` / ``1f1b`` / ``interleaved:v`` / ``zb``,
+:func:`pipeline_grad_call`): backward tasks run inside the tick loop.  An F
+tick runs the stage under ``torch.no_grad()`` and keeps nothing but its
+parked input (on the last stage it runs nothing: its output would only feed
+the loss, which the B tick's graph computes and records); a fused B tick
+re-reads that input, re-runs the stage (and the loss on the last stage)
+with grad and calls ``torch.autograd.grad``
+seeded by the cotangent parked in its b-inbox slot: the paper's
+Checkpoint/Recompute pairing, one stage and one micro-batch at a time.
+That is what bounds each stage's stash at ``min(n - j, m)`` under 1F1B.
+``zb`` splits B into Bx (input cotangents, shipped at once) and Bw (weight
+gradients, re-seeded from the still-parked inbox slot): each re-runs the
+stage under ``residuals="recompute"``; under ``"reuse"`` Bx keeps its graph
+in the residual slot the plan allocates and Bw differentiates that graph
+(:func:`repro_torch.core.checkpointing.wrap_for_residuals`).
+
+Skip routes, stream injection, the wire codec and stages in several
+processes are later slices (ROADMAP A6, A5, A7, A4), and so are data and
+tensor parallelism (A9): each raises.
 """
 from __future__ import annotations
 
@@ -34,7 +55,7 @@ import torch
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.core import checkpointing
 from repro_torch.core import plan as plan_lib
-from repro_torch.core.plan import FWD, NOP
+from repro_torch.core.plan import BWD, BWD_W, BWD_X, FWD, NOP
 from repro_torch.core.skip import SkipSpec
 from repro_torch.devices import stage_devices
 from repro_torch.tree import tree_leaves, tree_map
@@ -43,12 +64,12 @@ from repro_torch.tree import tree_leaves, tree_map
 @dataclass
 class TickCtx:
     """Per-tick context handed to the stage function."""
-    stage: int                # GLOBAL stage index
+    stage: int                # GLOBAL stage index (chunk * n_ranks + rank)
     micro: int                # micro-batch index of this rank's task
     valid: bool               # a real (scheduled) task
     t: int                    # tick counter
     fresh: Any                # stage-0 input tree slice for this micro-batch
-    n_stages: int
+    n_stages: int             # GLOBAL stage count (n_ranks * n_chunks)
     n_micro: int
 
 
@@ -68,22 +89,76 @@ def check_single_replica(cfg: ParallelConfig) -> None:
             "pod=1")
 
 
-def _check_forward_plan(tplan: plan_lib.TaskPlan, cfg: ParallelConfig):
-    if tplan.has_backward or (tplan.kind > FWD).any():
-        raise NotImplementedError(
-            "plans with backward tasks (gpipe_tasked / 1f1b / zb) are not "
-            "ported yet: ROADMAP A3 (the port trains through gpipe_fwd with "
-            "autograd)")
+def check_plan(tplan: plan_lib.TaskPlan, cfg: ParallelConfig) -> None:
+    """Raise for the plan features the executors do not run yet."""
     if tplan.routes:
         raise NotImplementedError("skip routes / portals are not ported "
                                   "yet: ROADMAP A6")
     if cfg.stream_inputs and tplan.n_ranks > 1:
         raise NotImplementedError("stream_inputs ticks are not ported yet: "
                                   "ROADMAP A5")
-    if tplan.n_chunks > 1:
-        raise NotImplementedError("interleaved chunks (n_chunks > 1) are not "
-                                  "ported yet: ROADMAP A5")
+    if tplan.n_ranks > 1 and not tplan.wire.lossless:
+        # at pipe 1 the reference's hop is an identity hold, never encoded
+        raise NotImplementedError(
+            f"wire={tplan.wire.name!r}: the on-the-wire codec is not ported "
+            "yet: ROADMAP A7; use wire='fp32' (or pipe=1)")
 
+
+class _Slots:
+    """One plan-addressed buffer family (park, b-inbox or residual stash):
+    per rank, slot -> (tag, value), with the high-water mark of slots held
+    at once.  The tag (micro, global stage) catches a plan/executor
+    mismatch at the read."""
+
+    def __init__(self, name: str, n_ranks: int):
+        self.name = name
+        self.slots: List[Dict[int, Tuple[Tuple[int, int], Any]]] = [
+            {} for _ in range(n_ranks)]
+        self.high = [0] * n_ranks
+
+    def put(self, r: int, slot: int, tag: Tuple[int, int], value) -> None:
+        if slot in self.slots[r]:
+            raise RuntimeError(f"{self.name} slot {slot} of rank {r} still "
+                               f"holds {self.slots[r][slot][0]}, {tag} "
+                               "arrives")
+        self.slots[r][slot] = (tag, value)
+        self.high[r] = max(self.high[r], len(self.slots[r]))
+
+    def get(self, r: int, slot: int, tag: Tuple[int, int], release: bool):
+        held = self.slots[r].pop(slot) if release else self.slots[r][slot]
+        if held[0] != tag:
+            raise RuntimeError(f"{self.name} slot {slot} of rank {r} holds "
+                               f"{held[0]}, the task wants {tag}")
+        return held[1]
+
+    def check_empty(self) -> None:
+        if any(self.slots):
+            raise RuntimeError(f"{self.name} slots still hold values after "
+                               f"the last tick: {self.slots}")
+
+
+def _arrivals(tplan, t: int, column, buf: _Slots, shipped, step: int,
+              devices) -> None:
+    """Park each value rank ``r - step`` shipped on tick ``t - 1`` in the
+    slot ``column[t, r]`` names (ring order: the wrap only happens with
+    interleaved chunks)."""
+    R = tplan.n_ranks
+    for r in range(R):
+        slot = int(column[t, r])
+        if slot < 0:
+            continue
+        src = (r - step) % R
+        if shipped[src] is None:
+            raise RuntimeError(f"tick {t}: rank {r} expects an arrival that "
+                               f"rank {src} did not ship")
+        tag, value = shipped[src]
+        buf.put(r, slot, tag, tree_map(lambda a: a.to(devices[tag[1]]),
+                                       value))
+
+
+# ---------------------------------------------------------------------------
+# Forward-only plans
+# ---------------------------------------------------------------------------
 
 def run_pipeline_tasks(stage_apply: StageApplyFn,
                        stage_params,
@@ -106,9 +181,13 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
     Pass a dict as ``park_info`` to receive ``per_stage_park``, the park
     slots each rank held at once at most in this run.  With grad mode on,
     every forward tick runs under ``cfg.remat`` (:mod:`checkpointing`).
+    F+B plans run through :func:`run_pipeline_grad_tasks`.
     """
     check_single_replica(cfg)
-    _check_forward_plan(tplan, cfg)
+    if tplan.has_backward:
+        raise ValueError("plans with backward tasks run through "
+                         "run_pipeline_grad_tasks (pipeline_grad_call)")
+    check_plan(tplan, cfg)
     remat = cfg.remat if torch.is_grad_enabled() else "none"
     R, m = tplan.n_ranks, tplan.n_micro
     if (R, m) != (cfg.pipe, cfg.n_micro):
@@ -129,31 +208,21 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
                 raise ValueError(f"resident state of stage {s} lives on "
                                  f"{leaf.device}, stage on {devices[s]}")
 
-    park: List[Dict[int, Any]] = [{} for _ in range(R)]
-    high = [0] * R
-    shipped: List[Any] = [None] * R       # each rank's boundary output, last tick
+    park = _Slots("park", R)
+    shipped: List[Any] = [None] * R     # each rank's (tag, output) last tick
     outputs: List[Any] = [None] * m
     for t in range(tplan.n_ticks):
         # 1. arrivals: the previous tick's boundary outputs park in their slots
-        for r in range(R):
-            slot = int(tplan.park_recv[t, r])
-            if slot < 0:
-                continue
-            if r == 0 or shipped[r - 1] is None:
-                raise RuntimeError(f"tick {t}: rank {r} expects an arrival "
-                                   f"that rank {r - 1} did not ship")
-            park[r][slot] = tree_map(lambda a: a.to(devices[r]),
-                                     shipped[r - 1])
-            high[r] = max(high[r], len(park[r]))
-        # 2. each rank runs at most one task
+        _arrivals(tplan, t, tplan.park_recv, park, shipped, 1, devices)
+        # 2. each rank runs at most one task; its forward consumes the slot
         sent: List[Any] = [None] * R
         for r in range(R):
-            kind = int(tplan.kind[t, r])
-            if kind == NOP:
+            if int(tplan.kind[t, r]) == NOP:
                 continue
             i = int(tplan.micro[t, r])
             slot = int(tplan.park_read[t, r])
-            carry = park[r].pop(slot) if slot >= 0 else None
+            carry = park.get(r, slot, (i, r), release=True) \
+                if slot >= 0 else None
             fresh = tree_map(lambda a: a[i].to(devices[r]), inputs_mb)
             ctx = TickCtx(stage=r, micro=i, valid=True, t=t, fresh=fresh,
                           n_stages=tplan.n_stages, n_micro=m)
@@ -169,12 +238,11 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
             if r == R - 1:
                 outputs[i] = carry_out
             else:
-                sent[r] = carry_out
+                sent[r] = ((i, r + 1), carry_out)
         shipped = sent
-    if any(p for p in park):
-        raise RuntimeError("park slots still hold values after the last tick")
+    park.check_empty()
     if park_info is not None:
-        park_info["per_stage_park"] = tuple(high)
+        park_info["per_stage_park"] = tuple(park.high)
     stacked = tree_map(lambda *xs: torch.stack(xs), *outputs)
     return [None] * (R - 1) + [stacked], resident
 
@@ -218,7 +286,7 @@ def pipeline_call(stage_apply: StageApplyFn,
                          "execution runs the clock-cycle plan")
     tplan = plan_lib.plan_for("gpipe_fwd", cfg.n_micro, cfg.pipe,
                               skips=skips, portals=cfg.portals, wire=cfg.wire)
-    _check_forward_plan(tplan, cfg)
+    check_plan(tplan, cfg)
 
     def call(stage_params, inputs_mb, resident=None):
         return run_pipeline_tasks(stage_apply, stage_params, inputs_mb, cfg,
@@ -229,13 +297,283 @@ def pipeline_call(stage_apply: StageApplyFn,
     return call
 
 
-def pipeline_grad_call(*args, **kwargs):
-    """The fused scheduler's entry point (backward tasks inside the tick
-    loop): not ported yet."""
-    raise NotImplementedError(
-        "pipeline_grad_call (fused F+B schedules gpipe_tasked / 1f1b / "
-        "interleaved / zb) is not ported yet: ROADMAP A3; schedule='gpipe' "
-        "trains through pipeline_call and autograd")
+# ---------------------------------------------------------------------------
+# F+B plans: the fused scheduler
+# ---------------------------------------------------------------------------
+
+class _GradSum:
+    """One stage's (or the head's) gradient, summed over micro-batches into
+    ``dest``.  ``ordered`` folds micro 0, 1, ... in turn, whatever order the
+    schedule computes them in (one that comes early waits for its
+    predecessors), so any two schedules of one computation give bitwise
+    equal sums; ``running`` folds in schedule order."""
+
+    def __init__(self, dest: List[torch.Tensor], ordered: bool):
+        self.dest, self.ordered = dest, ordered
+        self.pending: Dict[int, List[torch.Tensor]] = {}
+        self.folded = 0
+
+    def add(self, micro: int, grads: List[torch.Tensor]) -> None:
+        if not self.ordered:
+            self._fold(grads)
+            return
+        self.pending[micro] = grads
+        while self.folded in self.pending:
+            self._fold(self.pending.pop(self.folded))
+
+    def _fold(self, grads) -> None:
+        for d, g in zip(self.dest, grads):
+            g = g.to(d.device)
+            if self.folded == 0:
+                d.copy_(g)
+            else:
+                d.add_(g)
+        self.folded += 1
+
+
+def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
+                            stage_params,
+                            head_params,
+                            inputs_mb,
+                            loss_args_mb,
+                            cfg: ParallelConfig,
+                            *,
+                            tplan: plan_lib.TaskPlan,
+                            loss_fn,
+                            devices: Any,
+                            loss_scale=1.0,
+                            park_info: Optional[Dict[str, Any]] = None):
+    """Execute one F+B event plan for a mini-batch.
+
+    ``stage_params`` leaves lead with ``[n_stages]`` global stages, stacked
+    stage-major (with interleaved chunks, rank ``r`` hosts stages
+    ``{r, r + R, ...}``); ``devices`` is one device per global stage (or one
+    for all).  ``inputs_mb`` (stage 0's input) and ``loss_args_mb`` leaves
+    are ``[m, ...]``; ``loss_fn(head_params, carry_out, loss_args)`` is one
+    micro-batch's loss on the last stage.  The loss seed is
+    ``loss_scale / m`` (``loss_scale`` may be a tensor: a dynamic loss
+    scale), so every gradient is the mean loss's, scaled.
+
+    Returns ``(loss_sum, stage_grads, head_grads, input_grads_mb)``: the
+    fp32 sum of the per-micro losses in ascending micro order (unscaled),
+    gradients mirroring ``stage_params`` and ``head_params``, and the
+    ``[m, ...]`` cotangents of ``inputs_mb``.  ``cfg.grad_reduce`` picks
+    the micro-batch fold (:class:`_GradSum`).  Pass a dict as ``park_info``
+    to receive the park, b-inbox and residual-stash high-water per rank
+    (``per_stage_park``, ``per_stage_b_inbox``, ``per_stage_resid``).
+    """
+    check_single_replica(cfg)
+    if not tplan.has_backward:
+        raise ValueError("forward-only plans run through run_pipeline_tasks")
+    check_plan(tplan, cfg)
+    if cfg.grad_reduce not in ("ordered", "running"):
+        raise ValueError(f"unknown grad_reduce {cfg.grad_reduce!r}; "
+                         "want 'ordered' or 'running'")
+    R, m, S = tplan.n_ranks, tplan.n_micro, tplan.n_stages
+    if (R, m) != (cfg.pipe, cfg.n_micro):
+        raise ValueError(f"plan is for pipe={R}, m={m}; config has "
+                         f"pipe={cfg.pipe}, n_micro={cfg.n_micro}")
+    devices = stage_devices(devices, S)
+    for leaf in tree_leaves(stage_params):
+        if leaf.shape[0] != S:
+            raise ValueError(f"stacked leaf {tuple(leaf.shape)} does not "
+                             f"lead with n_stages={S}")
+    reuse = tplan.residuals == "reuse"
+    ordered = cfg.grad_reduce == "ordered"
+
+    # autograd leaves: each global stage's parameter slice and the head's
+    params_s = [tree_map(lambda a: a[s].to(devices[s]).detach()
+                         .requires_grad_(), stage_params) for s in range(S)]
+    head_s = tree_map(lambda a: a.to(devices[-1]).detach().requires_grad_(),
+                      head_params)
+    seed = torch.as_tensor(loss_scale, dtype=torch.float32,
+                           device=devices[-1]) / m
+    g_stage = tree_map(torch.zeros_like, stage_params)
+    g_head = tree_map(torch.zeros_like, head_params)
+    stage_sums = [_GradSum([g[s] for g in tree_leaves(g_stage)], ordered)
+                  for s in range(S)]
+    head_sum = _GradSum(tree_leaves(g_head), ordered)
+    input_grads: List[Any] = [None] * m
+    losses: List[Optional[torch.Tensor]] = [None] * m
+
+    def stage_loss(p, carry, fresh, hp, ctx, largs):
+        """The stage, and on the last stage its loss: what every task of
+        the plan runs and every backward differentiates."""
+        ctx.fresh = fresh
+        carry_out, skips_out, _ = stage_apply(p, carry, {}, {}, ctx)
+        if skips_out:
+            raise NotImplementedError("skip outputs need skip routes: "
+                                      "ROADMAP A6")
+        loss = None if largs is None else loss_fn(hp, carry_out,
+                                                  largs).float()
+        return carry_out, loss
+
+    # bare, unless Bx keeps its graph for Bw (residuals="reuse")
+    stage_loss_b = checkpointing.wrap_for_residuals(stage_loss, cfg.remat,
+                                                    tplan.residuals)
+
+    def graph(s, carry, fresh, ctx, largs):
+        """Re-run stage ``s`` with grad from its parked (or fresh) input.
+        Returns the outputs to differentiate and the input leaves."""
+        x = tree_map(lambda a: a.detach().requires_grad_(),
+                     carry if s else fresh)
+        carry, fresh = (x, None) if s else (None, x)
+        with torch.enable_grad():
+            carry_out, loss = stage_loss_b(params_s[s], carry, fresh,
+                                           head_s, ctx, largs)
+        outs = [loss] if loss is not None else tree_leaves(carry_out)
+        return outs, tree_leaves(x)
+
+    def weights(s):
+        return tree_leaves(params_s[s]) + (tree_leaves(head_s)
+                                           if s == S - 1 else [])
+
+    def grad(outs, wrt, seeds, retain=False):
+        return torch.autograd.grad(outs, wrt, seeds, retain_graph=retain,
+                                   allow_unused=True, materialize_grads=True)
+
+    park = _Slots("park", R)
+    inbox = _Slots("b-inbox", R)
+    resid = _Slots("residual", R)
+    shipped_f: List[Any] = [None] * R
+    shipped_b: List[Any] = [None] * R
+    for t in range(tplan.n_ticks):
+        # 1. arrivals: forward carries from rank r - 1, cotangents from r + 1
+        _arrivals(tplan, t, tplan.park_recv, park, shipped_f, 1, devices)
+        _arrivals(tplan, t, tplan.b_recv, inbox, shipped_b, -1, devices)
+        sent_f: List[Any] = [None] * R
+        sent_b: List[Any] = [None] * R
+        # 2. each rank runs at most one task
+        for r in range(R):
+            kind = int(tplan.kind[t, r])
+            if kind == NOP:
+                continue
+            i = int(tplan.micro[t, r])
+            s = int(tplan.chunk[t, r]) * R + r
+            tag = (i, s)
+            # a slot frees at its last reader: the fused B, or Bw when split
+            last_read = kind in (BWD, BWD_W)
+            slot = int(tplan.park_read[t, r])
+            carry = (park.get(r, slot, tag, release=last_read)
+                     if slot >= 0 else None)
+            if (carry is None) != (s == 0):
+                raise RuntimeError(f"tick {t}: stage {s} reads "
+                                   f"{'no' if carry is None else 'a'} "
+                                   "parked carry")
+            fresh = (tree_map(lambda a: a[i].to(devices[s]), inputs_mb)
+                     if s == 0 else None)
+            largs = (tree_map(lambda a: a[i].to(devices[s]), loss_args_mb)
+                     if s == S - 1 else None)
+            ctx = TickCtx(stage=s, micro=i, valid=True, t=t, fresh=fresh,
+                          n_stages=S, n_micro=m)
+            if kind == FWD:
+                if s == S - 1:          # the B / Bx graph records the loss
+                    continue
+                with torch.no_grad():
+                    carry_out, _ = stage_loss(params_s[s], carry, fresh,
+                                              head_s, ctx, None)
+                sent_f[r] = ((i, s + 1), carry_out)
+                continue
+            slot = int(tplan.b_read[t, r])
+            if s == S - 1:
+                seeds = [seed]
+            else:
+                seeds = tree_leaves(inbox.get(r, slot, tag,
+                                              release=last_read))
+            if kind in (BWD, BWD_X):
+                outs, xs = graph(s, carry, fresh, ctx, largs)
+                if s == S - 1:
+                    losses[i] = outs[0].detach()
+            if kind == BWD:
+                g = grad(outs, xs + weights(s), seeds)
+                g_in, g_w = g[:len(xs)], g[len(xs):]
+            elif kind == BWD_X:
+                g_in, g_w = grad(outs, xs, seeds, retain=reuse), None
+                if reuse:
+                    resid.put(r, int(tplan.resid_write[t, r]), tag, outs)
+            else:                                   # BWD_W
+                if reuse:
+                    outs = resid.get(r, int(tplan.resid_read[t, r]), tag,
+                                     release=True)
+                else:
+                    outs, _ = graph(s, carry, fresh, ctx, largs)
+                g_in, g_w = None, grad(outs, weights(s), seeds)
+            if g_w is not None:
+                n_p = len(tree_leaves(params_s[s]))
+                stage_sums[s].add(i, g_w[:n_p])
+                if s == S - 1:
+                    head_sum.add(i, g_w[n_p:])
+            if g_in is not None:
+                g_tree = _unflatten(fresh if s == 0 else carry, g_in)
+                if s == 0:
+                    input_grads[i] = g_tree
+                else:
+                    sent_b[r] = ((i, s - 1), g_tree)
+        shipped_f, shipped_b = sent_f, sent_b
+    for buf in (park, inbox, resid):
+        buf.check_empty()
+    sums = stage_sums + [head_sum]
+    if any(gs.folded != m or gs.pending for gs in sums) \
+            or any(x is None for x in losses + input_grads):
+        raise RuntimeError("the plan left a micro-batch without its loss or "
+                           "a gradient")
+    if park_info is not None:
+        park_info.update(per_stage_park=tuple(park.high),
+                         per_stage_b_inbox=tuple(inbox.high),
+                         per_stage_resid=tuple(resid.high))
+    loss_sum = torch.zeros((), dtype=torch.float32, device=devices[-1])
+    for loss in losses:                       # ascending micro order
+        loss_sum = loss_sum + loss
+    input_grads_mb = tree_map(lambda *xs: torch.stack(xs), *input_grads)
+    return loss_sum, g_stage, g_head, input_grads_mb
+
+
+def _unflatten(like, leaves):
+    """``leaves`` in the tree structure of ``like``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def pipeline_grad_call(stage_apply: StageApplyFn,
+                       *,
+                       cfg: ParallelConfig,
+                       loss_fn,
+                       devices: Any = "cuda",
+                       skips: Sequence[SkipSpec] = (),
+                       park_info: Optional[Dict[str, Any]] = None):
+    """Build the fused schedule-driven training call.
+
+    Returns ``(call, tplan)`` with ``call(stage_params, head_params,
+    inputs_mb, loss_args_mb, *, loss_scale=1.0) -> (loss, stage_grads,
+    head_grads, input_grads_mb)``, the reference's contract: ``loss`` is
+    the mean per-micro loss, ``stage_grads`` mirror the stage-major
+    ``[n_stages, ...]`` ``stage_params`` (``pipe * v`` global stages for
+    ``interleaved:v``), ``head_grads`` mirror ``head_params`` and
+    ``input_grads_mb`` (``[m, ...]``) feeds the embed VJP outside the
+    pipeline.  Gradients carry ``loss_scale``; the loss does not.
+
+    The schedule comes from ``cfg.schedule`` (``"gpipe"`` /
+    ``"gpipe_tasked"``, ``"1f1b"``, ``"interleaved:v"``, ``"zb"`` with
+    ``cfg.residuals``), lowered once here by :func:`plan_lib.plan_for`;
+    ``cfg.grad_reduce`` picks the micro-batch fold.  ``park_info``
+    (a dict) receives each call's buffer high-water per rank.
+    """
+    check_single_replica(cfg)
+    checkpointing.check_policy(cfg.remat)
+    tplan = plan_lib.plan_for(cfg.schedule, cfg.n_micro, cfg.pipe,
+                              skips=skips, portals=cfg.portals,
+                              residuals=cfg.residuals, wire=cfg.wire)
+    check_plan(tplan, cfg)
+
+    def call(stage_params, head_params, inputs_mb, loss_args_mb, *,
+             loss_scale=1.0):
+        loss_sum, g_stage, g_head, ig = run_pipeline_grad_tasks(
+            stage_apply, stage_params, head_params, inputs_mb, loss_args_mb,
+            cfg, tplan=tplan, loss_fn=loss_fn, devices=devices,
+            loss_scale=loss_scale, park_info=park_info)
+        return loss_sum / cfg.n_micro, g_stage, g_head, ig
+
+    return call, tplan
 
 
 def last_stage_output(outputs):

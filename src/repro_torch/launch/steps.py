@@ -1,21 +1,26 @@
-"""Step functions: train / prefill / serve through the GPipe pipeline.
+"""Step functions: train / prefill / serve through the pipeline executors.
 
 Counterpart of :mod:`repro.launch.steps` (``build_train_step``,
 ``build_prefill_step``, ``build_serve_step``).  Where the reference takes a
 mesh, the port takes the stage placement: one device per stage, or one
 device for all of them.  The serving steps run under
-``torch.inference_mode()``; the train step runs the forward clock-cycle with
-grad and lets autograd induce the reverse one.
+``torch.inference_mode()``.  The train step runs the forward clock-cycle
+with grad and lets autograd induce the reverse one (``schedule="gpipe"``),
+or runs the fused F+B scheduler, which computes its own gradients
+(``1f1b``, ``gpipe_tasked``, ``interleaved:v``, ``zb``).
 """
 from __future__ import annotations
 
+import warnings
 from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ParallelConfig, ShapeConfig
+from repro_torch.core import checkpointing
 from repro_torch.core.pipeline import (last_stage_output, microbatch,
-                                       pipeline_call, unmicrobatch)
+                                       pipeline_call, pipeline_grad_call,
+                                       unmicrobatch)
 from repro_torch.models.lm import LMModel
 from repro_torch.optim import optimizers as optim
 from repro_torch.tree import tree_leaves, tree_map
@@ -28,51 +33,117 @@ def build_train_step(model: LMModel, pcfg: ParallelConfig, devices: Any,
                      ocfg: Optional[optim.OptimizerConfig] = None):
     """train_step(params, opt_state, batch) -> (params, opt_state, metrics).
 
-    ``schedule="gpipe"`` (paper Algorithm 1): embed, micro-batch, the GPipe
-    forward clock-cycle (:func:`pipeline_call`, each stage under
-    ``pcfg.remat``), un-micro-batch, the chunked head loss; autograd then
-    runs the reverse clock-cycle, ``torch.autograd.grad`` collects every
-    parameter leaf's gradient and :func:`optim.apply` updates.  With
-    ``ocfg.dynamic_loss_scale`` the loss is multiplied by the state's scale
-    before autograd and ``optim.apply`` unscales.  ``batch`` holds
-    ``tokens`` and ``labels`` [B, S] on the model's device; metrics are 0-d
-    tensors (reading one waits for the step)."""
+    ``pcfg.schedule`` selects the execution order (:func:`build_grad_fn`);
+    :func:`optim.apply` then updates.  With ``ocfg.dynamic_loss_scale``
+    every gradient carries the state's scale and ``optim.apply`` unscales.
+    ``batch`` holds ``tokens`` and ``labels`` [B, S] on the model's device;
+    metrics are 0-d tensors (reading one waits for the step).
+    ``train_step.tplan`` is the plan the executor runs and
+    ``train_step.park_info`` its buffer high-water per rank, refreshed by
+    each step."""
     ocfg = ocfg or optim.OptimizerConfig()
-    spec = pcfg.schedule_spec
-    if spec.base in FUSED_SCHEDULES:
-        raise NotImplementedError(
-            f"schedule {pcfg.schedule!r} runs the fused F+B executor, which "
-            "is not ported yet: ROADMAP A3; use schedule='gpipe'")
-    if spec.base != "gpipe":
-        raise ValueError(f"unknown schedule {pcfg.schedule!r}")
+    # gate known config smells at selection time, as the reference does
+    for msg in pcfg.advisories():
+        warnings.warn(msg, stacklevel=2)
     if pcfg.grad_compression != "none":
         raise NotImplementedError(
             f"grad_compression={pcfg.grad_compression!r} is not ported yet: "
             "ROADMAP A7")
-    loss_fn = build_loss_fn(model, pcfg, devices)
+    grad_fn = build_grad_fn(model, pcfg, devices)
 
     def train_step(params, opt_state, batch):
-        grad_params = tree_map(lambda p: p.detach().requires_grad_(), params)
-        with torch.enable_grad():
-            loss = loss_fn(grad_params, batch)
-            scaled = loss * opt_state.scale if ocfg.dynamic_loss_scale else loss
-            flat = iter(torch.autograd.grad(scaled, tree_leaves(grad_params)))
-        grads = tree_map(lambda _: next(flat), params)
+        scale = opt_state.scale if ocfg.dynamic_loss_scale else None
+        loss, grads = grad_fn(params, batch, scale)
+        scaled = loss * scale if scale is not None else loss
         params2, opt2, metrics = optim.apply(ocfg, opt_state, params, grads,
-                                             loss=scaled.detach())
-        metrics["loss"] = loss.detach()
+                                             loss=scaled)
+        metrics["loss"] = loss
         return params2, opt2, metrics
 
-    train_step.tplan = loss_fn.tplan
+    train_step.tplan = grad_fn.tplan
+    train_step.park_info = grad_fn.park_info
     return train_step
 
 
-def build_loss_fn(model: LMModel, pcfg: ParallelConfig, devices: Any):
+def build_grad_fn(model: LMModel, pcfg: ParallelConfig, devices: Any):
+    """grad_fn(params, batch, loss_scale=None) -> (loss, grads).
+
+    ``loss`` is the mean token cross-entropy (0-d fp32, unscaled); ``grads``
+    mirror ``params`` and carry ``loss_scale`` when it is given.
+
+    ``schedule="gpipe"`` (paper Algorithm 1): embed, micro-batch, the GPipe
+    forward clock-cycle (:func:`build_loss_fn`, each stage under
+    ``pcfg.remat``), the chunked head loss; autograd runs the reverse
+    clock-cycle and ``torch.autograd.grad`` collects every leaf.  The fused
+    schedules (reference ``_build_train_step_fused``): embed with grad,
+    micro-batch tokens and labels, :func:`pipeline_grad_call` with one
+    micro-batch's head loss on the last stage, then the embed VJP on the
+    input cotangents plus the tied embedding's gradient through the head.
+    """
+    checkpointing.check_policy(pcfg.remat)
+    base = pcfg.schedule_spec.base
+    if base == "gpipe":
+        return _build_grad_fn_gpipe(model, pcfg, devices)
+    if base in FUSED_SCHEDULES:
+        return _build_grad_fn_fused(model, pcfg, devices)
+    raise ValueError(f"unknown schedule {pcfg.schedule!r}; want 'gpipe', "
+                     "'gpipe_tasked', '1f1b', 'interleaved:v', or 'zb'")
+
+
+def _build_grad_fn_gpipe(model, pcfg, devices):
+    park_info: Dict[str, Any] = {}
+    loss_fn = build_loss_fn(model, pcfg, devices, park_info=park_info)
+
+    def grad_fn(params, batch, loss_scale=None):
+        grad_params = tree_map(lambda p: p.detach().requires_grad_(), params)
+        with torch.enable_grad():
+            loss = loss_fn(grad_params, batch)
+            scaled = loss * loss_scale if loss_scale is not None else loss
+            flat = iter(torch.autograd.grad(scaled, tree_leaves(grad_params)))
+        return loss.detach(), tree_map(lambda _: next(flat), params)
+
+    grad_fn.tplan, grad_fn.park_info = loss_fn.tplan, park_info
+    return grad_fn
+
+
+def _build_grad_fn_fused(model, pcfg, devices):
+    def micro_loss(head_ps, carry, largs):
+        return model.head_loss(head_ps, carry["h"], largs["labels"])
+
+    park_info: Dict[str, Any] = {}
+    pipe_grad, tplan = pipeline_grad_call(
+        model.make_stage_apply(model.consts()), cfg=pcfg, loss_fn=micro_loss,
+        devices=devices, park_info=park_info)
+    m = pcfg.n_micro
+
+    def grad_fn(params, batch, loss_scale=None):
+        emb = tree_map(lambda p: p.detach().requires_grad_(), params["embed"])
+        with torch.enable_grad():
+            fresh = model.embed_inputs(emb, batch)
+        inputs_mb = microbatch(tree_map(torch.Tensor.detach, fresh), m)
+        labels_mb = microbatch({"labels": batch["labels"]}, m)
+        head_ps = {"head": params["head"], "embed": params["embed"]}
+        loss, g_stage, g_head, ig = pipe_grad(
+            params["stages"], head_ps, inputs_mb, labels_mb,
+            loss_scale=1.0 if loss_scale is None else loss_scale)
+        flat = iter(torch.autograd.grad(tree_leaves(fresh), tree_leaves(emb),
+                                        tree_leaves(unmicrobatch(ig))))
+        parts = {"embed": tree_map(lambda gh: next(flat) + gh,
+                                   g_head["embed"]),
+                 "stages": g_stage, "head": g_head["head"]}
+        return loss, {k: parts[k] for k in params}
+
+    grad_fn.tplan, grad_fn.park_info = tplan, park_info
+    return grad_fn
+
+
+def build_loss_fn(model: LMModel, pcfg: ParallelConfig, devices: Any, *,
+                  park_info: Optional[Dict[str, Any]] = None):
     """loss_fn(params, batch) -> mean token cross-entropy (0-d fp32): embed,
     micro-batch, the GPipe forward clock-cycle, un-micro-batch, the chunked
-    head loss.  Differentiable: the loss of :func:`build_train_step`."""
+    head loss.  Differentiable: the loss of the ``gpipe`` train step."""
     pipe = pipeline_call(model.make_stage_apply(model.consts()), cfg=pcfg,
-                         devices=devices)
+                         devices=devices, park_info=park_info)
 
     def loss_fn(params, batch):
         fresh = model.embed_inputs(params["embed"], batch)

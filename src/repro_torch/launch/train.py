@@ -1,5 +1,6 @@
 """Training entry point: the plain loop on synthetic data through the GPipe
-clock-cycle with per-micro-batch checkpointing.
+clock-cycle with per-micro-batch checkpointing, or through the fused F+B
+scheduler (``--schedule 1f1b``, ``gpipe_tasked``, ``interleaved:v``, ``zb``).
 
 Counterpart of :mod:`repro.launch.train`'s loop.  All pipeline stages sit on
 the one card given by ``--device`` (the default ``cuda``; ``cpu`` runs the
@@ -10,7 +11,7 @@ injected faults, elastic re-plan) is ROADMAP A11: its flags raise.
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --steps 5 --seq-len 4096 --batch 16 --n-micro 8
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
-        --steps 5 --pipe 2
+        --steps 5 --pipe 2 [--schedule 1f1b]
 """
 from __future__ import annotations
 
@@ -24,8 +25,9 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch import configs
-from repro_torch.configs.base import (REMAT_POLICIES, ArchConfig,
-                                      ParallelConfig, ShapeConfig)
+from repro_torch.configs.base import (REMAT_POLICIES, RESIDUAL_MODES,
+                                      ArchConfig, ParallelConfig,
+                                      ShapeConfig)
 from repro_torch.data.pipeline import (DataConfig, SyntheticLM, make_loader,
                                        to_device)
 from repro_torch.devices import resolve_device
@@ -44,6 +46,58 @@ def launches() -> Dict[str, int]:
     return {"flash_attention": flash_attention.launches,
             "flash_attention_bwd": flash_attention_bwd.launches,
             "rmsnorm": rmsnorm.launches, "rmsnorm_bwd": rmsnorm_bwd.launches}
+
+
+def expected_train_launches(pcfg: ParallelConfig, layers: int,
+                            seq: int) -> Dict[str, int]:
+    """Kernel launches one train step of a dense decoder with ``layers``
+    layers implies under ``pcfg`` (m = ``pcfg.n_micro`` micro-batches,
+    nc head-loss chunks of ``seq``): the formula ``chip_smoke.py`` and the
+    CPU tests hold the counters of :func:`launches` to.
+
+    ``gpipe`` (autograd backward): attention once per layer and micro-batch
+    forward, again for each micro-batch recomputed before its backward (all
+    m with remat "full", m - 1 without the last when ``remat_last_micro``
+    is False, none with "none"), and once backward; RMSNorm twice per layer
+    and micro-batch in each of those, plus the head's once per loss chunk
+    forward and again in that chunk's recompute (the chunks are always
+    checkpointed) and once backward.
+
+    Fused schedules: each micro-batch runs every layer once on its F tick
+    (except the last stage's, whose F tick runs nothing), once more for
+    each graph a backward tick builds (``graphs``: the fused B; zb's Bx and
+    Bw, or Bx alone when Bw differentiates Bx's graph under
+    ``residuals="reuse"``), once more in each backward that recomputes the
+    stage (zb reuse under remat "full": Bx's graph is checkpointed) and
+    once backward for each ``autograd.grad`` (``grads``: B, or Bx and Bw).
+    The head runs per micro-batch: its chunks once in each graph and once
+    more in each backward (their own recompute); where the stage is
+    recomputed as well, that recompute also runs nc - 1 of them (PyTorch's
+    nested checkpoint stops early once it holds the last tensor it saved)."""
+    from repro_torch.models.lm import head_loss_chunk
+    m, nc = pcfg.n_micro, seq // head_loss_chunk(seq)
+    lm = layers * m
+    base = pcfg.schedule.split(":")[0]
+    if base == "gpipe":
+        replays = 0 if pcfg.remat == "none" else (
+            m if pcfg.remat_last_micro else m - 1)
+        fwd = lm + layers * replays
+        return {"flash_attention": fwd, "flash_attention_bwd": lm,
+                "rmsnorm": 2 * fwd + 2 * nc, "rmsnorm_bwd": 2 * lm + nc}
+    stages = pcfg.pipe * pcfg.virtual_stages
+    if layers % stages:
+        raise ValueError(f"{layers} layers do not split evenly over "
+                         f"{stages} stages: no launch formula")
+    reuse = base == "zb" and pcfg.residuals == "reuse"
+    graphs = 2 if base == "zb" and not reuse else 1
+    grads = 2 if base == "zb" else 1
+    recomputes = grads if reuse and pcfg.remat != "none" else 0
+    fwd = (1 + graphs + recomputes) * lm - layers // stages * m
+    head = (graphs + grads) * nc + recomputes * (nc - 1)
+    return {"flash_attention": fwd,
+            "flash_attention_bwd": grads * lm,
+            "rmsnorm": 2 * fwd + head * m,
+            "rmsnorm_bwd": 2 * grads * lm + grads * nc * m}
 
 
 def model_flops_per_step(arch: ArchConfig, seq_len: int, batch: int) -> float:
@@ -73,7 +127,9 @@ def train(arch: ArchConfig, pcfg: ParallelConfig, *, seq_len: int, batch: int,
     :class:`SyntheticLM` batches (``seed``), or on its first batch every step
     with ``fixed_batch``.  Returns one record per step (its metrics as
     floats, ``step_s`` on the host clock around the synchronized step, and
-    the kernel launches of that step) and, on a card, the peak memory.
+    the kernel launches of that step), the executor's buffer high-water
+    per rank (``park_info``, from the last step) and, on a card, the peak
+    memory.
     ``trace`` (a card only) runs one step more under the profiler and
     returns its device time by kernel family and the card's idle share as
     ``trace``; that step is not in ``history``."""
@@ -120,6 +176,7 @@ def train(arch: ArchConfig, pcfg: ParallelConfig, *, seq_len: int, batch: int,
         if loader is not None:
             loader.close()
     out = {"history": history, "n_micro": pcfg.n_micro,
+           "park_info": dict(step.park_info),
            "tokens_per_step": seq_len * batch,
            "model_flops_per_step": model_flops_per_step(arch, seq_len, batch)}
     if dev.type == "cuda":
@@ -148,6 +205,16 @@ def main():
     ap.add_argument("--n-micro", type=int, default=0,
                     help="micro-batches (0: derived from batch and pipe)")
     ap.add_argument("--remat", default="full", choices=REMAT_POLICIES)
+    ap.add_argument("--schedule", default="gpipe",
+                    help="gpipe (autograd backward), or a fused F+B "
+                         "schedule: gpipe_tasked, 1f1b, interleaved:v, zb")
+    ap.add_argument("--residuals", default="recompute",
+                    choices=RESIDUAL_MODES,
+                    help="zb: re-run the stage in Bw, or keep Bx's graph")
+    ap.add_argument("--grad-reduce", default="ordered",
+                    choices=("ordered", "running"),
+                    help="fused schedules: fold micro-batch gradients in "
+                         "micro order or in schedule order")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
@@ -176,7 +243,9 @@ def main():
     if args.pipe:
         pcfg = pcfg.with_(pipe=args.pipe)
     shape = ShapeConfig("train", args.seq_len, args.batch, "train")
-    pcfg = pcfg.with_(remat=args.remat, n_micro=args.n_micro
+    pcfg = pcfg.with_(remat=args.remat, schedule=args.schedule,
+                      residuals=args.residuals, grad_reduce=args.grad_reduce)
+    pcfg = pcfg.with_(n_micro=args.n_micro
                       or configs.derive_n_micro(shape, pcfg))
     ocfg = optim.OptimizerConfig(lr=args.lr, warmup_steps=min(20, args.steps),
                                  total_steps=args.steps,
@@ -185,7 +254,8 @@ def main():
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "cpu")
     print(f"[train] {arch.name}: pipe={pcfg.pipe} m={pcfg.n_micro} "
-          f"remat={pcfg.remat} seq={args.seq_len} batch={args.batch} "
+          f"schedule={pcfg.schedule} remat={pcfg.remat} "
+          f"seq={args.seq_len} batch={args.batch} "
           f"{str(dtype).split('.')[-1]} on {where}", flush=True)
     res = train(arch, pcfg, seq_len=args.seq_len, batch=args.batch,
                 steps=args.steps, device=dev, dtype=dtype, seed=args.seed,
@@ -198,6 +268,7 @@ def main():
               flush=True)
     last = res["history"][-1]
     print(f"[train] kernel launches per step {last['launches']}")
+    print(f"[train] buffer high-water per rank {res['park_info']}")
     if dev.type == "cuda":
         share = res["model_flops_per_step"] / last["step_s"] / PEAK_BF16_FLOPS
         print(f"[train] peak memory {res['peak_mem_bytes'] / 2**30:.2f} GiB; "

@@ -1,0 +1,218 @@
+"""The port's fused F+B executor against the JAX package, on the CPU.
+
+Same weights (the JAX ``model.init(PRNGKey(0))`` moved across with
+``interop.params_from_jax``) and the same seeded-numpy batch as
+``tests/test_torch_train.py``, whose sequential JAX oracle and 5-step JAX
+curve this file reuses: the reference's own multi-device fused executor
+does not reproduce its equivalence claims on the installed jax, so the port
+is held against the single-device oracle, at that file's fp32 ``TOL``.
+
+Beside the loss and every gradient leaf of each fused schedule: the
+schedules bitwise equal to each other under ``grad_reduce="ordered"``,
+``"running"``, the park / b-inbox / residual high-water against the plan,
+the launch formulas ``chip_smoke.py`` holds the card to, the 1F1B train
+curve, the fused step against the port's own ``gpipe`` step, and the wire
+codec that is not ported yet (raises at pipe > 1, identity at pipe 1).
+"""
+import numpy as np
+import pytest
+import torch
+
+from test_torch_train import (  # noqa: F401  (fixtures used by name)
+    ARCH, BATCH, COUNT_M, COUNT_SEQ, CURVE_STEPS, OCFG, SEQ, TOL,
+    _assert_tree_close, _count_train_calls, _few_threads, _port, jax_ref)
+
+from repro_torch import configs
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.pipeline import pipeline_call, pipeline_grad_call
+from repro_torch.core.skip import SkipSpec
+from repro_torch.interop import params_from_jax
+from repro_torch.launch import steps
+from repro_torch.launch.train import expected_train_launches
+from repro_torch.models.lm import head_loss_chunk
+from repro_torch.optim import optimizers as optim
+from repro_torch.tree import tree_items
+
+SCHEDULES = {
+    "gpipe_tasked": dict(schedule="gpipe_tasked"),
+    "1f1b": dict(schedule="1f1b"),
+    "zb": dict(schedule="zb"),
+    "zb-reuse": dict(schedule="zb", residuals="reuse", remat="none"),
+    # Bx's graph checkpointed: Bw recomputes the stage inside its backward
+    "zb-reuse-full": dict(schedule="zb", residuals="reuse", remat="full"),
+    "interleaved2": dict(schedule="interleaved:2"),
+}
+# the schedules of one stage per rank: bitwise equal to each other
+FLAT = ("gpipe_tasked", "1f1b", "zb", "zb-reuse", "zb-reuse-full")
+ORACLE_CASES = [(name, pipe) for name in ("gpipe_tasked", "1f1b", "zb")
+                for pipe in (2, 4)] + [("zb-reuse", 2), ("zb-reuse-full", 2),
+                                       ("interleaved2", 2)]
+_RUNS = {}
+
+
+def _fused(ref_, name, pipe, **kw):
+    """Loss, grads, buffer high-water and plan of one fused grad call on
+    the oracle's weights and batch (memoised: several tests read a run)."""
+    key = (name, pipe, tuple(sorted(kw.items())))
+    if key not in _RUNS:
+        model, pcfg, params, batch = _port(ref_, pipe, **SCHEDULES[name],
+                                           **kw)
+        grad_fn = steps.build_grad_fn(model, pcfg, "cpu")
+        loss, grads = grad_fn(params, batch)
+        _RUNS[key] = dict(loss=loss, grads=grads, pcfg=pcfg, model=model,
+                          park=dict(grad_fn.park_info), tplan=grad_fn.tplan)
+    return _RUNS[key]
+
+
+def _assert_bitwise(a, b, tag):
+    assert torch.equal(a["loss"], b["loss"]), tag
+    for (path, x), (_, y) in zip(tree_items(a["grads"]),
+                                 tree_items(b["grads"])):
+        assert torch.equal(x, y), f"{tag} {path}"
+
+
+@pytest.mark.parametrize("name, pipe", ORACLE_CASES)
+def test_fused_loss_and_grads_match_jax_oracle(jax_ref, name, pipe):
+    run = _fused(jax_ref, name, pipe)
+    np.testing.assert_allclose(float(run["loss"]), jax_ref["loss"], **TOL)
+    want = params_from_jax(jax_ref["grads"], arch=run["model"].arch,
+                           src_pipe=1, pcfg=run["pcfg"], device="cpu")
+    _assert_tree_close(run["grads"], want, f"{name} pipe {pipe}")
+
+
+@pytest.mark.parametrize("pipe", [2, 4])
+def test_schedules_bitwise_equal_under_ordered_reduce(jax_ref, pipe):
+    """Each (stage, micro) gradient comes from the same ops on the same
+    inputs in every schedule, and "ordered" folds them in micro order."""
+    base = _fused(jax_ref, FLAT[0], pipe)
+    for name in FLAT[1:]:
+        _assert_bitwise(_fused(jax_ref, name, pipe), base,
+                        f"{name} vs {FLAT[0]} pipe {pipe}")
+
+
+@pytest.mark.parametrize("name", ["1f1b", "zb"])
+def test_running_reduce_close_to_ordered_and_stable(jax_ref, name):
+    ordered = _fused(jax_ref, name, 4)
+    running = _fused(jax_ref, name, 4, grad_reduce="running")
+    _assert_tree_close(running["grads"], ordered["grads"], f"{name} running")
+    _RUNS.pop((name, 4, (("grad_reduce", "running"),)))
+    again = _fused(jax_ref, name, 4, grad_reduce="running")
+    _assert_bitwise(again, running, f"{name} running twice")
+
+
+@pytest.mark.parametrize("name, pipe", ORACLE_CASES + [("zb-reuse", 4)])
+def test_buffer_high_water_equals_plan(jax_ref, name, pipe):
+    run = _fused(jax_ref, name, pipe)
+    tplan, park = run["tplan"], run["park"]
+    assert park == {"per_stage_park": tplan.per_stage_park,
+                    "per_stage_b_inbox": tplan.per_stage_b_inbox,
+                    "per_stage_resid": tplan.per_stage_resid}
+    if name == "1f1b":        # the 1F1B bound: min(n - j, m), none on rank 0
+        assert park["per_stage_park"] == tuple(
+            0 if j == 0 else min(pipe - j + 1, 4) for j in range(pipe))
+    assert any(park["per_stage_resid"]) == name.startswith("zb-reuse")
+
+
+@pytest.mark.parametrize("name", sorted(SCHEDULES))
+def test_fused_kernel_contract_and_call_counts_on_cpu(monkeypatch, name):
+    """Every kernel call of a fused step meets the CUDA contract, and the
+    calls follow the formula chip_smoke.py holds the card to
+    (``expected_train_launches``).  Spelled out for 1F1B with L layers
+    over S stages, m micro-batches and nc head-loss chunks: attention
+    2 L m - (L / S) m forwards (F ticks but the last stage's, and each B
+    tick's graph) and L m backwards; RMSNorm twice the layers' forwards
+    plus 2 nc m (the head in each B graph and its chunks' recompute), and
+    2 L m + nc m backwards."""
+    calls, metrics, L, pcfg = _count_train_calls(monkeypatch,
+                                                 **SCHEDULES[name])
+    assert calls == expected_train_launches(pcfg, L, COUNT_SEQ), name
+    if name == "1f1b":
+        m, nc, S = COUNT_M, COUNT_SEQ // head_loss_chunk(COUNT_SEQ), pcfg.pipe
+        fwd = 2 * L * m - L // S * m
+        assert calls == {"flash_attention": fwd,
+                         "flash_attention_bwd": L * m,
+                         "rmsnorm": 2 * fwd + 2 * nc * m,
+                         "rmsnorm_bwd": 2 * L * m + nc * m}
+    assert np.isfinite(float(metrics["loss"]))
+
+
+def test_1f1b_train_curve_matches_jax_oracle(jax_ref):
+    model, pcfg, params, batch = _port(jax_ref, 2, schedule="1f1b")
+    ocfg = optim.OptimizerConfig(**OCFG)
+    step = steps.build_train_step(model, pcfg, "cpu",
+                                  ShapeConfig("t", SEQ, BATCH, "train"), ocfg)
+    opt = optim.init(ocfg, params)
+    curve = []
+    for _ in range(CURVE_STEPS):
+        params, opt, metrics = step(params, opt, batch)
+        curve.append(float(metrics["loss"]))
+    np.testing.assert_allclose(curve, jax_ref["curve"], **TOL)
+    assert curve[-1] < curve[0]
+
+
+@pytest.mark.parametrize("loss_scale", [False, True])
+def test_fused_step_matches_gpipe_step(jax_ref, loss_scale):
+    """Two optimizer steps through 1F1B and through the autograd GPipe
+    step: losses, metrics and parameters agree; with the dynamic loss
+    scale the fused executor seeds every cotangent by the state's scale."""
+    ocfg = optim.OptimizerConfig(**OCFG, dynamic_loss_scale=loss_scale)
+    out = {}
+    for schedule in ("gpipe", "1f1b"):
+        model, pcfg, params, batch = _port(jax_ref, 2, schedule=schedule)
+        step = steps.build_train_step(
+            model, pcfg, "cpu", ShapeConfig("t", SEQ, BATCH, "train"), ocfg)
+        opt = optim.init(ocfg, params)
+        ms = []
+        for _ in range(2):
+            params, opt, metrics = step(params, opt, batch)
+            ms.append({k: float(v) for k, v in metrics.items()})
+        out[schedule] = (params, ms)
+    _assert_tree_close(out["1f1b"][0], out["gpipe"][0], "params")
+    for got, want in zip(out["1f1b"][1], out["gpipe"][1]):
+        assert got.keys() == want.keys()
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], **TOL, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# what the fused path does not run yet raises, naming its ROADMAP item
+# ---------------------------------------------------------------------------
+
+def _stage(*a):
+    return a
+
+
+@pytest.mark.parametrize("wire", ["bf16", "int8-ef",
+                                  "chain=fp32,portal=fp32,cotangent=bf16"])
+@pytest.mark.parametrize("entry", ["pipeline_call", "pipeline_grad_call"])
+def test_lossy_wire_raises_at_pipe_2(entry, wire):
+    """Fault C3: the tick loop encodes nothing, so a lossy wire at pipe > 1
+    would train on values the reference's codec changes."""
+    pcfg = configs.smoke_parallel(ARCH).with_(pipe=2, wire=wire)
+    with pytest.raises(NotImplementedError, match="A7"):
+        if entry == "pipeline_call":
+            pipeline_call(_stage, cfg=pcfg, devices="cpu")
+        else:
+            pipeline_grad_call(_stage, cfg=pcfg.with_(schedule="1f1b"),
+                               loss_fn=_stage, devices="cpu")
+
+
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
+def test_lossy_wire_is_the_identity_at_pipe_1(jax_ref, schedule):
+    """At pipe 1 there is no hop, so the reference never encodes: bf16 and
+    int8-ef wires give the fp32 wire's loss and grads bit for bit."""
+    runs = []
+    for wire in ("fp32", "bf16", "int8-ef"):
+        model, pcfg, params, batch = _port(jax_ref, 1, schedule=schedule,
+                                           wire=wire)
+        loss, grads = steps.build_grad_fn(model, pcfg, "cpu")(params, batch)
+        runs.append({"loss": loss, "grads": grads})
+    for run in runs[1:]:
+        _assert_bitwise(run, runs[0], schedule)
+
+
+def test_fused_skip_routes_raise():
+    pcfg = configs.smoke_parallel(ARCH).with_(pipe=2, schedule="1f1b")
+    with pytest.raises(NotImplementedError, match="A6"):
+        pipeline_grad_call(_stage, cfg=pcfg, loss_fn=_stage, devices="cpu",
+                           skips=(SkipSpec("x", 0, (1,)),))

@@ -34,6 +34,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.launch import steps
+from repro_torch.launch.train import expected_train_launches
 from repro_torch.models.lm import LMModel, head_loss_chunk
 from repro_torch.optim import optimizers as optim
 from repro_torch.tree import tree_items, tree_map
@@ -374,13 +375,15 @@ COUNT_M, COUNT_SEQ = 2, 1024      # seq 1024: two head-loss chunks
 def _count_train_calls(monkeypatch, **pcfg_kw):
     """Run one train step (m = COUNT_M, seq COUNT_SEQ) on the CPU path with
     every kernel's plain version wrapped by its CUDA contract check and a
-    call counter; returns the counts, the step's metrics and the layers."""
+    call counter; returns the counts (keyed as ``launches()``), the step's
+    metrics, the layers and the config."""
     import dataclasses
 
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import rmsnorm as rn_mod
 
-    calls = dict.fromkeys(("attn", "attn_bwd", "norm", "norm_bwd"), 0)
+    calls = dict.fromkeys(("flash_attention", "flash_attention_bwd",
+                           "rmsnorm", "rmsnorm_bwd"), 0)
 
     def counted(name, check, plain):
         def fn(*args, **kw):
@@ -397,12 +400,13 @@ def _count_train_calls(monkeypatch, **pcfg_kw):
         assert dy.shape == x.shape and dy.is_contiguous()
 
     for mod, name, key, check in (
-            (fa_mod, "flash_attention_plain", "attn",
+            (fa_mod, "flash_attention_plain", "flash_attention",
              lambda q, k, v, **_: fa_mod.check_inputs(q, k, v)),
-            (fa_mod, "flash_attention_bwd_plain", "attn_bwd", attn_bwd_check),
-            (rn_mod, "rmsnorm_plain", "norm",
+            (fa_mod, "flash_attention_bwd_plain", "flash_attention_bwd",
+             attn_bwd_check),
+            (rn_mod, "rmsnorm_plain", "rmsnorm",
              lambda x, s, eps=1e-6: rn_mod.check_inputs(x, s)),
-            (rn_mod, "rmsnorm_bwd_plain", "norm_bwd", norm_bwd_check)):
+            (rn_mod, "rmsnorm_bwd_plain", "rmsnorm_bwd", norm_bwd_check)):
         monkeypatch.setattr(mod, name, counted(key, check,
                                                getattr(mod, name)))
     arch = configs.smoke_arch(ARCH)
@@ -419,7 +423,7 @@ def _count_train_calls(monkeypatch, **pcfg_kw):
     batch = {k: torch.randint(0, arch.vocab, (2, seq), generator=g)
              for k in ("tokens", "labels")}
     _, _, metrics = step(params, optim.init(ocfg, params), batch)
-    return calls, metrics, arch.n_layers
+    return calls, metrics, arch.n_layers, pcfg
 
 
 @pytest.mark.parametrize("remat", ["full", "none"])
@@ -432,13 +436,15 @@ def test_train_kernel_contract_and_call_counts_on_cpu(monkeypatch, remat):
     RMSNorm 2 L m (or 4 L m) + 2 nc forwards (the head's chunks are always
     recomputed) and 2 L m + nc backwards.  head_dim 64 so the attention
     contract holds; seq 1024 gives nc = 2."""
-    calls, metrics, L = _count_train_calls(monkeypatch, remat=remat)
+    calls, metrics, L, pcfg = _count_train_calls(monkeypatch, remat=remat)
     m, nc = COUNT_M, COUNT_SEQ // head_loss_chunk(COUNT_SEQ)
     assert nc == 2
     recompute = 2 if remat == "full" else 1
-    assert calls == {"attn": recompute * L * m, "attn_bwd": L * m,
-                     "norm": recompute * 2 * L * m + 2 * nc,
-                     "norm_bwd": 2 * L * m + nc}
+    want = {"flash_attention": recompute * L * m,
+            "flash_attention_bwd": L * m,
+            "rmsnorm": recompute * 2 * L * m + 2 * nc,
+            "rmsnorm_bwd": 2 * L * m + nc}
+    assert calls == want == expected_train_launches(pcfg, L, COUNT_SEQ)
     assert np.isfinite(float(metrics["loss"]))
 
 
@@ -447,12 +453,13 @@ def test_remat_except_last_skips_one_recompute_per_stage(monkeypatch):
     micro-batch runs bare, so the forwards of one step drop by L (one
     micro-batch of every layer) against remat "full" over every
     micro-batch."""
-    calls, _, L = _count_train_calls(monkeypatch, remat="full",
-                                     remat_last_micro=False)
+    calls, _, L, pcfg = _count_train_calls(monkeypatch, remat="full",
+                                           remat_last_micro=False)
     m, nc = COUNT_M, COUNT_SEQ // head_loss_chunk(COUNT_SEQ)
-    assert calls == {"attn": (2 * m - 1) * L, "attn_bwd": L * m,
-                     "norm": (2 * m - 1) * 2 * L + 2 * nc,
-                     "norm_bwd": 2 * L * m + nc}
+    want = {"flash_attention": (2 * m - 1) * L, "flash_attention_bwd": L * m,
+            "rmsnorm": (2 * m - 1) * 2 * L + 2 * nc,
+            "rmsnorm_bwd": 2 * L * m + nc}
+    assert calls == want == expected_train_launches(pcfg, L, COUNT_SEQ)
 
 
 def test_remat_except_last_gives_equal_grads(jax_ref):
@@ -503,20 +510,20 @@ def _train_cli(monkeypatch):
     train.main()
 
 
-def _grad_call():
-    from repro_torch.core.pipeline import pipeline_grad_call
-    pipeline_grad_call()
-
-
 UNPORTED = {
     "tp2": (lambda mp: _pipe_call(tp=2), "A9"),
     "data2": (lambda mp: _pipe_call(data=2), "A9"),
     "pod2": (lambda mp: _pipe_call(pod=2), "A9"),
-    "1f1b": (lambda mp: _train_step(schedule="1f1b"), "A3"),
-    "zb": (lambda mp: _train_step(schedule="zb"), "A3"),
+    "stream_inputs": (lambda mp: _train_step(schedule="1f1b", pipe=2,
+                                              stream_inputs=True), "A5"),
+    "wire_bf16": (lambda mp: _train_step(pipe=2, wire="bf16"), "A7"),
+    "wire_int8_ef": (lambda mp: _train_step(schedule="1f1b", pipe=2,
+                                            wire="int8-ef"), "A7"),
     "int8_ef": (lambda mp: _train_step(grad_compression="int8_ef"), "A7"),
     "dots": (lambda mp: checkpointing.wrap_stage(lambda x: x, "dots"), "A14"),
-    "grad_call": (lambda mp: _grad_call(), "A3"),
+    "dots_reuse": (lambda mp: _train_step(schedule="zb", pipe=2,
+                                          residuals="reuse", remat="dots"),
+                   "A14"),
     "sharded_loader": (lambda mp: data.make_sharded_loader(), "A9"),
     "ef_state": (lambda mp: optim.init(optim.OptimizerConfig(),
                                        {"w": torch.zeros(2)}, with_ef=True),
