@@ -67,7 +67,28 @@ non-zero and no result line is printed):
             high-water per rank must also equal the plan's;
 7. memory   peak device memory of one train step with remat "full" and
             with "none" (all 32 layers, seq 4096, batch 4, m 4, where
-            "none" fits on the card): "full" must be the lower.
+            "none" fits on the card): "full" must be the lower;
+8. hetero_gpu_vs_cpu  the heterogeneous pipelines (paper §4.2) with skip
+            routes, the port against itself: U-Net (1, 8), 4 levels at
+            64 x 64 and AmoebaNet (6, 32) at 64 x 64, pipe 4, batch 8, m 4,
+            fp32 with TF32 off and deterministic cuDNN: the forward, the
+            loss and every gradient leaf of gpipe, gpipe_tasked, 1f1b, zb
+            (reuse, remat "full") and interleaved:2 on the card vs the CPU;
+            portals vs threaded skips and gpipe_tasked vs 1f1b bitwise
+            equal on the card;
+9. hetero_train  the hetero main path, counters set to 0 just before and
+            read just after (it launches none of the port's kernels):
+            U-Net (5, 64) at 192 x 192, batch 32 and AmoebaNet-D (18, 256)
+            at 224 x 224, batch 64, pipe 8, m 8, fp32 (TF32 off), remat
+            "full", portals, SGD with momentum 0.9, through gpipe and 1f1b:
+            5 steps on one fixed batch and a sixth under the profiler;
+            finite losses, step 5's below step 1's, park and route
+            high-water equal to the plan's; step ms, samples/s, counted
+            fp32 TFLOP/s, peak memory, device ms by kernel family, idle
+            share;
+10. hetero_memory  peak memory of one U-Net (5, 64) gpipe step under remat
+            "full" and "none" at the largest batch at which "none" fits:
+            "full" must be the lower.
 
 The kernels summary line, then the card's ``nvidia-smi`` name and power
 limit, then the last line ``{"ok": true, "device": {...}}``.  It imports
@@ -1059,6 +1080,241 @@ def phase_memory(torch):
                              f"below none's {peaks['none']} GiB")
 
 
+# ---------------------------------------------------------------------------
+# heterogeneous pipelines: U-Net and AmoebaNet-D (paper §4.2), skip routes
+# ---------------------------------------------------------------------------
+
+# SGD with momentum 0.9 at this constant lr (the paper trains AmoebaNet with
+# plain SGD); at 0.05 U-Net's loss oscillated over the five steps.
+HETERO_LR = 0.01
+# The batches (multiples of m = 8) hetero_memory tries, largest first, for
+# U-Net (5, 64)'s gpipe step under remat "none": 160 peaked at 77.4 GiB on
+# the 80 GB card; the phase takes the first that fits.
+HETERO_MEMORY_BATCHES = (160, 152, 144, 128)
+
+
+def phase_hetero_port(torch, pipe: int = 4, m: int = 4, batch: int = 8):
+    """``hetero_gpu_vs_cpu``: the same weights through the port on the card
+    and on the CPU, fp32 (the program turns TF32 off while it runs:
+    ``pipeline_hetero.fp32_math``), deterministic cuDNN: U-Net (1, 8), 4
+    levels at 64 x 64 and AmoebaNet (6, 32) at 64 x 64, pipe 4, batch 8,
+    m 4.  The pipelined forward, then the loss and every gradient leaf of
+    gpipe (autograd), gpipe_tasked, 1f1b, zb with residuals "reuse" under
+    remat "full" and interleaved:2 (portals), at ``PORT_TOL`` and
+    ``GRAD_REL``; a leaf the model never uses (the U-Net head's norm) must
+    be exactly 0 on both.  On the card, bit for bit: portals against
+    threaded skips (gpipe and 1f1b) and gpipe_tasked against 1f1b."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.launch.train_hetero import target_shape
+    from repro_torch.models import pipeline_hetero as PH
+    from repro_torch.models.amoebanet import AmoebaConfig, AmoebaNetModel
+    from repro_torch.models.unet import UNetConfig, UNetModel
+    from repro_torch.tree import tree_items
+
+    torch.backends.cudnn.deterministic = True
+    models = {"unet": (UNetModel, UNetConfig(B=1, C=8, levels=4, img=64)),
+              "amoebanet": (AmoebaNetModel, AmoebaConfig(
+                  L=6, F=32, img=64, n_classes=10))}
+    cases = {"gpipe": dict(schedule="gpipe"),
+             "gpipe_tasked": dict(schedule="gpipe_tasked"),
+             "1f1b": dict(schedule="1f1b"),
+             "zb-reuse-full": dict(schedule="zb", residuals="reuse"),
+             "interleaved:2": dict(schedule="interleaved:2")}
+    bad, recs = [], {}
+    for mname, (cls, mcfg) in models.items():
+        params = cls(mcfg, pipe).init(torch.Generator().manual_seed(5),
+                                      "cpu")
+        paths = [p for p, _ in tree_items(dict(enumerate(params)))]
+        g = torch.Generator().manual_seed(6)
+        x = torch.randn(batch, mcfg.in_ch, mcfg.img, mcfg.img, generator=g)
+        y = torch.randn(target_shape(mcfg, batch), generator=g)
+
+        def build(case, dev, portals=True):
+            pcfg = ParallelConfig(pipe=pipe, tp=1, data=1, n_micro=m,
+                                  remat="full", portals=portals,
+                                  **cases[case])
+            model = cls(mcfg, pipe * pcfg.virtual_stages)
+            return model, pcfg, PH.build_hetero_program(model, params, pcfg,
+                                                         dev)
+
+        def grads_of(case, dev, portals=True):
+            model, pcfg, prog = build(case, dev, portals)
+            loss, grads = PH.hetero_grad_call(prog, pcfg)(
+                prog.stage_params, x.to(dev), y.to(dev))
+            layers = dict(enumerate(PH.layer_list(model, grads)))
+            return loss.cpu(), [t.cpu() for _, t in tree_items(layers)]
+
+        fwd = {}
+        for dev in ("cpu", "cuda"):
+            _, pcfg, prog = build("gpipe", dev)
+            with torch.no_grad():
+                fwd[dev] = PH.hetero_forward(prog, pcfg, x.to(dev)).cpu()
+        rec = {"forward_max_abs_err": max_err(torch, fwd["cuda"],
+                                              fwd["cpu"])}
+        if not (torch.allclose(fwd["cuda"], fwd["cpu"], rtol=PORT_TOL,
+                               atol=PORT_TOL)
+                and bool(torch.isfinite(fwd["cuda"]).all())):
+            bad.append(f"{mname} forward")
+        runs = {}
+        for case in cases:
+            runs[case] = gpu = grads_of(case, "cuda")
+            cpu = grads_of(case, "cpu")
+            used = [k for k, w in enumerate(cpu[1]) if bool(w.abs().max() > 0)]
+            unused = [paths[k] for k in range(len(paths)) if k not in used]
+            bad += [f"{mname} {case} {p} (unused) nonzero" for k, p
+                    in enumerate(paths) if p in unused
+                    and bool(gpu[1][k].abs().max() > 0)]
+            errs, _, failed = grad_gaps(
+                torch, [paths[k] for k in used],
+                (gpu[0], [gpu[1][k] for k in used]),
+                (cpu[0], [cpu[1][k] for k in used]))
+            bad += [f"{mname} {case} {f}" for f in failed]
+            rec[case] = {"loss": float(gpu[0]), "loss_err": errs["loss"],
+                         "max_grad_err": max(v for k, v in errs.items()
+                                             if k != "loss"),
+                         "unused_leaves": unused}
+        pairs = [("gpipe_tasked", runs["gpipe_tasked"], "1f1b",
+                  runs["1f1b"])]
+        if mname == "unet":
+            pairs += [(f"{c} threaded", grads_of(c, "cuda", portals=False),
+                       f"{c} portals", runs[c]) for c in ("gpipe", "1f1b")]
+        rec["bitwise"] = {}
+        for na, (la, ga), nb, (lb, gb) in pairs:
+            unequal = [p for p, a, b in zip(paths, ga, gb)
+                       if not torch.equal(a, b)]
+            if not torch.equal(la, lb):
+                unequal.append("loss")
+            rec["bitwise"][f"{na} vs {nb}"] = unequal or True
+            bad += [f"{mname} {na} vs {nb} {p}" for p in unequal]
+        recs[mname] = rec
+    torch.backends.cudnn.deterministic = False
+    emit({"phase": "hetero_gpu_vs_cpu", "pipe": pipe, "n_micro": m,
+          "batch": batch, "dtype": "float32", "tf32": False,
+          "cudnn_deterministic": True, "models": recs, "tol": PORT_TOL,
+          "rel_tol": GRAD_REL, "ok": not bad})
+    if bad:
+        raise AssertionError(f"hetero GPU vs CPU disagrees at {bad}")
+
+
+def phase_hetero_train(torch, mname: str, schedule: str):
+    """``hetero_train``: the hetero main path at the paper's width through
+    ``repro_torch.launch.train_hetero.train_hetero``, the launch counters
+    set to 0 just before and read just after (the path runs none of the
+    port's kernels: convolutions, norms and pools are cuDNN's and
+    PyTorch's).  fp32 (TF32 off: ``pipeline_hetero.fp32_math``), cuDNN's
+    default algorithm choice, pipe 8, m 8, remat "full", portals,
+    SGD with momentum 0.9 at ``HETERO_LR``: U-Net (5, 64) at 192 x 192,
+    batch 32; AmoebaNet-D (18, 256) at 224 x 224, batch 64.  5 steps on one
+    fixed batch and a sixth under the profiler.  Gates: finite losses, step
+    5's below step 1's, the park high-water per rank and every route's
+    high-water equal to the plan's, no launch of the port's kernels."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.launch.train_hetero import PAPER, sgd, train_hetero
+
+    batch = {"unet": 32, "amoebanet": 64}[mname]
+    pcfg = ParallelConfig(pipe=8, tp=1, data=1, n_micro=8, remat="full",
+                          portals=True, schedule=schedule)
+    kernels = {"flash_attention": flash_attention, "rmsnorm": rmsnorm,
+               "wkv6": wkv6, "flash_attention_bwd": flash_attention_bwd,
+               "rmsnorm_bwd": rmsnorm_bwd}
+    for fn in kernels.values():
+        fn.launches = 0
+    res = train_hetero(PAPER[mname], pcfg, batch=batch, steps=5,
+                       device="cuda", ocfg=sgd(HETERO_LR), trace=True)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    model, hist, info = res["model"], res["history"], res["park_info"]
+    summary = res["summary"]                       # median of steps 2..5
+    losses = [r["loss"] for r in hist]
+    out = {"phase": "hetero_train", "model": mname,
+           "config": dataclasses.asdict(model.cfg),
+           "n_layers": len(model.layers), "params": model.total_params(),
+           "sizes": model.sizes, "pipe": pcfg.pipe, "n_micro": pcfg.n_micro,
+           "schedule": schedule, "grad_reduce": pcfg.grad_reduce,
+           "remat": pcfg.remat, "portals": pcfg.portals, "batch": batch,
+           "dtype": "float32", "tf32": False, "cudnn_benchmark": False,
+           "optimizer": "sgd", "momentum": 0.9, "lr": HETERO_LR,
+           "losses": losses, "grad_norms": [r["grad_norm"] for r in hist],
+           "step_ms": [r["step_s"] * 1e3 for r in hist], **summary,
+           "fp32_peak_share": summary["fp32_tflops"] * 1e12
+                              / PEAK_FP32_FLOPS,
+           "flops_formula": "3 x forward conv FLOPs (2 x multiply-adds of "
+                            "every conv at its output size, and the "
+                            "AmoebaNet head's product) x batch; the "
+                            "recompute not counted",
+           "park_high_water": info, "park_plan": res["park_plan"],
+           "route_plan": res["route_plan"], "launches": launches,
+           "trace": res["trace"]}
+    emit(out)
+    if not all(math.isfinite(v) for v in losses + out["grad_norms"]):
+        raise AssertionError(f"{mname} {schedule}: non-finite training: "
+                             f"{losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{mname} {schedule}: step-5 loss {losses[-1]}"
+                             f" not below step 1's {losses[0]}")
+    if tuple(info["per_stage_park"]) != tuple(res["park_plan"]) \
+            or info.get("per_route", {}) != res["route_plan"]:
+        raise AssertionError(f"{mname} {schedule}: high-water {info} "
+                             f"differs from the plan's {res['park_plan']}, "
+                             f"{res['route_plan']}")
+    if any(launches.values()):
+        raise AssertionError(f"the hetero path launched kernels of the "
+                             f"port: {launches}")
+    if mname == "unet" and not res["route_plan"]:
+        raise AssertionError("U-Net at pipe 8 ran no skip route")
+
+
+def hetero_peak_gib(torch, remat: str, batch: int):
+    """Peak memory of one U-Net (5, 64) gpipe train step (pipe 8, m 8) under
+    ``remat``, and its loss."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.launch.train_hetero import PAPER, sgd, train_hetero
+
+    pcfg = ParallelConfig(pipe=8, tp=1, data=1, n_micro=8, remat=remat,
+                          portals=True, schedule="gpipe")
+    res = train_hetero(PAPER["unet"], pcfg, batch=batch, steps=1,
+                       device="cuda", ocfg=sgd(HETERO_LR))
+    return res["summary"]["peak_mem_gib"], res["history"][0]["loss"]
+
+
+def phase_hetero_memory(torch):
+    """``hetero_memory``: peak device memory of one U-Net (5, 64) train step
+    at 192 x 192 (gpipe, pipe 8, m 8, fp32) under remat "none" at the
+    largest batch of ``HETERO_MEMORY_BATCHES`` that fits on the card, and
+    under "full" at that batch: the paper's Table 3 on one card; "full"
+    must be the lower."""
+    import gc
+
+    peaks, losses, tried = {}, {}, []
+    for batch in HETERO_MEMORY_BATCHES:
+        torch.cuda.empty_cache()
+        tried.append(batch)
+        try:
+            peaks["none"], losses["none"] = hetero_peak_gib(torch, "none",
+                                                            batch)
+            break
+        except torch.cuda.OutOfMemoryError:
+            gc.collect()
+    else:
+        raise AssertionError(f"remat none fits at none of {tried}")
+    torch.cuda.empty_cache()
+    peaks["full"], losses["full"] = hetero_peak_gib(torch, "full", batch)
+    torch.cuda.empty_cache()
+    ok = peaks["full"] < peaks["none"] and all(
+        math.isfinite(v) for v in losses.values())
+    emit({"phase": "hetero_memory", "model": "unet", "B": 5, "C": 64,
+          "img": 192, "batch": batch, "batches_tried": tried, "n_micro": 8,
+          "pipe": 8, "schedule": "gpipe", "dtype": "float32",
+          "peak_mem_gib": peaks, "losses": losses, "ok": ok})
+    if not ok:
+        raise AssertionError(f"remat full peak {peaks['full']} GiB is not "
+                             f"below none's {peaks['none']} GiB, or a loss "
+                             f"is not finite: {losses}")
+
+
 def expected_launches(family: str, layers: int, m: int, gen: int):
     """Kernel launches the serving path implies, per prefill and over the
     ``gen - 1`` decode steps.  dense: one attention per layer and
@@ -1154,6 +1410,13 @@ def main() -> int:
         for k, n in phase_train(torch, schedule).items():
             launches[k] += n
     phase_memory(torch)
+    torch.cuda.empty_cache()
+    phase_hetero_port(torch)
+    for mname in ("unet", "amoebanet"):
+        for schedule in ("gpipe", "1f1b"):
+            phase_hetero_train(torch, mname, schedule)
+            torch.cuda.empty_cache()
+    phase_hetero_memory(torch)
     kernels = []
     for kname in KERNELS:
         rec = timing[kname]

@@ -41,9 +41,24 @@ stage under ``residuals="recompute"``; under ``"reuse"`` Bx keeps its graph
 in the residual slot the plan allocates and Bw differentiates that graph
 (:func:`repro_torch.core.checkpointing.wrap_for_residuals`).
 
-Skip routes, stream injection, the wire codec and stages in several
-processes are later slices (ROADMAP A6, A5, A7, A4), and so are data and
-tensor parallelism (A9): each raises.
+Skip routes (paper §3.3, :class:`repro_torch.core.plan.RoutePlan`) run in
+both executors.  A stage returns a skip in ``skips_out``; on its ``send``
+tick the value ships to the next rank of its route (the destination for a
+portal, the next stage for a threaded hop, which the relay re-ships on its
+own F tick), parks in the route's slot on arrival and reaches the consuming
+stage as ``skips_in[name]`` on the forward and on every backward that
+re-runs it.  Under autograd the skip is an input and an output of the
+checkpointed stage function; the fused executor ships the skip's
+cotangent back on the route's ``g_`` columns and seeds the producer's
+backward with it (summed in route order over a skip's destinations).
+
+``stage_params`` is a tree stacked ``[n_stages, ...]`` (homogeneous
+stages) or a sequence of ``n_stages`` trees (heterogeneous stages, each
+its own structure); gradients come back in the same form.
+
+Stream injection, the wire codec and stages in several processes are
+later slices (ROADMAP A5, A7, A4), and so are data and tensor parallelism
+(A9): each raises.
 """
 from __future__ import annotations
 
@@ -91,9 +106,6 @@ def check_single_replica(cfg: ParallelConfig) -> None:
 
 def check_plan(tplan: plan_lib.TaskPlan, cfg: ParallelConfig) -> None:
     """Raise for the plan features the executors do not run yet."""
-    if tplan.routes:
-        raise NotImplementedError("skip routes / portals are not ported "
-                                  "yet: ROADMAP A6")
     if cfg.stream_inputs and tplan.n_ranks > 1:
         raise NotImplementedError("stream_inputs ticks are not ported yet: "
                                   "ROADMAP A5")
@@ -105,10 +117,10 @@ def check_plan(tplan: plan_lib.TaskPlan, cfg: ParallelConfig) -> None:
 
 
 class _Slots:
-    """One plan-addressed buffer family (park, b-inbox or residual stash):
-    per rank, slot -> (tag, value), with the high-water mark of slots held
-    at once.  The tag (micro, global stage) catches a plan/executor
-    mismatch at the read."""
+    """One plan-addressed buffer family (park, b-inbox, residual stash, a
+    route's values or cotangents): per rank, slot -> (tag, value), with the
+    high-water mark of slots held at once.  The tag (micro, global stage)
+    catches a plan/executor mismatch at the read."""
 
     def __init__(self, name: str, n_ranks: int):
         self.name = name
@@ -137,23 +149,155 @@ class _Slots:
                                f"the last tick: {self.slots}")
 
 
-def _arrivals(tplan, t: int, column, buf: _Slots, shipped, step: int,
-              devices) -> None:
-    """Park each value rank ``r - step`` shipped on tick ``t - 1`` in the
-    slot ``column[t, r]`` names (ring order: the wrap only happens with
-    interleaved chunks)."""
-    R = tplan.n_ranks
-    for r in range(R):
-        slot = int(column[t, r])
+class _Link:
+    """The hop into one buffer family: what a rank ships on tick ``t``
+    parks on tick ``t + 1`` in the slot the plan's column names on the
+    destination rank, moved to the device of its tag's stage."""
+
+    def __init__(self, buf: _Slots, n_ranks: int):
+        self.buf = buf
+        self.outbox: List[Any] = [None] * n_ranks
+
+    def ship(self, r: int, tag: Tuple[int, int], value) -> None:
+        if self.outbox[r] is not None:
+            raise RuntimeError(f"{self.buf.name}: two values reach rank {r} "
+                               "on one tick")
+        self.outbox[r] = (tag, value)
+
+    def land(self, t: int, column, devices) -> None:
+        arrived, self.outbox = self.outbox, [None] * len(self.outbox)
+        for r, item in enumerate(arrived):
+            slot = int(column[t, r])
+            if (slot < 0) != (item is None):
+                raise RuntimeError(
+                    f"{self.buf.name}: tick {t}: rank {r} "
+                    + ("expects an arrival nobody shipped" if item is None
+                       else "has no slot for the value shipped to it"))
+            if item is not None:
+                tag, value = item
+                self.buf.put(r, slot, tag, tree_map(
+                    lambda a: a.to(devices[tag[1]]), value))
+
+
+class _Route:
+    """One skip route (:class:`plan_lib.RoutePlan`) in the tick loop: the
+    value parks on its way src -> (relays) -> dst, the cotangent on its
+    way back.  The hop goes to the rank the plan's permute pairs name, or
+    stays on the rank (src and dst chunks of one rank: an identity hold)."""
+
+    def __init__(self, rt: plan_lib.RoutePlan, n_ranks: int):
+        self.rt = rt
+        self.value = _Link(_Slots(f"route {rt.key}", n_ranks), n_ranks)
+        self.cot = _Link(_Slots(f"route {rt.key} cotangent", n_ranks),
+                         n_ranks)
+        self.next_rank = {False: dict(rt.fwd_perm), True: dict(rt.bwd_perm)}
+
+    def land(self, t: int, devices) -> None:
+        self.value.land(t, self.rt.recv, devices)
+        self.cot.land(t, self.rt.g_recv, devices)
+
+    def read(self, t: int, r: int, tag, release: bool, cot: bool = False):
+        """The parked value (cotangent) this tick's task reads, or None."""
+        slot = int((self.rt.g_read if cot else self.rt.read)[t, r])
         if slot < 0:
-            continue
-        src = (r - step) % R
-        if shipped[src] is None:
-            raise RuntimeError(f"tick {t}: rank {r} expects an arrival that "
-                               f"rank {src} did not ship")
-        tag, value = shipped[src]
-        buf.put(r, slot, tag, tree_map(lambda a: a.to(devices[tag[1]]),
-                                       value))
+            return None
+        return (self.cot if cot else self.value).buf.get(r, slot, tag,
+                                                         release)
+
+    def send(self, t: int, r: int, micro: int, stage: int, produced,
+             cot: bool = False) -> bool:
+        """Ship what the plan's send column says on tick ``t``: this task's
+        own value (``produced[name]``: a skip output, or the cotangent of a
+        skip input) or, on a threaded relay, the one parked in a slot.
+        Returns whether it shipped ``produced[name]``."""
+        rt = self.rt
+        slot = int((rt.g_send if cot else rt.send)[t, r])
+        if slot == -1:
+            return False
+        link = self.cot if cot else self.value
+        if slot == plan_lib.SEND_STAGE:
+            if rt.name not in produced:
+                raise RuntimeError(f"tick {t}: stage {stage} ships skip "
+                                   f"{rt.name!r} but did not produce it")
+            value = produced[rt.name]
+        else:
+            value = link.buf.get(r, slot, (micro, stage), release=True)
+        if rt.threaded:
+            nxt = stage - 1 if cot else stage + 1
+        else:
+            nxt = rt.src if cot else rt.dst
+        link.ship(self.next_rank[cot].get(r, r), (micro, nxt), value)
+        return slot == plan_lib.SEND_STAGE
+
+    def check_empty(self) -> None:
+        self.value.buf.check_empty()
+        self.cot.buf.check_empty()
+
+    def high(self, backward: bool) -> Dict[str, int]:
+        """High-water over ranks: the plan's ``depth`` (and ``g_depth``)."""
+        out = {"depth": max(self.value.buf.high)}
+        if backward:
+            out["g_depth"] = max(self.cot.buf.high)
+        return out
+
+
+def _skips_in(routes: Sequence[_Route], t: int, r: int, tag,
+              release: bool) -> Dict[str, Any]:
+    """The skips this tick's task consumes, by name."""
+    out: Dict[str, Any] = {}
+    for route in routes:
+        value = route.read(t, r, tag, release)
+        if value is not None:
+            if route.rt.name in out:
+                raise RuntimeError(f"tick {t}: rank {r} reads skip "
+                                   f"{route.rt.name!r} twice")
+            out[route.rt.name] = value
+    return out
+
+
+def _skip_seeds(routes: Sequence[_Route], t: int, r: int, tag,
+                release: bool) -> Dict[str, Any]:
+    """The cotangents that seed this backward's skip outputs, by name; a
+    skip with several destinations sums them in the plan's route order."""
+    out: Dict[str, Any] = {}
+    for route in routes:
+        g = route.read(t, r, tag, release, cot=True)
+        if g is not None:
+            name = route.rt.name
+            out[name] = g if name not in out else tree_map(torch.add,
+                                                           out[name], g)
+    return out
+
+
+def _send_skips(routes: Sequence[_Route], t: int, r: int, micro: int,
+                stage: int, skips_out: Dict[str, Any]) -> None:
+    """Ship the skip outputs and relays of a forward tick; a skip output no
+    route carries from here raises (declare it as a ``SkipSpec``)."""
+    shipped = {route.rt.name for route in routes
+               if route.send(t, r, micro, stage, skips_out)}
+    stray = sorted(set(skips_out) - shipped)
+    if stray:
+        raise RuntimeError(f"tick {t}: stage {stage} returned skips {stray} "
+                           "that no route ships from it: declare each as a "
+                           "SkipSpec")
+
+
+def _stage_trees(stage_params, n: int, devices) -> List[Any]:
+    """Stage ``s``'s parameter tree on ``devices[s]``, for every stage:
+    the slices of a tree stacked ``[n, ...]``, or the trees of a sequence
+    of ``n`` (heterogeneous stages)."""
+    if isinstance(stage_params, (list, tuple)):
+        if len(stage_params) != n:
+            raise ValueError(f"{len(stage_params)} stage parameter trees "
+                             f"for n_stages={n}")
+        return [tree_map(lambda a: a.to(devices[s]), stage_params[s])
+                for s in range(n)]
+    for leaf in tree_leaves(stage_params):
+        if leaf.shape[0] != n:
+            raise ValueError(f"stacked leaf {tuple(leaf.shape)} does not "
+                             f"lead with n_stages={n}")
+    return [tree_map(lambda a: a[s].to(devices[s]), stage_params)
+            for s in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -172,16 +316,20 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
     """Execute one forward-only event plan for a mini-batch.
 
     ``devices`` is one device per stage (or one for all).
-    ``stage_params`` and ``resident`` leaves carry a leading ``[n_stages]``
-    axis, stage ``s``'s slice on ``devices[s]``; ``resident`` is updated in
-    place by the stage functions.  ``inputs_mb`` leaves are ``[m, ...]``.
+    ``stage_params`` is stacked ``[n_stages, ...]`` (stage ``s``'s slice
+    runs on ``devices[s]``) or a sequence of ``n_stages`` trees;
+    ``resident`` leaves carry a leading ``[n_stages]`` axis and are updated
+    in place by the stage functions.  ``inputs_mb`` leaves are ``[m, ...]``.
     Returns ``(outputs, resident)`` where ``outputs`` is a per-stage list
     holding the ``[m, ...]`` carry tree at the last stage and ``None``
     elsewhere (outputs are valid on the last rank, as in the reference).
     Pass a dict as ``park_info`` to receive ``per_stage_park``, the park
-    slots each rank held at once at most in this run.  With grad mode on,
-    every forward tick runs under ``cfg.remat`` (:mod:`checkpointing`).
-    F+B plans run through :func:`run_pipeline_grad_tasks`.
+    slots each rank held at once at most in this run, and, with skip
+    routes, ``per_route``: each route's slots held at once over its ranks
+    (``{route key: {"depth": n}}``).
+    With grad mode on, every forward tick runs under ``cfg.remat``
+    (:mod:`checkpointing`), skips in and out included.  F+B plans run
+    through :func:`run_pipeline_grad_tasks`.
     """
     check_single_replica(cfg)
     if tplan.has_backward:
@@ -195,12 +343,11 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
                          f"pipe={cfg.pipe}, n_micro={cfg.n_micro}")
     devices = stage_devices(devices, R)
     resident = {} if resident is None else resident
-    for leaf in tree_leaves(stage_params) + tree_leaves(resident):
+    params_s = _stage_trees(stage_params, R, devices)
+    for leaf in tree_leaves(resident):
         if leaf.shape[0] != R:
             raise ValueError(f"stacked leaf {tuple(leaf.shape)} does not "
                              f"lead with n_stages={R}")
-    params_s = [tree_map(lambda a: a[s].to(devices[s]), stage_params)
-                for s in range(R)]
     resident_s = [tree_map(lambda a: a[s], resident) for s in range(R)]
     for s in range(R):
         for leaf in tree_leaves(resident_s[s]):
@@ -209,13 +356,15 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
                                  f"{leaf.device}, stage on {devices[s]}")
 
     park = _Slots("park", R)
-    shipped: List[Any] = [None] * R     # each rank's (tag, output) last tick
+    chain = _Link(park, R)
+    routes = [_Route(rt, R) for rt in tplan.routes]
     outputs: List[Any] = [None] * m
     for t in range(tplan.n_ticks):
-        # 1. arrivals: the previous tick's boundary outputs park in their slots
-        _arrivals(tplan, t, tplan.park_recv, park, shipped, 1, devices)
-        # 2. each rank runs at most one task; its forward consumes the slot
-        sent: List[Any] = [None] * R
+        # 1. arrivals: last tick's boundary outputs and skips park
+        chain.land(t, tplan.park_recv, devices)
+        for route in routes:
+            route.land(t, devices)
+        # 2. each rank runs at most one task; its forward consumes the slots
         for r in range(R):
             if int(tplan.kind[t, r]) == NOP:
                 continue
@@ -223,6 +372,7 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
             slot = int(tplan.park_read[t, r])
             carry = park.get(r, slot, (i, r), release=True) \
                 if slot >= 0 else None
+            skips_in = _skips_in(routes, t, r, (i, r), release=True)
             fresh = tree_map(lambda a: a[i].to(devices[r]), inputs_mb)
             ctx = TickCtx(stage=r, micro=i, valid=True, t=t, fresh=fresh,
                           n_stages=tplan.n_stages, n_micro=m)
@@ -231,18 +381,19 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
                 remat, micro=i, n_micro=m,
                 remat_last_micro=cfg.remat_last_micro)
             carry_out, skips_out, resident_s[r] = wrapped(
-                params_s[r], carry, {}, resident_s[r])
-            if skips_out:
-                raise NotImplementedError("skip outputs need skip routes: "
-                                          "ROADMAP A6")
+                params_s[r], carry, skips_in, resident_s[r])
+            _send_skips(routes, t, r, i, r, skips_out)
             if r == R - 1:
                 outputs[i] = carry_out
             else:
-                sent[r] = ((i, r + 1), carry_out)
-        shipped = sent
-    park.check_empty()
+                chain.ship(r + 1, (i, r + 1), carry_out)
+    for buf in [park] + routes:
+        buf.check_empty()
     if park_info is not None:
         park_info["per_stage_park"] = tuple(park.high)
+        if routes:
+            park_info["per_route"] = {route.rt.key: route.high(False)
+                                      for route in routes}
     stacked = tree_map(lambda *xs: torch.stack(xs), *outputs)
     return [None] * (R - 1) + [stacked], resident
 
@@ -275,10 +426,12 @@ def pipeline_call(stage_apply: StageApplyFn,
 
     ``devices`` is one device per stage (or one device for all).  Forward
     execution always runs the GPipe clock-cycle plan; the plan is lowered
-    once here.  ``outputs[-1]`` is the last stage's ``[m, ...]`` collection
-    (:func:`last_stage_output`).  The call is differentiable: under grad
-    mode autograd records the clock-cycle and its backward is the reverse
-    one, with each stage recomputed under ``cfg.remat``.
+    once here, with one route per skip edge and destination (portals, or
+    threaded hops with ``cfg.portals=False``).  ``outputs[-1]`` is the
+    last stage's ``[m, ...]`` collection (:func:`last_stage_output`).  The
+    call is differentiable: under grad mode autograd records the
+    clock-cycle and its backward is the reverse one, with each stage
+    recomputed under ``cfg.remat``.
     """
     check_single_replica(cfg)
     if cfg.virtual_stages > 1:
@@ -347,10 +500,11 @@ def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
 
     ``stage_params`` leaves lead with ``[n_stages]`` global stages, stacked
     stage-major (with interleaved chunks, rank ``r`` hosts stages
-    ``{r, r + R, ...}``); ``devices`` is one device per global stage (or one
-    for all).  ``inputs_mb`` (stage 0's input) and ``loss_args_mb`` leaves
-    are ``[m, ...]``; ``loss_fn(head_params, carry_out, loss_args)`` is one
-    micro-batch's loss on the last stage.  The loss seed is
+    ``{r, r + R, ...}``), or ``stage_params`` is a sequence of ``n_stages``
+    trees, one per global stage; ``devices`` is one device per global stage
+    (or one for all).  ``inputs_mb`` (stage 0's input) and ``loss_args_mb``
+    leaves are ``[m, ...]``; ``loss_fn(head_params, carry_out, loss_args)``
+    is one micro-batch's loss on the last stage.  The loss seed is
     ``loss_scale / m`` (``loss_scale`` may be a tensor: a dynamic loss
     scale), so every gradient is the mean loss's, scaled.
 
@@ -360,7 +514,9 @@ def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
     ``[m, ...]`` cotangents of ``inputs_mb``.  ``cfg.grad_reduce`` picks
     the micro-batch fold (:class:`_GradSum`).  Pass a dict as ``park_info``
     to receive the park, b-inbox and residual-stash high-water per rank
-    (``per_stage_park``, ``per_stage_b_inbox``, ``per_stage_resid``).
+    (``per_stage_park``, ``per_stage_b_inbox``, ``per_stage_resid``) and,
+    with skip routes, each route's value and cotangent high-water
+    (``per_route``: ``{route key: {"depth": n, "g_depth": n}}``).
     """
     check_single_replica(cfg)
     if not tplan.has_backward:
@@ -374,55 +530,60 @@ def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
         raise ValueError(f"plan is for pipe={R}, m={m}; config has "
                          f"pipe={cfg.pipe}, n_micro={cfg.n_micro}")
     devices = stage_devices(devices, S)
-    for leaf in tree_leaves(stage_params):
-        if leaf.shape[0] != S:
-            raise ValueError(f"stacked leaf {tuple(leaf.shape)} does not "
-                             f"lead with n_stages={S}")
     reuse = tplan.residuals == "reuse"
     ordered = cfg.grad_reduce == "ordered"
 
-    # autograd leaves: each global stage's parameter slice and the head's
-    params_s = [tree_map(lambda a: a[s].to(devices[s]).detach()
-                         .requires_grad_(), stage_params) for s in range(S)]
+    # autograd leaves: each global stage's parameter tree and the head's
+    params_s = [tree_map(lambda a: a.detach().requires_grad_(), p)
+                for p in _stage_trees(stage_params, S, devices)]
     head_s = tree_map(lambda a: a.to(devices[-1]).detach().requires_grad_(),
                       head_params)
     seed = torch.as_tensor(loss_scale, dtype=torch.float32,
                            device=devices[-1]) / m
-    g_stage = tree_map(torch.zeros_like, stage_params)
+    if isinstance(stage_params, (list, tuple)):
+        g_stage = [tree_map(torch.zeros_like, p) for p in stage_params]
+        dests = [tree_leaves(g) for g in g_stage]
+    else:
+        g_stage = tree_map(torch.zeros_like, stage_params)
+        dests = [[g[s] for g in tree_leaves(g_stage)] for s in range(S)]
+    stage_sums = [_GradSum(d, ordered) for d in dests]
     g_head = tree_map(torch.zeros_like, head_params)
-    stage_sums = [_GradSum([g[s] for g in tree_leaves(g_stage)], ordered)
-                  for s in range(S)]
     head_sum = _GradSum(tree_leaves(g_head), ordered)
     input_grads: List[Any] = [None] * m
     losses: List[Optional[torch.Tensor]] = [None] * m
 
-    def stage_loss(p, carry, fresh, hp, ctx, largs):
+    def stage_loss(p, carry, fresh, skips_in, hp, ctx, largs):
         """The stage, and on the last stage its loss: what every task of
         the plan runs and every backward differentiates."""
         ctx.fresh = fresh
-        carry_out, skips_out, _ = stage_apply(p, carry, {}, {}, ctx)
-        if skips_out:
-            raise NotImplementedError("skip outputs need skip routes: "
-                                      "ROADMAP A6")
+        carry_out, skips_out, _ = stage_apply(p, carry, skips_in, {}, ctx)
         loss = None if largs is None else loss_fn(hp, carry_out,
                                                   largs).float()
-        return carry_out, loss
+        return carry_out, skips_out, loss
 
     # bare, unless Bx keeps its graph for Bw (residuals="reuse")
     stage_loss_b = checkpointing.wrap_for_residuals(stage_loss, cfg.remat,
                                                     tplan.residuals)
 
-    def graph(s, carry, fresh, ctx, largs):
-        """Re-run stage ``s`` with grad from its parked (or fresh) input.
-        Returns the outputs to differentiate and the input leaves."""
+    def graph(s, carry, fresh, skips_in, seeded, ctx, largs):
+        """Re-run stage ``s`` with grad from its parked (or fresh) input and
+        parked skips.  Returns the outputs to differentiate (the loss, or
+        the carry and the ``seeded`` skip outputs), the input leaves and
+        the skip-input tree."""
         x = tree_map(lambda a: a.detach().requires_grad_(),
                      carry if s else fresh)
         carry, fresh = (x, None) if s else (None, x)
+        si = tree_map(lambda a: a.detach().requires_grad_(), skips_in)
         with torch.enable_grad():
-            carry_out, loss = stage_loss_b(params_s[s], carry, fresh,
-                                           head_s, ctx, largs)
+            carry_out, skips_out, loss = stage_loss_b(
+                params_s[s], carry, fresh, si, head_s, ctx, largs)
         outs = [loss] if loss is not None else tree_leaves(carry_out)
-        return outs, tree_leaves(x)
+        for name in seeded:
+            if name not in skips_out:
+                raise RuntimeError(f"stage {s} did not produce skip "
+                                   f"{name!r}, which a route seeds")
+            outs = outs + tree_leaves(skips_out[name])
+        return outs, tree_leaves(x), si
 
     def weights(s):
         return tree_leaves(params_s[s]) + (tree_leaves(head_s)
@@ -435,14 +596,15 @@ def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
     park = _Slots("park", R)
     inbox = _Slots("b-inbox", R)
     resid = _Slots("residual", R)
-    shipped_f: List[Any] = [None] * R
-    shipped_b: List[Any] = [None] * R
+    chain_f, chain_b = _Link(park, R), _Link(inbox, R)
+    routes = [_Route(rt, R) for rt in tplan.routes]
     for t in range(tplan.n_ticks):
-        # 1. arrivals: forward carries from rank r - 1, cotangents from r + 1
-        _arrivals(tplan, t, tplan.park_recv, park, shipped_f, 1, devices)
-        _arrivals(tplan, t, tplan.b_recv, inbox, shipped_b, -1, devices)
-        sent_f: List[Any] = [None] * R
-        sent_b: List[Any] = [None] * R
+        # 1. arrivals: forward carries from rank r - 1, cotangents from r + 1,
+        #    skip values and cotangents from their routes' previous hop
+        chain_f.land(t, tplan.park_recv, devices)
+        chain_b.land(t, tplan.b_recv, devices)
+        for route in routes:
+            route.land(t, devices)
         # 2. each rank runs at most one task
         for r in range(R):
             kind = int(tplan.kind[t, r])
@@ -460,6 +622,7 @@ def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
                 raise RuntimeError(f"tick {t}: stage {s} reads "
                                    f"{'no' if carry is None else 'a'} "
                                    "parked carry")
+            skips_in = _skips_in(routes, t, r, tag, release=last_read)
             fresh = (tree_map(lambda a: a[i].to(devices[s]), inputs_mb)
                      if s == 0 else None)
             largs = (tree_map(lambda a: a[i].to(devices[s]), loss_args_mb)
@@ -470,25 +633,31 @@ def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
                 if s == S - 1:          # the B / Bx graph records the loss
                     continue
                 with torch.no_grad():
-                    carry_out, _ = stage_loss(params_s[s], carry, fresh,
-                                              head_s, ctx, None)
-                sent_f[r] = ((i, s + 1), carry_out)
+                    carry_out, skips_out, _ = stage_loss(
+                        params_s[s], carry, fresh, skips_in, head_s, ctx,
+                        None)
+                chain_f.ship((r + 1) % R, (i, s + 1), carry_out)
+                _send_skips(routes, t, r, i, s, skips_out)
                 continue
-            slot = int(tplan.b_read[t, r])
             if s == S - 1:
                 seeds = [seed]
             else:
-                seeds = tree_leaves(inbox.get(r, slot, tag,
-                                              release=last_read))
+                seeds = tree_leaves(inbox.get(r, int(tplan.b_read[t, r]),
+                                              tag, release=last_read))
+            skip_seeds = _skip_seeds(routes, t, r, tag, release=last_read)
+            seeds = seeds + tree_leaves(skip_seeds)
             if kind in (BWD, BWD_X):
-                outs, xs = graph(s, carry, fresh, ctx, largs)
+                outs, xs, si = graph(s, carry, fresh, skips_in, skip_seeds,
+                                     ctx, largs)
+                n_in = len(xs) + len(tree_leaves(si))
                 if s == S - 1:
                     losses[i] = outs[0].detach()
             if kind == BWD:
-                g = grad(outs, xs + weights(s), seeds)
-                g_in, g_w = g[:len(xs)], g[len(xs):]
+                g = grad(outs, xs + tree_leaves(si) + weights(s), seeds)
+                g_in, g_w = g[:n_in], g[n_in:]
             elif kind == BWD_X:
-                g_in, g_w = grad(outs, xs, seeds, retain=reuse), None
+                g_in, g_w = grad(outs, xs + tree_leaves(si), seeds,
+                                 retain=reuse), None
                 if reuse:
                     resid.put(r, int(tplan.resid_write[t, r]), tag, outs)
             else:                                   # BWD_W
@@ -496,7 +665,8 @@ def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
                     outs = resid.get(r, int(tplan.resid_read[t, r]), tag,
                                      release=True)
                 else:
-                    outs, _ = graph(s, carry, fresh, ctx, largs)
+                    outs, _, _ = graph(s, carry, fresh, skips_in,
+                                       skip_seeds, ctx, largs)
                 g_in, g_w = None, grad(outs, weights(s), seeds)
             if g_w is not None:
                 n_p = len(tree_leaves(params_s[s]))
@@ -504,13 +674,16 @@ def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
                 if s == S - 1:
                     head_sum.add(i, g_w[n_p:])
             if g_in is not None:
-                g_tree = _unflatten(fresh if s == 0 else carry, g_in)
+                g_tree = _unflatten(fresh if s == 0 else carry,
+                                    g_in[:len(xs)])
+                g_skips = _unflatten(si, g_in[len(xs):])
                 if s == 0:
                     input_grads[i] = g_tree
                 else:
-                    sent_b[r] = ((i, s - 1), g_tree)
-        shipped_f, shipped_b = sent_f, sent_b
-    for buf in (park, inbox, resid):
+                    chain_b.ship((r - 1) % R, (i, s - 1), g_tree)
+                for route in routes:
+                    route.send(t, r, i, s, g_skips, cot=True)
+    for buf in [park, inbox, resid] + routes:
         buf.check_empty()
     sums = stage_sums + [head_sum]
     if any(gs.folded != m or gs.pending for gs in sums) \
@@ -521,6 +694,9 @@ def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
         park_info.update(per_stage_park=tuple(park.high),
                          per_stage_b_inbox=tuple(inbox.high),
                          per_stage_resid=tuple(resid.high))
+        if routes:
+            park_info["per_route"] = {route.rt.key: route.high(True)
+                                      for route in routes}
     loss_sum = torch.zeros((), dtype=torch.float32, device=devices[-1])
     for loss in losses:                       # ascending micro order
         loss_sum = loss_sum + loss
@@ -546,17 +722,20 @@ def pipeline_grad_call(stage_apply: StageApplyFn,
     Returns ``(call, tplan)`` with ``call(stage_params, head_params,
     inputs_mb, loss_args_mb, *, loss_scale=1.0) -> (loss, stage_grads,
     head_grads, input_grads_mb)``, the reference's contract: ``loss`` is
-    the mean per-micro loss, ``stage_grads`` mirror the stage-major
-    ``[n_stages, ...]`` ``stage_params`` (``pipe * v`` global stages for
+    the mean per-micro loss, ``stage_grads`` mirror ``stage_params``
+    (stacked stage-major ``[n_stages, ...]``, or a sequence of
+    ``n_stages`` trees; ``pipe * v`` global stages for
     ``interleaved:v``), ``head_grads`` mirror ``head_params`` and
     ``input_grads_mb`` (``[m, ...]``) feeds the embed VJP outside the
     pipeline.  Gradients carry ``loss_scale``; the loss does not.
 
     The schedule comes from ``cfg.schedule`` (``"gpipe"`` /
     ``"gpipe_tasked"``, ``"1f1b"``, ``"interleaved:v"``, ``"zb"`` with
-    ``cfg.residuals``), lowered once here by :func:`plan_lib.plan_for`;
-    ``cfg.grad_reduce`` picks the micro-batch fold.  ``park_info``
-    (a dict) receives each call's buffer high-water per rank.
+    ``cfg.residuals``), lowered once here by :func:`plan_lib.plan_for`
+    with one route per skip edge and destination (portals, or threaded
+    hops with ``cfg.portals=False``); ``cfg.grad_reduce`` picks the
+    micro-batch fold.  ``park_info`` (a dict) receives each call's buffer
+    high-water per rank and per route.
     """
     check_single_replica(cfg)
     checkpointing.check_policy(cfg.remat)

@@ -39,7 +39,7 @@ across schedules.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, List, Sequence, Tuple
 
 
 @dataclass(frozen=True)
@@ -59,3 +59,21 @@ class SkipSpec:
 
     def depth(self, dst: int) -> int:
         return dst - self.src_stage
+
+
+def crossing_skips(layers: Sequence, bounds: Sequence[int]) -> List[SkipSpec]:
+    """The edges of a layer-list model partitioned at ``bounds``: one for
+    each skip that a layer of one stage produces (``skip_out``) and a layer
+    of a later stage consumes (``skip_in``), in the consuming layers'
+    order.  A skip produced and consumed within one stage is no edge."""
+    stage_of = [s for s in range(len(bounds) - 1)
+                for _ in range(bounds[s], bounds[s + 1])]
+    produced: Dict[str, int] = {}
+    edges = []
+    for i, l in enumerate(layers):
+        name = getattr(l, "skip_in", None)
+        if name in produced and stage_of[i] > produced[name]:
+            edges.append(SkipSpec(name, produced[name], (stage_of[i],)))
+        if getattr(l, "skip_out", None):
+            produced[l.skip_out] = stage_of[i]
+    return edges

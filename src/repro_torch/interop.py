@@ -3,11 +3,14 @@
 The JAX package stacks stage parameters ``[n_stages, L_per_stage, ...]``
 under its own pipe layout; the port may run another one.  This module turns
 a JAX parameter tree, already converted to numpy (``jax.device_get``), into
-the port's tensors restacked onto the port's layout.  It imports no JAX.
+the port's tensors restacked onto the port's layout
+(:func:`params_from_jax`), and the heterogeneous models' per-layer trees
+from the reference's conv layouts into PyTorch's
+(:func:`hetero_params_from_jax`).  It imports no JAX.
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -53,3 +56,37 @@ def params_from_jax(tree_of_numpy, *, arch: ArchConfig, src_pipe: int,
         torch.Generator().manual_seed(0))
     return tree_map(lambda t, ref: t.to(device=dev, dtype=ref.dtype),
                     tree, like)
+
+
+def conv_leaf_from_jax(path: str, a: np.ndarray) -> np.ndarray:
+    """One conv-net leaf from the reference's layout to PyTorch's.
+
+    4-d leaves are HWIO conv kernels: OIHW here (a depthwise ``[k, k, 1,
+    cin]`` becomes ``[cin, 1, k, k]``, run with ``groups=cin``).  The
+    transposed conv's (``upconv/w``, ``[2, 2, cin, cout]``) becomes
+    ``F.conv_transpose2d``'s ``[cin, cout, 2, 2]`` flipped in both spatial
+    axes: ``jax.lax.conv_transpose`` (``transpose_kernel=False``) does not
+    flip the kernel and PyTorch's transposed conv does.  Other leaves
+    (biases, norm scales, the AmoebaNet head's ``[cin, cout]``) stay."""
+    if a.ndim != 4:
+        return a
+    if path.endswith("upconv/w"):
+        return a[::-1, ::-1].transpose(2, 3, 0, 1)
+    return a.transpose(3, 2, 0, 1)
+
+
+def hetero_params_from_jax(layer_params_numpy: Sequence[Any], model,
+                           device: DeviceLike = "cuda") -> List[Any]:
+    """The reference's per-layer U-Net / AmoebaNet params (numpy leaves,
+    HWIO kernels) -> the port's per-layer trees (OIHW) on ``device``, the
+    layout ``model.init`` gives (:func:`conv_leaf_from_jax`)."""
+    if len(layer_params_numpy) != len(model.layers):
+        raise ValueError(f"{len(layer_params_numpy)} layer trees for "
+                         f"{len(model.layers)} layers")
+    dev = resolve_device(device)
+
+    def one(tree, path):
+        if isinstance(tree, dict):
+            return {k: one(v, f"{path}/{k}") for k, v in tree.items()}
+        return to_tensor(conv_leaf_from_jax(path, np.asarray(tree))).to(dev)
+    return [one(t, "") for t in layer_params_numpy]

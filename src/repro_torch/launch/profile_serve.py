@@ -42,6 +42,18 @@ def _family(name: str) -> str:
         return "wkv6 (ours)"
     if "layer_norm" in n:
         return "layer_norm (torch)"
+    if "nchwtonhwc" in n or "nhwctonchw" in n:
+        return "layout transform (cuDNN)"
+    # cuDNN's FFT convolutions run complex (cf32) GEMMs
+    if any(t in n for t in ("conv", "fprop", "dgrad", "wgrad", "cudnn",
+                            "implicit_gemm", "winograd", "fft", "cf32")):
+        return "convolution (cuDNN, depthwise: torch)"
+    if any(t in n for t in ("group_norm", "rowwisemoments", "fusedparams",
+                            "gammabeta", "internalgradients",
+                            "batch_norm")):
+        return "group / batch norm (torch)"
+    if "pool" in n:
+        return "max pool (torch)"
     if any(t in n for t in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
         return "matmul (cuBLAS)"
     if "elementwise" in n or "vectorized" in n:
@@ -53,8 +65,21 @@ def _family(name: str) -> str:
     return "other"
 
 
+def _union_ms(spans) -> float:
+    """Length of the union of ``(start_us, end_us)`` intervals, in ms:
+    kernels that overlap (several streams) count once."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
 def device_profile(fn, dev):
-    """Run ``fn`` under the profiler; wall ms and device ms by family."""
+    """Run ``fn`` under the profiler; wall ms, device ms by family (summed
+    over kernels) and the idle share of the window (from the union of the
+    kernels' intervals, so overlapping kernels count once)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize(dev)
@@ -65,18 +90,19 @@ def device_profile(fn, dev):
         wall = time.perf_counter() - t0
     by_family = defaultdict(float)
     by_name = defaultdict(float)
-    n_kernels = 0
+    spans = []
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             ms = evt.device_time / 1e3                        # us -> ms
             by_family[_family(evt.name)] += ms
             by_name[evt.name[:80]] += ms
-            n_kernels += 1
-    busy = sum(by_family.values())
+            spans.append((evt.time_range.start, evt.time_range.end))
+    busy = _union_ms(spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms": wall * 1e3, "device_ms": busy,
-            "idle_share": (1 - busy / (wall * 1e3)) if n_kernels else None,
-            "device_events": n_kernels,
+    return {"wall_ms": wall * 1e3, "device_ms": sum(by_family.values()),
+            "device_busy_ms": busy,
+            "idle_share": (1 - busy / (wall * 1e3)) if spans else None,
+            "device_events": len(spans),
             "by_family_ms": dict(sorted(by_family.items(),
                                         key=lambda kv: -kv[1])),
             "top_kernels_ms": dict(top)}

@@ -212,7 +212,23 @@ def test_lossy_wire_is_the_identity_at_pipe_1(jax_ref, schedule):
 
 
 def test_fused_skip_routes_raise():
-    pcfg = configs.smoke_parallel(ARCH).with_(pipe=2, schedule="1f1b")
-    with pytest.raises(NotImplementedError, match="A6"):
+    """Skip routes run in both executors (tests/test_torch_skip.py).  What
+    still raises: a threaded route that crosses one rank link twice under
+    interleaving (one hop a tick per link), and a stage that returns a
+    skip no route carries."""
+    pcfg = configs.smoke_parallel(ARCH).with_(
+        pipe=2, n_micro=2, schedule="interleaved:2", portals=False)
+    with pytest.raises(NotImplementedError, match="portals=True"):
         pipeline_grad_call(_stage, cfg=pcfg, loss_fn=_stage, devices="cpu",
-                           skips=(SkipSpec("x", 0, (1,)),))
+                           skips=(SkipSpec("x", 0, (3,)),))
+
+    def stray(p, carry, skips_in, resident, ctx):
+        h = ctx.fresh["h"] if ctx.stage == 0 else carry["h"]
+        return {"h": h * p["w"]}, {"x": h}, resident
+
+    call, _ = pipeline_grad_call(
+        stray, cfg=pcfg.with_(schedule="1f1b", portals=True),
+        loss_fn=lambda hp, carry, largs: carry["h"].sum(), devices="cpu")
+    with pytest.raises(RuntimeError, match="SkipSpec"):
+        call({"w": torch.ones(2)}, {}, {"h": torch.ones(2, 1, 3)},
+             {"y": torch.zeros(2)})

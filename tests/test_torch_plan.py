@@ -1,11 +1,12 @@
 """The port's host plan layer and its isolation from JAX.
 
 * Every ``TaskPlan`` field of ``repro_torch.core.plan.plan_for`` equals the
-  reference's, element for element.
+  reference's, element for element, with and without skip routes.
 * No module of ``src/repro_torch`` (nor ``chip_smoke.py``) imports ``jax``
   or anything of ``repro``.
 * With ``jax`` made unimportable, ``repro_torch`` still imports and serves
-  both ported families (smollm and rwkv6) on the CPU.
+  both ported families (smollm and rwkv6) and runs the U-Net and
+  AmoebaNet pipelines on the CPU.
 """
 import ast
 import dataclasses
@@ -19,7 +20,9 @@ import numpy as np
 import pytest
 
 from repro.core import plan as jplan
+from repro.core import skip as jskip
 from repro_torch.core import plan as tplan_lib
+from repro_torch.core.skip import SkipSpec
 
 ROOT = Path(__file__).resolve().parents[1]
 GRID = [(1, 1), (4, 2), (8, 4), (3, 4)]
@@ -54,6 +57,42 @@ def test_plan_equals_reference(schedule, m, n):
     for r in range(n):
         _assert_same(jplan.specialize(want, r), tplan_lib.specialize(got, r),
                      f"specialize[{r}]")
+
+
+SKIP_CASES = [(sched, m, n) for sched in ("gpipe_fwd", "gpipe_tasked", "1f1b",
+                                          "zb", "interleaved:2")
+              for m, n in ((4, 2), (8, 4), (3, 4))
+              if not (sched.startswith("interleaved") and m % n)]
+
+
+def _skip_specs(n_stages):
+    """A skip with two destinations, and one across a single stage."""
+    if n_stages < 3:
+        return (jskip.SkipSpec("a", 0, (1,)),)
+    return (jskip.SkipSpec("a", 0, (2, n_stages - 1)),
+            jskip.SkipSpec("b", 1, (2,)))
+
+
+@pytest.mark.parametrize("portals", [True, False],
+                         ids=["portals", "threaded"])
+@pytest.mark.parametrize("schedule,m,n", SKIP_CASES)
+def test_plan_with_skips_equals_reference(schedule, m, n, portals):
+    """Plans with skip routes, portal or threaded: every field, the routes
+    included, equals the reference's (or both refuse the same plan)."""
+    v = int(schedule.split(":")[1]) if ":" in schedule else 1
+    jspecs = _skip_specs(n * v)
+    tspecs = tuple(SkipSpec(s.name, s.src_stage, s.dsts) for s in jspecs)
+    try:
+        want = jplan.plan_for(schedule, m, n, skips=jspecs, portals=portals)
+    except NotImplementedError as e:
+        with pytest.raises(NotImplementedError, match="portals=True"):
+            tplan_lib.plan_for(schedule, m, n, skips=tspecs,
+                               portals=portals)
+        assert "portals=True" in str(e)
+        return
+    got = tplan_lib.plan_for(schedule, m, n, skips=tspecs, portals=portals)
+    assert len(got.routes) == sum(len(s.dsts) for s in tspecs)
+    _assert_same(want, got)
 
 
 def _port_files():
@@ -95,6 +134,26 @@ def test_port_runs_with_jax_unimportable():
             assert res["tokens"].shape == (2, 3), res["tokens"].shape
             assert bool(torch.isfinite(res["logits"]).all())
         import repro_torch.kernels.wkv6, repro_torch.interop  # noqa: F401
+        import repro_torch.launch.train_hetero  # noqa: F401
+        from repro_torch.configs.base import ParallelConfig
+        from repro_torch.models import pipeline_hetero as PH
+        from repro_torch.models.amoebanet import AmoebaConfig, AmoebaNetModel
+        from repro_torch.models.unet import UNetConfig, UNetModel
+        for model, x in (
+                (UNetModel(UNetConfig(B=1, C=4, levels=2, img=16), 2),
+                 torch.randn(4, 3, 16, 16)),
+                (AmoebaNetModel(AmoebaConfig(L=3, F=8, img=16,
+                                             n_classes=5), 2),
+                 torch.randn(4, 3, 16, 16))):
+            pcfg = ParallelConfig(pipe=2, tp=1, data=1, n_micro=2)
+            params = model.init(torch.Generator().manual_seed(0), "cpu")
+            prog = PH.build_hetero_program(model, params, pcfg, "cpu")
+            with torch.no_grad():
+                y = PH.hetero_forward(prog, pcfg, x)
+            loss, grads = PH.hetero_grad_call(
+                prog, pcfg.with_(schedule="1f1b"))(prog.stage_params, x,
+                                                   torch.zeros_like(y))
+            assert bool(torch.isfinite(loss)) and len(grads) == 2
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro")
                      and sys.modules[m] is not None)
