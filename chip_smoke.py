@@ -24,8 +24,10 @@ non-zero and no result line is printed):
             backward reads), then timed at
             the serving paths' shapes beside its plain version and one
             library call where PyTorch has one (the yardstick only); RMSNorm
-            at both paths' widths (960 and 2048); WKV also at one decode
-            step, and by kernel from a profiler trace;
+            at both paths' widths (960 and 2048); attention also at
+            whisper-tiny's training call, q [2,6,4096,64], non-causal and
+            causal; WKV also at one decode step, and by kernel from a
+            profiler trace;
    backward the attention and RMSNorm backward kernels against their plain
             versions over a grid that holds the training path's shapes, and
             again at every timed shape, the bf16 attention backward twice
@@ -34,7 +36,9 @@ non-zero and no result line is printed):
             grad raises), then both
             timed beside the bound and the PyTorch call that computes the
             same backward (SDPA's, F.rms_norm's: yardsticks only), with the
-            achieved TFLOP/s and the bound's share of the time;
+            achieved TFLOP/s and the bound's share of the time; the
+            attention backward also at whisper-tiny's q [2,6,4096,64],
+            non-causal and causal;
 4. port     the same weights through the kernels on the card and through
             the plain versions on the CPU, prefill + 4 decode steps, logits
             compared: smollm-360m at full width, 4 layers, pipe 2, fp32;
@@ -88,7 +92,21 @@ non-zero and no result line is printed):
             share;
 10. hetero_memory  peak memory of one U-Net (5, 64) gpipe step under remat
             "full" and "none" at the largest batch at which "none" fits:
-            "full" must be the lower.
+            "full" must be the lower;
+11. whisper_gpu_vs_cpu  the encoder-decoder, the port against itself:
+            whisper-tiny at full width, all 8 blocks, pipe 4, seq 256, fp32
+            (TF32 off): the loss and every gradient leaf of gpipe, 1f1b, zb
+            (reuse, remat "full") and interleaved:2 on the card vs the CPU,
+            the encoder layers' cross-attention gradients exactly 0, 1f1b
+            vs gpipe_tasked bitwise on the card; prefill and 4 decode
+            steps' logits;
+12. serve (whisper-tiny)  the serving main path as in 5: all 8 blocks,
+            bf16, pipe 8, tp 1, batch 8 (m 8), 2048 frames and a 2048-token
+            prompt, 32 generated tokens;
+13. whisper_train  the training main path as in 6 for whisper-tiny: pipe
+            8, seq 4096, batch 16 (m 8), remat "full", AdamW, gpipe and
+            1f1b; the park and route high-water (``mem`` 3 -> (4, 5, 6, 7),
+            ``dec_in`` 0 -> 4) must equal the plan's.
 
 The kernels summary line, then the card's ``nvidia-smi`` name and power
 limit, then the last line ``{"ok": true, "device": {...}}``.  It imports
@@ -494,35 +512,56 @@ def phase_kernels(torch):
 
     norm = norm_timing(D_MODEL)           # smollm-360m
     norm_rwkv = norm_timing(2048)         # rwkv6-1.6b's group norm
-    hq, hkv, sq = 15, 5, 2048
-    q = randn(1, hq, sq, 64, dtype=torch.bfloat16)
-    k = randn(1, hkv, sq, 64, dtype=torch.bfloat16)
-    v = randn(1, hkv, sq, 64, dtype=torch.bfloat16)
-    err_a = max_err(torch, flash_attention(q, k, v, causal=True),
-                    flash_attention_plain(q, k, v, causal=True))
-    pairs = sq * (sq + 1) // 2                      # causal: visible (q, k)
-    attn_flops = 4 * 64 * hq * pairs                # q k^T and p v
-    attn_bytes = 2 * 64 * sq * (hq + hkv + hkv + hq)
-    attn = {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:36",
-        "max_abs_err": err_a,
-        "ms": device_ms(torch, lambda: flash_attention(q, k, v, causal=True),
-                        50),
-        "plain_ms": device_ms(
-            torch, lambda: flash_attention_plain(q, k, v, causal=True), 10),
-        "library_ms": device_ms(
-            torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), 50),
-        "bound_ms": 1e3 * max(attn_bytes / HBM_BYTES_PER_S,
-                              attn_flops / PEAK_BF16_FLOPS),
-        "bound_by": ("bytes" if attn_bytes / HBM_BYTES_PER_S
-                     >= attn_flops / PEAK_BF16_FLOPS else "operations"),
-        "shape": {"q": [1, hq, sq, 64], "kv": [1, hkv, sq, 64],
-                  "causal": True},
-        "dtype": "bfloat16", "flops": attn_flops,
-    }
+
+    def attn_timing(b, hq, hkv, sq, causal, iters):
+        """The bf16 forward at q [b, hq, sq, 64], checked against its plain
+        version (and its lse, at the training calls) and timed beside SDPA
+        (the yardstick only) and its bound; non-causal work is every
+        (query, key) pair, causal work the visible half."""
+        q = randn(b, hq, sq, 64, dtype=torch.bfloat16)
+        k = randn(b, hkv, sq, 64, dtype=torch.bfloat16)
+        v = randn(b, hkv, sq, 64, dtype=torch.bfloat16)
+        got, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                        return_lse=True)
+        want, want_lse = ref.mha_blocked_fwd(q, k, v, causal=causal)
+        err = max_err(torch, got, want)
+        lse_err = max_err(torch, lse, want_lse)
+        tol = ATTN_TOL["bfloat16"]
+        if not (torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+                and lse_err <= LSE_TOL):
+            raise AssertionError(f"flash_attention disagrees at q {[b, hq, sq]}"
+                                 f" causal {causal}: {err}, lse {lse_err}")
+        pairs = sq * (sq + 1) // 2 if causal else sq * sq
+        flops = 4 * 64 * hq * b * pairs                 # q k^T and p v
+        nbytes = 2 * 64 * b * sq * (hq + hkv + hkv + hq)
+        rec = {
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:36",
+            "max_abs_err": err, "lse_max_abs_err": lse_err,
+            "ms": device_ms(torch, lambda: flash_attention(
+                q, k, v, causal=causal), iters),
+            "plain_ms": device_ms(torch, lambda: flash_attention_plain(
+                q, k, v, causal=causal), 2 if sq > 2048 else 10),
+            "library_ms": device_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=hq != hkv), iters),
+            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                  flops / PEAK_BF16_FLOPS),
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= flops / PEAK_BF16_FLOPS else "operations"),
+            "shape": {"q": [b, hq, sq, 64], "kv": [b, hkv, sq, 64],
+                      "causal": causal},
+            "dtype": "bfloat16", "flops": flops,
+        }
+        return with_rates(rec, flops)
+
+    attn = attn_timing(1, 15, 5, 2048, True, 50)      # smollm-360m prefill
+    # whisper-tiny's training call (m 8: micro-batch 2), 6 heads over 6:
+    # the encoder's self- and every cross-attention non-causal, the
+    # decoder's self-attention causal
+    whisper = [attn_timing(2, 6, 6, 4096, causal, 20) | {"call": "whisper"}
+               for causal in (False, True)]
     # rwkv6-1.6b prefill: B = mb = 1, H = 32, T = 2048, bf16 r/k/v/out,
     # fp32 w, u and state; no PyTorch call computes WKV-6 (library: none)
     B, H, T, n = 1, 32, 2048, 64
@@ -559,9 +598,8 @@ def phase_kernels(torch):
         "decode_ms": device_ms(torch, lambda: wkv6(*dec), 500),
         "decode_bound_ms": 1e3 * dec_bytes / HBM_BYTES_PER_S,
     }
-    attn = with_rates(attn, attn_flops)
     wkv = with_rates(wkv, wkv_tc_flops)
-    for rec in (norm, norm_rwkv, attn, wkv):
+    for rec in (norm, norm_rwkv, attn, *whisper, wkv):
         emit({"phase": "kernel_timing", **rec})
     return {"rmsnorm": norm, "flash_attention": attn, "wkv6": wkv}
 
@@ -709,20 +747,26 @@ def phase_backward(torch):
     # -- timing: attention at q [1,15,S,64] causal (S 2048, 4096; bf16 and
     #    fp32) and at the training path's [2,15,4096,64] bf16; RMSNorm at
     #    [1,2048,960], [16,4096,960] and the path's [2,4096,960] bf16 ------
-    def attn_timing(b, sq, dname):
+    def attn_timing(b, sq, dname, hq=15, hkv=5, causal=True):
+        """The backward at q [b, hq, sq, 64], checked against its plain
+        version and timed beside SDPA's backward and its bound; non-causal
+        work is every (query, key) pair, causal work the visible half."""
         dt = dtypes[dname]
-        q = randn(b, 15, sq, 64, dtype=dt)
-        k, v = (randn(b, 5, sq, 64, dtype=dt) for _ in range(2))
-        do = randn(b, 15, sq, 64, dtype=dt)
-        out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+        q = randn(b, hq, sq, 64, dtype=dt)
+        k, v = (randn(b, hkv, sq, 64, dtype=dt) for _ in range(2))
+        do = randn(b, hq, sq, 64, dtype=dt)
+        kw = dict(causal=causal)
+        out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
         err = checked_max_err(torch, dname, "flash_attention_bwd", zip(
-            flash_attention_bwd(q, k, v, out, lse, do),
-            flash_attention_bwd_plain(q, k, v, out, lse, do)))
+            flash_attention_bwd(q, k, v, out, lse, do, **kw),
+            flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)))
         qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-        sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                              enable_gqa=True)
-        flops = 5 * 2 * 64 * 15 * b * sq * (sq + 1) // 2
-        nbytes = q.element_size() * 64 * b * sq * (4 * 15 + 4 * 5) + 4 * b * 15 * sq
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                              enable_gqa=hq != hkv)
+        pairs = sq * (sq + 1) // 2 if causal else sq * sq
+        flops = 5 * 2 * 64 * hq * b * pairs
+        nbytes = (q.element_size() * 64 * b * sq * (4 * hq + 4 * hkv)
+                  + 4 * b * hq * sq)
         peak = PEAK_BF16_FLOPS if dname == "bfloat16" else PEAK_FP32_FLOPS
         iters = 20 if sq <= 2048 else 5
         rec = {
@@ -731,15 +775,15 @@ def phase_backward(torch):
             "replaces": "src/repro/kernels/ref.py:138",
             "max_abs_err": err,
             "ms": device_ms(torch, lambda: flash_attention_bwd(
-                q, k, v, out, lse, do), iters),
+                q, k, v, out, lse, do, **kw), iters),
             "plain_ms": device_ms(torch, lambda: flash_attention_bwd_plain(
-                q, k, v, out, lse, do), 2),
+                q, k, v, out, lse, do, **kw), 2),
             "library_ms": grad_ms(torch, sdpa, (qg, kg, vg), do, iters),
             "bound_ms": 1e3 * max(flops / peak, nbytes / HBM_BYTES_PER_S),
             "bound_by": ("operations" if flops / peak >= nbytes / HBM_BYTES_PER_S
                          else "bytes"),
-            "shape": {"q": [b, 15, sq, 64], "kv": [b, 5, sq, 64],
-                      "causal": True}, "dtype": dname, "flops": flops,
+            "shape": {"q": [b, hq, sq, 64], "kv": [b, hkv, sq, 64],
+                      "causal": causal}, "dtype": dname, "flops": flops,
         }
         rec = with_rates(rec, flops)
         emit({"phase": "kernel_timing", **rec})
@@ -777,57 +821,77 @@ def phase_backward(torch):
     for sq in (2048, 4096):
         for dname in ("bfloat16", "float32"):
             attn_timing(1, sq, dname)
+    # whisper-tiny's training call (m 8: micro-batch 2), 6 heads over 6,
+    # non-causal (encoder, cross) and causal (decoder self-attention)
+    for causal in (False, True):
+        attn_timing(2, 4096, "bfloat16", hq=6, hkv=6, causal=causal)
     norm_timing((1, 2048, D_MODEL))
     norm_timing((16, 4096, D_MODEL))
     return {"flash_attention_bwd": attn_timing(2, 4096, "bfloat16"),
             "rmsnorm_bwd": norm_timing((2, 4096, D_MODEL))}
 
 
+def serve_gaps(torch, arch, pcfg, prompt: int, batch: int = 2,
+               n_dec: int = 4):
+    """Prefill ``batch`` random prompts (an enc-dec's frames beside them)
+    and decode ``n_dec`` greedy steps through the kernels on the card and
+    through the plain versions on the CPU, same weights (fp32).  Returns
+    each step's largest logit gap and the steps outside ``PORT_TOL`` or
+    not finite."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models.lm import LMModel
+    from repro_torch.tree import tree_map
+
+    pshape = ShapeConfig("p", prompt, batch, "prefill")
+    dshape = ShapeConfig("d", prompt + n_dec + 1, batch, "decode")
+    params_cpu = LMModel(arch, pcfg, dtype=torch.float32, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    prompts = torch.randint(0, arch.vocab, (batch, prompt), generator=gen)
+    pbatch = prompt_batch(arch, prompts, torch.float32, gen)
+    runs = {}
+    for tag in ("cpu", "cuda"):
+        model = LMModel(arch, pcfg, dtype=torch.float32, device=tag)
+        dev = model.device
+        params = tree_map(lambda a: a.to(dev), params_cpu)
+        prefill = steps.build_prefill_step(model, pcfg, dev, pshape)
+        decode = steps.build_serve_step(model, pcfg, dev, dshape)
+        cache = model.init_cache(dshape, pcfg.n_micro, filled=False)
+        logits, cache = prefill(params, cache, {k: v.to(dev)
+                                                for k, v in pbatch.items()})
+        runs[tag] = {"dev": dev, "decode": decode, "cache": cache,
+                     "params": params, "logits": [logits.float().cpu()]}
+    for _ in range(n_dec):
+        tok = torch.argmax(runs["cpu"]["logits"][-1], -1)
+        for r in runs.values():
+            logits, r["cache"] = r["decode"](r["params"], r["cache"],
+                                             tok.to(r["dev"]))
+            r["logits"].append(logits.float().cpu())
+    errs, bad = [], []
+    for i, (a, b) in enumerate(zip(runs["cuda"]["logits"],
+                                   runs["cpu"]["logits"])):
+        errs.append(max_err(torch, a, b))
+        if not (torch.allclose(a, b, rtol=PORT_TOL, atol=PORT_TOL)
+                and bool(torch.isfinite(a).all())):
+            bad.append(f"step {i}")
+    return errs, bad
+
+
 def phase_port(torch, arch_name: str, n_layers: int, prompt: int):
     """The port against itself: kernels on the card vs plain on the CPU."""
     from repro_torch import configs
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.launch import steps
-    from repro_torch.models.lm import LMModel
-    from repro_torch.tree import tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     arch = dataclasses.replace(configs.get_arch(arch_name), n_layers=n_layers)
     pcfg = configs.get_parallel(arch_name).with_(pipe=2, tp=1, data=1,
                                                   n_micro=2)
     batch, n_dec = 2, 4
-    pshape = ShapeConfig("p", prompt, batch, "prefill")
-    dshape = ShapeConfig("d", prompt + n_dec + 1, batch, "decode")
-    cpu = LMModel(arch, pcfg, dtype=torch.float32, device="cpu")
-    gpu = LMModel(arch, pcfg, dtype=torch.float32, device="cuda")
-    params_cpu = cpu.init(torch.Generator().manual_seed(0))
-    params_gpu = tree_map(lambda a: a.to("cuda"), params_cpu)
-    prompts = torch.randint(0, arch.vocab, (batch, prompt),
-                            generator=torch.Generator().manual_seed(1))
-    runs = {}
-    for tag, model, params in (("cpu", cpu, params_cpu),
-                               ("gpu", gpu, params_gpu)):
-        dev = model.device
-        prefill = steps.build_prefill_step(model, pcfg, dev, pshape)
-        decode = steps.build_serve_step(model, pcfg, dev, dshape)
-        cache = model.init_cache(dshape, pcfg.n_micro, filled=False)
-        logits, cache = prefill(params, cache, {"tokens": prompts.to(dev)})
-        runs[tag] = {"model": model, "decode": decode, "cache": cache,
-                     "params": params, "logits": [logits.float().cpu()]}
-    for _ in range(n_dec):
-        tok = torch.argmax(runs["cpu"]["logits"][-1], -1)
-        for tag, r in runs.items():
-            logits, r["cache"] = r["decode"](r["params"], r["cache"],
-                                             tok.to(r["model"].device))
-            r["logits"].append(logits.float().cpu())
-    errs = []
-    for i, (a, b) in enumerate(zip(runs["gpu"]["logits"],
-                                   runs["cpu"]["logits"])):
-        ok = torch.allclose(a, b, rtol=PORT_TOL, atol=PORT_TOL)
-        errs.append(max_err(torch, a, b))
-        if not ok or not bool(torch.isfinite(a).all()):
-            raise AssertionError(f"port GPU vs CPU {arch_name} step {i}: max "
-                                 f"err {errs[-1]} over tol {PORT_TOL}")
+    errs, bad = serve_gaps(torch, arch, pcfg, prompt, batch, n_dec)
+    if bad:
+        raise AssertionError(f"port GPU vs CPU {arch_name} at {bad}: max "
+                             f"errs {errs} over tol {PORT_TOL}")
     emit({"phase": "port_gpu_vs_cpu", "arch": arch_name,
           "n_layers": n_layers, "pipe": 2, "dtype": "float32",
           "batch": batch, "prompt": prompt, "decode_steps": n_dec,
@@ -895,6 +959,50 @@ def phase_train_port(torch, n_layers: int = 4, seq: int = 256):
                              f"{errs}")
 
 
+def grad_runs(torch, arch, base, cases, data):
+    """The loss and every gradient leaf (in ``tree_items`` order) of each
+    case (``base.with_(**cases[name])``) through the kernels on the card and
+    through the plain versions on the CPU ("gpipe_tasked" on the card
+    only), with the same weights in every case, stacked for its stages
+    (fp32).  Returns ``({(name, device): (loss, grads)}, paths)``."""
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import LMModel
+    from repro_torch.tree import tree_items, tree_map
+
+    runs = {}
+    for name, kw in cases.items():
+        pcfg = base.with_(**kw)
+        params_cpu = LMModel(arch, pcfg, dtype=torch.float32,
+                             device="cpu").init(
+            torch.Generator().manual_seed(0))
+        for d in (("cpu", "cuda") if name != "gpipe_tasked" else ("cuda",)):
+            model = LMModel(arch, pcfg, dtype=torch.float32, device=d)
+            params = tree_map(lambda a: a.to(model.device), params_cpu)
+            grad_fn = steps.build_grad_fn(model, pcfg, model.device)
+            loss, grads = grad_fn(params, {k: v.to(model.device)
+                                           for k, v in data.items()})
+            runs[name, d] = (loss.cpu(), [gr.cpu() for _, gr in
+                                          tree_items(grads)])
+            del params, grads
+    return runs, [p for p, _ in tree_items(params_cpu)]
+
+
+def bitwise_gaps(torch, paths, got, want):
+    """Two schedules of one computation on the card (``(loss, grads)``
+    each): the unequal leaves with their gaps, and the failures.  A leaf of
+    ``NONDETERMINISTIC_LEAVES`` may differ within ``GRAD_REL``."""
+    (l1, g1), (l0, g0) = got, want
+    unequal = {} if torch.equal(l1, l0) else {"loss": max_err(torch, l1, l0)}
+    bad = ["loss"] if unequal else []
+    for path, a, b in zip(paths, g1, g0):
+        if not torch.equal(a, b):
+            unequal[path] = max_err(torch, a, b)
+            if path not in NONDETERMINISTIC_LEAVES or unequal[path] > \
+                    GRAD_REL * float(b.abs().max()):
+                bad.append(path)
+    return unequal, bad
+
+
 def phase_train_fused_port(torch, n_layers: int = 4, seq: int = 256,
                            batch: int = 4):
     """The fused F+B executor, the port against itself: loss and every
@@ -906,9 +1014,6 @@ def phase_train_fused_port(torch, n_layers: int = 4, seq: int = 256,
     which must be bitwise equal under grad_reduce "ordered" except in the
     leaves of ``NONDETERMINISTIC_LEAVES``, held at ``GRAD_REL``."""
     from repro_torch import configs
-    from repro_torch.launch import steps
-    from repro_torch.models.lm import LMModel
-    from repro_torch.tree import tree_items, tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     arch = dataclasses.replace(configs.get_arch("smollm-360m"),
@@ -923,24 +1028,8 @@ def phase_train_fused_port(torch, n_layers: int = 4, seq: int = 256,
                                    remat="full", n_micro=4),
              "interleaved:2": dict(schedule="interleaved:2", n_micro=2),
              "gpipe_tasked": dict(schedule="gpipe_tasked", n_micro=2)}
-    runs = {}
-    for name, kw in cases.items():
-        pcfg = configs.get_parallel("smollm-360m").with_(pipe=2, data=1,
-                                                          **kw)
-        # the same weights in every case, stacked for its stages
-        params_cpu = LMModel(arch, pcfg, dtype=torch.float32,
-                             device="cpu").init(
-            torch.Generator().manual_seed(0))
-        for d in (("cpu", "cuda") if name != "gpipe_tasked" else ("cuda",)):
-            model = LMModel(arch, pcfg, dtype=torch.float32, device=d)
-            params = tree_map(lambda a: a.to(model.device), params_cpu)
-            grad_fn = steps.build_grad_fn(model, pcfg, model.device)
-            loss, grads = grad_fn(params, {k: v.to(model.device)
-                                           for k, v in data.items()})
-            runs[name, d] = (loss.cpu(), [gr.cpu() for _, gr in
-                                          tree_items(grads)])
-            del params, grads
-    paths = [p for p, _ in tree_items(params_cpu)]
+    base = configs.get_parallel("smollm-360m").with_(pipe=2, data=1)
+    runs, paths = grad_runs(torch, arch, base, cases, data)
     bad, recs = [], {}
     for name in ("1f1b", "zb-reuse", "zb-reuse-full", "interleaved:2"):
         errs, _, failed = grad_gaps(torch, paths, runs[name, "cuda"],
@@ -950,16 +1039,9 @@ def phase_train_fused_port(torch, n_layers: int = 4, seq: int = 256,
                       "max_abs_err": errs}
     # 1f1b and gpipe_tasked on the card: the same per-(stage, micro) work,
     # folded in micro order
-    (l1, g1), (l0, g0) = runs["1f1b", "cuda"], runs["gpipe_tasked", "cuda"]
-    unequal = {} if torch.equal(l1, l0) else {"loss": max_err(torch, l1, l0)}
-    for path, a, b in zip(paths, g1, g0):
-        if not torch.equal(a, b):
-            unequal[path] = max_err(torch, a, b)
-            if path not in NONDETERMINISTIC_LEAVES or unequal[path] > \
-                    GRAD_REL * float(b.abs().max()):
-                bad.append(f"1f1b vs gpipe_tasked {path}")
-    if "loss" in unequal:
-        bad.append("1f1b vs gpipe_tasked loss")
+    unequal, failed = bitwise_gaps(torch, paths, runs["1f1b", "cuda"],
+                                   runs["gpipe_tasked", "cuda"])
+    bad += [f"1f1b vs gpipe_tasked {f}" for f in failed]
     emit({"phase": "train_fused_gpu_vs_cpu", "arch": arch.name,
           "n_layers": n_layers, "pipe": 2, "batch": batch, "seq": seq,
           "dtype": "float32", "schedules": recs, "tol": PORT_TOL,
@@ -969,22 +1051,99 @@ def phase_train_fused_port(torch, n_layers: int = 4, seq: int = 256,
         raise AssertionError(f"fused training disagrees at {bad}")
 
 
-def phase_train(torch, schedule: str = "gpipe"):
+def phase_whisper_port(torch, pipe: int = 4, seq: int = 256,
+                       batch: int = 4):
+    """``whisper_gpu_vs_cpu``: whisper-tiny at full width, all 8 blocks,
+    pipe 4 (``mem`` 1 -> (2, 3), ``dec_in`` 0 -> 2; eight stages and
+    ``mem`` 3 -> (4, 5, 6, 7) under interleaved:2), fp32 with TF32 off, the
+    same weights through the kernels on the card and through the plain
+    versions on the CPU.  Training, batch 4, m 4, seq 256: the loss and
+    every gradient leaf of gpipe (autograd), 1f1b, zb with residuals
+    "reuse" under remat "full" and interleaved:2 at ``PORT_TOL`` and
+    ``GRAD_REL``, the encoder layers' ``lnx`` / ``xattn`` gradients exactly
+    0 on both; 1f1b against gpipe_tasked bitwise on the card but for
+    ``NONDETERMINISTIC_LEAVES``.  Serving (:func:`serve_gaps`), batch 2,
+    m 2: prefill over 256 frames and a 256-token prompt, then 4 decode
+    steps, logits compared."""
+    from repro_torch import configs
+    from repro_torch.models.lm import LMModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch = configs.get_arch("whisper-tiny")
+    g = torch.Generator().manual_seed(7)
+    data = {"frames": torch.randn(batch, seq, arch.d_model, generator=g)
+            * 0.1,
+            "dec_tokens": torch.randint(0, arch.vocab, (batch, seq),
+                                        generator=g),
+            "labels": torch.randint(0, arch.vocab, (batch, seq),
+                                    generator=g)}
+    cases = {"gpipe": dict(schedule="gpipe"),
+             "1f1b": dict(schedule="1f1b"),
+             "zb-reuse-full": dict(schedule="zb", residuals="reuse",
+                                   remat="full"),
+             "interleaved:2": dict(schedule="interleaved:2"),
+             "gpipe_tasked": dict(schedule="gpipe_tasked")}
+    base = configs.get_parallel("whisper-tiny").with_(pipe=pipe, tp=1,
+                                                       data=1, n_micro=4)
+    runs, paths = grad_runs(torch, arch, base, cases, data)
+    bad, recs = [], {}
+    for name in ("gpipe", "1f1b", "zb-reuse-full", "interleaved:2"):
+        errs, _, failed = grad_gaps(torch, paths, runs[name, "cuda"],
+                                    runs[name, "cpu"])
+        bad += [f"{name} {f}" for f in failed]
+        model = LMModel(arch, base.with_(**cases[name]), device="meta")
+        recs[name] = {"loss": float(runs[name, "cuda"][0]),
+                      "max_abs_err": errs,
+                      "skips": [(e.name, e.src_stage, list(e.dsts))
+                                for e in model.skips()]}
+        # an encoder layer's cross-attention is skipped: exact zeros
+        consts = model.consts()
+        enc = list(zip(*((consts["mask"] > 0)
+                         & (consts["cross"] == 0)).nonzero()))
+        for d in ("cpu", "cuda"):
+            for path, gr in zip(paths, runs[name, d][1]):
+                if path.startswith(("stages/lnx", "stages/xattn")) and any(
+                        bool(gr[s, l].abs().max() > 0) for s, l in enc):
+                    bad.append(f"{name} {d} {path}: an encoder layer's "
+                               "cross-attention gradient is not 0")
+    unequal, failed = bitwise_gaps(torch, paths, runs["1f1b", "cuda"],
+                                   runs["gpipe_tasked", "cuda"])
+    bad += [f"1f1b vs gpipe_tasked {f}" for f in failed]
+    serve_errs, failed = serve_gaps(torch, arch, base.with_(n_micro=2), seq)
+    bad += [f"serve {f}" for f in failed]
+    emit({"phase": "whisper_gpu_vs_cpu", "arch": arch.name,
+          "n_layers": arch.n_layers + arch.enc_layers, "pipe": pipe,
+          "batch": batch, "n_micro": 4, "seq": seq, "dtype": "float32",
+          "tf32": False, "schedules": recs, "tol": PORT_TOL,
+          "rel_tol": GRAD_REL, "bitwise_1f1b_vs_gpipe_tasked": not unequal,
+          "unequal_leaves": unequal, "serve_batch": 2, "serve_n_micro": 2,
+          "decode_steps": 4, "serve_max_abs_err": serve_errs,
+          "ok": not bad})
+    if bad:
+        raise AssertionError(f"whisper GPU vs CPU disagrees at {bad}")
+
+
+def phase_train(torch, schedule: str = "gpipe",
+                arch_name: str = "smollm-360m"):
     """A training main path: counters set to 0 just before, read after.
-    ``schedule`` "gpipe" is phase ``train``; a fused schedule is phase
-    ``train_fused``, which also holds the executor's park high-water per
-    rank to the plan's."""
+    smollm-360m with ``schedule`` "gpipe" is phase ``train``, with a fused
+    schedule phase ``train_fused``, which also holds the executor's park
+    high-water per rank to the plan's; whisper-tiny (pipe 8: ``mem``
+    3 -> (4, 5, 6, 7), ``dec_in`` 0 -> 4) is phase ``whisper_train``, whose
+    park and route high-water must equal the plan's ``depth`` /
+    ``g_depth``."""
     from repro_torch import configs
     from repro_torch.core.plan import plan_for
     from repro_torch.launch.train import (expected_train_launches,
                                           launches, train)
+    from repro_torch.models.lm import LMModel
     from repro_torch.optim.optimizers import OptimizerConfig
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
 
-    arch = configs.get_arch("smollm-360m")
-    pcfg = configs.get_parallel("smollm-360m").with_(
+    arch = configs.get_arch(arch_name)
+    pcfg = configs.get_parallel(arch_name).with_(
         data=1, tp=1, n_micro=8, remat="full", schedule=schedule)
     seq, batch, n_steps = 4096, 16, 5
     ocfg = OptimizerConfig(lr=5e-4, warmup_steps=0, min_lr_ratio=1.0,
@@ -996,13 +1155,21 @@ def phase_train(torch, schedule: str = "gpipe"):
                 fixed_batch=True, trace=True)
     totals = launches()
     hist = res["history"]
-    want = expected_train_launches(pcfg, arch.n_layers, seq)
+    want = expected_train_launches(pcfg, arch, seq)
     warm = sorted(r["step_s"] for r in hist[1:])
     step_s = warm[len(warm) // 2]                  # median of steps 2..5
-    plan_park = plan_for(schedule if schedule != "gpipe" else "gpipe_fwd",
-                         pcfg.n_micro, pcfg.pipe).per_stage_park
-    rec = {"phase": "train" if schedule == "gpipe" else "train_fused",
-           "arch": arch.name, "n_layers": arch.n_layers,
+    skips = LMModel(arch, pcfg, device="meta").skips()
+    tplan = plan_for(schedule if schedule != "gpipe" else "gpipe_fwd",
+                     pcfg.n_micro, pcfg.pipe, skips=skips,
+                     portals=pcfg.portals)
+    plan_park = tplan.per_stage_park
+    route_plan = {rt.key: ({"depth": rt.depth, "g_depth": rt.g_depth}
+                           if tplan.has_backward else {"depth": rt.depth})
+                  for rt in tplan.routes}
+    phase = ("whisper_train" if arch.is_encdec else
+             "train" if schedule == "gpipe" else "train_fused")
+    rec = {"phase": phase,
+           "arch": arch.name, "n_layers": arch.n_layers + arch.enc_layers,
            "pipe": pcfg.pipe, "tp": pcfg.tp, "data": pcfg.data,
            "n_micro": pcfg.n_micro, "schedule": schedule,
            "grad_reduce": pcfg.grad_reduce, "remat": pcfg.remat, "seq": seq,
@@ -1017,11 +1184,14 @@ def phase_train(torch, schedule: str = "gpipe"):
            "model_flops_share": (res["model_flops_per_step"] / step_s
                                  / PEAK_BF16_FLOPS),
            "model_flops_formula": "3 x (2 x matmul weights x tokens + 2 x 2 "
-                                  "x hd x Hq x S (S + 1) / 2 x layers x "
-                                  "batch) over the step time and 989 TFLOP/s",
+                                  "x hd x Hq x visible (q, k) pairs: "
+                                  "S (S + 1) / 2 causal, S x S for the "
+                                  "encoder and cross-attention) over the "
+                                  "step time and 989 TFLOP/s",
            "peak_mem_gib": res["peak_mem_bytes"] / 2 ** 30,
+           "skips": [(e.name, e.src_stage, list(e.dsts)) for e in skips],
            "park_high_water": res["park_info"],
-           "park_plan": plan_park,
+           "park_plan": plan_park, "route_plan": route_plan,
            "launches_per_step": [r["launches"] for r in hist],
            "launches_expected_per_step": want, "launches_total": totals,
            "trace": res["trace"]}
@@ -1037,9 +1207,14 @@ def phase_train(torch, schedule: str = "gpipe"):
             k: (n_steps + 1) * v for k, v in want.items()}:
         raise AssertionError(f"train launches {rec['launches_per_step']} / "
                              f"{totals} differ from the path's {want}")
-    if tuple(res["park_info"]["per_stage_park"]) != tuple(plan_park):
-        raise AssertionError(f"park high-water {res['park_info']} differs "
-                             f"from the plan's {plan_park}")
+    if tuple(res["park_info"]["per_stage_park"]) != tuple(plan_park) \
+            or res["park_info"].get("per_route", {}) != route_plan:
+        raise AssertionError(f"high-water {res['park_info']} differs from "
+                             f"the plan's {plan_park}, {route_plan}")
+    if arch.is_encdec and sum(k.startswith("mem@")
+                              for k in route_plan) != 4:
+        raise AssertionError(f"whisper at pipe 8 ran routes {route_plan}, "
+                             "not mem's four destinations")
     return totals
 
 
@@ -1315,31 +1490,15 @@ def phase_hetero_memory(torch):
                              f"is not finite: {losses}")
 
 
-def expected_launches(family: str, layers: int, m: int, gen: int):
-    """Kernel launches the serving path implies, per prefill and over the
-    ``gen - 1`` decode steps.  dense: one attention per layer and
-    micro-batch in prefill (decode attention is plain torch), RMSNorm twice
-    per layer plus the head's; ssm: one WKV and one group RMSNorm per layer
-    and micro-batch (the block and head norms are LayerNorms)."""
-    lm, steps = layers * m, gen - 1
-    if family == "dense":
-        return {"prefill": {"flash_attention": lm, "rmsnorm": 3 * lm + 1,
-                            "wkv6": 0},
-                "decode": {"flash_attention": 0,
-                           "rmsnorm": steps * (2 * lm + 1), "wkv6": 0}}
-    return {"prefill": {"flash_attention": 0, "rmsnorm": lm, "wkv6": lm},
-            "decode": {"flash_attention": 0, "rmsnorm": steps * lm,
-                       "wkv6": steps * lm}}
-
-
 def phase_serve(torch, arch_name: str):
-    """One main path: counters set to 0 just before, read just after."""
+    """One main path: counters set to 0 just before, read just after, and
+    held to ``launch.serve.expected_serve_launches``."""
     from repro_torch import configs
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
     from repro_torch.kernels.wkv6 import wkv6
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve import expected_serve_launches, serve
 
     counters = {"flash_attention": flash_attention, "rmsnorm": rmsnorm,
                 "wkv6": wkv6}
@@ -1352,8 +1511,8 @@ def phase_serve(torch, arch_name: str):
     res = serve(arch, pcfg, prompt_len=prompt, gen=gen, batch=batch,
                 device="cuda", dtype=torch.bfloat16, seed=0)
     totals = {k: fn.launches for k, fn in counters.items()}
-    m, layers = res["n_micro"], arch.n_layers
-    want = expected_launches(arch.family, layers, m, gen)
+    m, layers = res["n_micro"], arch.n_layers + arch.enc_layers
+    want = expected_serve_launches(arch, m, gen)
     want_totals = {k: want["prefill"][k] + want["decode"][k] for k in totals}
     per_step = {k: v / (gen - 1) for k, v in res["launches"]["decode"].items()}
     logits = res["logits"]
@@ -1417,6 +1576,14 @@ def main() -> int:
             phase_hetero_train(torch, mname, schedule)
             torch.cuda.empty_cache()
     phase_hetero_memory(torch)
+    torch.cuda.empty_cache()
+    phase_whisper_port(torch)
+    for k, n in phase_serve(torch, "whisper-tiny").items():
+        launches[k] += n
+    for schedule in ("gpipe", "1f1b"):
+        for k, n in phase_train(torch, schedule, "whisper-tiny").items():
+            launches[k] += n
+        torch.cuda.empty_cache()
     kernels = []
     for kname in KERNELS:
         rec = timing[kname]

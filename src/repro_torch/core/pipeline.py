@@ -83,7 +83,7 @@ class TickCtx:
     micro: int                # micro-batch index of this rank's task
     valid: bool               # a real (scheduled) task
     t: int                    # tick counter
-    fresh: Any                # stage-0 input tree slice for this micro-batch
+    fresh: Any                # stage 0's input tree slice; None elsewhere
     n_stages: int             # GLOBAL stage count (n_ranks * n_chunks)
     n_micro: int
 
@@ -373,7 +373,8 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
             carry = park.get(r, slot, (i, r), release=True) \
                 if slot >= 0 else None
             skips_in = _skips_in(routes, t, r, (i, r), release=True)
-            fresh = tree_map(lambda a: a[i].to(devices[r]), inputs_mb)
+            fresh = (tree_map(lambda a: a[i].to(devices[r]), inputs_mb)
+                     if r == 0 else None)
             ctx = TickCtx(stage=r, micro=i, valid=True, t=t, fresh=fresh,
                           n_stages=tplan.n_stages, n_micro=m)
             wrapped = checkpointing.wrap_stage_for_micro(

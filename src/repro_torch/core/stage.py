@@ -46,6 +46,13 @@ class StageLayout:
     def n_layers(self) -> int:
         return self.bounds[-1]
 
+    def stage_of(self, layer: int) -> int:
+        """Stage hosting GLOBAL layer index ``layer``."""
+        for s in range(len(self.sizes)):
+            if self.bounds[s] <= layer < self.bounds[s + 1]:
+                return s
+        raise ValueError(f"layer {layer} outside [0, {self.bounds[-1]})")
+
     def scatter(self, per_layer: np.ndarray, fill) -> np.ndarray:
         """Spread a length-``n_layers`` per-layer array onto the
         [n_stages, L] slot grid; padding slots take ``fill``."""

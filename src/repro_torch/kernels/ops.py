@@ -22,13 +22,15 @@ def attention(q, k, v, *, causal=True, window=None, q_offset: int = 0,
               kv_len=None):
     """GQA attention forward: q [B,Hq,S,D], k/v [B,Hkv,S,D] -> [B,Hq,S,D].
 
-    ``causal`` and ``window`` are static Python values here.  The traced
-    per-layer forms the reference also takes (whisper's causal flag and
-    ``kv_len`` prefixes, gemma/hymba per-layer windows) are later slices."""
+    ``causal`` and ``window`` are static Python values here: the port runs
+    each layer eagerly and passes its per-layer values (whisper's causal
+    flag) as host scalars, so the traced forms the reference also takes
+    never reach it.  The reference never sets ``kv_len`` on any path; the
+    gemma/hymba per-layer windows are a later slice."""
     if kv_len is not None or isinstance(causal, torch.Tensor):
         raise NotImplementedError(
-            "kv_len and per-layer causal flags (whisper enc-dec) are not "
-            "ported yet: ROADMAP A6")
+            "kv_len and tensor causal flags are not taken: the port passes "
+            "per-layer values as host scalars")
     if isinstance(window, torch.Tensor):
         raise NotImplementedError(
             "per-layer attention windows (gemma / hymba) are not ported "

@@ -25,6 +25,7 @@ from repro_torch import configs
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.devices import resolve_device
 from repro_torch.launch import steps
+from repro_torch.launch.serve import prompt_batch
 from repro_torch.models.lm import LMModel
 
 
@@ -133,15 +134,15 @@ def main():
     prefill = steps.build_prefill_step(model, pcfg, model.stage_devices,
                                        pshape)
     decode = steps.build_serve_step(model, pcfg, model.stage_devices, dshape)
-    prompts = torch.randint(
-        0, arch.vocab, (args.batch, args.prompt_len),
-        generator=torch.Generator(device=dev).manual_seed(args.seed + 1),
-        device=dev)
+    tok_gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    prompts = torch.randint(0, arch.vocab, (args.batch, args.prompt_len),
+                            generator=tok_gen, device=dev)
+    pbatch = prompt_batch(arch, prompts, torch.bfloat16, tok_gen)
     n_dec = args.gen - 1
 
     def run_prefill():
         cache = model.init_cache(dshape, pcfg.n_micro, filled=False)
-        logits, cache = prefill(params, cache, {"tokens": prompts})
+        logits, cache = prefill(params, cache, pbatch)
         return torch.argmax(logits, -1), cache
 
     def run_decode(tok, cache):

@@ -12,7 +12,13 @@ versions of the kernels).
         --gen 32 --batch 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
         --prompt-len 2048 --gen 32 --batch 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
+        --prompt-len 2048 --gen 32 --batch 8
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+
+An enc-dec (whisper) prefills ``frames`` (random, the stub frontend's
+frame embeddings) with the prompt as ``dec_tokens``, both ``prompt_len``
+long, as the reference does.
 """
 from __future__ import annotations
 
@@ -37,6 +43,48 @@ def _launches() -> Dict[str, int]:
             "rmsnorm": rmsnorm.launches, "wkv6": wkv6.launches}
 
 
+def expected_serve_launches(arch: ArchConfig, m: int, gen: int
+                            ) -> Dict[str, Dict[str, int]]:
+    """Kernel launches the serving path implies, per prefill and over the
+    ``gen - 1`` decode steps, for a layout without identity padding.
+
+    dense and encdec: one attention per layer and micro-batch in prefill,
+    and one more per decoder layer of an enc-dec (its cross-attention);
+    decode attention is plain torch.  RMSNorm, where the arch's norm is
+    one: three per layer in prefill (the cache fill normalizes again), one
+    more per cross-attention, and the head's; two per layer a decode step
+    (one more per cross-attention) and the head's.  LayerNorm (whisper)
+    launches no kernel.  ssm: one WKV and one group RMSNorm per layer and
+    micro-batch (the block and head norms are LayerNorms)."""
+    layers = arch.n_layers + arch.enc_layers
+    lm, steps = layers * m, gen - 1
+    if arch.family == "ssm":
+        return {"prefill": {"flash_attention": 0, "rmsnorm": lm, "wkv6": lm},
+                "decode": {"flash_attention": 0, "rmsnorm": steps * lm,
+                           "wkv6": steps * lm}}
+    cross = arch.n_layers * m if arch.is_encdec else 0
+    dec = arch.n_layers * m                  # layers a decode step runs
+    rms = int(arch.norm == "rms")
+    return {"prefill": {"flash_attention": lm + cross,
+                        "rmsnorm": rms * (3 * lm + cross + 1), "wkv6": 0},
+            "decode": {"flash_attention": 0,
+                       "rmsnorm": rms * steps * (2 * dec + cross + 1),
+                       "wkv6": 0}}
+
+
+def prompt_batch(arch: ArchConfig, prompts: torch.Tensor, dtype,
+                 generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """The prefill batch for ``prompts`` [B, S]: ``tokens``, or an
+    enc-dec's ``frames`` (N(0, 1) x 0.1 from ``generator``, [B, S, d]) and
+    the prompts as ``dec_tokens``."""
+    if not arch.is_encdec:
+        return {"tokens": prompts}
+    B, S = prompts.shape
+    frames = torch.randn(B, S, arch.d_model, generator=generator,
+                         device=prompts.device) * 0.1
+    return {"frames": frames.to(dtype), "dec_tokens": prompts}
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -47,7 +95,8 @@ def serve(arch: ArchConfig, pcfg: ParallelConfig, *, prompt_len: int,
           seed: int = 0, temperature: float = 0.0) -> Dict[str, Any]:
     """Prefill a random prompt batch, then decode ``gen - 1`` more tokens.
 
-    Weights come from ``seed``, prompts from ``seed + 1``.  Returns the
+    Weights come from ``seed``, prompts (and an enc-dec's frames,
+    :func:`prompt_batch`) from ``seed + 1``.  Returns the
     generated tokens, the last logits and the timings; ``launches`` holds
     the kernel launches of the prefill and of all decode steps."""
     dev = resolve_device(device)
@@ -64,13 +113,14 @@ def serve(arch: ArchConfig, pcfg: ParallelConfig, *, prompt_len: int,
     tok_gen = torch.Generator(device=dev).manual_seed(seed + 1)
     prompts = torch.randint(0, arch.vocab, (batch, prompt_len),
                             generator=tok_gen, device=dev)
+    pbatch = prompt_batch(arch, prompts, dtype, tok_gen)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
     l0 = _launches()
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, cache, {"tokens": prompts})
+    logits, cache = prefill(params, cache, pbatch)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     l1 = _launches()

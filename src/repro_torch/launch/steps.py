@@ -113,7 +113,7 @@ def _build_grad_fn_fused(model, pcfg, devices):
     park_info: Dict[str, Any] = {}
     pipe_grad, tplan = pipeline_grad_call(
         model.make_stage_apply(model.consts()), cfg=pcfg, loss_fn=micro_loss,
-        devices=devices, park_info=park_info)
+        devices=devices, skips=model.skips(), park_info=park_info)
     m = pcfg.n_micro
 
     def grad_fn(params, batch, loss_scale=None):
@@ -126,8 +126,14 @@ def _build_grad_fn_fused(model, pcfg, devices):
         loss, g_stage, g_head, ig = pipe_grad(
             params["stages"], head_ps, inputs_mb, labels_mb,
             loss_scale=1.0 if loss_scale is None else loss_scale)
-        flat = iter(torch.autograd.grad(tree_leaves(fresh), tree_leaves(emb),
-                                        tree_leaves(unmicrobatch(ig))))
+        # every fresh leaf with a parameter behind it (an enc-dec's frames
+        # have none); dec_h's cotangent came back through stage 0's B tick
+        outs = [(x, g) for x, g in zip(tree_leaves(fresh),
+                                       tree_leaves(unmicrobatch(ig)))
+                if x.requires_grad]
+        flat = iter(torch.autograd.grad([x for x, _ in outs],
+                                        tree_leaves(emb),
+                                        [g for _, g in outs]))
         parts = {"embed": tree_map(lambda gh: next(flat) + gh,
                                    g_head["embed"]),
                  "stages": g_stage, "head": g_head["head"]}
@@ -143,7 +149,8 @@ def build_loss_fn(model: LMModel, pcfg: ParallelConfig, devices: Any, *,
     micro-batch, the GPipe forward clock-cycle, un-micro-batch, the chunked
     head loss.  Differentiable: the loss of the ``gpipe`` train step."""
     pipe = pipeline_call(model.make_stage_apply(model.consts()), cfg=pcfg,
-                         devices=devices, park_info=park_info)
+                         devices=devices, skips=model.skips(),
+                         park_info=park_info)
 
     def loss_fn(params, batch):
         fresh = model.embed_inputs(params["embed"], batch)
@@ -160,11 +167,14 @@ def build_prefill_step(model: LMModel, pcfg: ParallelConfig, devices: Any,
                        park_info: Optional[Dict[str, Any]] = None):
     """prefill_step(params, cache, batch) -> (last_token_logits, cache).
 
-    ``cache`` (from ``model.init_cache``) is filled in place and returned."""
+    ``cache`` (from ``model.init_cache``) is filled in place and returned.
+    ``batch`` holds ``tokens``, or an enc-dec's ``frames`` and
+    ``dec_tokens``; the encoder memory reaches the decoder stages as skips
+    (``model.skips()``)."""
     consts = model.consts()
     stage_apply = model.make_stage_apply(consts, prefill=True)
     pipe = pipeline_call(stage_apply, cfg=pcfg, devices=devices,
-                         park_info=park_info)
+                         skips=model.skips(), park_info=park_info)
 
     def prefill_step(params, cache, batch):
         with torch.inference_mode():
@@ -186,7 +196,10 @@ def build_serve_step(model: LMModel, pcfg: ParallelConfig, devices: Any,
 
     One decode tick: the request batch is micro-batched through the
     pipeline exactly like prefill (the paper's schedule reused for
-    inference); each layer's ring cache advances in place."""
+    inference); each layer's ring cache advances in place.  No skip runs
+    here: an enc-dec's decoder reads the encoder memory from its cross
+    caches, which prefill filled.  Every step embeds its token at position
+    ``shape.seq_len``, as the reference does."""
     consts = model.consts()
     stage_apply = model.make_stage_apply_decode(consts)
     pipe = pipeline_call(stage_apply, cfg=pcfg, devices=devices,

@@ -10,8 +10,10 @@ injected faults, elastic re-plan) is ROADMAP A11: its flags raise.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --steps 5 --seq-len 4096 --batch 16 --n-micro 8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \\
+        --steps 5 --seq-len 4096 --batch 16 --n-micro 8 [--schedule 1f1b]
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
-        --steps 5 --pipe 2 [--schedule 1f1b]
+        --steps 5 --pipe 2 [--schedule 1f1b] [--arch whisper-tiny]
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import math
 import time
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import configs
@@ -48,23 +51,43 @@ def launches() -> Dict[str, int]:
             "rmsnorm": rmsnorm.launches, "rmsnorm_bwd": rmsnorm_bwd.launches}
 
 
-def expected_train_launches(pcfg: ParallelConfig, layers: int,
+def stage_kernel_calls(arch: ArchConfig, pcfg: ParallelConfig):
+    """Per global stage, the attention and RMSNorm kernel calls one
+    micro-batch's forward makes, and whether the head's norm is an RMSNorm.
+
+    Every slot of the stage's layout runs its layer (an identity-padding
+    slot too, gated by its mask): one attention, a second on a layer whose
+    ``cross`` flag is set, and its norms (two, three with ``cross``) where
+    the arch's norm is RMSNorm.  LayerNorm is plain torch: no kernel."""
+    consts = LMModel(arch, pcfg, device="meta").consts()
+    slots = consts["mask"].shape
+    cross = consts.get("cross", np.zeros(slots, np.float32)) > 0
+    rms = arch.norm == "rms"
+    attn = [int(slots[1] + cross[s].sum()) for s in range(slots[0])]
+    norms = [int(rms) * (2 * slots[1] + int(cross[s].sum()))
+             for s in range(slots[0])]
+    return attn, norms, rms
+
+
+def expected_train_launches(pcfg: ParallelConfig, arch: ArchConfig,
                             seq: int) -> Dict[str, int]:
-    """Kernel launches one train step of a dense decoder with ``layers``
-    layers implies under ``pcfg`` (m = ``pcfg.n_micro`` micro-batches,
-    nc head-loss chunks of ``seq``): the formula ``chip_smoke.py`` and the
-    CPU tests hold the counters of :func:`launches` to.
+    """Kernel launches one train step of ``arch`` implies under ``pcfg``
+    (m = ``pcfg.n_micro`` micro-batches, nc head-loss chunks of ``seq``):
+    the formula ``chip_smoke.py`` and the CPU tests hold the counters of
+    :func:`launches` to.  A and N are the attention and RMSNorm calls of
+    one micro-batch's forward over all stages, A_last and N_last the last
+    stage's (:func:`stage_kernel_calls`); the head adds RMSNorms only where
+    its norm is one.
 
-    ``gpipe`` (autograd backward): attention once per layer and micro-batch
-    forward, again for each micro-batch recomputed before its backward (all
-    m with remat "full", m - 1 without the last when ``remat_last_micro``
-    is False, none with "none"), and once backward; RMSNorm twice per layer
-    and micro-batch in each of those, plus the head's once per loss chunk
-    forward and again in that chunk's recompute (the chunks are always
-    checkpointed) and once backward.
+    ``gpipe`` (autograd backward): every forward call once per micro-batch,
+    again for each micro-batch recomputed before its backward (all m with
+    remat "full", m - 1 without the last when ``remat_last_micro`` is
+    False, none with "none"), and once backward; the head's norm once per
+    loss chunk forward and again in that chunk's recompute (the chunks are
+    always checkpointed) and once backward.
 
-    Fused schedules: each micro-batch runs every layer once on its F tick
-    (except the last stage's, whose F tick runs nothing), once more for
+    Fused schedules: each micro-batch runs every stage once on its F tick
+    (except the last stage, whose F tick runs nothing), once more for
     each graph a backward tick builds (``graphs``: the fused B; zb's Bx and
     Bw, or Bx alone when Bw differentiates Bx's graph under
     ``residuals="reuse"``), once more in each backward that recomputes the
@@ -76,42 +99,56 @@ def expected_train_launches(pcfg: ParallelConfig, layers: int,
     nested checkpoint stops early once it holds the last tensor it saved)."""
     from repro_torch.models.lm import head_loss_chunk
     m, nc = pcfg.n_micro, seq // head_loss_chunk(seq)
-    lm = layers * m
+    attn, norms, rms_head = stage_kernel_calls(arch, pcfg)
+    A, N, hn = sum(attn), sum(norms), int(rms_head)
     base = pcfg.schedule.split(":")[0]
     if base == "gpipe":
         replays = 0 if pcfg.remat == "none" else (
             m if pcfg.remat_last_micro else m - 1)
-        fwd = lm + layers * replays
-        return {"flash_attention": fwd, "flash_attention_bwd": lm,
-                "rmsnorm": 2 * fwd + 2 * nc, "rmsnorm_bwd": 2 * lm + nc}
-    stages = pcfg.pipe * pcfg.virtual_stages
-    if layers % stages:
-        raise ValueError(f"{layers} layers do not split evenly over "
-                         f"{stages} stages: no launch formula")
+        return {"flash_attention": A * (m + replays),
+                "flash_attention_bwd": A * m,
+                "rmsnorm": N * (m + replays) + hn * 2 * nc,
+                "rmsnorm_bwd": N * m + hn * nc}
     reuse = base == "zb" and pcfg.residuals == "reuse"
     graphs = 2 if base == "zb" and not reuse else 1
     grads = 2 if base == "zb" else 1
     recomputes = grads if reuse and pcfg.remat != "none" else 0
-    fwd = (1 + graphs + recomputes) * lm - layers // stages * m
+    runs = 1 + graphs + recomputes
     head = (graphs + grads) * nc + recomputes * (nc - 1)
-    return {"flash_attention": fwd,
-            "flash_attention_bwd": grads * lm,
-            "rmsnorm": 2 * fwd + head * m,
-            "rmsnorm_bwd": 2 * grads * lm + grads * nc * m}
+    return {"flash_attention": (runs * A - attn[-1]) * m,
+            "flash_attention_bwd": grads * A * m,
+            "rmsnorm": (runs * N - norms[-1]) * m + hn * head * m,
+            "rmsnorm_bwd": grads * N * m + hn * grads * nc * m}
 
 
 def model_flops_per_step(arch: ArchConfig, seq_len: int, batch: int) -> float:
-    """Model FLOPs of one training step of a dense decoder (recompute not
-    counted): 3 x the forward, whose FLOPs are 2 per matmul weight per token
-    (attention projections, MLP and the head; tied or not) plus the causal
-    attention products, 2 x 2 x hd x Hq x S (S + 1) / 2 per layer and
-    sequence."""
+    """Model FLOPs of one training step (recompute not counted): 3 x the
+    forward, whose FLOPs are 2 per matmul weight per token (attention
+    projections, the MLP (three matrices for SwiGLU, two for GELU), an
+    enc-dec decoder's cross-attention projections, and the head, tied or
+    not) plus the attention products, 2 x 2 x hd x Hq per visible (query,
+    key) pair: S (S + 1) / 2 a sequence for causal self-attention, S x S
+    for an encoder's self-attention and a decoder's cross-attention (the
+    memory has S frames)."""
     a, d = arch.attn, arch.d_model
-    per_layer = d * a.head_dim * 2 * (a.n_heads + a.n_kv_heads) + 3 * d * arch.d_ff
-    weights = arch.n_layers * per_layer + d * arch.vocab
+    enc, dec = arch.enc_layers, arch.n_layers
+    attn_w = d * a.head_dim * 2 * (a.n_heads + a.n_kv_heads)
+    mlp_w = (3 if arch.act == "silu" else 2) * d * arch.d_ff
+    cross = dec if arch.is_encdec else 0
+    weights = (enc + dec) * (attn_w + mlp_w) + cross * attn_w \
+        + d * arch.vocab
     tokens = seq_len * batch
-    attn = arch.n_layers * batch * 2 * a.head_dim * a.n_heads * seq_len * (seq_len + 1)
+    pairs = dec * seq_len * (seq_len + 1) // 2 + (enc + cross) * seq_len ** 2
+    attn = batch * 2 * 2 * a.head_dim * a.n_heads * pairs
     return 3.0 * (2.0 * weights * tokens + attn)
+
+
+def model_batch(batch: Dict[str, torch.Tensor], dtype: torch.dtype
+                ) -> Dict[str, torch.Tensor]:
+    """A batch with its float leaves (an enc-dec's ``frames``) in the model
+    dtype; token ids stay."""
+    return {k: v.to(dtype) if v.is_floating_point() else v
+            for k, v in batch.items()}
 
 
 def _sync(dev: torch.device) -> None:
@@ -124,8 +161,9 @@ def train(arch: ArchConfig, pcfg: ParallelConfig, *, seq_len: int, batch: int,
           ocfg: Optional[optim.OptimizerConfig] = None,
           fixed_batch: bool = False, trace: bool = False) -> Dict[str, Any]:
     """Train ``steps`` steps from random weights (``seed``) on
-    :class:`SyntheticLM` batches (``seed``), or on its first batch every step
-    with ``fixed_batch``.  Returns one record per step (its metrics as
+    :class:`SyntheticLM` batches (``seed``; an enc-dec's hold ``frames``,
+    ``dec_tokens`` and ``labels``), or on its first batch every step with
+    ``fixed_batch``.  Returns one record per step (its metrics as
     floats, ``step_s`` on the host clock around the synchronized step, and
     the kernel launches of that step), the executor's buffer high-water
     per rank (``park_info``, from the last step) and, on a card, the peak
@@ -147,9 +185,11 @@ def train(arch: ArchConfig, pcfg: ParallelConfig, *, seq_len: int, batch: int,
                       global_batch=batch)
     loader = None
     if fixed_batch:
-        batches = itertools.repeat(to_device(SyntheticLM(data).batch_at(0), dev))
+        batches = itertools.repeat(model_batch(
+            to_device(SyntheticLM(data, arch).batch_at(0), dev), dtype))
     else:
-        batches = loader = make_loader(data, dev)
+        loader = make_loader(data, dev, arch)
+        batches = (model_batch(b, dtype) for b in loader)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     history = []

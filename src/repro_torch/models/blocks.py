@@ -1,13 +1,15 @@
-"""Blocks of the ``dense`` and ``ssm`` (RWKV-6) families (counterpart of
-``repro.models.blocks``).
+"""Blocks of the ``dense``, ``encdec`` and ``ssm`` (RWKV-6) families
+(counterpart of ``repro.models.blocks``).
 
 A family exposes init / apply / decode / cache_proto / prefill so the LM
 assembly and the pipeline stage program stay family-agnostic.  ``consts``
-is the per-layer constant record (identity mask, window, ...) as host
-scalars.  Prefill and decode write each layer's cache in place: the stage
-program hands them views into the resident caches and drops what they
-return.  The other families (moe, hybrid, encdec, vlm) are later slices of
-the port (ROADMAP A6 and A8).
+is the per-layer constant record (identity mask, window, causal and cross
+flags) as host scalars.  Prefill and decode write each layer's cache in
+place: the stage program hands them views into the resident caches and
+drops what they return.  The encoder-decoder (whisper) shares the dense
+functions, as in the reference: a layer with ``cross`` set also attends to
+the encoder ``memory``.  The other families (moe, hybrid, vlm) are later
+slices of the port (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -42,20 +44,21 @@ def check_ported(arch: ArchConfig):
     if arch.family not in FAMILIES:
         raise NotImplementedError(
             f"{arch.name}: the {arch.family!r} family is not ported yet "
-            "(ROADMAP A6 / A8); the port runs the dense and ssm families")
-    if arch.frontend != "none" or arch.name.startswith("gemma"):
+            "(ROADMAP A8); the port runs the dense, encdec and ssm families")
+    if arch.frontend not in ("none", "audio_stub") \
+            or arch.name.startswith("gemma"):
         raise NotImplementedError(
-            f"{arch.name}: frontend stubs and gemma's embedding scale are "
+            f"{arch.name}: the vision stub and gemma's embedding scale are "
             "not ported yet (ROADMAP A8)")
 
 
 # ---------------------------------------------------------------------------
-# Dense (smollm / llama3 / deepseek)
+# Dense (smollm / llama3 / deepseek) and enc-dec (whisper)
 # ---------------------------------------------------------------------------
 
 def dense_init(generator, arch: ArchConfig, dtype, device):
     out_scale = (2 * (arch.n_layers + arch.enc_layers)) ** -0.5
-    return {
+    p = {
         "ln1": L.norm_init(arch.d_model, arch.norm, dtype, device),
         "attn": L.attn_init(generator, arch.d_model, arch.attn, dtype, device,
                             out_scale=out_scale),
@@ -63,15 +66,36 @@ def dense_init(generator, arch: ArchConfig, dtype, device):
         "mlp": L.mlp_init(generator, arch.d_model, arch.d_ff, arch.act, dtype,
                           device, out_scale=out_scale),
     }
+    if arch.is_encdec:
+        p["lnx"] = L.norm_init(arch.d_model, arch.norm, dtype, device)
+        p["xattn"] = L.attn_init(generator, arch.d_model, arch.attn, dtype,
+                                 device, out_scale=out_scale)
+    return p
 
 
-def dense_apply(p, h, consts, arch: ArchConfig):
+def _cross(consts, memory) -> bool:
+    """Whether this layer runs its cross-attention.  The reference runs it
+    on every enc-dec layer and gates the residual by ``cross``; on an
+    encoder layer (``cross`` 0) that adds exact zeros, so it is skipped."""
+    if not consts.get("cross"):
+        return False
+    if memory is None:
+        raise RuntimeError("a cross-attention layer got no encoder memory")
+    return True
+
+
+def dense_apply(p, h, consts, arch: ArchConfig, memory=None):
     a = arch.attn
     mask = consts["mask"]
+    causal = consts["causal"] if arch.is_encdec else None
     win = _window_arg(arch, consts)
     attn = L.attn_apply(p["attn"], L.norm_apply(p["ln1"], h, arch.norm), a,
-                        window=win)
+                        window=win, causal=causal)
     h = _res(h, mask, attn)
+    if arch.is_encdec and _cross(consts, memory):
+        x = L.attn_apply(p["xattn"], L.norm_apply(p["lnx"], h, arch.norm), a,
+                         memory=memory, causal=0)
+        h = _res(h, mask * consts["cross"], x)
     mlp = L.mlp_apply(p["mlp"], L.norm_apply(p["ln2"], h, arch.norm), arch.act)
     return _res(h, mask, mlp)
 
@@ -84,17 +108,28 @@ def dense_decode(p, h, consts, arch: ArchConfig, cache):
         p["attn"], L.norm_apply(p["ln1"], h, arch.norm), cache["self"], a,
         window=win)
     h = _res(h, mask, attn)
+    if arch.is_encdec and consts.get("cross"):
+        x, _ = L.attn_decode(p["xattn"], L.norm_apply(p["lnx"], h, arch.norm),
+                             cache["cross"], a, cross=True)
+        h = _res(h, mask * consts["cross"], x)
     mlp = L.mlp_apply(p["mlp"], L.norm_apply(p["ln2"], h, arch.norm), arch.act)
     return _res(h, mask, mlp), cache
 
 
 def dense_cache_proto(arch: ArchConfig, batch: int, max_len: int, dtype
                       ) -> Dict[str, Any]:
-    """Per-layer cache leaves as ``(shape, dtype)`` pairs."""
+    """Per-layer cache leaves as ``(shape, dtype)`` pairs; an enc-dec layer
+    also holds the memory's K and V (``cross``, ``enc_len`` or ``max_len``
+    slots)."""
     a = arch.attn
     slots = min(max_len, a.window) if a.kind == "swa" else max_len
     kv = ((batch, slots, a.n_kv_heads, a.head_dim), dtype)
-    return {"self": {"k": kv, "v": kv, "len": ((), torch.int32)}}
+    c = {"self": {"k": kv, "v": kv, "len": ((), torch.int32)}}
+    if arch.is_encdec:
+        xkv = ((batch, arch.enc_len or max_len, a.n_kv_heads, a.head_dim),
+               dtype)
+        c["cross"] = {"k": xkv, "v": xkv, "len": ((), torch.int32)}
+    return c
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +147,17 @@ def _ring_fill(seq_kv, slots: int):
     return seq_kv.index_select(1, p), slots
 
 
+def _fill_kv(cache, k, v):
+    """Write [B, S, Hkv, hd] K and V into a cache's ring in place; len := S."""
+    slots = cache["k"].shape[1]
+    for name, val in (("k", k), ("v", v)):
+        ring, n = _ring_fill(val, slots)
+        cache[name][:, :n].copy_(ring)
+        cache[name][:, n:].zero_()
+    cache["len"].fill_(k.shape[1])
+    return cache
+
+
 def _fill_self_cache(p, h_normed, a, cache):
     """Write the prompt's K/V into the ring cache in place; len := S."""
     B, S, _ = h_normed.shape
@@ -119,20 +165,26 @@ def _fill_self_cache(p, h_normed, a, cache):
     v = (h_normed @ p["wv"]).reshape(B, S, a.n_kv_heads, a.head_dim)
     if a.use_rope:
         k = L.rope(k, torch.arange(S, device=h_normed.device), a.rope_theta)
-    slots = cache["k"].shape[1]
-    for name, val in (("k", k), ("v", v)):
-        ring, n = _ring_fill(val, slots)
-        cache[name][:, :n].copy_(ring)
-        cache[name][:, n:].zero_()
-    cache["len"].fill_(S)
-    return cache
+    return _fill_kv(cache, k, v)
 
 
-def dense_prefill(p, h, consts, arch: ArchConfig, cache
+def dense_prefill(p, h, consts, arch: ArchConfig, cache, memory=None
                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """The layer's forward, its self cache filled from the prompt and, on a
+    cross-attention layer, its cross cache from ``memory`` (an encoder
+    layer's stays empty: decode never runs it)."""
     hn = L.norm_apply(p["ln1"], h, arch.norm)
     cache["self"] = _fill_self_cache(p["attn"], hn, arch.attn, cache["self"])
-    return dense_apply(p, h, consts, arch), cache
+    h2 = dense_apply(p, h, consts, arch, memory=memory)
+    if arch.is_encdec and _cross(consts, memory):
+        a = arch.attn
+        Bm, Sm, _ = memory.shape
+        mk = (memory @ p["xattn"]["wk"]).reshape(Bm, Sm, a.n_kv_heads,
+                                                 a.head_dim)
+        mv = (memory @ p["xattn"]["wv"]).reshape(Bm, Sm, a.n_kv_heads,
+                                                 a.head_dim)
+        cache["cross"] = _fill_kv(cache["cross"], mk, mv)
+    return h2, cache
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +266,7 @@ def _rwkv_channel_mix(cm, x, last=None):
     return torch.sigmoid(xr @ cm["wr"]) * (k @ cm["wv"]), x[:, -1:]
 
 
-def rwkv_apply(p, h, consts, arch: ArchConfig):
+def rwkv_apply(p, h, consts, arch: ArchConfig, memory=None):
     mask = consts["mask"]
     tmix, _, _ = _rwkv_time_mix(p["tm"], L.norm_apply(p["ln1"], h, arch.norm))
     h = _res(h, mask, tmix)
@@ -244,7 +296,7 @@ def rwkv_decode(p, h, consts, arch: ArchConfig, cache):
     return _rwkv_step(p, h, consts, arch, cache, carried=True)
 
 
-def rwkv_prefill(p, h, consts, arch: ArchConfig, cache):
+def rwkv_prefill(p, h, consts, arch: ArchConfig, cache, memory=None):
     return _rwkv_step(p, h, consts, arch, cache, carried=False)
 
 
@@ -260,6 +312,8 @@ def rwkv_cache_proto(arch: ArchConfig, batch: int, max_len: int, dtype
 FAMILIES = {
     "dense": (dense_init, dense_apply, dense_decode, dense_cache_proto,
               dense_prefill),
+    "encdec": (dense_init, dense_apply, dense_decode, dense_cache_proto,
+               dense_prefill),
     "ssm": (rwkv_init, rwkv_apply, rwkv_decode, rwkv_cache_proto,
             rwkv_prefill),
 }

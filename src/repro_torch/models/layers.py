@@ -1,10 +1,10 @@
-"""Model primitives: norms, RoPE, attention, MLP.
+"""Model primitives: norms, RoPE, attention (self and cross), MLP.
 
-Counterpart of :mod:`repro.models.layers` (the dense and ssm subset).
-Per-layer constants (identity-pad mask, window, causal flag) are host values
-here: the port runs each layer eagerly, so what the reference keeps as
-traced data is a Python scalar.  The reference's sharding constraints have no
-counterpart on one card and are left out.
+Counterpart of :mod:`repro.models.layers` (the dense, enc-dec and ssm
+subset).  Per-layer constants (identity-pad mask, window, causal flag) are
+host values here: the port runs each layer eagerly, so what the reference
+keeps as traced data is a Python scalar.  The reference's sharding
+constraints have no counterpart on one card and are left out.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ def _check_kind(what: str, got: str, ported: tuple) -> None:
     if got not in ported:
         raise NotImplementedError(
             f"{what}={got!r} is not ported yet (only {ported}): the "
-            "GELU / GeGLU archs are ROADMAP A6 and A8")
+            "GeGLU archs are ROADMAP A8")
 
 
 # ---------------------------------------------------------------------------
@@ -103,7 +103,7 @@ def rope(x, pos, theta: float):
 
 
 # ---------------------------------------------------------------------------
-# Attention (self; train / prefill / decode)
+# Attention (self / cross; train / prefill / decode)
 # ---------------------------------------------------------------------------
 
 def attn_init(generator, d: int, a: AttentionConfig, dtype, device, *,
@@ -117,21 +117,25 @@ def attn_init(generator, d: int, a: AttentionConfig, dtype, device, *,
     }
 
 
-def _qkv(p, x, a: AttentionConfig):
+def _qkv(p, x, kv_src, a: AttentionConfig):
     B, S, _ = x.shape
+    Sk = kv_src.shape[1]
     q = (x @ p["wq"]).reshape(B, S, a.n_heads, a.head_dim)
-    k = (x @ p["wk"]).reshape(B, S, a.n_kv_heads, a.head_dim)
-    v = (x @ p["wv"]).reshape(B, S, a.n_kv_heads, a.head_dim)
+    k = (kv_src @ p["wk"]).reshape(B, Sk, a.n_kv_heads, a.head_dim)
+    v = (kv_src @ p["wv"]).reshape(B, Sk, a.n_kv_heads, a.head_dim)
     return q, k, v
 
 
-def attn_apply(p, x, a: AttentionConfig, *, window=None, causal=None,
-               pos=None, kv_len=None):
-    """Full-sequence self-attention (train / prefill); window 0/None =
-    unlimited.  Cross-attention (whisper) is ROADMAP A6."""
+def attn_apply(p, x, a: AttentionConfig, *, memory=None, window=None,
+               causal=None, pos=None, kv_len=None):
+    """Full-sequence attention (train / prefill); window 0/None = unlimited.
+
+    With ``memory`` it is a cross-attention: K and V come from ``memory``
+    and take no RoPE.  ``causal`` is a host value (the layer's flag)."""
     B, S, D = x.shape
-    q, k, v = _qkv(p, x, a)
-    if a.use_rope:
+    kv_src = memory if memory is not None else x
+    q, k, v = _qkv(p, x, kv_src, a)
+    if a.use_rope and memory is None:
         pq = torch.arange(S, device=x.device) if pos is None else pos
         q = rope(q, pq, a.rope_theta)
         k = rope(k, pq, a.rope_theta)
@@ -149,7 +153,7 @@ def attn_apply(p, x, a: AttentionConfig, *, window=None, causal=None,
 
 
 def attn_decode(p, x, cache, a: AttentionConfig, *,
-                window: Optional[int] = None):
+                window: Optional[int] = None, cross: bool = False):
     """One-token decode against a ring cache, updated in place.
 
     x: [B, 1, D]; cache: {"k","v": [B, slots, Hkv, hd], "len": 0-d int32}.
@@ -157,27 +161,34 @@ def attn_decode(p, x, cache, a: AttentionConfig, *,
     the reference returns a new cache instead, the port writes the slot in
     place to keep one copy of the cache.  Validity comes from ring distance
     exactly as in the reference, so one code path serves full attention
-    (slots >= seq) and SWA rings.  Plain torch, as the reference is plain
-    jnp here.  Returns (out [B, 1, D], cache).
+    (slots >= seq) and SWA rings.  With ``cross`` the cache holds the
+    memory's K and V, is never advanced, and is valid below ``len``.
+    Plain torch, as the reference is plain jnp here.  Returns (out
+    [B, 1, D], cache).
     """
     B = x.shape[0]
     q = (x @ p["wq"]).reshape(B, 1, a.n_heads, a.head_dim)
     ln = cache["len"]
     slots = cache["k"].shape[1]
     ki = torch.arange(slots, device=x.device)
-    k1 = (x @ p["wk"]).reshape(B, 1, a.n_kv_heads, a.head_dim)
-    v1 = (x @ p["wv"]).reshape(B, 1, a.n_kv_heads, a.head_dim)
-    if a.use_rope:
-        posv = ln.to(torch.int32).expand(B, 1)
-        q = rope(q, posv, a.rope_theta)
-        k1 = rope(k1, posv, a.rope_theta)
-    slot = (ln % slots).long().reshape(1)
-    cache["k"].index_copy_(1, slot, k1.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, slot, v1.to(cache["v"].dtype))
-    dist = (slot - ki) % slots             # 0 = newest, 1 = previous, ...
-    w_eff = slots if window is None else min(int(window), slots)
-    valid = (dist < w_eff) & (dist <= ln)
-    ln.add_(1)
+    if cross:
+        if a.use_rope:
+            q = rope(q, ln.to(torch.int32).expand(B, 1), a.rope_theta)
+        valid = ki < ln
+    else:
+        k1 = (x @ p["wk"]).reshape(B, 1, a.n_kv_heads, a.head_dim)
+        v1 = (x @ p["wv"]).reshape(B, 1, a.n_kv_heads, a.head_dim)
+        if a.use_rope:
+            posv = ln.to(torch.int32).expand(B, 1)
+            q = rope(q, posv, a.rope_theta)
+            k1 = rope(k1, posv, a.rope_theta)
+        slot = (ln % slots).long().reshape(1)
+        cache["k"].index_copy_(1, slot, k1.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot, v1.to(cache["v"].dtype))
+        dist = (slot - ki) % slots         # 0 = newest, 1 = previous, ...
+        w_eff = slots if window is None else min(int(window), slots)
+        valid = (dist < w_eff) & (dist <= ln)
+        ln.add_(1)
     qt = q.transpose(1, 2).float() * a.head_dim ** -0.5
     kt = _expand_kv(cache["k"].transpose(1, 2), a.n_heads).float()
     vt = _expand_kv(cache["v"].transpose(1, 2), a.n_heads).float()
@@ -195,13 +206,20 @@ def attn_decode(p, x, cache, a: AttentionConfig, *,
 
 def mlp_init(generator, d: int, f: int, act: str, dtype, device, *,
              out_scale=1.0):
-    _check_kind("act", act, ("silu",))
-    return {"wg": dense_init(generator, d, f, dtype, device),
-            "wu": dense_init(generator, d, f, dtype, device),
+    """SwiGLU's three matrices, or GELU's two (``wu``, ``wd``)."""
+    _check_kind("act", act, ("silu", "gelu"))
+    if act == "silu":
+        return {"wg": dense_init(generator, d, f, dtype, device),
+                "wu": dense_init(generator, d, f, dtype, device),
+                "wd": dense_init(generator, f, d, dtype, device, out_scale)}
+    return {"wu": dense_init(generator, d, f, dtype, device),
             "wd": dense_init(generator, f, d, dtype, device, out_scale)}
 
 
 def mlp_apply(p, x, act: str):
-    """SwiGLU: (silu(x wg) * (x wu)) wd."""
-    _check_kind("act", act, ("silu",))
-    return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    """SwiGLU, (silu(x wg) * (x wu)) wd; or gelu(x wu) wd with GELU's tanh
+    approximation (``jax.nn.gelu``'s default, which the reference takes)."""
+    _check_kind("act", act, ("silu", "gelu"))
+    if act == "silu":
+        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    return F.gelu(x @ p["wu"], approximate="tanh") @ p["wd"]

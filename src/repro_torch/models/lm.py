@@ -1,15 +1,23 @@
 """LM assembly: params, stacked stages, embed / head, caches.
 
-Counterpart of :mod:`repro.models.lm` for the dense and ssm families.  Blocks are
-stacked ``[n_stages, L_per_stage]`` for the pipeline (identity-padded per
-:func:`repro_torch.core.stage.partition_layout`); embed and head run outside
-the pipeline.  Parameters are nested dicts of tensors with the reference's
-tree layout, so weights move across from JAX leaf for leaf.
+Counterpart of :mod:`repro.models.lm` for the dense, enc-dec and ssm
+families.  Blocks are stacked ``[n_stages, L_per_stage]`` for the pipeline
+(identity-padded per :func:`repro_torch.core.stage.partition_layout`);
+embed and head run outside the pipeline.  Parameters are nested dicts of
+tensors with the reference's tree layout, so weights move across from JAX
+leaf for leaf.
+
+Encoder-decoder (whisper): encoder layers fill the leading stages, decoder
+layers the trailing ones; the per-layer constants carry ``causal`` /
+``cross`` / ``dec_active`` / ``is_enc_last`` / ``is_dec_first`` flags as
+host scalars, and the encoder output reaches every decoder stage through
+one skip with a destination per decoder stage (paper §3.3.1, portals).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -18,6 +26,7 @@ from repro_torch.configs.base import ArchConfig, ParallelConfig, ShapeConfig
 from repro_torch.core import checkpointing
 from repro_torch.core import stage as stage_lib
 from repro_torch.core.pipeline import TickCtx
+from repro_torch.core.skip import SkipSpec
 from repro_torch.devices import DeviceLike, resolve_device, stage_devices
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
@@ -47,6 +56,18 @@ def _embed_lookup(table, tokens, dtype):
     return rows.reshape(tuple(tokens.shape) + (table.shape[1],)).to(dtype)
 
 
+def sinusoidal(positions, d: int, dtype=torch.float32):
+    """Absolute sinusoidal positions [..., d]: ``[sin, cos]`` of
+    ``pos * exp(-i / (d/2 - 1) * log 10000)``, computed in fp32 and cast to
+    ``dtype`` (reference ``lm.sinusoidal``)."""
+    half = d // 2
+    freq = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                   device=positions.device)
+                     / (half - 1) * math.log(10000.0))
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
+
+
 @dataclass
 class LMModel:
     arch: ArchConfig
@@ -66,6 +87,14 @@ class LMModel:
         self.layer_mask = self.layout.mask          # np [n_stages, L]
         (self.block_init, self.block_apply, self.block_decode,
          self.block_cache_proto, self.block_prefill) = B.FAMILIES[a.family]
+        # encoder / decoder stage split (whisper): encoder layers come first
+        if a.is_encdec:
+            self.enc_last_stage = self.layout.stage_of(a.enc_layers - 1)
+            self.dec_first_stage = (self.layout.stage_of(a.enc_layers)
+                                    if a.enc_layers < self.total_layers
+                                    else self.n_stages)
+        else:
+            self.enc_last_stage = self.dec_first_stage = -1
 
     @property
     def stage_devices(self) -> List[torch.device]:
@@ -94,71 +123,163 @@ class LMModel:
         """Per-layer constants on the [n_stages, L_per_stage] slot grid.
 
         Host arrays: the port reads one scalar per layer.  Padding slots
-        take the identity defaults (mask 0)."""
+        take the identity defaults (mask 0, causal 1, cross 0, dec_active
+        1), as in the reference."""
         a = self.arch
-        window = np.zeros(self.total_layers, np.int32)
+        tl = self.total_layers
+        window = np.zeros(tl, np.int32)
         if a.attn is not None and a.attn.kind == "swa":
             window[:] = a.attn.window
         sc = self.layout.scatter
-        return {"mask": np.asarray(self.layer_mask, np.float32),
-                "window": sc(window, 0)}
+        c = {"mask": np.asarray(self.layer_mask, np.float32),
+             "window": sc(window, 0)}
+        if a.is_encdec:
+            causal = np.ones(tl, np.int32)
+            cross = np.zeros(tl, np.float32)
+            dec_active = np.ones(tl, np.float32)
+            is_enc_last = np.zeros(tl, np.float32)
+            is_dec_first = np.zeros(tl, np.float32)
+            causal[:a.enc_layers] = 0
+            cross[a.enc_layers:] = 1.0
+            dec_active[:a.enc_layers] = 0.0
+            is_enc_last[a.enc_layers - 1] = 1.0
+            if a.enc_layers < tl:
+                is_dec_first[a.enc_layers] = 1.0
+            c.update(causal=sc(causal, 1), cross=sc(cross, 0.0),
+                     dec_active=sc(dec_active, 1.0),
+                     is_enc_last=sc(is_enc_last, 0.0),
+                     is_dec_first=sc(is_dec_first, 0.0))
+        return c
 
     def _layer_consts(self, consts, stage: int, slot: int) -> Dict[str, Any]:
         return {k: v[stage, slot].item() for k, v in consts.items()}
 
+    # ------------------------------------------------------------------ skips
+    def skips(self) -> List[SkipSpec]:
+        """Whisper: the encoder memory from the last encoder stage to every
+        decoder stage past it, and the decoder's input embeddings from
+        stage 0 to the first decoder stage.  None where the boundary falls
+        inside one stage."""
+        if not self.arch.is_encdec:
+            return []
+        edges = []
+        dec_stages = tuple(d for d in range(self.dec_first_stage,
+                                            self.n_stages)
+                           if d > self.enc_last_stage)
+        if dec_stages:
+            edges.append(SkipSpec("mem", self.enc_last_stage, dec_stages))
+        if self.dec_first_stage > 0:
+            edges.append(SkipSpec("dec_in", 0, (self.dec_first_stage,)))
+        return edges
+
+    def skip_protos(self, mb: int, S: int):
+        """Each skip's value as ``(shape, dtype)``: [mb, S, d_model]."""
+        if not self.arch.is_encdec:
+            return {}
+        proto = ((mb, S, self.arch.d_model), self.dtype)
+        return {"mem": proto, "dec_in": proto}
+
     # ------------------------------------------------------------------ embed
+    def _positions(self, n: int):
+        return sinusoidal(torch.arange(n, device=self.device),
+                          self.arch.d_model, self.dtype)
+
     def embed_inputs(self, emb, batch) -> Dict[str, torch.Tensor]:
-        """batch -> fresh stage-0 input tree [B, ...]."""
+        """batch -> fresh stage-0 input tree [B, ...].  Enc-dec: ``h`` is
+        the frames (the stub frontend's embeddings) plus positions,
+        ``dec_h`` the decoder tokens' embeddings plus positions."""
+        if self.arch.is_encdec:
+            h = batch["frames"].to(self.dtype)
+            h = h + self._positions(h.shape[1])[None]
+            dec = _embed_lookup(emb["tok"], batch["dec_tokens"], self.dtype)
+            dec = dec + self._positions(dec.shape[1])[None]
+            return {"h": h, "dec_h": dec}
         return {"h": _embed_lookup(emb["tok"], batch["tokens"], self.dtype)}
 
-    def embed_decode(self, emb, tokens, pos):
-        """Embed one decode token.  RoPE archs and the ssm family add no
-        positions here, so ``pos`` matters only to the non-RoPE attention
-        archs, whose sinusoidal positions are not ported yet."""
+    def embed_decode(self, emb, tokens, pos: int):
+        """Embed one decode token at absolute position ``pos``: RoPE archs
+        and the ssm family add no positions here, the others sinusoidal
+        ones."""
         a = self.arch
-        if a.family != "ssm" and not (a.attn and a.attn.use_rope):
-            raise NotImplementedError("sinusoidal positions (non-RoPE archs) "
-                                      "are not ported yet: ROADMAP A6")
-        return _embed_lookup(emb["tok"], tokens, self.dtype)
+        h = _embed_lookup(emb["tok"], tokens, self.dtype)
+        if a.family != "ssm" and (a.is_encdec
+                                  or not (a.attn and a.attn.use_rope)):
+            h = h + sinusoidal(torch.tensor([pos], device=h.device),
+                               a.d_model, self.dtype)[None]
+        return h
 
     # ------------------------------------------ stage fn (forward / prefill)
+    def _stage_skips_out(self, stage: int, mem, dec_emb) -> Dict[str, Any]:
+        """The skips ``stage`` is the source of: ``mem`` on the last encoder
+        stage, ``dec_in`` (the decoder embeddings it got fresh) on stage 0."""
+        out = {}
+        for edge in self.skips():
+            if edge.src_stage == stage:
+                out[edge.name] = mem if edge.name == "mem" else dec_emb
+        return out
+
     def make_stage_apply(self, consts, *, prefill: bool = False):
         """stage_apply for the pipeline runner (forward, or prefill + caches).
 
         Prefill writes each layer's cache slice for ``ctx.micro`` in place
         (the reference returns an updated copy).  With
         ``pcfg.remat_layers`` each layer of the forward is checkpointed
-        on its own as well (nested inside the stage's remat)."""
+        on its own as well (nested inside the stage's remat).
+
+        Enc-dec: the stage carries (h, mem, dec_emb).  ``h`` becomes the
+        decoder embeddings at the ``is_dec_first`` layer and ``mem``
+        latches ``h`` after the ``is_enc_last`` one; across stages ``mem``
+        and ``dec_emb`` arrive as the ``mem`` / ``dec_in`` skips, and only
+        stage 0 reads ``ctx.fresh``."""
         model, a = self, self.arch
         per_layer = "full" if self.pcfg.remat_layers else "none"
 
         def stage_apply(stage_params, carry, skips_in, resident,
                         ctx: TickCtx):
-            h = ctx.fresh["h"] if ctx.stage == 0 else carry["h"]
+            first = ctx.stage == 0
+            h = ctx.fresh["h"] if first else carry["h"]
+            mem: Optional[torch.Tensor] = None
+            dec_emb: Optional[torch.Tensor] = None
+            if a.is_encdec:
+                mem = skips_in.get("mem")
+                dec_emb = ctx.fresh["dec_h"] if first else skips_in.get(
+                    "dec_in")
             for l in range(model.L_per_stage):
                 lp = tree_map(lambda x: x[l], stage_params)
                 c = model._layer_consts(consts, ctx.stage, l)
+                if c.get("is_dec_first"):
+                    h = dec_emb
                 if prefill:
                     cache = tree_map(lambda x: x[l, ctx.micro], resident)
-                    h, _ = model.block_prefill(lp, h, c, a, cache)
+                    h, _ = model.block_prefill(lp, h, c, a, cache,
+                                               memory=mem)
                 else:
                     h = checkpointing.wrap_stage(
-                        lambda lp_, h_, c=c: model.block_apply(lp_, h_, c, a),
-                        per_layer)(lp, h)
-            return {"h": h}, {}, resident
+                        lambda lp_, h_, m_, c=c: model.block_apply(
+                            lp_, h_, c, a, memory=m_), per_layer)(lp, h, mem)
+                if c.get("is_enc_last"):
+                    mem = h
+            skips_out = (model._stage_skips_out(ctx.stage, mem, dec_emb)
+                         if a.is_encdec else {})
+            return {"h": h}, skips_out, resident
 
         return stage_apply
 
     # ------------------------------------------------------ stage fn (decode)
     def make_stage_apply_decode(self, consts):
+        """Decode: each layer against its caches.  An encoder layer
+        (``dec_active`` 0) is skipped: the reference runs it and keeps the
+        old ``h`` and cache."""
         model, a = self, self.arch
 
         def stage_apply(stage_params, carry, skips_in, resident,
                         ctx: TickCtx):
             h = ctx.fresh["h"] if ctx.stage == 0 else carry["h"]   # [mb, 1, D]
             for l in range(model.L_per_stage):
-                lp = tree_map(lambda x: x[l], stage_params)
                 c = model._layer_consts(consts, ctx.stage, l)
+                if not c.get("dec_active", 1.0):
+                    continue
+                lp = tree_map(lambda x: x[l], stage_params)
                 cache = tree_map(lambda x: x[l, ctx.micro], resident)
                 h, _ = model.block_decode(lp, h, c, a, cache)
             return {"h": h}, {}, resident

@@ -123,9 +123,10 @@ def test_fused_kernel_contract_and_call_counts_on_cpu(monkeypatch, name):
     tick's graph) and L m backwards; RMSNorm twice the layers' forwards
     plus 2 nc m (the head in each B graph and its chunks' recompute), and
     2 L m + nc m backwards."""
-    calls, metrics, L, pcfg = _count_train_calls(monkeypatch,
-                                                 **SCHEDULES[name])
-    assert calls == expected_train_launches(pcfg, L, COUNT_SEQ), name
+    calls, metrics, arch, pcfg = _count_train_calls(monkeypatch,
+                                                    **SCHEDULES[name])
+    L = arch.n_layers
+    assert calls == expected_train_launches(pcfg, arch, COUNT_SEQ), name
     if name == "1f1b":
         m, nc, S = COUNT_M, COUNT_SEQ // head_loss_chunk(COUNT_SEQ), pcfg.pipe
         fwd = 2 * L * m - L // S * m

@@ -139,9 +139,9 @@ def test_flash_attention_plain_vs_pallas(jx, heads, mask, dtype):
 
 def test_ops_attention_rejects_traced_forms():
     q, k, v = (torch.zeros(1, 2, 4, 64) for _ in range(3))
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="host scalars"):
         ops.attention(q, k, v, kv_len=torch.tensor(3))
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="host scalars"):
         ops.attention(q, k, v, causal=torch.tensor(1))
     with pytest.raises(NotImplementedError, match="A8"):
         ops.attention(q, k, v, window=torch.tensor(2))

@@ -126,7 +126,7 @@ def test_port_runs_with_jax_unimportable():
         import torch
         from repro_torch import configs
         from repro_torch.launch.serve import serve
-        for arch in ("smollm-360m", "rwkv6-1.6b"):
+        for arch in ("smollm-360m", "rwkv6-1.6b", "whisper-tiny"):
             res = serve(configs.smoke_arch(arch),
                         configs.smoke_parallel(arch).with_(pipe=2),
                         prompt_len=8, gen=3, batch=2, device="cpu",

@@ -423,7 +423,7 @@ def _count_train_calls(monkeypatch, **pcfg_kw):
     batch = {k: torch.randint(0, arch.vocab, (2, seq), generator=g)
              for k in ("tokens", "labels")}
     _, _, metrics = step(params, optim.init(ocfg, params), batch)
-    return calls, metrics, arch.n_layers, pcfg
+    return calls, metrics, arch, pcfg
 
 
 @pytest.mark.parametrize("remat", ["full", "none"])
@@ -436,7 +436,8 @@ def test_train_kernel_contract_and_call_counts_on_cpu(monkeypatch, remat):
     RMSNorm 2 L m (or 4 L m) + 2 nc forwards (the head's chunks are always
     recomputed) and 2 L m + nc backwards.  head_dim 64 so the attention
     contract holds; seq 1024 gives nc = 2."""
-    calls, metrics, L, pcfg = _count_train_calls(monkeypatch, remat=remat)
+    calls, metrics, arch, pcfg = _count_train_calls(monkeypatch, remat=remat)
+    L = arch.n_layers
     m, nc = COUNT_M, COUNT_SEQ // head_loss_chunk(COUNT_SEQ)
     assert nc == 2
     recompute = 2 if remat == "full" else 1
@@ -444,7 +445,7 @@ def test_train_kernel_contract_and_call_counts_on_cpu(monkeypatch, remat):
             "flash_attention_bwd": L * m,
             "rmsnorm": recompute * 2 * L * m + 2 * nc,
             "rmsnorm_bwd": 2 * L * m + nc}
-    assert calls == want == expected_train_launches(pcfg, L, COUNT_SEQ)
+    assert calls == want == expected_train_launches(pcfg, arch, COUNT_SEQ)
     assert np.isfinite(float(metrics["loss"]))
 
 
@@ -453,13 +454,14 @@ def test_remat_except_last_skips_one_recompute_per_stage(monkeypatch):
     micro-batch runs bare, so the forwards of one step drop by L (one
     micro-batch of every layer) against remat "full" over every
     micro-batch."""
-    calls, _, L, pcfg = _count_train_calls(monkeypatch, remat="full",
-                                           remat_last_micro=False)
+    calls, _, arch, pcfg = _count_train_calls(monkeypatch, remat="full",
+                                              remat_last_micro=False)
+    L = arch.n_layers
     m, nc = COUNT_M, COUNT_SEQ // head_loss_chunk(COUNT_SEQ)
     want = {"flash_attention": (2 * m - 1) * L, "flash_attention_bwd": L * m,
             "rmsnorm": (2 * m - 1) * 2 * L + 2 * nc,
             "rmsnorm_bwd": 2 * L * m + nc}
-    assert calls == want == expected_train_launches(pcfg, L, COUNT_SEQ)
+    assert calls == want == expected_train_launches(pcfg, arch, COUNT_SEQ)
 
 
 def test_remat_except_last_gives_equal_grads(jax_ref):
