@@ -106,7 +106,24 @@ non-zero and no result line is printed):
 13. whisper_train  the training main path as in 6 for whisper-tiny: pipe
             8, seq 4096, batch 16 (m 8), remat "full", AdamW, gpipe and
             1f1b; the park and route high-water (``mem`` 3 -> (4, 5, 6, 7),
-            ``dec_in`` 0 -> 4) must equal the plan's.
+            ``dec_in`` 0 -> 4) must equal the plan's;
+14. stream  stream injection on whisper-tiny at that size, with
+            deterministic algorithms on: streamed against replicated at
+            pipe 8 and at PARALLEL_OPTIMIZED's pipe 2 (four micro-batches a
+            rank, rotated), gpipe and 1f1b: the loss and every gradient
+            bitwise equal, the stream stash high-water equal to the plan's;
+            5 train steps each at pipe 8, losses bitwise equal; the
+            prefill's logits bitwise equal;
+15. wire    the wire codec, 1f1b at pipe 8, 5 steps and a traced sixth
+            under fp32, bf16 (bitwise equal to fp32 on this bf16 model),
+            int8-ef and chain=fp32,portal=int8-ef,cotangent=bf16 (each
+            curve within 5% of fp32's and falling); the codec's device ms
+            and kernels from the trace, the plan's wire bytes per class;
+            gpipe with int8-ef raises;
+16. grad_compression  the same cell with int8 error-feedback gradient
+            compression: its curve within 5% of the uncompressed one and
+            falling, the residual's bytes, the peak, step ms and the
+            compressor's device ms.
 
 The kernels summary line, then the card's ``nvidia-smi`` name and power
 limit, then the last line ``{"ok": true, "device": {...}}``.  It imports
@@ -114,6 +131,7 @@ nothing of JAX or ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1544,6 +1562,455 @@ def phase_serve(torch, arch_name: str):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Stream injection, the wire codec, int8 gradient compression (whisper-tiny)
+# ---------------------------------------------------------------------------
+
+WHISPER_SEQ, WHISPER_BATCH, WHISPER_PROMPT = 4096, 16, 2048
+MIXED_WIRE = "chain=fp32,portal=int8-ef,cotangent=bf16"
+# a lossy run's loss curve against the lossless one at every step (the
+# reference's rule, tests/test_wire.py), and it must fall
+CURVE_RTOL = 5e-2
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """Deterministic algorithms for the bitwise pairs (the embedding's
+    gradient is an index_add_, which sums in any order on the card
+    otherwise), without filling fresh memory; warnings only where an op
+    has no deterministic form."""
+    import torch.utils.deterministic as det
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled(),
+              det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+        det.fill_uninitialized_memory = before[2]
+
+
+def train_counters():
+    """The training path's kernel counters, each set to 0."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    fns = {"flash_attention": flash_attention,
+           "flash_attention_bwd": flash_attention_bwd,
+           "rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_bwd}
+    for fn in fns.values():
+        fn.launches = 0
+    return fns
+
+
+def whisper_pcfg(pipe: int, **kw):
+    """whisper-tiny's PARALLEL (pipe 8) or PARALLEL_OPTIMIZED (pipe 2, which
+    asks for stream_inputs), tp, data and dp2 cut to 1 (A9), m 8, remat
+    "full", streaming off unless ``kw`` turns it on."""
+    from repro_torch import configs
+    cfg = configs.get_parallel("whisper-tiny", optimized=pipe == 2)
+    return cfg.with_(pipe=pipe, tp=1, data=1, dp2=1, n_micro=8,
+                     remat="full", stream_inputs=False).with_(**kw)
+
+
+def whisper_grads(torch, pcfg, runs: dict):
+    """One grad call of whisper-tiny at full width, bf16, weights from seed
+    0, on the fixed batch ``train`` steps on: ``(loss, grad leaves,
+    park_info, plan, launches)``, the loss and grads copied to the host (a
+    kept run holds no device memory the next run's peak would count).
+    ``runs`` keeps each config's result for the phases that share it."""
+    key = ("grads", pcfg)
+    if key not in runs:
+        runs[key] = _whisper_grads(torch, pcfg)
+    return runs[key]
+
+
+def _whisper_grads(torch, pcfg):
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import launches, model_batch
+    from repro_torch.models.lm import LMModel
+    from repro_torch.tree import tree_items
+
+    arch = configs.get_arch("whisper-tiny")
+    model = LMModel(arch, pcfg, dtype=torch.bfloat16, device="cuda")
+    params = model.init(torch.Generator(device=model.device).manual_seed(0))
+    data = DataConfig(seed=0, vocab=arch.vocab, seq_len=WHISPER_SEQ,
+                      global_batch=WHISPER_BATCH)
+    batch = model_batch(to_device(SyntheticLM(data, arch).batch_at(0),
+                                  model.device), torch.bfloat16)
+    grad_fn = steps.build_grad_fn(model, pcfg, model.stage_devices)
+    l0 = launches()
+    loss, grads = grad_fn(params, batch)
+    torch.cuda.synchronize()
+    l1 = launches()
+    return (loss.cpu(), [g.cpu() for _, g in tree_items(grads)],
+            dict(grad_fn.park_info), grad_fn.tplan,
+            {k: l1[k] - l0[k] for k in l0})
+
+
+def unequal_leaves(torch, a, b):
+    """Where two ``(loss, leaves, ...)`` runs differ: "loss" or the leaf
+    index, with the largest gap."""
+    out = {} if torch.equal(a[0], b[0]) else {"loss": max_err(torch, a[0],
+                                                              b[0])}
+    out.update({i: max_err(torch, x, y)
+                for i, (x, y) in enumerate(zip(a[1], b[1]))
+                if not torch.equal(x, y)})
+    return out
+
+
+def whisper_train(torch, pcfg, runs: dict, *, trace: bool = False):
+    """``launch.train.train`` on whisper-tiny: 5 steps at full width, bf16,
+    seq 4096, batch 16 on one fixed batch (AdamW at a constant lr, dynamic
+    loss scale, as ``phase_train``), with the step's launches held to the
+    path's formulas.  Returns the result and a summary record, kept in
+    ``runs`` (a run asked again is not run again; its launches count in the
+    phase that ran it)."""
+    key = ("train", pcfg)
+    if key not in runs or (trace and "trace" not in runs[key][1]):
+        runs[key] = _whisper_train(torch, pcfg, trace)
+    return runs[key]
+
+
+def _whisper_train(torch, pcfg, trace: bool):
+    from repro_torch import configs
+    from repro_torch.launch.train import expected_train_launches, train
+    from repro_torch.optim.optimizers import OptimizerConfig
+
+    arch = configs.get_arch("whisper-tiny")
+    ocfg = OptimizerConfig(lr=5e-4, warmup_steps=0, min_lr_ratio=1.0,
+                           dynamic_loss_scale=True)
+    res = train(arch, pcfg, seq_len=WHISPER_SEQ, batch=WHISPER_BATCH,
+                steps=5, device="cuda", dtype=torch.bfloat16, seed=0,
+                ocfg=ocfg, fixed_batch=True, trace=trace)
+    hist = res["history"]
+    want = expected_train_launches(pcfg, arch, WHISPER_SEQ)
+    per_step = [r["launches"] for r in hist] + (
+        [res["trace"]["launches"]] if trace else [])
+    if any(n != want for n in per_step):
+        raise AssertionError(f"{pcfg.schedule} stream={pcfg.stream_inputs} "
+                             f"wire={pcfg.wire}: launches {per_step} differ "
+                             f"from the path's {want}")
+    warm = sorted(r["step_s"] for r in hist[1:])
+    rec = {"schedule": pcfg.schedule, "pipe": pcfg.pipe,
+           "stream_inputs": pcfg.stream_inputs, "wire": pcfg.wire,
+           "grad_compression": pcfg.grad_compression,
+           "losses": [r["loss"] for r in hist],
+           "grad_norms": [r["grad_norm"] for r in hist],
+           "step_ms": [r["step_s"] * 1e3 for r in hist],
+           "step_ms_median_warm": warm[len(warm) // 2] * 1e3,
+           "peak_mem_gib": res["peak_mem_bytes"] / 2 ** 30,
+           "launches_per_step": want}
+    if trace:
+        t = res["trace"]
+        rec["trace"] = {k: t[k] for k in ("wall_ms", "device_ms",
+                                          "device_busy_ms", "idle_share",
+                                          "device_events", "ranges")}
+    if not all(math.isfinite(x) for x in rec["losses"] + rec["grad_norms"]):
+        raise AssertionError(f"non-finite training: {rec}")
+    return res, rec
+
+
+def phase_stream(torch, runs: dict):
+    """``stream``: whisper-tiny at full width, bf16, seq 4096, batch 16,
+    m 8, streamed against replicated on the same weights and batch, under
+    :func:`deterministic`.  At pipe 8 (PARALLEL: one micro-batch a rank
+    each rotation) and pipe 2 (PARALLEL_OPTIMIZED: four slots a rank, so
+    the rotation carries micro-batches), gpipe and 1f1b: the loss and every
+    gradient of one grad call bitwise equal, 1f1b's stream stash
+    high-water equal to the plan's; at pipe 8, 5 train steps each, losses
+    bitwise equal, step ms and peak; the prefill's logits (batch 8, m 8,
+    2048 frames and a 2048-token prompt) bitwise equal.  Launch counters
+    set to 0 just before and read just after, held to the formulas."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import expected_serve_launches, prompt_batch
+    from repro_torch.launch.train import expected_train_launches
+    from repro_torch.models.lm import LMModel
+
+    arch = configs.get_arch("whisper-tiny")
+    counters = train_counters()
+    bad, grads_rec, curves = [], {}, {}
+    with deterministic(torch):
+        for pipe in (8, 2):
+            for schedule in ("gpipe", "1f1b"):
+                pair = [whisper_grads(torch, whisper_pcfg(
+                    pipe, schedule=schedule, stream_inputs=s), runs)
+                    for s in (False, True)]
+                pcfg = whisper_pcfg(pipe, schedule=schedule)
+                want = expected_train_launches(pcfg, arch, WHISPER_SEQ)
+                diff = unequal_leaves(torch, pair[1], pair[0])
+                fs, tplan = pair[1][2].get("per_stage_fs"), pair[1][3]
+                key = f"pipe{pipe} {schedule}"
+                grads_rec[key] = {"loss": float(pair[0][0]),
+                                  "bitwise": not diff, "unequal": diff,
+                                  "fs_high_water": fs,
+                                  "fs_plan": (list(tplan.per_stage_fs)
+                                              if schedule != "gpipe"
+                                              else None)}
+                if diff:
+                    bad.append(f"{key}: streamed differs at {diff}")
+                if schedule != "gpipe" and tuple(fs) != tuple(
+                        tplan.per_stage_fs):
+                    bad.append(f"{key}: fs high-water {fs} != the plan's "
+                               f"{tplan.per_stage_fs}")
+                if any(r[4] != want for r in pair):
+                    bad.append(f"{key}: launches {[r[4] for r in pair]} "
+                               f"!= {want}")
+                torch.cuda.empty_cache()
+        for schedule in ("gpipe", "1f1b"):
+            pair = [whisper_train(torch, whisper_pcfg(
+                8, schedule=schedule, stream_inputs=s), runs,
+                trace=schedule == "1f1b" and not s)[1]
+                for s in (False, True)]
+            curves[schedule] = pair
+            if pair[0]["losses"] != pair[1]["losses"] \
+                    or pair[0]["grad_norms"] != pair[1]["grad_norms"]:
+                bad.append(f"{schedule}: streamed curve {pair[1]['losses']}"
+                           f" != replicated {pair[0]['losses']}")
+            torch.cuda.empty_cache()
+        logits = []
+        for s in (False, True):
+            pcfg = whisper_pcfg(8, stream_inputs=s)
+            pshape = ShapeConfig("prefill", WHISPER_PROMPT, 8, "prefill")
+            dshape = ShapeConfig("decode", WHISPER_PROMPT + 1, 8, "decode")
+            model = LMModel(arch, pcfg, dtype=torch.bfloat16, device="cuda")
+            params = model.init(torch.Generator(device=model.device
+                                                ).manual_seed(0))
+            prefill = steps.build_prefill_step(model, pcfg,
+                                               model.stage_devices, pshape)
+            gen = torch.Generator(device=model.device).manual_seed(1)
+            prompts = torch.randint(0, arch.vocab, (8, WHISPER_PROMPT),
+                                    generator=gen, device=model.device)
+            before = counters["flash_attention"].launches
+            out, _ = prefill(params, model.init_cache(dshape, 8,
+                                                      filled=False),
+                             prompt_batch(arch, prompts, torch.bfloat16,
+                                          gen))
+            launched = counters["flash_attention"].launches - before
+            if launched != expected_serve_launches(
+                    arch, 8, 2)["prefill"]["flash_attention"]:
+                bad.append(f"prefill stream={s}: {launched} attention "
+                           "launches")
+            logits.append(out)
+            del model, params, prefill
+        if not torch.equal(logits[0], logits[1]):
+            bad.append("prefill: streamed logits differ by "
+                       f"{max_err(torch, logits[1], logits[0])}")
+    totals = {k: fn.launches for k, fn in counters.items()}
+    emit({"phase": "stream", "arch": arch.name, "seq": WHISPER_SEQ,
+          "batch": WHISPER_BATCH, "n_micro": 8, "dtype": "bfloat16",
+          "deterministic_algorithms": True, "grad_calls": grads_rec,
+          "curves": curves, "prefill_bitwise": torch.equal(*logits),
+          "launches_total": totals, "ok": not bad})
+    if bad:
+        raise AssertionError(f"stream: {bad}")
+    return totals
+
+
+def wire_report(torch):
+    """``core.wire.plan_wire_report`` for whisper's 1f1b plan at pipe 8
+    under each wire setting: the bytes a step would put on the links
+    between cards, per payload class, priced on fp32-equivalent payloads
+    ([2, 4096, 384] carries and skips)."""
+    from repro_torch import configs
+    from repro_torch.core.plan import plan_for
+    from repro_torch.core.wire import WireSpec, plan_wire_report
+    from repro_torch.models.lm import LMModel
+
+    arch = configs.get_arch("whisper-tiny")
+    pcfg = whisper_pcfg(8, schedule="1f1b")
+    carry = WHISPER_BATCH // pcfg.n_micro * WHISPER_SEQ * arch.d_model * 4
+    tplan = plan_for("1f1b", pcfg.n_micro, pcfg.pipe,
+                     skips=LMModel(arch, pcfg, device="meta").skips(),
+                     portals=True)
+    out = {}
+    for wire in ("fp32", "bf16", "int8-ef", MIXED_WIRE):
+        rep = plan_wire_report(tplan, carry, spec=WireSpec.parse(wire))
+        out[wire] = {k: rep[k] for k in ("bytes_per_step", "ratio",
+                                         "per_class", "hops")}
+    return out
+
+
+def codec_on_card(torch) -> None:
+    """One int8-ef payload of whisper's plan ([2, 4096, 384] bf16, from a
+    seed), sent twice (the second send folds in the first's residual)
+    through the wire codec on the card and on the CPU: the int8 blocks,
+    scales, residuals and decoded values must be bitwise equal."""
+    from repro_torch.core.pipeline import _Codec
+
+    codec = _Codec("int8-ef", 256)
+    gen = torch.Generator().manual_seed(0)
+    shape = (WHISPER_BATCH // 8, WHISPER_SEQ, 384)
+    sends = [torch.randn(shape, generator=gen).to(torch.bfloat16)
+             for _ in range(2)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ef, got = codec.ef_zeros(sends[0].to(dev)), []
+        for x in sends:
+            x = x.to(dev)
+            wire, ef = codec.enc(x, ef)
+            got += [wire["q"], wire["s"], ef, codec.dec(wire, x)]
+        out[dev] = [t.cpu() for t in got]
+    unequal = [i for i, (a, b) in enumerate(zip(out["cpu"], out["cuda"]))
+               if not torch.equal(a, b)]
+    if unequal:
+        raise AssertionError(f"wire codec: card differs from CPU at outputs "
+                             f"{unequal} (q, s, ef, decoded per send)")
+
+
+def int8_payloads(wire: str, hops: dict) -> int:
+    """The payloads a step ships under an int8-ef class of ``wire``, from
+    the plan's hop counts (``plan_wire_report``)."""
+    from repro_torch.core.wire import WireSpec
+    spec = WireSpec.parse(wire)
+    per_class = {"chain": hops["chain"],
+                 "cotangent": hops["cotangent_chain"]
+                 + hops["route_cotangent"],
+                 "portal": hops["route_value"]}
+    return sum(n for cls, n in per_class.items()
+               if getattr(spec, cls) == "int8-ef")
+
+
+def phase_wire(torch, runs: dict):
+    """``wire``: whisper-tiny at full width, bf16, pipe 8, 1f1b, seq 4096,
+    batch 16, m 8, 5 train steps and a traced sixth under each wire, under
+    :func:`deterministic`: ``bf16`` bitwise equal to ``fp32`` (the model's
+    payloads are bf16: the cast is the identity) in its curve and in every
+    gradient of one grad call; ``int8-ef`` and ``chain=fp32,portal=int8-ef,
+    cotangent=bf16`` within ``CURVE_RTOL`` of fp32's curve at every step,
+    falling, and not bitwise fp32's; gpipe with ``int8-ef`` raises.  The
+    codec on the card is bitwise the CPU's on one payload
+    (:func:`codec_on_card`); each traced step entered the ``wire_codec``
+    range once to encode and once to decode every int8 payload the plan
+    ships, and launched the same number of kernels for each payload under
+    both lossy wires (none under fp32: bf16 payloads of a bf16 model take
+    no range).  Prints the codec's device ms and kernels, the added device
+    events against fp32's, and the plan's wire bytes per class.  Returns
+    the launch totals and fp32's record."""
+    from repro_torch import configs
+    from repro_torch.core.pipeline import WIRE_CODEC_RANGE
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import LMModel
+
+    codec_on_card(torch)
+    report = wire_report(torch)
+    counters = train_counters()
+    bad, recs = [], {}
+    with deterministic(torch):
+        for wire in ("fp32", "bf16", "int8-ef", MIXED_WIRE):
+            recs[wire] = whisper_train(torch, whisper_pcfg(
+                8, schedule="1f1b", wire=wire), runs,
+                trace=wire != "bf16")[1]
+            torch.cuda.empty_cache()
+        pair = [whisper_grads(torch, whisper_pcfg(8, schedule="1f1b",
+                                                  wire=w), runs)
+                for w in ("fp32", "bf16")]
+        diff = unequal_leaves(torch, pair[1], pair[0])
+    base = recs["fp32"]
+    if diff or recs["bf16"]["losses"] != base["losses"]:
+        bad.append(f"bf16 wire differs from fp32: {diff}, "
+                   f"{recs['bf16']['losses']} vs {base['losses']}")
+    for wire in ("int8-ef", MIXED_WIRE):
+        lossy = recs[wire]["losses"]
+        gaps = [abs(a - b) / abs(b) for a, b in zip(lossy, base["losses"])]
+        recs[wire]["rel_gap_to_fp32"] = gaps
+        if max(gaps) > CURVE_RTOL or not lossy[-1] < lossy[0] \
+                or lossy == base["losses"]:
+            bad.append(f"{wire}: curve {lossy} vs fp32 {base['losses']}")
+    per_payload = {}
+    for wire in ("fp32", "int8-ef", MIXED_WIRE):
+        rec, t0 = recs[wire], base["trace"]
+        rec["added_device_events"] = (rec["trace"]["device_events"]
+                                      - t0["device_events"])
+        rec["added_device_ms"] = rec["trace"]["device_ms"] - t0["device_ms"]
+        n = int8_payloads(wire, report[wire]["hops"])
+        got = rec["trace"]["ranges"][WIRE_CODEC_RANGE]
+        rec["int8_payloads"] = n
+        if got["calls"] != 2 * n or (got["kernels"] == 0) != (n == 0) \
+                or (n and got["kernels"] % n):
+            bad.append(f"{wire}: wire_codec range launched {got['kernels']}"
+                       f" kernels in {got['calls']} ranges for the plan's "
+                       f"{n} int8 payloads")
+        if n:
+            per_payload[wire] = got["kernels"] // n
+    if len(set(per_payload.values())) != 1:
+        bad.append(f"codec kernels a payload differ: {per_payload}")
+    try:
+        pcfg = whisper_pcfg(8, schedule="gpipe", wire="int8-ef")
+        steps.build_train_step(LMModel(configs.get_arch("whisper-tiny"),
+                                       pcfg, device="cuda"), pcfg, "cuda",
+                               None)
+        bad.append("gpipe with an int8-ef wire did not raise")
+    except ValueError as e:
+        gpipe_raise = str(e)[:120]
+    totals = {k: fn.launches for k, fn in counters.items()}
+    emit({"phase": "wire", "arch": "whisper-tiny", "pipe": 8,
+          "schedule": "1f1b", "seq": WHISPER_SEQ, "batch": WHISPER_BATCH,
+          "n_micro": 8, "dtype": "bfloat16",
+          "deterministic_algorithms": True, "runs": recs,
+          "bf16_grads_bitwise": not diff, "gpipe_int8_ef_raises": gpipe_raise,
+          "codec_card_bitwise_cpu": True,
+          "codec_kernels_a_payload": per_payload,
+          "plan_wire_report": report, "launches_total": totals,
+          "ok": not bad})
+    if bad:
+        raise AssertionError(f"wire: {bad}")
+    return totals, base
+
+
+def phase_grad_compression(torch, runs: dict, fp32):
+    """``grad_compression``: the wire phase's cell (1f1b, pipe 8, fp32
+    wire) with ``grad_compression="int8_ef"``: 5 train steps and a traced
+    sixth under :func:`deterministic`; the curve within ``CURVE_RTOL`` of
+    ``fp32``'s (the wire phase's record) at every step, falling, and not
+    bitwise the uncompressed curve; the error-feedback state 4 bytes a
+    parameter; the traced step's ``grad_compression`` range entered once
+    and launching kernels.  Prints the state's bytes, the step's peak and
+    step ms beside the uncompressed run's, and the compressor's device ms
+    and kernels."""
+    from repro_torch.launch.steps import GRAD_COMPRESSION_RANGE
+
+    n_params = sum(g.numel() for g in whisper_grads(
+        torch, whisper_pcfg(8, schedule="1f1b", wire="fp32"), runs)[1])
+    counters = train_counters()
+    with deterministic(torch):
+        res, rec = whisper_train(torch, whisper_pcfg(
+            8, schedule="1f1b", grad_compression="int8_ef"), runs,
+            trace=True)
+    losses = rec["losses"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, fp32["losses"])]
+    totals = {k: fn.launches for k, fn in counters.items()}
+    comp = rec["trace"]["ranges"][GRAD_COMPRESSION_RANGE]
+    bad = []
+    if max(gaps) > CURVE_RTOL or not losses[-1] < losses[0] \
+            or losses == fp32["losses"]:
+        bad.append(f"curve {losses} vs {fp32['losses']}")
+    if res["ef_bytes"] != 4 * n_params:
+        bad.append(f"ef_bytes {res['ef_bytes']} != 4 x {n_params} params")
+    if comp["calls"] != 1 or comp["kernels"] == 0:
+        bad.append(f"grad_compression range: {comp}")
+    ok = not bad
+    emit({"phase": "grad_compression", "arch": "whisper-tiny", "pipe": 8,
+          "schedule": "1f1b", "seq": WHISPER_SEQ, "batch": WHISPER_BATCH,
+          "n_micro": 8, "dtype": "bfloat16", "block": 256,
+          "deterministic_algorithms": True, "run": rec,
+          "rel_gap_to_uncompressed": gaps,
+          "uncompressed_losses": fp32["losses"],
+          "ef_bytes": res["ef_bytes"], "n_params": n_params,
+          "uncompressed_peak_mem_gib": fp32["peak_mem_gib"],
+          "uncompressed_step_ms_median_warm": fp32["step_ms_median_warm"],
+          "launches_total": totals, "ok": ok})
+    if bad:
+        raise AssertionError(f"grad_compression: {bad}")
+    return totals
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1584,6 +2051,13 @@ def main() -> int:
         for k, n in phase_train(torch, schedule, "whisper-tiny").items():
             launches[k] += n
         torch.cuda.empty_cache()
+    runs = {}          # whisper runs the stream and wire phases share
+    stream_totals = phase_stream(torch, runs)
+    wire_totals, fp32 = phase_wire(torch, runs)
+    for totals in (stream_totals, wire_totals,
+                   phase_grad_compression(torch, runs, fp32)):
+        for k, n in totals.items():
+            launches[k] += n
     kernels = []
     for kname in KERNELS:
         rec = timing[kname]

@@ -56,12 +56,24 @@ backward with it (summed in route order over a skip's destinations).
 stages) or a sequence of ``n_stages`` trees (heterogeneous stages, each
 its own structure); gradients come back in the same form.
 
-Stream injection, the wire codec and stages in several processes are
-later slices (ROADMAP A5, A7, A4), and so are data and tensor parallelism
-(A9): each raises.
+Stream injection (``cfg.stream_inputs``, :class:`_Stream`): the
+micro-batches are sharded over the ranks (micro-batch ``i`` on rank
+``i % R``, slot ``i // R``), stage 0 reads rank 0's shard at the plan's
+``stream_slot`` and every shard moves one rank towards 0 after each
+``stream_rot`` tick; the fused executor parks each F tick's fresh slice in
+the plan's ``fs_slot`` for its backward.  The wire codec
+(``cfg.wire``, :class:`_Wire`) encodes each payload where a rank ships it
+and decodes it where it lands: the forward chain, the cotangent chain, and
+each route's values and cotangents, on the hops that cross ranks.
+
+What raises: stages in several processes (ROADMAP A4: every stage runs in
+this process and a hop is ``.to()``), data and tensor parallelism (A9,
+:func:`check_single_replica`), and an ``int8-ef`` wire under autograd in
+the forward executor (:func:`check_plan`).
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -73,6 +85,7 @@ from repro_torch.core import plan as plan_lib
 from repro_torch.core.plan import BWD, BWD_W, BWD_X, FWD, NOP
 from repro_torch.core.skip import SkipSpec
 from repro_torch.devices import stage_devices
+from repro_torch.runtime import compression
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -96,24 +109,208 @@ StageApplyFn = Callable[..., Tuple[Any, Dict[str, Any], Any]]
 
 
 def check_single_replica(cfg: ParallelConfig) -> None:
-    """The port runs one replica of one model copy: tp, data and pod 1."""
-    if (cfg.tp, cfg.data, cfg.pod) != (1, 1, 1):
+    """The port runs one replica of one model copy: tp, data, pod and dp2
+    1."""
+    if (cfg.tp, cfg.data, cfg.pod, cfg.dp2) != (1, 1, 1, 1):
         raise NotImplementedError(
-            f"tp={cfg.tp}, data={cfg.data}, pod={cfg.pod}: tensor and data "
-            "parallelism are not ported yet (ROADMAP A9); pass tp=1, data=1, "
-            "pod=1")
+            f"tp={cfg.tp}, data={cfg.data}, pod={cfg.pod}, dp2={cfg.dp2}: "
+            "tensor and data parallelism are not ported yet (ROADMAP A9); "
+            "pass tp=1, data=1, pod=1, dp2=1")
 
 
-def check_plan(tplan: plan_lib.TaskPlan, cfg: ParallelConfig) -> None:
-    """Raise for the plan features the executors do not run yet."""
-    if cfg.stream_inputs and tplan.n_ranks > 1:
-        raise NotImplementedError("stream_inputs ticks are not ported yet: "
-                                  "ROADMAP A5")
-    if tplan.n_ranks > 1 and not tplan.wire.lossless:
-        # at pipe 1 the reference's hop is an identity hold, never encoded
-        raise NotImplementedError(
-            f"wire={tplan.wire.name!r}: the on-the-wire codec is not ported "
-            "yet: ROADMAP A7; use wire='fp32' (or pipe=1)")
+def check_plan(tplan: plan_lib.TaskPlan, cfg: ParallelConfig, *,
+               autograd: bool = False) -> None:
+    """Raise for what the executors refuse to run of a plan.
+
+    * The fused executor streams only when the ranks divide the
+      micro-batches (reference ``pipeline_grad_call``): a streamed F+B
+      plan with ``n_micro % pipe != 0`` raises, where a forward plan
+      silently runs unstreamed (:func:`_streaming`).
+    * ``autograd``: the forward executor differentiated by autograd
+      (``schedule="gpipe"``) refuses an ``int8-ef`` codec on a hop it
+      encodes (the forward chain, a route's values).  The reference takes
+      that gradient through its quantizer, whose round and int8 cast have
+      zero derivative: only the per-block scale carries gradient upstream
+      of the hop, so every gradient before it comes out truncated.  The
+      fused schedules ship cotangents explicitly and train int8-wired.
+    """
+    R, m = tplan.n_ranks, tplan.n_micro
+    if tplan.has_backward and cfg.stream_inputs and R > 1 and m % R:
+        raise ValueError(f"stream_inputs needs n_micro ({m}) divisible by "
+                         f"pipe ({R})")
+    if autograd and not tplan.has_backward:
+        lossy = [name for name, codec in _Wire(tplan).codecs.items()
+                 if codec.stateful and (name == "f" or name[:2] == "r:")]
+        if lossy:
+            raise ValueError(
+                f"wire={tplan.wire.name!r} puts int8-ef on the {lossy} "
+                "hops of the gpipe forward under autograd: the reference's "
+                "autodiff through the quantizer (round and int8 cast have "
+                "zero derivative) leaves only the per-block scale's "
+                "gradient upstream of a quantized hop, a truncated "
+                "gradient the port does not mirror.  Train int8-wired with "
+                "a fused schedule (1f1b, gpipe_tasked, interleaved:v, zb), "
+                "which ships cotangents explicitly, or use wire='bf16'")
+
+
+def _streaming(tplan: plan_lib.TaskPlan, cfg: ParallelConfig) -> bool:
+    """Whether this run streams its inputs: ``cfg.stream_inputs`` at
+    ``pipe > 1`` with the ranks dividing the micro-batches (reference
+    ``pipeline_call``: off otherwise)."""
+    R = tplan.n_ranks
+    return cfg.stream_inputs and R > 1 and tplan.n_micro % R == 0
+
+
+# ---------------------------------------------------------------------------
+# On-the-wire codec: encode where a rank ships, decode where it lands
+# ---------------------------------------------------------------------------
+
+WIRE_CODEC_RANGE = "wire_codec"    # profiler range of each lossy encode /
+#                                    decode: the codec's device time
+
+
+def _codec_range():
+    """The ``WIRE_CODEC_RANGE`` range while a profiler runs, else nothing
+    (a range costs host time on every payload)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(WIRE_CODEC_RANGE)
+    return contextlib.nullcontext()
+
+
+class _Codec:
+    """One payload class's wire codec (reference ``_Codec``), leaf-wise over
+    a tree.  ``enc(value, ef)`` encodes at the ship and, for the stateful
+    ``int8-ef`` codec, returns the new error-feedback residual of the
+    stream; ``dec(wire, proto)`` decodes at the arrival to ``proto``'s
+    shapes and dtypes.  Non-float leaves (token ids) pass through, and
+    ``fp32`` is a strict identity: the wire tree is the value tree, the same
+    tensors.  ``bf16`` casts (a no-op on bf16 values); ``int8-ef`` ships
+    int8 blocks with one fp32 scale each (``runtime.compression``) and
+    keeps what they lose for the stream's next payload."""
+
+    def __init__(self, codec: str, block: int):
+        self.codec, self.block = codec, block
+        self.stateful = codec == "int8-ef"
+
+    def ef_zeros(self, proto):
+        """The cold error-feedback residual: fp32 zeros per float leaf
+        (None where the codec is exact)."""
+        return tree_map(
+            lambda p: compression.ef_zeros_like(p)
+            if self.stateful and p.is_floating_point() else None, proto)
+
+    def enc(self, value, ef=None):
+        """value tree -> (wire tree, new ef tree)."""
+        if self.codec == "fp32":
+            return value, ef
+        with _codec_range():
+            if self.codec == "bf16":
+                return tree_map(lambda v: v.to(torch.bfloat16)
+                                if v.is_floating_point() else v, value), ef
+            pairs = tree_map(self._enc_int8, value, ef)
+            return (tree_map(lambda _, p: p[0], value, pairs),
+                    tree_map(lambda _, p: p[1], value, pairs))
+
+    def _enc_int8(self, v, e):
+        if not v.is_floating_point():
+            return v, e
+        q, s, _, resid = compression.ef_quantize(v, e, self.block)
+        return {"q": q, "s": s}, resid
+
+    def dec(self, wire, proto):
+        """wire tree -> value tree (shapes and dtypes of ``proto``)."""
+        if self.codec == "fp32":
+            return wire
+        with _codec_range():
+            return tree_map(self._dec_leaf, proto, wire)
+
+    def _dec_leaf(self, p, w):
+        if not p.is_floating_point():
+            return w
+        if self.codec == "bf16":
+            return w.to(p.dtype)
+        flat = compression._dequantize_block(w["q"], w["s"], p.numel())
+        return flat.reshape(p.shape).to(p.dtype)
+
+
+class _Wire:
+    """The wire of one executor run: a codec per stream and the ``int8-ef``
+    residual per (rank, stream).  Streams: ``f`` (the forward chain),
+    ``b`` (the cotangent chain), ``r:<route>`` and ``g:<route>`` (a
+    route's values and cotangents).  As in the reference, every hop is an
+    identity at pipe 1, and a route's value (cotangent) takes the portal
+    (cotangent) codec only where its hop crosses ranks.  The residuals are
+    cold at each call and advance on real sends only, in tick order."""
+
+    def __init__(self, tplan: plan_lib.TaskPlan):
+        spec = tplan.wire
+        ident = _Codec("fp32", spec.block)
+
+        def codec(name, crosses):
+            return _Codec(name, spec.block) if crosses else ident
+        cross = tplan.n_ranks > 1
+        self.codecs = {"f": codec(spec.chain, cross),
+                       "b": codec(spec.cotangent, cross)}
+        for rt in tplan.routes:
+            self.codecs["r:" + rt.key] = codec(spec.portal, rt.fwd_perm)
+            self.codecs["g:" + rt.key] = codec(spec.cotangent, rt.bwd_perm)
+        self.ef: Dict[Tuple[int, str], Any] = {}
+
+    def enc(self, stream: str, r: int, value):
+        """What rank ``r`` puts on the wire for ``value``, and the proto
+        its arrival decodes to (None for the identity)."""
+        codec = self.codecs[stream]
+        if codec.codec == "fp32" or (codec.codec == "bf16" and all(
+                a.dtype == torch.bfloat16 for a in tree_leaves(value)
+                if a.is_floating_point())):
+            return value, None                # the identity on this value
+        proto = tree_map(lambda a: torch.empty(a.shape, dtype=a.dtype,
+                                               device="meta"), value)
+        if not codec.stateful:
+            return codec.enc(value)[0], proto
+        ef = self.ef.get((r, stream))
+        if ef is None:
+            ef = codec.ef_zeros(value)
+        wire, self.ef[(r, stream)] = codec.enc(value, ef)
+        return wire, proto
+
+    def dec(self, stream: str, wire, proto):
+        return wire if proto is None else self.codecs[stream].dec(wire,
+                                                                  proto)
+
+
+class _Stream:
+    """Stream injection (reference ``cfg.stream_inputs``): the ``[m, ...]``
+    inputs sharded over the R ranks, micro-batch ``i`` on rank ``i % R``
+    at slot ``i // R`` (rank ``r``'s shard is ``[m // R, ...]`` on
+    ``devices[r]``).  Stage 0 reads rank 0's shard at the plan's
+    ``stream_slot``; after each ``stream_rot`` tick every shard moves one
+    rank towards 0, so micro-batch ``i`` reaches rank 0 after ``i``
+    rotations."""
+
+    def __init__(self, inputs_mb, n_ranks: int, devices):
+        R = n_ranks
+        self.devices = devices
+        split = tree_map(lambda a: a.reshape(
+            (a.shape[0] // R, R) + tuple(a.shape[1:])).transpose(0, 1),
+            inputs_mb)
+        self.shards = [tree_map(lambda a: a[r].to(devices[r]), split)
+                       for r in range(R)]
+        self.origin = list(range(R))         # the rank each shard began on
+
+    def read(self, t: int, tplan: plan_lib.TaskPlan, micro: int):
+        slot = int(tplan.stream_slot[t])
+        if slot < 0 or slot * len(self.shards) + self.origin[0] != micro:
+            raise RuntimeError(f"tick {t}: stage 0 wants micro-batch {micro}"
+                               f", the stream holds slot {slot} of the "
+                               f"shard that began on rank {self.origin[0]}")
+        return tree_map(lambda a: a[slot], self.shards[0])
+
+    def rotate(self) -> None:
+        R = len(self.shards)
+        self.shards = [tree_map(lambda a: a.to(self.devices[r]),
+                                self.shards[(r + 1) % R]) for r in range(R)]
+        self.origin = self.origin[1:] + self.origin[:1]
 
 
 class _Slots:
@@ -152,17 +349,18 @@ class _Slots:
 class _Link:
     """The hop into one buffer family: what a rank ships on tick ``t``
     parks on tick ``t + 1`` in the slot the plan's column names on the
-    destination rank, moved to the device of its tag's stage."""
+    destination rank, moved to the device of its tag's stage.  The value
+    rides the wire as its stream's codec encodes it."""
 
-    def __init__(self, buf: _Slots, n_ranks: int):
-        self.buf = buf
+    def __init__(self, buf: _Slots, n_ranks: int, wire: _Wire, stream: str):
+        self.buf, self.wire, self.stream = buf, wire, stream
         self.outbox: List[Any] = [None] * n_ranks
 
-    def ship(self, r: int, tag: Tuple[int, int], value) -> None:
-        if self.outbox[r] is not None:
-            raise RuntimeError(f"{self.buf.name}: two values reach rank {r} "
-                               "on one tick")
-        self.outbox[r] = (tag, value)
+    def ship(self, src: int, dst: int, tag: Tuple[int, int], value) -> None:
+        if self.outbox[dst] is not None:
+            raise RuntimeError(f"{self.buf.name}: two values reach rank "
+                               f"{dst} on one tick")
+        self.outbox[dst] = (tag, *self.wire.enc(self.stream, src, value))
 
     def land(self, t: int, column, devices) -> None:
         arrived, self.outbox = self.outbox, [None] * len(self.outbox)
@@ -174,9 +372,10 @@ class _Link:
                     + ("expects an arrival nobody shipped" if item is None
                        else "has no slot for the value shipped to it"))
             if item is not None:
-                tag, value = item
-                self.buf.put(r, slot, tag, tree_map(
-                    lambda a: a.to(devices[tag[1]]), value))
+                tag, wire, proto = item
+                wire = tree_map(lambda a: a.to(devices[tag[1]]), wire)
+                self.buf.put(r, slot, tag,
+                             self.wire.dec(self.stream, wire, proto))
 
 
 class _Route:
@@ -185,11 +384,12 @@ class _Route:
     way back.  The hop goes to the rank the plan's permute pairs name, or
     stays on the rank (src and dst chunks of one rank: an identity hold)."""
 
-    def __init__(self, rt: plan_lib.RoutePlan, n_ranks: int):
+    def __init__(self, rt: plan_lib.RoutePlan, n_ranks: int, wire: _Wire):
         self.rt = rt
-        self.value = _Link(_Slots(f"route {rt.key}", n_ranks), n_ranks)
+        self.value = _Link(_Slots(f"route {rt.key}", n_ranks), n_ranks,
+                           wire, "r:" + rt.key)
         self.cot = _Link(_Slots(f"route {rt.key} cotangent", n_ranks),
-                         n_ranks)
+                         n_ranks, wire, "g:" + rt.key)
         self.next_rank = {False: dict(rt.fwd_perm), True: dict(rt.bwd_perm)}
 
     def land(self, t: int, devices) -> None:
@@ -226,7 +426,7 @@ class _Route:
             nxt = stage - 1 if cot else stage + 1
         else:
             nxt = rt.src if cot else rt.dst
-        link.ship(self.next_rank[cot].get(r, r), (micro, nxt), value)
+        link.ship(r, self.next_rank[cot].get(r, r), (micro, nxt), value)
         return slot == plan_lib.SEND_STAGE
 
     def check_empty(self) -> None:
@@ -328,14 +528,18 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
     routes, ``per_route``: each route's slots held at once over its ranks
     (``{route key: {"depth": n}}``).
     With grad mode on, every forward tick runs under ``cfg.remat``
-    (:mod:`checkpointing`), skips in and out included.  F+B plans run
-    through :func:`run_pipeline_grad_tasks`.
+    (:mod:`checkpointing`), skips in and out included, and autograd runs
+    backward through the wire's casts (an ``int8-ef`` hop raises,
+    :func:`check_plan`); the cotangent class is not used here.  With
+    ``cfg.stream_inputs`` and ``m % pipe == 0`` the inputs stream
+    (:class:`_Stream`).  F+B plans run through
+    :func:`run_pipeline_grad_tasks`.
     """
     check_single_replica(cfg)
     if tplan.has_backward:
         raise ValueError("plans with backward tasks run through "
                          "run_pipeline_grad_tasks (pipeline_grad_call)")
-    check_plan(tplan, cfg)
+    check_plan(tplan, cfg, autograd=torch.is_grad_enabled())
     remat = cfg.remat if torch.is_grad_enabled() else "none"
     R, m = tplan.n_ranks, tplan.n_micro
     if (R, m) != (cfg.pipe, cfg.n_micro):
@@ -356,8 +560,11 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
                                  f"{leaf.device}, stage on {devices[s]}")
 
     park = _Slots("park", R)
-    chain = _Link(park, R)
-    routes = [_Route(rt, R) for rt in tplan.routes]
+    wire = _Wire(tplan)
+    chain = _Link(park, R, wire, "f")
+    routes = [_Route(rt, R, wire) for rt in tplan.routes]
+    stream = (_Stream(inputs_mb, R, devices) if _streaming(tplan, cfg)
+              else None)
     outputs: List[Any] = [None] * m
     for t in range(tplan.n_ticks):
         # 1. arrivals: last tick's boundary outputs and skips park
@@ -373,8 +580,10 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
             carry = park.get(r, slot, (i, r), release=True) \
                 if slot >= 0 else None
             skips_in = _skips_in(routes, t, r, (i, r), release=True)
-            fresh = (tree_map(lambda a: a[i].to(devices[r]), inputs_mb)
-                     if r == 0 else None)
+            fresh = None
+            if r == 0:
+                fresh = (stream.read(t, tplan, i) if stream else
+                         tree_map(lambda a: a[i].to(devices[r]), inputs_mb))
             ctx = TickCtx(stage=r, micro=i, valid=True, t=t, fresh=fresh,
                           n_stages=tplan.n_stages, n_micro=m)
             wrapped = checkpointing.wrap_stage_for_micro(
@@ -387,7 +596,9 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
             if r == R - 1:
                 outputs[i] = carry_out
             else:
-                chain.ship(r + 1, (i, r + 1), carry_out)
+                chain.ship(r, r + 1, (i, r + 1), carry_out)
+        if stream and tplan.stream_rot[t]:
+            stream.rotate()
     for buf in [park] + routes:
         buf.check_empty()
     if park_info is not None:
@@ -440,7 +651,6 @@ def pipeline_call(stage_apply: StageApplyFn,
                          "execution runs the clock-cycle plan")
     tplan = plan_lib.plan_for("gpipe_fwd", cfg.n_micro, cfg.pipe,
                               skips=skips, portals=cfg.portals, wire=cfg.wire)
-    check_plan(tplan, cfg)
 
     def call(stage_params, inputs_mb, resident=None):
         return run_pipeline_tasks(stage_apply, stage_params, inputs_mb, cfg,
@@ -512,12 +722,16 @@ def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
     Returns ``(loss_sum, stage_grads, head_grads, input_grads_mb)``: the
     fp32 sum of the per-micro losses in ascending micro order (unscaled),
     gradients mirroring ``stage_params`` and ``head_params``, and the
-    ``[m, ...]`` cotangents of ``inputs_mb``.  ``cfg.grad_reduce`` picks
-    the micro-batch fold (:class:`_GradSum`).  Pass a dict as ``park_info``
-    to receive the park, b-inbox and residual-stash high-water per rank
-    (``per_stage_park``, ``per_stage_b_inbox``, ``per_stage_resid``) and,
-    with skip routes, each route's value and cotangent high-water
-    (``per_route``: ``{route key: {"depth": n, "g_depth": n}}``).
+    ``[m, ...]`` cotangents of ``inputs_mb`` in micro-batch order.
+    ``cfg.grad_reduce`` picks the micro-batch fold (:class:`_GradSum`).
+    With ``cfg.stream_inputs`` the inputs stream (:class:`_Stream`; the
+    ranks must divide ``m``) and each F tick parks its fresh slice in the
+    plan's ``fs_slot`` for the backward that re-runs it.  Pass a dict as
+    ``park_info`` to receive the park, b-inbox and residual-stash
+    high-water per rank (``per_stage_park``, ``per_stage_b_inbox``,
+    ``per_stage_resid``; ``per_stage_fs`` when streaming) and, with skip
+    routes, each route's value and cotangent high-water (``per_route``:
+    ``{route key: {"depth": n, "g_depth": n}}``).
     """
     check_single_replica(cfg)
     if not tplan.has_backward:
@@ -597,8 +811,13 @@ def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
     park = _Slots("park", R)
     inbox = _Slots("b-inbox", R)
     resid = _Slots("residual", R)
-    chain_f, chain_b = _Link(park, R), _Link(inbox, R)
-    routes = [_Route(rt, R) for rt in tplan.routes]
+    wire = _Wire(tplan)
+    chain_f = _Link(park, R, wire, "f")
+    chain_b = _Link(inbox, R, wire, "b")
+    routes = [_Route(rt, R, wire) for rt in tplan.routes]
+    stream = fs = None
+    if _streaming(tplan, cfg):
+        stream, fs = _Stream(inputs_mb, R, devices), _Slots("fs", R)
     for t in range(tplan.n_ticks):
         # 1. arrivals: forward carries from rank r - 1, cotangents from r + 1,
         #    skip values and cotangents from their routes' previous hop
@@ -624,8 +843,15 @@ def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
                                    f"{'no' if carry is None else 'a'} "
                                    "parked carry")
             skips_in = _skips_in(routes, t, r, tag, release=last_read)
-            fresh = (tree_map(lambda a: a[i].to(devices[s]), inputs_mb)
-                     if s == 0 else None)
+            if stream is None:
+                fresh = (tree_map(lambda a: a[i].to(devices[s]), inputs_mb)
+                         if s == 0 else None)
+            elif kind == FWD:     # every F parks its slice (None past 0)
+                fresh = stream.read(t, tplan, i) if s == 0 else None
+                fs.put(r, int(tplan.fs_slot[t, r]), tag, fresh)
+            else:
+                fresh = fs.get(r, int(tplan.fs_slot[t, r]), tag,
+                               release=last_read)
             largs = (tree_map(lambda a: a[i].to(devices[s]), loss_args_mb)
                      if s == S - 1 else None)
             ctx = TickCtx(stage=s, micro=i, valid=True, t=t, fresh=fresh,
@@ -637,7 +863,7 @@ def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
                     carry_out, skips_out, _ = stage_loss(
                         params_s[s], carry, fresh, skips_in, head_s, ctx,
                         None)
-                chain_f.ship((r + 1) % R, (i, s + 1), carry_out)
+                chain_f.ship(r, (r + 1) % R, (i, s + 1), carry_out)
                 _send_skips(routes, t, r, i, s, skips_out)
                 continue
             if s == S - 1:
@@ -681,10 +907,12 @@ def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
                 if s == 0:
                     input_grads[i] = g_tree
                 else:
-                    chain_b.ship((r - 1) % R, (i, s - 1), g_tree)
+                    chain_b.ship(r, (r - 1) % R, (i, s - 1), g_tree)
                 for route in routes:
                     route.send(t, r, i, s, g_skips, cot=True)
-    for buf in [park, inbox, resid] + routes:
+        if stream and tplan.stream_rot[t]:
+            stream.rotate()
+    for buf in [park, inbox, resid] + routes + ([fs] if fs else []):
         buf.check_empty()
     sums = stage_sums + [head_sum]
     if any(gs.folded != m or gs.pending for gs in sums) \
@@ -695,6 +923,8 @@ def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
         park_info.update(per_stage_park=tuple(park.high),
                          per_stage_b_inbox=tuple(inbox.high),
                          per_stage_resid=tuple(resid.high))
+        if fs:
+            park_info["per_stage_fs"] = tuple(fs.high)
         if routes:
             park_info["per_route"] = {route.rt.key: route.high(True)
                                       for route in routes}

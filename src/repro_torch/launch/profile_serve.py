@@ -18,6 +18,7 @@ import argparse
 import json
 import time
 from collections import defaultdict
+from typing import Sequence
 
 import torch
 
@@ -77,10 +78,18 @@ def _union_ms(spans) -> float:
     return total / 1e3
 
 
-def device_profile(fn, dev):
+def _kernels_under(evt):
+    """The device kernels launched by a CPU event and its children."""
+    return list(evt.kernels) + [k for child in evt.cpu_children
+                                for k in _kernels_under(child)]
+
+
+def device_profile(fn, dev, ranges: Sequence[str] = ()):
     """Run ``fn`` under the profiler; wall ms, device ms by family (summed
     over kernels) and the idle share of the window (from the union of the
-    kernels' intervals, so overlapping kernels count once)."""
+    kernels' intervals, so overlapping kernels count once).  For each name
+    in ``ranges`` (a ``torch.profiler.record_function`` label), the device
+    ms and the count of the kernels launched inside such ranges."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize(dev)
@@ -91,22 +100,35 @@ def device_profile(fn, dev):
         wall = time.perf_counter() - t0
     by_family = defaultdict(float)
     by_name = defaultdict(float)
+    by_range = {name: {"device_ms": 0.0, "kernels": 0, "calls": 0}
+                for name in ranges}
     spans = []
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        if evt.is_user_annotation:     # a range, not a kernel
+            if evt.device_type == torch.autograd.DeviceType.CPU \
+                    and evt.name in by_range:
+                kernels = _kernels_under(evt)
+                rec = by_range[evt.name]
+                rec["device_ms"] += sum(k.duration for k in kernels) / 1e3
+                rec["kernels"] += len(kernels)
+                rec["calls"] += 1
+        elif evt.device_type == torch.autograd.DeviceType.CUDA:
             ms = evt.device_time / 1e3                        # us -> ms
             by_family[_family(evt.name)] += ms
             by_name[evt.name[:80]] += ms
             spans.append((evt.time_range.start, evt.time_range.end))
     busy = _union_ms(spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms": wall * 1e3, "device_ms": sum(by_family.values()),
-            "device_busy_ms": busy,
-            "idle_share": (1 - busy / (wall * 1e3)) if spans else None,
-            "device_events": len(spans),
-            "by_family_ms": dict(sorted(by_family.items(),
-                                        key=lambda kv: -kv[1])),
-            "top_kernels_ms": dict(top)}
+    out = {"wall_ms": wall * 1e3, "device_ms": sum(by_family.values()),
+           "device_busy_ms": busy,
+           "idle_share": (1 - busy / (wall * 1e3)) if spans else None,
+           "device_events": len(spans),
+           "by_family_ms": dict(sorted(by_family.items(),
+                                       key=lambda kv: -kv[1])),
+           "top_kernels_ms": dict(top)}
+    if ranges:
+        out["ranges"] = by_range
+    return out
 
 
 def main():

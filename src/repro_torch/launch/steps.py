@@ -18,14 +18,48 @@ import torch
 
 from repro_torch.configs.base import ParallelConfig, ShapeConfig
 from repro_torch.core import checkpointing
-from repro_torch.core.pipeline import (last_stage_output, microbatch,
-                                       pipeline_call, pipeline_grad_call,
-                                       unmicrobatch)
+from repro_torch.core.pipeline import (check_plan, last_stage_output,
+                                       microbatch, pipeline_call,
+                                       pipeline_grad_call, unmicrobatch)
 from repro_torch.models.lm import LMModel
 from repro_torch.optim import optimizers as optim
+from repro_torch.runtime.compression import EFCompressor
 from repro_torch.tree import tree_leaves, tree_map
 
 FUSED_SCHEDULES = ("1f1b", "gpipe_tasked", "interleaved", "zb")
+GRAD_COMPRESSION_RANGE = "grad_compression"   # profiler range of the codec
+
+
+def _maybe_compress_grads(pcfg: ParallelConfig, grads, opt_state):
+    """int8-EF the data-parallel gradient reduce
+    (``grad_compression="int8_ef"``, reference
+    ``steps._maybe_compress_grads``): each leaf, with its residual folded
+    in, quantized and dequantized before the optimizer; on one replica the
+    reduce is the identity.  Returns the rewritten (fp32) grads and the new
+    residual tree."""
+    if pcfg.grad_compression != "int8_ef":
+        return grads, opt_state.ef
+    if opt_state.ef == ():
+        raise ValueError(
+            "grad_compression='int8_ef' needs the error-feedback residual "
+            "on the optimizer state: initialize it with "
+            "optim.init(ocfg, params, with_ef=True)")
+    with torch.profiler.record_function(GRAD_COMPRESSION_RANGE):
+        return EFCompressor().compress_reduce(grads, opt_state.ef)
+
+
+def _gate_ef(metrics: Dict[str, Any], new_ef, old_ef):
+    """Write the new residual into ``old_ef`` in place, except on a step
+    the non-finite guard skipped (reference ``steps._gate_ef``): the
+    compressor ran before the optimizer saw the grads, so without the gate
+    a NaN batch would poison the residual of a discarded step."""
+    if new_ef is old_ef:                      # no compression
+        return old_ef
+    fin = metrics.get("finite")
+    with torch.no_grad():
+        for new, old in zip(tree_leaves(new_ef), tree_leaves(old_ef)):
+            old.copy_(new if fin is None else torch.where(fin > 0, new, old))
+    return old_ef
 
 
 def build_train_step(model: LMModel, pcfg: ParallelConfig, devices: Any,
@@ -38,6 +72,10 @@ def build_train_step(model: LMModel, pcfg: ParallelConfig, devices: Any,
     every gradient carries the state's scale and ``optim.apply`` unscales.
     ``batch`` holds ``tokens`` and ``labels`` [B, S] on the model's device;
     metrics are 0-d tensors (reading one waits for the step).
+    With ``pcfg.grad_compression="int8_ef"`` the grads pass the int8
+    error-feedback compressor first, whose residual rides
+    ``opt_state.ef`` (build the state with ``optim.init(...,
+    with_ef=True)``) and keeps its old value on a skipped step.
     ``train_step.tplan`` is the plan the executor runs and
     ``train_step.park_info`` its buffer high-water per rank, refreshed by
     each step."""
@@ -45,18 +83,16 @@ def build_train_step(model: LMModel, pcfg: ParallelConfig, devices: Any,
     # gate known config smells at selection time, as the reference does
     for msg in pcfg.advisories():
         warnings.warn(msg, stacklevel=2)
-    if pcfg.grad_compression != "none":
-        raise NotImplementedError(
-            f"grad_compression={pcfg.grad_compression!r} is not ported yet: "
-            "ROADMAP A7")
     grad_fn = build_grad_fn(model, pcfg, devices)
 
     def train_step(params, opt_state, batch):
         scale = opt_state.scale if ocfg.dynamic_loss_scale else None
         loss, grads = grad_fn(params, batch, scale)
+        grads, new_ef = _maybe_compress_grads(pcfg, grads, opt_state)
         scaled = loss * scale if scale is not None else loss
         params2, opt2, metrics = optim.apply(ocfg, opt_state, params, grads,
                                              loss=scaled)
+        opt2 = opt2._replace(ef=_gate_ef(metrics, new_ef, opt_state.ef))
         metrics["loss"] = loss
         return params2, opt2, metrics
 
@@ -93,6 +129,7 @@ def build_grad_fn(model: LMModel, pcfg: ParallelConfig, devices: Any):
 def _build_grad_fn_gpipe(model, pcfg, devices):
     park_info: Dict[str, Any] = {}
     loss_fn = build_loss_fn(model, pcfg, devices, park_info=park_info)
+    check_plan(loss_fn.tplan, pcfg, autograd=True)
 
     def grad_fn(params, batch, loss_scale=None):
         grad_params = tree_map(lambda p: p.detach().requires_grad_(), params)

@@ -31,6 +31,7 @@ from repro_torch import configs
 from repro_torch.configs.base import (REMAT_POLICIES, RESIDUAL_MODES,
                                       ArchConfig, ParallelConfig,
                                       ShapeConfig)
+from repro_torch.core.pipeline import WIRE_CODEC_RANGE
 from repro_torch.data.pipeline import (DataConfig, SyntheticLM, make_loader,
                                        to_device)
 from repro_torch.devices import resolve_device
@@ -40,8 +41,11 @@ from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models.lm import LMModel
 from repro_torch.optim import optimizers as optim
+from repro_torch.tree import tree_leaves
 
 PEAK_BF16_FLOPS = 989e12        # H100 SXM data sheet, dense tensor cores
+# the profiler ranges a traced step reports apart (launch/profile_serve.py)
+TRACED_RANGES = (WIRE_CODEC_RANGE, steps_lib.GRAD_COMPRESSION_RANGE)
 
 
 def launches() -> Dict[str, int]:
@@ -166,11 +170,15 @@ def train(arch: ArchConfig, pcfg: ParallelConfig, *, seq_len: int, batch: int,
     ``fixed_batch``.  Returns one record per step (its metrics as
     floats, ``step_s`` on the host clock around the synchronized step, and
     the kernel launches of that step), the executor's buffer high-water
-    per rank (``park_info``, from the last step) and, on a card, the peak
+    per rank (``park_info``, from the last step), the bytes of the
+    optimizer's error-feedback residual (``ef_bytes``: 0 unless
+    ``pcfg.grad_compression="int8_ef"``) and, on a card, the peak
     memory.
     ``trace`` (a card only) runs one step more under the profiler and
-    returns its device time by kernel family and the card's idle share as
-    ``trace``; that step is not in ``history``."""
+    returns its device time by kernel family, the card's idle share and
+    the device time and kernels of the wire codec and of the gradient
+    compressor (``TRACED_RANGES``) as ``trace``; that step is not in
+    ``history``."""
     dev = resolve_device(device)
     if trace and dev.type != "cuda":
         raise ValueError("trace profiles the card: pass a CUDA device")
@@ -178,7 +186,8 @@ def train(arch: ArchConfig, pcfg: ParallelConfig, *, seq_len: int, batch: int,
     shape = ShapeConfig("train", seq_len, batch, "train")
     model = LMModel(arch, pcfg, dtype=dtype, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
-    opt = optim.init(ocfg, params)
+    opt = optim.init(ocfg, params,
+                     with_ef=pcfg.grad_compression == "int8_ef")
     step = steps_lib.build_train_step(model, pcfg, model.stage_devices, shape,
                                       ocfg)
     data = DataConfig(seed=seed, vocab=arch.vocab, seq_len=seq_len,
@@ -209,7 +218,8 @@ def train(arch: ArchConfig, pcfg: ParallelConfig, *, seq_len: int, batch: int,
             from repro_torch.launch.profile_serve import device_profile
             b = next(batches)
             l0 = launches()
-            traced = device_profile(lambda: step(params, opt, b), dev)
+            traced = device_profile(lambda: step(params, opt, b), dev,
+                                    ranges=TRACED_RANGES)
             l1 = launches()
             traced["launches"] = {k: l1[k] - l0[k] for k in l0}
     finally:
@@ -217,6 +227,8 @@ def train(arch: ArchConfig, pcfg: ParallelConfig, *, seq_len: int, batch: int,
             loader.close()
     out = {"history": history, "n_micro": pcfg.n_micro,
            "park_info": dict(step.park_info),
+           "ef_bytes": (0 if opt.ef == ()
+                        else sum(e.nbytes for e in tree_leaves(opt.ef))),
            "tokens_per_step": seq_len * batch,
            "model_flops_per_step": model_flops_per_step(arch, seq_len, batch)}
     if dev.type == "cuda":

@@ -6,8 +6,10 @@ parameter tree leaf for leaf (nested dicts of tensors on the parameters'
 device); master weights and moments are fp32 whatever the parameter dtype.
 Every value-dependent decision (the finiteness flag, the loss-scale update)
 is a 0-d tensor consumed by ``torch.where``, so a step never waits on the
-host.  The int8 error-feedback residual of DP gradient compression is not
-ported (ROADMAP A7).
+host.  ``OptState.ef`` holds the int8 error-feedback residual of DP
+gradient compression (``grad_compression="int8_ef"``,
+:mod:`repro_torch.runtime.compression`) when the state is built
+``with_ef``; :func:`apply` carries it through untouched.
 """
 from __future__ import annotations
 
@@ -29,6 +31,8 @@ class OptState(NamedTuple):
     skipped: torch.Tensor    # int32 scalar: steps skipped by the guard
     good: torch.Tensor       # int32 scalar: consecutive finite steps
     scale: torch.Tensor      # fp32 scalar: current loss scale (1 if static)
+    ef: Any = ()             # int8-EF gradient-compression residuals (fp32,
+    #                          tree like params), or () without compression
 
 
 @dataclass(frozen=True)
@@ -94,11 +98,8 @@ def clip_by_global_norm(grads, max_norm: float):
 
 def init(cfg: OptimizerConfig, params, *, with_ef: bool = False) -> OptState:
     """fp32 master weights, zero moments and guard counters on the params'
-    device."""
-    if with_ef:
-        raise NotImplementedError(
-            "the int8 error-feedback residual (grad_compression='int8_ef') "
-            "is not ported yet: ROADMAP A7")
+    device; ``with_ef`` adds the zero error-feedback residual that
+    ``grad_compression="int8_ef"`` needs."""
     dev = tree_leaves(params)[0].device
 
     def zeros(p):
@@ -112,7 +113,8 @@ def init(cfg: OptimizerConfig, params, *, with_ef: bool = False) -> OptState:
                     skipped=torch.zeros((), **i32),
                     good=torch.zeros((), **i32),
                     scale=torch.tensor(scale0, dtype=torch.float32,
-                                       device=dev))
+                                       device=dev),
+                    ef=tree_map(zeros, params) if with_ef else ())
 
 
 def _all_finite(grads, loss=None) -> torch.Tensor:

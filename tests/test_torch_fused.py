@@ -11,8 +11,9 @@ Beside the loss and every gradient leaf of each fused schedule: the
 schedules bitwise equal to each other under ``grad_reduce="ordered"``,
 ``"running"``, the park / b-inbox / residual high-water against the plan,
 the launch formulas ``chip_smoke.py`` holds the card to, the 1F1B train
-curve, the fused step against the port's own ``gpipe`` step, and the wire
-codec that is not ported yet (raises at pipe > 1, identity at pipe 1).
+curve, the fused step against the port's own ``gpipe`` step, and lossy
+wires (which run at pipe 2 but for int8-ef under gpipe's autograd, and are
+the identity at pipe 1).
 """
 import numpy as np
 import pytest
@@ -24,7 +25,7 @@ from test_torch_train import (  # noqa: F401  (fixtures used by name)
 
 from repro_torch import configs
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.core.pipeline import pipeline_call, pipeline_grad_call
+from repro_torch.core.pipeline import pipeline_grad_call
 from repro_torch.core.skip import SkipSpec
 from repro_torch.interop import params_from_jax
 from repro_torch.launch import steps
@@ -176,7 +177,7 @@ def test_fused_step_matches_gpipe_step(jax_ref, loss_scale):
 
 
 # ---------------------------------------------------------------------------
-# what the fused path does not run yet raises, naming its ROADMAP item
+# lossy wires; what the fused path does not run raises
 # ---------------------------------------------------------------------------
 
 def _stage(*a):
@@ -186,16 +187,24 @@ def _stage(*a):
 @pytest.mark.parametrize("wire", ["bf16", "int8-ef",
                                   "chain=fp32,portal=fp32,cotangent=bf16"])
 @pytest.mark.parametrize("entry", ["pipeline_call", "pipeline_grad_call"])
-def test_lossy_wire_raises_at_pipe_2(entry, wire):
-    """Fault C3: the tick loop encodes nothing, so a lossy wire at pipe > 1
-    would train on values the reference's codec changes."""
-    pcfg = configs.smoke_parallel(ARCH).with_(pipe=2, wire=wire)
-    with pytest.raises(NotImplementedError, match="A7"):
-        if entry == "pipeline_call":
-            pipeline_call(_stage, cfg=pcfg, devices="cpu")
-        else:
-            pipeline_grad_call(_stage, cfg=pcfg.with_(schedule="1f1b"),
-                               loss_fn=_stage, devices="cpu")
+def test_lossy_wire_raises_at_pipe_2(jax_ref, entry, wire):
+    """At pipe 2 a lossy wire trains through both executors, its loss
+    within the reference's int8-ef tolerance (rtol 2e-3) of the oracle's
+    (the codecs themselves are held against the reference in
+    tests/test_torch_transport.py), except int8-ef on a hop the forward
+    executor encodes under autograd (``schedule="gpipe"``, run by
+    ``pipeline_call``): that raises, where the reference would train on a
+    truncated gradient."""
+    schedule = "gpipe" if entry == "pipeline_call" else "1f1b"
+    model, pcfg, params, batch = _port(jax_ref, 2, schedule=schedule,
+                                       wire=wire)
+    if entry == "pipeline_call" and wire == "int8-ef":
+        with pytest.raises(ValueError, match="truncated gradient"):
+            steps.build_grad_fn(model, pcfg, "cpu")
+        return
+    loss, grads = steps.build_grad_fn(model, pcfg, "cpu")(params, batch)
+    np.testing.assert_allclose(float(loss), jax_ref["loss"], rtol=2e-3)
+    assert all(bool(torch.isfinite(g).all()) for _, g in tree_items(grads))
 
 
 @pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])

@@ -217,13 +217,59 @@ def test_forward_only_plan_runs_routes():
 
 @pytest.mark.parametrize("what", ["stream_inputs", "wire"])
 def test_unported_plan_features_still_raise(what):
+    """Streams and wires run on these skip routes; what of them still
+    raises.  ``stream_inputs``: the streamed runs equal the replicated ones
+    bit for bit (the gpipe forward, 1F1B's loss and grads), and a fused
+    plan whose ranks do not divide the micro-batches raises.  ``wire``:
+    bf16 on both routes' values (and 1F1B's cotangents) runs; int8-ef on
+    them under autograd raises in the forward executor (the reference's
+    truncated gradient), and trains through the fused one."""
     specs = _skips(PIPE)
-    kw = ({"stream_inputs": True} if what == "stream_inputs"
-          else {"wire": "bf16"})
-    cfg = ParallelConfig(pipe=PIPE, tp=1, data=1, n_micro=M, **kw)
-    match = "A5" if what == "stream_inputs" else "A7"
-    with pytest.raises(NotImplementedError, match=match):
-        pipeline_call(_stage_fn(specs), cfg=cfg, devices="cpu", skips=specs)
-    with pytest.raises(NotImplementedError, match=match):
-        pipeline_grad_call(_stage_fn(specs), cfg=cfg.with_(schedule="1f1b"),
-                           loss_fn=_loss, devices="cpu", skips=specs)
+    params, x, y = _data(PIPE)
+    cfg = ParallelConfig(pipe=PIPE, tp=1, data=1, n_micro=M)
+    if what == "stream_inputs":
+        for schedule in ("gpipe", "1f1b"):
+            a = _run_cfg(cfg.with_(schedule=schedule), specs, params, x, y)
+            b = _run_cfg(cfg.with_(schedule=schedule, stream_inputs=True),
+                         specs, params, x, y)
+            assert torch.equal(a[0], b[0])
+            assert all(torch.equal(g, h) for g, h in zip(a[1], b[1]))
+        with pytest.raises(ValueError, match="divisible by pipe"):
+            pipeline_grad_call(_stage_fn(specs), cfg=cfg.with_(
+                schedule="1f1b", stream_inputs=True, n_micro=2),
+                loss_fn=_loss, devices="cpu", skips=specs)
+        return
+    base = _run_cfg(cfg.with_(schedule="1f1b"), specs, params, x, y)
+    for schedule in ("gpipe", "1f1b"):
+        loss, grads = _run_cfg(cfg.with_(schedule=schedule, wire="bf16"),
+                               specs, params, x, y)
+        torch.testing.assert_close(loss.double(), base[0].double(),
+                                   rtol=1e-2, atol=0)
+        assert not torch.equal(loss, base[0])
+    with pytest.raises(ValueError, match="truncated gradient"):
+        _run_cfg(cfg.with_(wire="int8-ef"), specs, params, x, y)
+    loss, _ = _run_cfg(cfg.with_(schedule="1f1b", wire="int8-ef"), specs,
+                       params, x, y)
+    torch.testing.assert_close(loss.double(), base[0].double(), rtol=1e-2,
+                               atol=0)
+
+
+def _run_cfg(pcfg, specs, params, x, y):
+    """Loss and flat grads of one run of the toy stages under ``pcfg``:
+    the forward executor under autograd for gpipe, else the fused one."""
+    if pcfg.schedule == "gpipe":
+        call = pipeline_call(_stage_fn(specs), cfg=pcfg, devices="cpu",
+                             skips=specs)
+        ps = [tree_map(lambda a: a.detach().requires_grad_(), p)
+              for p in params]
+        outs, _ = call(ps, microbatch({"h": x}, M))
+        out, y_mb = last_stage_output(outs)["h"], microbatch(y, M)
+        loss = sum(_loss(None, {"h": out[i]}, {"y": y_mb[i]})
+                   for i in range(M)) / M
+        leaves = [leaf for p in ps for leaf in tree_leaves(p)]
+        return loss.detach(), list(torch.autograd.grad(loss, leaves))
+    call, _ = pipeline_grad_call(_stage_fn(specs), cfg=pcfg, loss_fn=_loss,
+                                 devices="cpu", skips=specs)
+    loss, g, _, _ = call(params, {}, microbatch({"h": x}, M),
+                         microbatch({"y": y}, M))
+    return loss, [leaf for gs in g for leaf in tree_leaves(gs)]

@@ -265,9 +265,8 @@ def _layer_case(case):
         assert torch.equal(tcache["k"], _t(kv[0]))
         return want, got
     if case == "sinusoidal":
-        # positions of this file's sequences: fp32 exp on the two sides
-        # differs by an ulp in a few frequencies, and the angle scales that
-        # by the position (~2e-4 at 4095, beyond TOL)
+        # positions of this file's sequences; every position to 4095 is
+        # held to a rounding bound below (TOL does not reach that far)
         pos = np.array([0, 1, 5, 37, 63])
         return (jlm.sinusoidal(jnp.asarray(pos), d),
                 lm.sinusoidal(torch.from_numpy(pos), d))
@@ -295,6 +294,29 @@ def test_layers_match_jax(case):
     want, got = _layer_case(case)
     assert tuple(got.shape) == tuple(np.shape(want))
     _close(got, want, case)
+
+
+@pytest.mark.parametrize("d", [64, 384])
+def test_sinusoidal_matches_jax_to_4095(d):
+    """Every position up to 4095 (the card trains whisper at seq 4096), at
+    the smoke and the full width, against a bound from fp32 rounding rather
+    than TOL: the two sides' fp32 ``exp`` may round a frequency ``f`` an ulp
+    apart, which the angle ``pos * f`` carries times the position; each
+    side rounds the angle (half an ulp of it) and sin / cos (about an ulp
+    of a value in [-1, 1], 2^-24).  The bound allows twice their sum."""
+    pos = np.arange(4096)
+    half = d // 2
+    freq = np.asarray(jnp.exp(-jnp.arange(half) / (half - 1)
+                              * np.log(10000.0)))
+    ang = pos[:, None].astype(np.float32) * freq
+    err = pos[:, None] * np.spacing(freq) + np.spacing(np.abs(ang)) \
+        + 2.0 ** -24
+    bound = 2 * np.concatenate([err, err], -1)
+    want = np.asarray(jlm.sinusoidal(jnp.asarray(pos), d))
+    got = lm.sinusoidal(torch.from_numpy(pos), d).numpy()
+    assert got.shape == want.shape == (4096, d)
+    gap = np.abs(got.astype(np.float64) - want)
+    assert np.all(gap <= bound), float((gap / bound).max())
 
 
 @pytest.mark.parametrize("what", ["embed_inputs", "embed_decode"])
