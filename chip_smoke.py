@@ -123,7 +123,26 @@ non-zero and no result line is printed):
 16. grad_compression  the same cell with int8 error-feedback gradient
             compression: its curve within 5% of the uncompressed one and
             falling, the residual's bytes, the peak, step ms and the
-            compressor's device ms.
+            compressor's device ms;
+17. dist_train  stages in their own processes: four pipe ranks spawned on
+            the one card (gloo; every hop crosses pinned host memory), one
+            group for every case: smollm-360m at full width and depth (32
+            layers, seq 4096, batch 16, m 8, remat "full", bf16), pipe 4,
+            1f1b under the spmd and the mpmd send discipline and
+            gpipe_tasked under spmd, a grad call and 3 AdamW steps each;
+            whisper-tiny (all 8 blocks), pipe 4, 1f1b, streamed, int8-ef
+            wire, its portal routes, a grad call.  Against the
+            single-process run of each config, seed and batch on the card
+            (deterministic algorithms in both): the loss and the SHA-256
+            of every gradient leaf equal, mpmd equal to spmd, each rank's
+            buffer high-water equal to ``plan.specialize``'s, the hops and
+            bytes per payload class equal to ``plan_wire_report``'s, the
+            launches summed over the ranks equal to the path's formulas,
+            the two embedding copies equal after the steps, the losses
+            finite and falling; per-rank peak memory beside one process's,
+            step and hop-wait ms on the host clock ("4 processes
+            time-slicing one card").  A rank that fails or hangs fails the
+            phase with its traceback.
 
 The kernels summary line, then the card's ``nvidia-smi`` name and power
 limit, then the last line ``{"ok": true, "device": {...}}``.  It imports
@@ -2011,6 +2030,286 @@ def phase_grad_compression(torch, runs: dict, fp32):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# dist_train: one process per pipe rank
+# ---------------------------------------------------------------------------
+
+DIST_RANKS = 4
+DIST_STEPS = 3
+DIST_SMOLLM = (("1f1b", "spmd"), ("1f1b", "mpmd"), ("gpipe_tasked", "spmd"))
+DIST_TIMEOUT_S = 900        # hard limit on the group, all its cases
+DIST_HOP_TIMEOUT_S = 300    # one rendezvous, hop or collective
+
+
+def dist_cases():
+    """The cases the four ranks run, in order: smollm-360m at full width
+    and depth (32 layers, seq 4096, batch 16, m 8, remat "full", bf16),
+    pipe 4, under each (schedule, executor) of ``DIST_SMOLLM``, then
+    whisper-tiny (all 8 blocks), pipe 4, 1f1b, streamed, int8-ef wire."""
+    from repro_torch import configs
+    smollm = configs.get_parallel("smollm-360m").with_(
+        data=1, tp=1, pipe=DIST_RANKS, n_micro=8, remat="full")
+    cases = [dict(name=f"smollm-{s}-{e}", arch="smollm-360m",
+                  pcfg=smollm.with_(schedule=s, executor=e), seq=4096,
+                  batch=16, steps=DIST_STEPS) for s, e in DIST_SMOLLM]
+    cases.append(dict(name="whisper-1f1b-stream-int8-ef", arch="whisper-tiny",
+                      pcfg=whisper_pcfg(DIST_RANKS, schedule="1f1b",
+                                        stream_inputs=True, wire="int8-ef"),
+                      seq=WHISPER_SEQ, batch=WHISPER_BATCH, steps=0))
+    return cases
+
+
+def digests(torch, tree) -> dict:
+    """SHA-256 of each leaf's bytes, by path."""
+    import hashlib
+    from repro_torch.tree import tree_items
+    return {path: hashlib.sha256(
+        leaf.detach().contiguous().reshape(-1).view(torch.uint8).cpu()
+        .numpy().tobytes()).hexdigest() for path, leaf in tree_items(tree)}
+
+
+def _dist_sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _dist_peak_gib(torch, dev) -> float:
+    return (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else 0.0)
+
+
+def dist_run(torch, case, group, device: str = "cuda"):
+    """One case, as pipe rank ``group.rank`` or (``group`` None) in one
+    process: weights from seed 0 (the rank's share), one fixed batch; a
+    grad call (its loss, the SHA-256 of every gradient leaf, per rank of
+    the whole model's when in one process, the buffer high-water and
+    hops, the kernel launches, the peak), then with a group ``steps``
+    AdamW steps (losses, step ms, launches, and the embedding's digest
+    after them)."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import model_batch
+    from repro_torch.models.lm import LMModel
+    from repro_torch.optim import optimizers as optim
+
+    arch, pcfg = case.get("arch_cfg") or configs.get_arch(case["arch"]), \
+        case["pcfg"]
+    dev = torch.device(device) if group is None else group.device
+    model = LMModel(arch, pcfg, dtype=torch.bfloat16, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        rank=None if group is None else group.rank)
+    data = DataConfig(seed=0, vocab=arch.vocab, seq_len=case["seq"],
+                      global_batch=case["batch"])
+    batch = model_batch(to_device(SyntheticLM(data, arch).batch_at(0), dev),
+                        torch.bfloat16)
+    grad_fn = steps.build_grad_fn(model, pcfg, model.stage_devices,
+                                  group=group)
+    fns = train_counters()
+    _dist_sync(torch, dev)
+    t0 = time.perf_counter()
+    loss, grads = grad_fn(params, batch)
+    _dist_sync(torch, dev)
+    out = {"loss": float(loss).hex(),
+           "grad_ms": (time.perf_counter() - t0) * 1e3,
+           "launches": {k: fn.launches for k, fn in fns.items()},
+           "park": grad_fn.park_info,
+           "peak_gib": _dist_peak_gib(torch, dev)}
+    if group is None:
+        out["digests"] = [digests(torch, model.rank_share(grads, r))
+                          for r in range(pcfg.pipe)]
+        return out
+    out["digests"] = digests(torch, grads)
+    del grads
+    ocfg = optim.OptimizerConfig(lr=5e-4, warmup_steps=0, min_lr_ratio=1.0,
+                                 dynamic_loss_scale=True)
+    opt = optim.init(ocfg, params)
+    step = steps.build_train_step(
+        model, pcfg, model.stage_devices,
+        ShapeConfig("train", case["seq"], case["batch"], "train"), ocfg,
+        group=group)
+    out.update(losses=[], step_ms=[], step_launches=[])
+    for _ in range(case["steps"]):
+        fns = train_counters()
+        _dist_sync(torch, dev)
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        out["losses"].append(float(metrics["loss"]))        # waits
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["step_launches"].append({k: fn.launches for k, fn in fns.items()})
+    if "embed" in params:
+        out["embed_digests"] = digests(torch, params["embed"])
+    out["peak_gib"] = _dist_peak_gib(torch, dev)
+    return out
+
+
+def dist_rank(rank: int, nproc: int, init_method: str, out_dir: str,
+              cases, device: str) -> None:
+    """A pipe rank of ``dist_train`` (a spawned process): every case in the
+    group, its records to ``out_dir/rank<r>.json``."""
+    import torch
+    from repro_torch.launch import mesh
+
+    group = mesh.init_pipe_group(rank, nproc, init_method, device=device,
+                                 timeout_s=DIST_HOP_TIMEOUT_S)
+    out = {}
+    try:
+        with deterministic(torch):
+            for case in cases:
+                out[case["name"]] = dist_run(torch, case, group)
+                if group.device.type == "cuda":
+                    torch.cuda.empty_cache()
+    finally:
+        mesh.destroy_pipe_group(group)
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def dist_gates(torch, case, ranks, one):
+    """Why the four ranks' run of ``case`` disagrees with the
+    single-process run ``one`` or with its plan, as a list."""
+    from repro_torch import configs
+    from repro_torch.core.plan import plan_for, specialize
+    from repro_torch.core.wire import plan_wire_report
+    from repro_torch.launch.train import expected_train_launches
+    from repro_torch.models.lm import LMModel
+
+    arch, pcfg = case.get("arch_cfg") or configs.get_arch(case["arch"]), \
+        case["pcfg"]
+    bad = []
+    for r, got in enumerate(ranks):
+        if got["loss"] != one["loss"]:
+            bad.append(f"rank {r} loss {got['loss']} != {one['loss']}")
+        diff = sorted(k for k in one["digests"][r]
+                      if got["digests"].get(k) != one["digests"][r][k])
+        if diff or got["digests"].keys() != one["digests"][r].keys():
+            bad.append(f"rank {r} grads differ: {diff}")
+    tplan = plan_for(pcfg.schedule, pcfg.n_micro, pcfg.pipe,
+                     skips=LMModel(arch, pcfg, device="meta").skips(),
+                     portals=pcfg.portals, residuals=pcfg.residuals,
+                     wire=pcfg.wire)
+    for r, got in enumerate(ranks):
+        want = specialize(tplan, r).buffer_slots()
+        if not pcfg.stream_inputs:
+            want.pop("fs")
+        if got["park"]["buffer_slots"] != want:
+            bad.append(f"rank {r} high-water {got['park']['buffer_slots']} "
+                       f"!= specialize's {want}")
+    for rt in tplan.routes:
+        highs = [got["park"]["per_route"][rt.key] for got in ranks]
+        if (max(h["depth"] for h in highs), max(h["g_depth"] for h in highs)
+                ) != (rt.depth, rt.g_depth):
+            bad.append(f"route {rt.key} high-water {highs}")
+    # the carry and every skip are [mb, S, d]; the fp32 codec ships the
+    # bf16 model's bytes, a lossy one is priced per fp32-equivalent byte
+    numel = case["batch"] // pcfg.n_micro * case["seq"] * arch.d_model
+    carry = numel * (2 if pcfg.wire == "fp32" else 4)
+    rep = plan_wire_report(tplan, carry)
+    got = {c: {k: sum(g["park"]["hops"][c][k] for g in ranks)
+               for k in ("hops", "bytes")}
+           for c in ("chain", "cotangent", "portal")}
+    h = rep["hops"]
+    want = {"chain": h["chain"], "portal": h["route_value"],
+            "cotangent": h["cotangent_chain"] + h["route_cotangent"]}
+    if {c: v["hops"] for c, v in got.items()} != want \
+            or any(got[c]["bytes"] != rep["per_class"][c] for c in got):
+        bad.append(f"hops {got} != the plan's {want}, {rep['per_class']}")
+    expected = expected_train_launches(pcfg, arch, case["seq"])
+    calls = [[g["launches"]] + g.get("step_launches", []) for g in ranks]
+    summed = [{k: sum(c[i][k] for c in calls) for k in expected}
+              for i in range(len(calls[0]))]
+    if any(s != expected for s in summed) or one["launches"] != expected:
+        bad.append(f"launches over the ranks {summed}, one process "
+                   f"{one['launches']}, the path's {expected}")
+    if case["steps"]:
+        losses = ranks[0]["losses"]
+        if any(g["losses"] != losses for g in ranks):
+            bad.append("ranks report different losses")
+        if float.fromhex(one["loss"]) != losses[0]:
+            bad.append(f"step 1 loss {losses[0]} != the grad call's")
+        if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+            bad.append(f"losses {losses} not finite and falling")
+        if arch.tie_embeddings and ranks[0]["embed_digests"] \
+                != ranks[-1]["embed_digests"]:
+            bad.append("the embedding copies of rank 0 and the last rank "
+                       f"differ after {case['steps']} steps")
+    return bad
+
+
+def phase_dist_train(torch, device: str = "cuda", cases=None):
+    """``dist_train``: four pipe ranks in four processes on the one card
+    (gloo, hops through pinned host memory), every case against the
+    single-process run of the same config, seed and batch on the card
+    (deterministic algorithms in both).  ``device`` and ``cases`` are for
+    a rehearsal on the CPU at a small size."""
+    import tempfile
+    from repro_torch.launch import mesh
+
+    cases = cases or dist_cases()
+    one, t0 = {}, time.perf_counter()
+    with deterministic(torch):
+        for case in cases:
+            key = case["pcfg"].with_(executor="spmd")   # one process: same
+            if key not in one:
+                one[key] = dist_run(torch, case, None, device)
+                if device == "cuda":
+                    torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        mesh.spawn(dist_rank, DIST_RANKS, (out_dir, cases, device),
+                   timeout_s=DIST_TIMEOUT_S)
+        saved = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+                 for r in range(DIST_RANKS)]
+    t_group = time.perf_counter() - t0
+    totals = {k: 0 for k in KERNELS}
+    bad = {}
+    for case in cases:
+        ranks = [s[case["name"]] for s in saved]
+        ref = one[case["pcfg"].with_(executor="spmd")]
+        bad[case["name"]] = dist_gates(torch, case, ranks, ref)
+        for g in ranks:
+            for rec in [g["launches"]] + g.get("step_launches", []):
+                for k, n in rec.items():
+                    totals[k] += n
+        emit({"phase": "dist_train", "case": case["name"],
+              "arch": case["arch"], "pipe": DIST_RANKS,
+              "schedule": case["pcfg"].schedule,
+              "executor": case["pcfg"].executor,
+              "stream_inputs": case["pcfg"].stream_inputs,
+              "wire": case["pcfg"].wire, "seq": case["seq"],
+              "batch": case["batch"], "n_micro": case["pcfg"].n_micro,
+              "remat": case["pcfg"].remat, "dtype": "bfloat16",
+              "where": f"{DIST_RANKS} processes time-slicing one card",
+              "losses": ranks[0].get("losses"),
+              "step_ms_per_rank": [g.get("step_ms") for g in ranks],
+              "grad_call_ms_per_rank": [g["grad_ms"] for g in ranks],
+              "one_process_grad_call_ms": ref["grad_ms"],
+              "peak_gib_per_rank": [g["peak_gib"] for g in ranks],
+              "one_process_peak_gib": ref["peak_gib"],
+              "buffer_slots_per_rank": [g["park"]["buffer_slots"]
+                                        for g in ranks],
+              "hops_per_rank": [g["park"]["hops"] for g in ranks],
+              "hop_wait_ms_per_class": {
+                  c: max(g["park"]["hops"][c]["wait_s"] for g in ranks) * 1e3
+                  for c in ranks[0]["park"]["hops"]},
+              "unequal": bad[case["name"]]})
+    pair = [[s[name]["digests"] for s in saved] for name in
+            ("smollm-1f1b-spmd", "smollm-1f1b-mpmd") if name in saved[0]]
+    if len(pair) == 2 and pair[0] != pair[1]:
+        bad["spmd_vs_mpmd"] = ["1f1b grads under mpmd differ from spmd's"]
+    emit({"phase": "dist_train", "one_process_s": t_one,
+          "group_s": t_group, "launches": totals,
+          "spmd_vs_mpmd": "bitwise" if len(pair) == 2
+          and pair[0] == pair[1] else "not compared or differ"})
+    failed = {k: v for k, v in bad.items() if v}
+    if failed:
+        raise AssertionError(f"dist_train: {failed}")
+    return totals
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -2058,6 +2357,10 @@ def main() -> int:
                    phase_grad_compression(torch, runs, fp32)):
         for k, n in totals.items():
             launches[k] += n
+    runs.clear()
+    torch.cuda.empty_cache()
+    for k, n in phase_dist_train(torch).items():
+        launches[k] += n
     kernels = []
     for kname in KERNELS:
         rec = timing[kname]

@@ -8,8 +8,8 @@ tick ``t`` rank ``r`` runs the task in ``kind[t, r]`` on micro-batch
 ``chunk * R + r``); a boundary activation shipped at the end of tick
 ``t - 1`` parks in slot ``park_recv[t, r]`` and the tasks of that stage read
 slot ``park_read[t, r]``.  The plan's columns are read directly each tick:
-there are no segments, switches or masks, and the whole tick loop runs in
-one process.
+there are no segments, switches or masks, and the tick loop runs every
+rank in one process, or one rank in each process of a pipe group.
 
 Placement follows torchgpipe: ``devices[s]`` holds global stage ``s`` and
 the boundary hop is ``.to(devices[s + 1])``, a no-op when every stage sits
@@ -66,8 +66,15 @@ the plan's ``fs_slot`` for its backward.  The wire codec
 and decodes it where it lands: the forward chain, the cotangent chain, and
 each route's values and cotangents, on the hops that cross ranks.
 
-What raises: stages in several processes (ROADMAP A4: every stage runs in
-this process and a hop is ``.to()``), data and tensor parallelism (A9,
+Hops (:mod:`repro_torch.core.p2p`): by default every stage runs in this
+process and a hop is ``.to()``.  Given a pipe group
+(:mod:`repro_torch.launch.mesh`), the fused executor runs one rank's column
+of the plan in each process and a hop to another rank is a
+``torch.distributed`` message of the wire tree, sent eagerly
+(``executor="spmd"``) or latched one tick ahead (``"mpmd"``).
+
+What raises: the forward executor in several processes (ROADMAP A4b,
+:func:`check_no_group`), data and tensor parallelism (A9,
 :func:`check_single_replica`), and an ``int8-ef`` wire under autograd in
 the forward executor (:func:`check_plan`).
 """
@@ -80,7 +87,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.configs.base import ParallelConfig
-from repro_torch.core import checkpointing
+from repro_torch.core import checkpointing, p2p
 from repro_torch.core import plan as plan_lib
 from repro_torch.core.plan import BWD, BWD_W, BWD_X, FWD, NOP
 from repro_torch.core.skip import SkipSpec
@@ -116,6 +123,18 @@ def check_single_replica(cfg: ParallelConfig) -> None:
             f"tp={cfg.tp}, data={cfg.data}, pod={cfg.pod}, dp2={cfg.dp2}: "
             "tensor and data parallelism are not ported yet (ROADMAP A9); "
             "pass tp=1, data=1, pod=1, dp2=1")
+
+
+def check_no_group(group, what: str) -> None:
+    """The forward executor runs every stage in one process: serving with
+    per-rank KV caches and ``schedule="gpipe"`` under autograd across
+    processes are ROADMAP A4b."""
+    if group is not None:
+        raise NotImplementedError(
+            f"{what} with a pipe group: the forward executor across "
+            "processes (serving with per-rank caches, schedule='gpipe' "
+            "under autograd) is not ported yet (ROADMAP A4b); train with a "
+            "fused schedule (1f1b, gpipe_tasked, interleaved:v, zb)")
 
 
 def check_plan(tplan: plan_lib.TaskPlan, cfg: ParallelConfig, *,
@@ -286,44 +305,44 @@ class _Stream:
     ``devices[r]``).  Stage 0 reads rank 0's shard at the plan's
     ``stream_slot``; after each ``stream_rot`` tick every shard moves one
     rank towards 0, so micro-batch ``i`` reaches rank 0 after ``i``
-    rotations."""
+    rotations.  The hop hands the shards out and rotates them
+    (:mod:`repro_torch.core.p2p`): in a pipe group each process holds
+    only its own rank's shard, and rank 0 alone is given the inputs."""
 
-    def __init__(self, inputs_mb, n_ranks: int, devices):
-        R = n_ranks
-        self.devices = devices
-        split = tree_map(lambda a: a.reshape(
-            (a.shape[0] // R, R) + tuple(a.shape[1:])).transpose(0, 1),
+    def __init__(self, inputs_mb, n_ranks: int, hop):
+        self.R, self.hop = n_ranks, hop
+        self.origin = list(range(n_ranks))   # the rank each shard began on
+        split = None if inputs_mb is None else tree_map(
+            lambda a: a.reshape((a.shape[0] // n_ranks, n_ranks)
+                                + tuple(a.shape[1:])).transpose(0, 1),
             inputs_mb)
-        self.shards = [tree_map(lambda a: a[r].to(devices[r]), split)
-                       for r in range(R)]
-        self.origin = list(range(R))         # the rank each shard began on
+        self.shards = hop.scatter_shards(split)
 
     def read(self, t: int, tplan: plan_lib.TaskPlan, micro: int):
         slot = int(tplan.stream_slot[t])
-        if slot < 0 or slot * len(self.shards) + self.origin[0] != micro:
+        if slot < 0 or slot * self.R + self.origin[0] != micro:
             raise RuntimeError(f"tick {t}: stage 0 wants micro-batch {micro}"
                                f", the stream holds slot {slot} of the "
                                f"shard that began on rank {self.origin[0]}")
         return tree_map(lambda a: a[slot], self.shards[0])
 
     def rotate(self) -> None:
-        R = len(self.shards)
-        self.shards = [tree_map(lambda a: a.to(self.devices[r]),
-                                self.shards[(r + 1) % R]) for r in range(R)]
+        self.shards = self.hop.rotate_shards(self.shards)
         self.origin = self.origin[1:] + self.origin[:1]
 
 
 class _Slots:
     """One plan-addressed buffer family (park, b-inbox, residual stash, a
-    route's values or cotangents): per rank, slot -> (tag, value), with the
-    high-water mark of slots held at once.  The tag (micro, global stage)
-    catches a plan/executor mismatch at the read."""
+    route's values or cotangents) for the ranks this process runs: per
+    rank, slot -> (tag, value), with the high-water mark of slots held at
+    once.  The tag (micro, global stage) catches a plan/executor mismatch
+    at the read."""
 
-    def __init__(self, name: str, n_ranks: int):
+    def __init__(self, name: str, ranks: Sequence[int]):
         self.name = name
-        self.slots: List[Dict[int, Tuple[Tuple[int, int], Any]]] = [
-            {} for _ in range(n_ranks)]
-        self.high = [0] * n_ranks
+        self.slots: Dict[int, Dict[int, Tuple[Tuple[int, int], Any]]] = {
+            r: {} for r in ranks}
+        self.high = {r: 0 for r in ranks}
 
     def put(self, r: int, slot: int, tag: Tuple[int, int], value) -> None:
         if slot in self.slots[r]:
@@ -340,8 +359,12 @@ class _Slots:
                                f"{held[0]}, the task wants {tag}")
         return held[1]
 
+    def highs(self) -> Tuple[int, ...]:
+        """High-water per rank, in rank order."""
+        return tuple(self.high[r] for r in sorted(self.high))
+
     def check_empty(self) -> None:
-        if any(self.slots):
+        if any(self.slots.values()):
             raise RuntimeError(f"{self.name} slots still hold values after "
                                f"the last tick: {self.slots}")
 
@@ -349,31 +372,26 @@ class _Slots:
 class _Link:
     """The hop into one buffer family: what a rank ships on tick ``t``
     parks on tick ``t + 1`` in the slot the plan's column names on the
-    destination rank, moved to the device of its tag's stage.  The value
-    rides the wire as its stream's codec encodes it."""
+    destination rank, on the device of its tag's stage.  The value rides
+    the hop (:mod:`repro_torch.core.p2p`) as its stream's codec encodes
+    it; ``src_of(r)`` is the rank an arrival on ``r`` comes from."""
 
-    def __init__(self, buf: _Slots, n_ranks: int, wire: _Wire, stream: str):
+    def __init__(self, buf: _Slots, wire: _Wire, stream: str, hop,
+                 src_of: Callable[[int], int]):
         self.buf, self.wire, self.stream = buf, wire, stream
-        self.outbox: List[Any] = [None] * n_ranks
+        self.hop, self.src_of = hop, src_of
 
     def ship(self, src: int, dst: int, tag: Tuple[int, int], value) -> None:
-        if self.outbox[dst] is not None:
-            raise RuntimeError(f"{self.buf.name}: two values reach rank "
-                               f"{dst} on one tick")
-        self.outbox[dst] = (tag, *self.wire.enc(self.stream, src, value))
+        self.hop.put(self.stream, src, dst, tag,
+                     *self.wire.enc(self.stream, src, value))
 
-    def land(self, t: int, column, devices) -> None:
-        arrived, self.outbox = self.outbox, [None] * len(self.outbox)
-        for r, item in enumerate(arrived):
+    def land(self, t: int, column) -> None:
+        for r in self.hop.ranks:
             slot = int(column[t, r])
-            if (slot < 0) != (item is None):
-                raise RuntimeError(
-                    f"{self.buf.name}: tick {t}: rank {r} "
-                    + ("expects an arrival nobody shipped" if item is None
-                       else "has no slot for the value shipped to it"))
+            item = self.hop.take(self.stream, self.src_of(r), r,
+                                 expect=slot >= 0)
             if item is not None:
                 tag, wire, proto = item
-                wire = tree_map(lambda a: a.to(devices[tag[1]]), wire)
                 self.buf.put(r, slot, tag,
                              self.wire.dec(self.stream, wire, proto))
 
@@ -384,17 +402,34 @@ class _Route:
     way back.  The hop goes to the rank the plan's permute pairs name, or
     stays on the rank (src and dst chunks of one rank: an identity hold)."""
 
-    def __init__(self, rt: plan_lib.RoutePlan, n_ranks: int, wire: _Wire):
+    def __init__(self, rt: plan_lib.RoutePlan, wire: _Wire, hop):
         self.rt = rt
-        self.value = _Link(_Slots(f"route {rt.key}", n_ranks), n_ranks,
-                           wire, "r:" + rt.key)
-        self.cot = _Link(_Slots(f"route {rt.key} cotangent", n_ranks),
-                         n_ranks, wire, "g:" + rt.key)
         self.next_rank = {False: dict(rt.fwd_perm), True: dict(rt.bwd_perm)}
+        prev = {cot: {d: s for s, d in pairs.items()}
+                for cot, pairs in self.next_rank.items()}
+        self.value = _Link(_Slots(f"route {rt.key}", hop.ranks), wire,
+                           "r:" + rt.key, hop,
+                           lambda r: prev[False].get(r, r))
+        self.cot = _Link(_Slots(f"route {rt.key} cotangent", hop.ranks),
+                         wire, "g:" + rt.key, hop,
+                         lambda r: prev[True].get(r, r))
 
-    def land(self, t: int, devices) -> None:
-        self.value.land(t, self.rt.recv, devices)
-        self.cot.land(t, self.rt.g_recv, devices)
+    def land(self, t: int) -> None:
+        self.value.land(t, self.rt.recv)
+        self.cot.land(t, self.rt.g_recv)
+
+    def post(self, t: int, r: int, hop) -> None:
+        """mpmd: send the value and cotangent rank ``r`` latched on tick
+        ``t - 1``, where the plan's ``ship`` / ``g_ship`` columns say a
+        hop leaves at the top of tick ``t`` (a hold on the rank itself
+        stays in the local outbox)."""
+        rt = self.rt
+        for cot, ship, send, link in ((False, rt.ship, rt.send, self.value),
+                                      (True, rt.g_ship, rt.g_send,
+                                       self.cot)):
+            if ship[t] and send[t - 1, r] != -1 \
+                    and self.next_rank[cot].get(r, r) != r:
+                hop.post(link.stream)
 
     def read(self, t: int, r: int, tag, release: bool, cot: bool = False):
         """The parked value (cotangent) this tick's task reads, or None."""
@@ -434,10 +469,11 @@ class _Route:
         self.cot.buf.check_empty()
 
     def high(self, backward: bool) -> Dict[str, int]:
-        """High-water over ranks: the plan's ``depth`` (and ``g_depth``)."""
-        out = {"depth": max(self.value.buf.high)}
+        """High-water over this process's ranks: the plan's ``depth`` (and
+        ``g_depth``) when it runs them all."""
+        out = {"depth": max(self.value.buf.highs())}
         if backward:
-            out["g_depth"] = max(self.cot.buf.high)
+            out["g_depth"] = max(self.cot.buf.highs())
         return out
 
 
@@ -482,22 +518,25 @@ def _send_skips(routes: Sequence[_Route], t: int, r: int, micro: int,
                            "SkipSpec")
 
 
-def _stage_trees(stage_params, n: int, devices) -> List[Any]:
-    """Stage ``s``'s parameter tree on ``devices[s]``, for every stage:
-    the slices of a tree stacked ``[n, ...]``, or the trees of a sequence
-    of ``n`` (heterogeneous stages)."""
+def _stage_trees(stage_params, stages: Sequence[int], devices
+                 ) -> Dict[int, Any]:
+    """``{s: stage s's parameter tree on devices[s]}`` for the global
+    ``stages`` this process runs: the slices of a tree stacked
+    ``[len(stages), ...]``, or the trees of a sequence of ``len(stages)``
+    (heterogeneous stages), in ``stages`` order."""
+    n = len(stages)
     if isinstance(stage_params, (list, tuple)):
         if len(stage_params) != n:
             raise ValueError(f"{len(stage_params)} stage parameter trees "
-                             f"for n_stages={n}")
-        return [tree_map(lambda a: a.to(devices[s]), stage_params[s])
-                for s in range(n)]
+                             f"for {n} stages")
+        return {s: tree_map(lambda a: a.to(devices[s]), stage_params[c])
+                for c, s in enumerate(stages)}
     for leaf in tree_leaves(stage_params):
         if leaf.shape[0] != n:
             raise ValueError(f"stacked leaf {tuple(leaf.shape)} does not "
-                             f"lead with n_stages={n}")
-    return [tree_map(lambda a: a[s].to(devices[s]), stage_params)
-            for s in range(n)]
+                             f"lead with {n} stages")
+    return {s: tree_map(lambda a: a[c].to(devices[s]), stage_params)
+            for c, s in enumerate(stages)}
 
 
 # ---------------------------------------------------------------------------
@@ -547,7 +586,7 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
                          f"pipe={cfg.pipe}, n_micro={cfg.n_micro}")
     devices = stage_devices(devices, R)
     resident = {} if resident is None else resident
-    params_s = _stage_trees(stage_params, R, devices)
+    params_s = _stage_trees(stage_params, range(R), devices)
     for leaf in tree_leaves(resident):
         if leaf.shape[0] != R:
             raise ValueError(f"stacked leaf {tuple(leaf.shape)} does not "
@@ -559,18 +598,19 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
                 raise ValueError(f"resident state of stage {s} lives on "
                                  f"{leaf.device}, stage on {devices[s]}")
 
-    park = _Slots("park", R)
+    hop = p2p.LocalHop(R, devices)
+    park = _Slots("park", hop.ranks)
     wire = _Wire(tplan)
-    chain = _Link(park, R, wire, "f")
-    routes = [_Route(rt, R, wire) for rt in tplan.routes]
-    stream = (_Stream(inputs_mb, R, devices) if _streaming(tplan, cfg)
+    chain = _Link(park, wire, "f", hop, lambda r: (r - 1) % R)
+    routes = [_Route(rt, wire, hop) for rt in tplan.routes]
+    stream = (_Stream(inputs_mb, R, hop) if _streaming(tplan, cfg)
               else None)
     outputs: List[Any] = [None] * m
     for t in range(tplan.n_ticks):
         # 1. arrivals: last tick's boundary outputs and skips park
-        chain.land(t, tplan.park_recv, devices)
+        chain.land(t, tplan.park_recv)
         for route in routes:
-            route.land(t, devices)
+            route.land(t)
         # 2. each rank runs at most one task; its forward consumes the slots
         for r in range(R):
             if int(tplan.kind[t, r]) == NOP:
@@ -599,10 +639,11 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
                 chain.ship(r, r + 1, (i, r + 1), carry_out)
         if stream and tplan.stream_rot[t]:
             stream.rotate()
+    hop.finish()
     for buf in [park] + routes:
         buf.check_empty()
     if park_info is not None:
-        park_info["per_stage_park"] = tuple(park.high)
+        park_info["per_stage_park"] = park.highs()
         if routes:
             park_info["per_route"] = {route.rt.key: route.high(False)
                                       for route in routes}
@@ -633,7 +674,8 @@ def pipeline_call(stage_apply: StageApplyFn,
                   cfg: ParallelConfig,
                   devices: Any = "cuda",
                   skips: Sequence[SkipSpec] = (),
-                  park_info: Optional[Dict[str, Any]] = None):
+                  park_info: Optional[Dict[str, Any]] = None,
+                  group: Optional[p2p.PipeGroup] = None):
     """Build ``(stage_params, inputs_mb, resident) -> (outputs, resident)``.
 
     ``devices`` is one device per stage (or one device for all).  Forward
@@ -643,9 +685,11 @@ def pipeline_call(stage_apply: StageApplyFn,
     last stage's ``[m, ...]`` collection (:func:`last_stage_output`).  The
     call is differentiable: under grad mode autograd records the
     clock-cycle and its backward is the reverse one, with each stage
-    recomputed under ``cfg.remat``.
+    recomputed under ``cfg.remat``.  Every stage runs in this process: a
+    pipe ``group`` raises (ROADMAP A4b).
     """
     check_single_replica(cfg)
+    check_no_group(group, "pipeline_call")
     if cfg.virtual_stages > 1:
         raise ValueError("interleaved schedules are train-only; forward "
                          "execution runs the clock-cycle plan")
@@ -706,7 +750,8 @@ def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
                             loss_fn,
                             devices: Any,
                             loss_scale=1.0,
-                            park_info: Optional[Dict[str, Any]] = None):
+                            park_info: Optional[Dict[str, Any]] = None,
+                            group: Optional[p2p.PipeGroup] = None):
     """Execute one F+B event plan for a mini-batch.
 
     ``stage_params`` leaves lead with ``[n_stages]`` global stages, stacked
@@ -732,6 +777,24 @@ def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
     ``per_stage_resid``; ``per_stage_fs`` when streaming) and, with skip
     routes, each route's value and cotangent high-water (``per_route``:
     ``{route key: {"depth": n, "g_depth": n}}``).
+
+    With a pipe ``group`` (:class:`p2p.PipeGroup`, one process per rank)
+    this process runs rank ``group.rank``'s column of the plan
+    (``plan.specialize``) on ``group.device``, and every hop to another
+    rank is a message (:class:`p2p.P2PHop`, under ``cfg.executor``'s send
+    discipline).  ``stage_params`` then holds this rank's stages only,
+    stacked ``[n_chunks, ...]`` or a sequence of ``n_chunks`` trees, in
+    chunk order (global stages ``rank, rank + R, ...``), and the
+    gradients mirror it.  ``inputs_mb`` is read on rank 0 (which sends the
+    other ranks their shards when streaming) and ``head_params`` and
+    ``loss_args_mb`` on the last rank; elsewhere pass None.  Rank 0 gets
+    ``input_grads_mb`` and the last rank ``loss_sum`` and ``head_grads``;
+    the others get None in their place.  ``park_info`` receives
+    ``rank``, this rank's ``buffer_slots`` (the high-water of the
+    families ``plan.specialize(tplan, rank).buffer_slots()`` declares:
+    ``park``, ``b_inbox``, ``resid``, and ``fs`` when streaming), its
+    ``per_route`` high-water and ``hops``: per payload class the hops this
+    rank sent, their bytes and its host-clock wait.
     """
     check_single_replica(cfg)
     if not tplan.has_backward:
@@ -744,26 +807,40 @@ def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
     if (R, m) != (cfg.pipe, cfg.n_micro):
         raise ValueError(f"plan is for pipe={R}, m={m}; config has "
                          f"pipe={cfg.pipe}, n_micro={cfg.n_micro}")
-    devices = stage_devices(devices, S)
+    if group is None:
+        devices = stage_devices(devices, S)
+        hop = p2p.LocalHop(R, devices)
+    else:
+        if group.size != R:
+            raise ValueError(f"plan is for pipe={R}; the group has "
+                             f"{group.size} ranks")
+        devices = [group.device] * S
+        hop = p2p.P2PHop(group, cfg.executor)
+    mine = [s for s in range(S) if s % R in hop.ranks]  # stages run here
+    first, last = 0 in mine, S - 1 in mine
     reuse = tplan.residuals == "reuse"
     ordered = cfg.grad_reduce == "ordered"
 
     # autograd leaves: each global stage's parameter tree and the head's
-    params_s = [tree_map(lambda a: a.detach().requires_grad_(), p)
-                for p in _stage_trees(stage_params, S, devices)]
-    head_s = tree_map(lambda a: a.to(devices[-1]).detach().requires_grad_(),
-                      head_params)
+    params_s = {s: tree_map(lambda a: a.detach().requires_grad_(), p)
+                for s, p in _stage_trees(stage_params, mine,
+                                         devices).items()}
+    head_s = (tree_map(lambda a: a.to(devices[-1]).detach()
+                       .requires_grad_(), head_params) if last else None)
     seed = torch.as_tensor(loss_scale, dtype=torch.float32,
                            device=devices[-1]) / m
     if isinstance(stage_params, (list, tuple)):
         g_stage = [tree_map(torch.zeros_like, p) for p in stage_params]
-        dests = [tree_leaves(g) for g in g_stage]
+        dests = {s: tree_leaves(g_stage[c]) for c, s in enumerate(mine)}
     else:
         g_stage = tree_map(torch.zeros_like, stage_params)
-        dests = [[g[s] for g in tree_leaves(g_stage)] for s in range(S)]
-    stage_sums = [_GradSum(d, ordered) for d in dests]
-    g_head = tree_map(torch.zeros_like, head_params)
-    head_sum = _GradSum(tree_leaves(g_head), ordered)
+        dests = {s: [g[c] for g in tree_leaves(g_stage)]
+                 for c, s in enumerate(mine)}
+    stage_sums = {s: _GradSum(d, ordered) for s, d in dests.items()}
+    g_head = head_sum = None
+    if last:
+        g_head = tree_map(torch.zeros_like, head_params)
+        head_sum = _GradSum(tree_leaves(g_head), ordered)
     input_grads: List[Any] = [None] * m
     losses: List[Optional[torch.Tensor]] = [None] * m
 
@@ -808,25 +885,39 @@ def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
         return torch.autograd.grad(outs, wrt, seeds, retain_graph=retain,
                                    allow_unused=True, materialize_grads=True)
 
-    park = _Slots("park", R)
-    inbox = _Slots("b-inbox", R)
-    resid = _Slots("residual", R)
+    park = _Slots("park", hop.ranks)
+    inbox = _Slots("b-inbox", hop.ranks)
+    resid = _Slots("residual", hop.ranks)
     wire = _Wire(tplan)
-    chain_f = _Link(park, R, wire, "f")
-    chain_b = _Link(inbox, R, wire, "b")
-    routes = [_Route(rt, R, wire) for rt in tplan.routes]
+    chain_f = _Link(park, wire, "f", hop, lambda r: (r - 1) % R)
+    chain_b = _Link(inbox, wire, "b", hop, lambda r: (r + 1) % R)
+    routes = [_Route(rt, wire, hop) for rt in tplan.routes]
     stream = fs = None
     if _streaming(tplan, cfg):
-        stream, fs = _Stream(inputs_mb, R, devices), _Slots("fs", R)
+        stream = _Stream(inputs_mb, R, hop)
+        fs = _Slots("fs", hop.ranks)
+    latch = group is not None and cfg.executor == "mpmd"
     for t in range(tplan.n_ticks):
+        # 0. mpmd: what a rank latched on tick t - 1 leaves now
+        if latch and t:
+            me = group.rank
+            if tplan.send_slot[t - 1, me] >= 0:
+                hop.post("f")
+            if tplan.b_send_slot[t - 1, me] >= 0:
+                hop.post("b")
+            for route in routes:
+                route.post(t, me, hop)
+            hop.check_posted(t)
         # 1. arrivals: forward carries from rank r - 1, cotangents from r + 1,
         #    skip values and cotangents from their routes' previous hop
-        chain_f.land(t, tplan.park_recv, devices)
-        chain_b.land(t, tplan.b_recv, devices)
+        chain_f.land(t, tplan.park_recv)
+        chain_b.land(t, tplan.b_recv)
         for route in routes:
-            route.land(t, devices)
+            route.land(t)
+        if group is not None and not latch:
+            hop.wait_sends()               # spmd: last tick's sends are done
         # 2. each rank runs at most one task
-        for r in range(R):
+        for r in hop.ranks:
             kind = int(tplan.kind[t, r])
             if kind == NOP:
                 continue
@@ -912,26 +1003,39 @@ def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
                     route.send(t, r, i, s, g_skips, cot=True)
         if stream and tplan.stream_rot[t]:
             stream.rotate()
+    hop.finish()
     for buf in [park, inbox, resid] + routes + ([fs] if fs else []):
         buf.check_empty()
-    sums = stage_sums + [head_sum]
+    sums = list(stage_sums.values()) + ([head_sum] if last else [])
     if any(gs.folded != m or gs.pending for gs in sums) \
-            or any(x is None for x in losses + input_grads):
+            or (last and any(x is None for x in losses)) \
+            or (first and any(x is None for x in input_grads)):
         raise RuntimeError("the plan left a micro-batch without its loss or "
                            "a gradient")
     if park_info is not None:
-        park_info.update(per_stage_park=tuple(park.high),
-                         per_stage_b_inbox=tuple(inbox.high),
-                         per_stage_resid=tuple(resid.high))
-        if fs:
-            park_info["per_stage_fs"] = tuple(fs.high)
+        if group is None:
+            park_info.update(per_stage_park=park.highs(),
+                             per_stage_b_inbox=inbox.highs(),
+                             per_stage_resid=resid.highs())
+            if fs:
+                park_info["per_stage_fs"] = fs.highs()
+        else:
+            me = group.rank
+            slots = {"park": park.high[me], "b_inbox": inbox.high[me],
+                     "resid": resid.high[me]}
+            if fs:
+                slots["fs"] = fs.high[me]
+            park_info.update(rank=me, buffer_slots=slots, hops=hop.stats)
         if routes:
             park_info["per_route"] = {route.rt.key: route.high(True)
                                       for route in routes}
-    loss_sum = torch.zeros((), dtype=torch.float32, device=devices[-1])
-    for loss in losses:                       # ascending micro order
-        loss_sum = loss_sum + loss
-    input_grads_mb = tree_map(lambda *xs: torch.stack(xs), *input_grads)
+    loss_sum = input_grads_mb = None
+    if last:
+        loss_sum = torch.zeros((), dtype=torch.float32, device=devices[-1])
+        for loss in losses:                   # ascending micro order
+            loss_sum = loss_sum + loss
+    if first:
+        input_grads_mb = tree_map(lambda *xs: torch.stack(xs), *input_grads)
     return loss_sum, g_stage, g_head, input_grads_mb
 
 
@@ -947,7 +1051,8 @@ def pipeline_grad_call(stage_apply: StageApplyFn,
                        loss_fn,
                        devices: Any = "cuda",
                        skips: Sequence[SkipSpec] = (),
-                       park_info: Optional[Dict[str, Any]] = None):
+                       park_info: Optional[Dict[str, Any]] = None,
+                       group: Optional[p2p.PipeGroup] = None):
     """Build the fused schedule-driven training call.
 
     Returns ``(call, tplan)`` with ``call(stage_params, head_params,
@@ -967,6 +1072,13 @@ def pipeline_grad_call(stage_apply: StageApplyFn,
     hops with ``cfg.portals=False``); ``cfg.grad_reduce`` picks the
     micro-batch fold.  ``park_info`` (a dict) receives each call's buffer
     high-water per rank and per route.
+
+    With a pipe ``group`` this process runs one rank of the plan
+    (:func:`run_pipeline_grad_tasks` says what each rank passes and gets
+    back; ``loss`` is None but on the last rank), with ``cfg.executor``'s
+    send discipline: ``"spmd"`` eager sends, ``"mpmd"`` sends latched one
+    tick ahead; the two give bitwise equal results.  ``devices`` is then
+    ignored: every stage of the rank runs on ``group.device``.
     """
     check_single_replica(cfg)
     checkpointing.check_policy(cfg.remat)
@@ -980,8 +1092,9 @@ def pipeline_grad_call(stage_apply: StageApplyFn,
         loss_sum, g_stage, g_head, ig = run_pipeline_grad_tasks(
             stage_apply, stage_params, head_params, inputs_mb, loss_args_mb,
             cfg, tplan=tplan, loss_fn=loss_fn, devices=devices,
-            loss_scale=loss_scale, park_info=park_info)
-        return loss_sum / cfg.n_micro, g_stage, g_head, ig
+            loss_scale=loss_scale, park_info=park_info, group=group)
+        loss = None if loss_sum is None else loss_sum / cfg.n_micro
+        return loss, g_stage, g_head, ig
 
     return call, tplan
 

@@ -102,19 +102,28 @@ def stack_layer_params(layer_params: Sequence[Any], n_stages: int,
     hold its own contiguous layer run; without, the flat front-to-back fill.
     """
     lay = partition_layout(len(layer_params), n_stages, partition)
+    return place_layers(layer_params, lay.slot_layer)
+
+
+def place_layers(layer_params: Sequence[Any], slot_layer: np.ndarray) -> Any:
+    """Stack per-layer trees onto a ``[S, L]`` slot grid: slot ``(s, l)``
+    holds ``layer_params[slot_layer[s, l]]``, zeros where it is ``-1``.
+    ``slot_layer`` may be a few stages' rows of a layout, indexing just
+    their layers (one pipe rank's share)."""
     flat = tree_map(lambda *xs: torch.stack(xs), *layer_params)
-    return _place(flat, lay)
+    return _place(flat, slot_layer)
 
 
-def _place(per_layer: Any, lay: StageLayout) -> Any:
-    """[n_layers, ...] leaves -> [n_stages, L, ...] on ``lay``'s slots."""
-    valid = torch.from_numpy((lay.slot_layer >= 0).reshape(-1))
-    src = torch.from_numpy(lay.slot_layer.reshape(-1)[valid.numpy()]).long()
+def _place(per_layer: Any, slot_layer: np.ndarray) -> Any:
+    """[n_layers, ...] leaves -> [S, L, ...] on the ``slot_layer`` grid."""
+    S, L = slot_layer.shape
+    valid = torch.from_numpy((slot_layer >= 0).reshape(-1))
+    src = torch.from_numpy(slot_layer.reshape(-1)[valid.numpy()]).long()
 
     def one(a):
-        out = a.new_zeros((lay.n_stages * lay.L_per_stage,) + a.shape[1:])
+        out = a.new_zeros((S * L,) + a.shape[1:])
         out[valid.to(a.device)] = a[src.to(a.device)]
-        return out.reshape((lay.n_stages, lay.L_per_stage) + a.shape[1:])
+        return out.reshape((S, L) + a.shape[1:])
     return tree_map(one, per_layer)
 
 
@@ -139,4 +148,4 @@ def restack(stacked: Any, src: StageLayout, dst: StageLayout) -> Any:
     if src.n_layers != dst.n_layers:
         raise ValueError(f"layouts hold {src.n_layers} and {dst.n_layers} "
                          "layers")
-    return _place(unstack_layers(stacked, src), dst)
+    return _place(unstack_layers(stacked, src), dst.slot_layer)

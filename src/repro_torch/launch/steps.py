@@ -18,9 +18,11 @@ import torch
 
 from repro_torch.configs.base import ParallelConfig, ShapeConfig
 from repro_torch.core import checkpointing
-from repro_torch.core.pipeline import (check_plan, last_stage_output,
-                                       microbatch, pipeline_call,
-                                       pipeline_grad_call, unmicrobatch)
+from repro_torch.core import p2p
+from repro_torch.core.pipeline import (check_no_group, check_plan,
+                                       last_stage_output, microbatch,
+                                       pipeline_call, pipeline_grad_call,
+                                       unmicrobatch)
 from repro_torch.models.lm import LMModel
 from repro_torch.optim import optimizers as optim
 from repro_torch.runtime.compression import EFCompressor
@@ -64,7 +66,8 @@ def _gate_ef(metrics: Dict[str, Any], new_ef, old_ef):
 
 def build_train_step(model: LMModel, pcfg: ParallelConfig, devices: Any,
                      shape: ShapeConfig,
-                     ocfg: Optional[optim.OptimizerConfig] = None):
+                     ocfg: Optional[optim.OptimizerConfig] = None, *,
+                     group: Optional[p2p.PipeGroup] = None):
     """train_step(params, opt_state, batch) -> (params, opt_state, metrics).
 
     ``pcfg.schedule`` selects the execution order (:func:`build_grad_fn`);
@@ -78,12 +81,21 @@ def build_train_step(model: LMModel, pcfg: ParallelConfig, devices: Any,
     with_ef=True)``) and keeps its old value on a skipped step.
     ``train_step.tplan`` is the plan the executor runs and
     ``train_step.park_info`` its buffer high-water per rank, refreshed by
-    each step."""
+    each step.
+
+    With a pipe ``group`` (:mod:`repro_torch.launch.mesh`) the step runs
+    one pipe rank of a fused schedule (:func:`build_grad_fn`): ``params``
+    and ``opt_state`` are this rank's share (``LMModel.init(...,
+    rank=...)``), the optimizer's global norm and its finiteness decision
+    are agreed over the group (a tied embedding's copy on the last rank
+    counted once), every rank's metrics carry the same loss, and the
+    error-feedback residual stays per rank."""
     ocfg = ocfg or optim.OptimizerConfig()
     # gate known config smells at selection time, as the reference does
     for msg in pcfg.advisories():
         warnings.warn(msg, stacklevel=2)
-    grad_fn = build_grad_fn(model, pcfg, devices)
+    grad_fn = build_grad_fn(model, pcfg, devices, group=group)
+    replicas = () if group is None else model.replicas(group.rank)
 
     def train_step(params, opt_state, batch):
         scale = opt_state.scale if ocfg.dynamic_loss_scale else None
@@ -91,7 +103,8 @@ def build_train_step(model: LMModel, pcfg: ParallelConfig, devices: Any,
         grads, new_ef = _maybe_compress_grads(pcfg, grads, opt_state)
         scaled = loss * scale if scale is not None else loss
         params2, opt2, metrics = optim.apply(ocfg, opt_state, params, grads,
-                                             loss=scaled)
+                                             loss=scaled, group=group,
+                                             replicas=replicas)
         opt2 = opt2._replace(ef=_gate_ef(metrics, new_ef, opt_state.ef))
         metrics["loss"] = loss
         return params2, opt2, metrics
@@ -101,7 +114,8 @@ def build_train_step(model: LMModel, pcfg: ParallelConfig, devices: Any,
     return train_step
 
 
-def build_grad_fn(model: LMModel, pcfg: ParallelConfig, devices: Any):
+def build_grad_fn(model: LMModel, pcfg: ParallelConfig, devices: Any, *,
+                  group: Optional[p2p.PipeGroup] = None):
     """grad_fn(params, batch, loss_scale=None) -> (loss, grads).
 
     ``loss`` is the mean token cross-entropy (0-d fp32, unscaled); ``grads``
@@ -115,13 +129,22 @@ def build_grad_fn(model: LMModel, pcfg: ParallelConfig, devices: Any):
     micro-batch tokens and labels, :func:`pipeline_grad_call` with one
     micro-batch's head loss on the last stage, then the embed VJP on the
     input cotangents plus the tied embedding's gradient through the head.
+
+    With a pipe ``group`` (fused schedules only: ``"gpipe"`` raises,
+    ROADMAP A4b) this process runs one rank: ``params`` is its share
+    (``LMModel.init(..., rank=...)``) and so are the grads.  Rank 0
+    embeds and takes the embed VJP, the last rank runs the head and its
+    loss; a tied embedding's head part goes from the last rank to rank 0,
+    which adds it in the single-process order and sends the sum back, so
+    both copies get the same gradient.  Every rank returns the loss.
     """
     checkpointing.check_policy(pcfg.remat)
     base = pcfg.schedule_spec.base
     if base == "gpipe":
+        check_no_group(group, "schedule='gpipe'")
         return _build_grad_fn_gpipe(model, pcfg, devices)
     if base in FUSED_SCHEDULES:
-        return _build_grad_fn_fused(model, pcfg, devices)
+        return _build_grad_fn_fused(model, pcfg, devices, group)
     raise ValueError(f"unknown schedule {pcfg.schedule!r}; want 'gpipe', "
                      "'gpipe_tasked', '1f1b', 'interleaved:v', or 'zb'")
 
@@ -143,41 +166,81 @@ def _build_grad_fn_gpipe(model, pcfg, devices):
     return grad_fn
 
 
-def _build_grad_fn_fused(model, pcfg, devices):
+def _build_grad_fn_fused(model, pcfg, devices, group=None):
     def micro_loss(head_ps, carry, largs):
         return model.head_loss(head_ps, carry["h"], largs["labels"])
 
     park_info: Dict[str, Any] = {}
     pipe_grad, tplan = pipeline_grad_call(
         model.make_stage_apply(model.consts()), cfg=pcfg, loss_fn=micro_loss,
-        devices=devices, skips=model.skips(), park_info=park_info)
-    m = pcfg.n_micro
+        devices=devices, skips=model.skips(), park_info=park_info,
+        group=group)
+    m, tied = pcfg.n_micro, model.arch.tie_embeddings
+    # one process runs the first and the last stage
+    first = group is None or group.first
+    last = group is None or group.last
 
     def grad_fn(params, batch, loss_scale=None):
-        emb = tree_map(lambda p: p.detach().requires_grad_(), params["embed"])
-        with torch.enable_grad():
-            fresh = model.embed_inputs(emb, batch)
-        inputs_mb = microbatch(tree_map(torch.Tensor.detach, fresh), m)
-        labels_mb = microbatch({"labels": batch["labels"]}, m)
-        head_ps = {"head": params["head"], "embed": params["embed"]}
+        inputs_mb = labels_mb = head_ps = None
+        if first:
+            emb = tree_map(lambda p: p.detach().requires_grad_(),
+                           params["embed"])
+            with torch.enable_grad():
+                fresh = model.embed_inputs(emb, batch)
+            inputs_mb = microbatch(tree_map(torch.Tensor.detach, fresh), m)
+        if last:
+            labels_mb = microbatch({"labels": batch["labels"]}, m)
+            head_ps = {"head": params["head"]}
+            if "embed" in params:           # the last rank's: a tied copy
+                head_ps["embed"] = params["embed"]
         loss, g_stage, g_head, ig = pipe_grad(
             params["stages"], head_ps, inputs_mb, labels_mb,
             loss_scale=1.0 if loss_scale is None else loss_scale)
-        # every fresh leaf with a parameter behind it (an enc-dec's frames
-        # have none); dec_h's cotangent came back through stage 0's B tick
-        outs = [(x, g) for x, g in zip(tree_leaves(fresh),
-                                       tree_leaves(unmicrobatch(ig)))
-                if x.requires_grad]
-        flat = iter(torch.autograd.grad([x for x, _ in outs],
-                                        tree_leaves(emb),
-                                        [g for _, g in outs]))
-        parts = {"embed": tree_map(lambda gh: next(flat) + gh,
-                                   g_head["embed"]),
-                 "stages": g_stage, "head": g_head["head"]}
-        return loss, {k: parts[k] for k in params}
+        grads = {"stages": g_stage}
+        if last:
+            grads["head"] = g_head["head"]
+        hop = None if group is None else p2p.P2PHop(group)
+        if first:
+            # every fresh leaf with a parameter behind it (an enc-dec's
+            # frames have none); dec_h's cotangent came back through stage
+            # 0's B tick
+            outs = [(x, g) for x, g in zip(tree_leaves(fresh),
+                                           tree_leaves(unmicrobatch(ig)))
+                    if x.requires_grad]
+            flat = iter(torch.autograd.grad([x for x, _ in outs],
+                                            tree_leaves(emb),
+                                            [g for _, g in outs]))
+            # the head's part: the last stage's (zeros, as autograd gives
+            # an unused input, when untied)
+            if last:
+                g_tied = g_head["embed"]
+            elif tied:
+                g_tied = hop.recv_tree("embed", group.size - 1)[1]
+            else:
+                g_tied = tree_map(torch.zeros_like, params["embed"])
+            grads["embed"] = tree_map(lambda gh: next(flat) + gh, g_tied)
+            if tied and not last:
+                hop.send_tree("embed", group.size - 1, grads["embed"])
+        elif last and tied:                 # the last rank's copy
+            hop.send_tree("embed", 0, g_head["embed"])
+            grads["embed"] = hop.recv_tree("embed", 0)[1]
+        if group is not None:
+            hop.finish()
+            park_info["hops"]["embed"] = hop.stats["embed"]
+            loss = _group_loss(group, loss)
+        return loss, {k: grads[k] for k in params}
 
     grad_fn.tplan, grad_fn.park_info = tplan, park_info
     return grad_fn
+
+
+def _group_loss(group: p2p.PipeGroup, loss):
+    """The last rank's loss on every rank (0-d fp32 on its device)."""
+    import torch.distributed as dist
+    buf = (loss.detach().float().reshape(1).cpu() if group.last
+           else torch.zeros(1, dtype=torch.float32))
+    dist.broadcast(buf, src=group.size - 1, group=group.group)
+    return loss if group.last else buf[0].to(group.device)
 
 
 def build_loss_fn(model: LMModel, pcfg: ParallelConfig, devices: Any, *,

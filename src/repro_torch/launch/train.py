@@ -4,9 +4,12 @@ scheduler (``--schedule 1f1b``, ``gpipe_tasked``, ``interleaved:v``, ``zb``).
 
 Counterpart of :mod:`repro.launch.train`'s loop.  All pipeline stages sit on
 the one card given by ``--device`` (the default ``cuda``; ``cpu`` runs the
-plain versions of the kernels); the full configs run with ``data=1`` and
-``tp=1``.  The reference's ``ElasticTrainer`` supervisor (async checkpoints,
-injected faults, elastic re-plan) is ROADMAP A11: its flags raise.
+plain versions of the kernels), in this process or, with ``--nproc R``
+(a fused schedule, pipe R), one pipe rank in each of R spawned processes
+joined over gloo (:mod:`repro_torch.launch.mesh`); the full configs run
+with ``data=1`` and ``tp=1``.  The reference's ``ElasticTrainer``
+supervisor (async checkpoints, injected faults, elastic re-plan) is
+ROADMAP A11: its flags raise.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --steps 5 --seq-len 4096 --batch 16 --n-micro 8
@@ -14,6 +17,8 @@ injected faults, elastic re-plan) is ROADMAP A11: its flags raise.
         --steps 5 --seq-len 4096 --batch 16 --n-micro 8 [--schedule 1f1b]
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --steps 5 --pipe 2 [--schedule 1f1b] [--arch whisper-tiny]
+    PYTHONPATH=src python -m repro_torch.launch.train --schedule 1f1b \\
+        --nproc 4 --steps 3 --seq-len 4096 --batch 16 --n-micro 8
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from repro_torch import configs
 from repro_torch.configs.base import (REMAT_POLICIES, RESIDUAL_MODES,
                                       ArchConfig, ParallelConfig,
                                       ShapeConfig)
+from repro_torch.core.p2p import PipeGroup
 from repro_torch.core.pipeline import WIRE_CODEC_RANGE
 from repro_torch.data.pipeline import (DataConfig, SyntheticLM, make_loader,
                                        to_device)
@@ -38,6 +44,7 @@ from repro_torch.devices import resolve_device
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+from repro_torch.launch import mesh
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models.lm import LMModel
 from repro_torch.optim import optimizers as optim
@@ -163,7 +170,8 @@ def _sync(dev: torch.device) -> None:
 def train(arch: ArchConfig, pcfg: ParallelConfig, *, seq_len: int, batch: int,
           steps: int, device="cuda", dtype=torch.bfloat16, seed: int = 0,
           ocfg: Optional[optim.OptimizerConfig] = None,
-          fixed_batch: bool = False, trace: bool = False) -> Dict[str, Any]:
+          fixed_batch: bool = False, trace: bool = False,
+          group: Optional[PipeGroup] = None) -> Dict[str, Any]:
     """Train ``steps`` steps from random weights (``seed``) on
     :class:`SyntheticLM` batches (``seed``; an enc-dec's hold ``frames``,
     ``dec_tokens`` and ``labels``), or on its first batch every step with
@@ -178,18 +186,29 @@ def train(arch: ArchConfig, pcfg: ParallelConfig, *, seq_len: int, batch: int,
     returns its device time by kernel family, the card's idle share and
     the device time and kernels of the wire codec and of the gradient
     compressor (``TRACED_RANGES``) as ``trace``; that step is not in
-    ``history``."""
-    dev = resolve_device(device)
-    if trace and dev.type != "cuda":
-        raise ValueError("trace profiles the card: pass a CUDA device")
+    ``history``.
+
+    With a pipe ``group`` (:func:`repro_torch.launch.mesh.init_pipe_group`;
+    a fused schedule) this process trains its rank's share on
+    ``group.device`` (``device`` is ignored): every rank reads the same
+    batches, each record's metrics are the group's (one loss, one grad
+    norm) and its ``step_s`` and launches this rank's, and ``park_info``
+    is this rank's (its ``buffer_slots`` and per-class ``hops``).  Every
+    rank also gets ``ranks``: per rank its ``peak_mem_bytes`` (on a
+    card), ``park_info`` and ``step_s``."""
+    dev = resolve_device(device) if group is None else group.device
+    if trace and (dev.type != "cuda" or group is not None):
+        raise ValueError("trace profiles the card from one process: pass a "
+                         "CUDA device and no pipe group")
     ocfg = ocfg or optim.OptimizerConfig()
     shape = ShapeConfig("train", seq_len, batch, "train")
     model = LMModel(arch, pcfg, dtype=dtype, device=dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                        rank=None if group is None else group.rank)
     opt = optim.init(ocfg, params,
                      with_ef=pcfg.grad_compression == "int8_ef")
     step = steps_lib.build_train_step(model, pcfg, model.stage_devices, shape,
-                                      ocfg)
+                                      ocfg, group=group)
     data = DataConfig(seed=seed, vocab=arch.vocab, seq_len=seq_len,
                       global_batch=batch)
     loader = None
@@ -235,6 +254,13 @@ def train(arch: ArchConfig, pcfg: ParallelConfig, *, seq_len: int, batch: int,
         out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
     if trace:
         out["trace"] = traced
+    if group is not None:
+        import torch.distributed as dist
+        mine = {k: out[k] for k in ("park_info", "peak_mem_bytes")
+                if k in out}
+        mine["step_s"] = [rec["step_s"] for rec in history]
+        out["ranks"] = [None] * group.size
+        dist.all_gather_object(out["ranks"], mine, group=group.group)
     return out
 
 
@@ -272,6 +298,9 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", action="store_true",
                     help="profile one more step: device ms by kernel family")
+    ap.add_argument("--nproc", type=int, default=0,
+                    help="run each pipe rank in its own process (a fused "
+                         "schedule; pipe = nproc), over gloo")
     # the reference's ElasticTrainer flags (ROADMAP A11)
     ap.add_argument("--ckpt-dir")
     ap.add_argument("--ckpt-every", type=int)
@@ -292,8 +321,11 @@ def main():
         arch = configs.get_arch(args.arch)
         pcfg = configs.get_parallel(args.arch).with_(data=1, tp=1)
         dtype = torch.bfloat16
-    if args.pipe:
-        pcfg = pcfg.with_(pipe=args.pipe)
+    if args.nproc and args.pipe not in (0, args.nproc):
+        raise ValueError(f"--nproc {args.nproc} runs pipe {args.nproc}, "
+                         f"not --pipe {args.pipe}")
+    if args.pipe or args.nproc:
+        pcfg = pcfg.with_(pipe=args.pipe or args.nproc)
     shape = ShapeConfig("train", args.seq_len, args.batch, "train")
     pcfg = pcfg.with_(remat=args.remat, schedule=args.schedule,
                       residuals=args.residuals, grad_reduce=args.grad_reduce)
@@ -305,13 +337,40 @@ def main():
     dev = resolve_device(args.device)
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "cpu")
+    procs = (f" in {args.nproc} processes (gloo)" if args.nproc else "")
     print(f"[train] {arch.name}: pipe={pcfg.pipe} m={pcfg.n_micro} "
           f"schedule={pcfg.schedule} remat={pcfg.remat} "
           f"seq={args.seq_len} batch={args.batch} "
-          f"{str(dtype).split('.')[-1]} on {where}", flush=True)
-    res = train(arch, pcfg, seq_len=args.seq_len, batch=args.batch,
-                steps=args.steps, device=dev, dtype=dtype, seed=args.seed,
-                ocfg=ocfg, trace=args.trace)
+          f"{str(dtype).split('.')[-1]} on {where}{procs}", flush=True)
+    job = dict(arch=arch, pcfg=pcfg, seq_len=args.seq_len, batch=args.batch,
+               steps=args.steps, dtype=dtype, seed=args.seed, ocfg=ocfg,
+               trace=args.trace)
+    if not args.nproc:
+        _report(train(device=dev, **job), dev)
+        return
+    if dev.type == "cuda":        # once here, not once in every rank
+        from repro_torch.kernels import build
+        build.build_all()
+    # no overall deadline: a hang fails at the group's wait timeout, a
+    # rank that raises fails the group
+    mesh.spawn(_rank_main, args.nproc, (args.device, job), timeout_s=None)
+
+
+def _rank_main(rank: int, nproc: int, init_method: str, device: str,
+               job: Dict[str, Any]) -> None:
+    """One pipe rank of ``--nproc``: join the group, train, and on rank 0
+    print the group's records."""
+    group = mesh.init_pipe_group(rank, nproc, init_method, device=device,
+                                 pcfg=job["pcfg"])
+    try:
+        res = train(group=group, **job)
+        if group.first:
+            _report(res, group.device)
+    finally:
+        mesh.destroy_pipe_group(group)
+
+
+def _report(res: Dict[str, Any], dev: torch.device) -> None:
     for i, rec in enumerate(res["history"]):
         print(f"[train] step {i} loss {rec['loss']:.4f} grad_norm "
               f"{rec['grad_norm']:.4f} skipped {int(rec['skipped'])} "
@@ -320,8 +379,16 @@ def main():
               flush=True)
     last = res["history"][-1]
     print(f"[train] kernel launches per step {last['launches']}")
-    print(f"[train] buffer high-water per rank {res['park_info']}")
-    if dev.type == "cuda":
+    if "ranks" in res:
+        for r, rec in enumerate(res["ranks"]):
+            peak = (f"peak memory {rec['peak_mem_bytes'] / 2**30:.2f} GiB, "
+                    if "peak_mem_bytes" in rec else "")
+            print(f"[train] rank {r}: {peak}"
+                  f"buffer high-water {rec['park_info']['buffer_slots']}, "
+                  f"hops {json.dumps(rec['park_info']['hops'])}")
+    else:
+        print(f"[train] buffer high-water per rank {res['park_info']}")
+    if dev.type == "cuda" and "ranks" not in res:
         share = res["model_flops_per_step"] / last["step_s"] / PEAK_BF16_FLOPS
         print(f"[train] peak memory {res['peak_mem_bytes'] / 2**30:.2f} GiB; "
               f"model FLOPs share of the bf16 peak {share:.4f}")

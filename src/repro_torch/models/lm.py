@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,21 +102,74 @@ class LMModel:
         return stage_devices(self.device, self.n_stages)
 
     # ------------------------------------------------------------------ params
-    def init(self, generator: torch.Generator):
-        """Random weights at the reference's scales, drawn from ``generator``."""
+    def init(self, generator: torch.Generator, *, rank: Optional[int] = None):
+        """Random weights at the reference's scales, drawn from ``generator``.
+
+        With ``rank`` (a pipe rank), only that rank's share: ``stages``
+        stacked ``[n_chunks, L_per_stage, ...]`` for its global stages
+        ``rank, rank + pipe, ...``, ``embed`` on rank 0 (and on the last
+        rank too when the head is tied to it) and ``head`` on the last
+        rank.  Every layer is still drawn, in order, and dropped unless
+        kept, so each kept tensor is bitwise what ``init`` without
+        ``rank`` gives it."""
         a, dev = self.arch, self.device
-        layer_ps = [self.block_init(generator, a, self.dtype, dev)
-                    for _ in range(self.total_layers)]
-        stages = stage_lib.stack_layer_params(layer_ps, self.n_stages,
-                                              self.pcfg.partition or None)
-        del layer_ps
+        if rank is None:
+            layer_ps = [self.block_init(generator, a, self.dtype, dev)
+                        for _ in range(self.total_layers)]
+            stages = stage_lib.stack_layer_params(
+                layer_ps, self.n_stages, self.pcfg.partition or None)
+            del layer_ps
+        else:
+            stages = self._init_rank_stages(generator, rank)
         emb = {"tok": (L.randn(generator, (a.vocab, a.d_model), dev)
                        * a.d_model ** -0.5).to(self.dtype)}
         head = {"norm": L.norm_init(a.d_model, a.norm, self.dtype, dev)}
         if not a.tie_embeddings:
             head["w"] = (L.randn(generator, (a.d_model, a.vocab), dev)
                          * a.d_model ** -0.5).to(self.dtype)
-        return {"embed": emb, "stages": stages, "head": head}
+        out = {"embed": emb, "stages": stages, "head": head}
+        if rank is None:
+            return out
+        return {k: out[k] for k in self.rank_keys(rank)}
+
+    def rank_keys(self, rank: int) -> Tuple[str, ...]:
+        """The top-level params pipe rank ``rank`` keeps: ``embed`` on rank
+        0 (and on the last rank when the head is tied to it), ``stages``,
+        and ``head`` on the last rank."""
+        last = rank == self.pcfg.pipe - 1
+        return (("embed",) if rank == 0 or (last and self.arch.tie_embeddings)
+                else ()) + ("stages",) + (("head",) if last else ())
+
+    def replicas(self, rank: int) -> Tuple[str, ...]:
+        """The keys of ``rank``'s share that copy another rank's (the last
+        rank's tied embedding, rank 0's): counted once by the optimizer's
+        global norm."""
+        return (("embed",) if rank != 0 and "embed" in self.rank_keys(rank)
+                else ())
+
+    def rank_share(self, params, rank: int):
+        """Pipe rank ``rank``'s share of a whole ``params`` tree (what
+        ``init(..., rank=rank)`` draws): its stages' rows, stacked in
+        chunk order, and the embedding and head where that rank keeps
+        them.  The rows are views of ``params``."""
+        R = self.pcfg.pipe
+        share = dict(params,
+                     stages=tree_map(lambda a: a[rank::R], params["stages"]))
+        return {k: share[k] for k in self.rank_keys(rank)}
+
+    def _init_rank_stages(self, generator: torch.Generator, rank: int):
+        """Draw every layer in order and place those of ``rank``'s stages
+        (``slot_layer[rank::pipe]``) as :func:`stage_lib.place_layers`
+        places all of them."""
+        slots = self.layout.slot_layer[rank::self.pcfg.pipe]
+        wanted = np.unique(slots[slots >= 0])          # global, ascending
+        kept = []
+        for li in range(self.total_layers):
+            p = self.block_init(generator, self.arch, self.dtype, self.device)
+            if li in wanted:
+                kept.append(p)
+        local = np.where(slots >= 0, np.searchsorted(wanted, slots), -1)
+        return stage_lib.place_layers(kept or [p], local)   # [p]: all padding
 
     # ------------------------------------------------------------ layer consts
     def consts(self) -> Dict[str, np.ndarray]:

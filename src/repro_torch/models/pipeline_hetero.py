@@ -18,7 +18,8 @@ Skip connections crossing stage boundaries follow paper §3.3:
 
 On one card both do the same work (the hop is ``.to()`` onto the same
 device); what portals save, copies on the cards in between, needs stages on
-several cards (ROADMAP A4).
+several cards.  The fused schedules also run one rank per process
+(``hetero_grad_call(..., group=...)``).
 
 The programs compute in fp32: :func:`hetero_forward` and the call of
 :func:`hetero_grad_call` run under :func:`fp32_math`, TF32 off in cuDNN and
@@ -39,9 +40,10 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from repro_torch.configs.base import ParallelConfig
-from repro_torch.core.pipeline import (last_stage_output, microbatch,
-                                       pipeline_call, pipeline_grad_call,
-                                       unmicrobatch)
+from repro_torch.core.p2p import PipeGroup
+from repro_torch.core.pipeline import (check_no_group, last_stage_output,
+                                       microbatch, pipeline_call,
+                                       pipeline_grad_call, unmicrobatch)
 from repro_torch.core.skip import SkipSpec
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.tree import tree_leaves, tree_map
@@ -135,7 +137,8 @@ def hetero_forward(program: HeteroProgram, pcfg: ParallelConfig, x_batch):
 
 
 def hetero_grad_call(program: HeteroProgram, pcfg: ParallelConfig,
-                     park_info: Optional[Dict[str, Any]] = None):
+                     park_info: Optional[Dict[str, Any]] = None, *,
+                     group: Optional[PipeGroup] = None):
     """Training call for a hetero program under ``pcfg.schedule``.
 
     Returns ``call(stage_params, x [B, ...], y [B, ...]) -> (loss, grads)``:
@@ -148,9 +151,15 @@ def hetero_grad_call(program: HeteroProgram, pcfg: ParallelConfig,
     executor; both in fp32 (:func:`fp32_math`).  ``call.tplan`` is the
     plan; ``park_info`` (a dict) receives each call's buffer and route
     high-water.
+
+    With a pipe ``group`` (a fused schedule: ``"gpipe"`` raises, ROADMAP
+    A4b) the call runs one rank: it takes that rank's stage trees in chunk
+    order (``program.stage_params[rank::pipe]``) and returns their grads,
+    and the loss on the last rank (None on the others).
     """
     m = pcfg.n_micro
     if pcfg.schedule_spec.base == "gpipe":
+        check_no_group(group, "schedule='gpipe'")
         pipe = pipeline_call(program.stage_apply, cfg=pcfg,
                              devices=program.device, skips=program.skips,
                              park_info=park_info)
@@ -181,7 +190,8 @@ def hetero_grad_call(program: HeteroProgram, pcfg: ParallelConfig,
 
     pipe_grad, tplan = pipeline_grad_call(
         program.stage_apply, cfg=pcfg, loss_fn=micro_loss,
-        devices=program.device, skips=program.skips, park_info=park_info)
+        devices=program.device, skips=program.skips, park_info=park_info,
+        group=group)
 
     @fp32_math()
     def call(stage_params, x_batch, y_batch):

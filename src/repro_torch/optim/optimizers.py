@@ -74,12 +74,27 @@ def schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * cos
 
 
-def _norm(leaves) -> torch.Tensor:
-    """L2 norm over an iterable of tensors, summed in fp32 in order."""
+def _sum_sq(leaves) -> torch.Tensor:
+    """Sum of squares over an iterable of tensors, in fp32 in order."""
     sums = [torch.sum(torch.square(leaf.float())) for leaf in leaves]
     if not sums:
         return torch.zeros(())
-    return torch.sqrt(functools.reduce(torch.add, sums))
+    return functools.reduce(torch.add, sums)
+
+
+def _norm(leaves) -> torch.Tensor:
+    """L2 norm over an iterable of tensors, summed in fp32 in order."""
+    return torch.sqrt(_sum_sq(leaves))
+
+
+def _over_group(group, x: torch.Tensor, op) -> torch.Tensor:
+    """``op``-fold of every pipe rank's 0-d ``x`` in rank order: the same
+    bits on every rank (gathered through the host: gloo)."""
+    import torch.distributed as dist
+    host = x.detach().reshape(1).cpu()
+    parts = [torch.empty_like(host) for _ in range(group.size)]
+    dist.all_gather(parts, host, group=group.group)
+    return functools.reduce(op, parts)[0].to(x.device)
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -126,7 +141,8 @@ def _all_finite(grads, loss=None) -> torch.Tensor:
 
 
 def apply(cfg: OptimizerConfig, state: OptState, params, grads, *,
-          loss: Optional[torch.Tensor] = None) -> Tuple[Any, OptState, dict]:
+          loss: Optional[torch.Tensor] = None, group=None,
+          replicas: Tuple[str, ...] = ()) -> Tuple[Any, OptState, dict]:
     """One optimizer step.  Returns (params, new_state, metrics).
 
     Params, master weights and moments are updated in place, one leaf at a
@@ -139,17 +155,28 @@ def apply(cfg: OptimizerConfig, state: OptState, params, grads, *,
     ``state.skipped``.  With ``cfg.dynamic_loss_scale`` the incoming grads
     (and ``loss``) are scaled by ``state.scale``; overflow is detected on
     the scaled grads, which are then unscaled before clipping and the
-    moments."""
+    moments.
+
+    With a pipe ``group`` (:class:`repro_torch.core.p2p.PipeGroup`) each
+    rank passes its share of the params: the global norm sums every rank's
+    sum of squares in rank order, leaving out the top-level ``replicas``
+    of ``grads`` (a copy another rank owns: the last rank's tied
+    embedding), and the finiteness flag is the AND of every rank's, so
+    all ranks clip by one scale and skip or take a step together.  The
+    norm then sums in another order than one process does."""
     if cfg.name not in ("adamw", "sgd"):
         raise ValueError(f"unknown optimizer {cfg.name!r}")
     with torch.no_grad():
-        return _apply(cfg, state, params, grads, loss)
+        return _apply(cfg, state, params, grads, loss, group, replicas)
 
 
-def _apply(cfg, state, params, grads, loss):
+def _apply(cfg, state, params, grads, loss, group=None, replicas=()):
     dyn = cfg.dynamic_loss_scale
     finite = (_all_finite(grads, loss) if cfg.skip_nonfinite or dyn
               else None)
+    if finite is not None and group is not None:
+        finite = _over_group(group, finite.to(torch.int32),
+                             torch.minimum) > 0
     inv = 1.0 / state.scale if dyn else None
 
     def unscaled(g):
@@ -159,7 +186,13 @@ def _apply(cfg, state, params, grads, loss):
     leaves = list(zip(tree_leaves(params), tree_leaves(grads),
                       tree_leaves(state.mu), tree_leaves(state.nu),
                       tree_leaves(state.master)))
-    gn = _norm(unscaled(g) for _, g, *_ in leaves)
+    if group is None:
+        gn = _norm(unscaled(g) for _, g, *_ in leaves)
+    else:
+        counted = [g for k, sub in grads.items() if k not in replicas
+                   for g in tree_leaves(sub)]
+        gn = torch.sqrt(_over_group(group, _sum_sq(map(unscaled, counted)),
+                                    torch.add))
     clip = _clip_scale(gn, cfg.clip_norm) if cfg.clip_norm > 0 else None
     step = state.step + 1
     lr = schedule(cfg, step)

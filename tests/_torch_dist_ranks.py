@@ -1,0 +1,215 @@
+"""The pipe ranks of ``tests/test_torch_dist.py`` (and of the one
+multi-process case of ``tests/test_torch_fused.py``): each spawned process
+joins a gloo group on the CPU, runs every case of its suite as one rank,
+then computes the single-process runs of the cases dealt to it, and saves
+both under ``out_dir``.  Its own module, so that a spawned process imports
+this and the port, not a test file's imports.
+
+Every rank and every single-process run keeps torch to one thread: CPU
+matmuls may sum in another order at another thread count.
+"""
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.configs.base import ParallelConfig, ShapeConfig
+from repro_torch.launch import mesh, steps
+from repro_torch.launch import train as train_lib
+from repro_torch.models import pipeline_hetero as PH
+from repro_torch.models.lm import LMModel
+from repro_torch.models.unet import UNetConfig, UNetModel
+from repro_torch.optim import optimizers as optim
+
+BATCH, SEQ, M = 8, 16, 4
+OCFG = dict(lr=2e-3, warmup_steps=2, total_steps=20, clip_norm=1.0)
+FAIL_AFTER = 3            # the failing rank raises at this stage call
+
+
+def _pcfg(arch_name: str, pipe: int, **kw):
+    return configs.smoke_parallel(arch_name).with_(pipe=pipe, n_micro=M,
+                                                   **kw)
+
+
+def _batch(arch) -> Dict[str, torch.Tensor]:
+    rng = np.random.default_rng(0)
+    if arch.is_encdec:
+        return {"frames": torch.from_numpy(
+                    (rng.standard_normal((BATCH, SEQ, arch.d_model)) * 0.1
+                     ).astype(np.float32)),
+                "dec_tokens": torch.from_numpy(
+                    rng.integers(0, arch.vocab, (BATCH, SEQ)).astype(np.int32)),
+                "labels": torch.from_numpy(
+                    rng.integers(0, arch.vocab, (BATCH, SEQ)).astype(np.int32))}
+    return {k: torch.from_numpy(rng.integers(0, arch.vocab, (BATCH, SEQ)
+                                             ).astype(np.int32))
+            for k in ("tokens", "labels")}
+
+
+def suite(name: str, nproc: int) -> List[Tuple[str, Dict[str, Any]]]:
+    """``(case name, case)`` in the order every rank runs them."""
+    if name == "fail":
+        return [("fail", dict(kind="fail", arch="smollm-360m",
+                              pcfg=dict(schedule="1f1b")))]
+    cases = []
+    if name == "r2":
+        for sched, kw in (("1f1b", {}), ("gpipe_tasked", {}), ("zb", {}),
+                          ("zb-reuse", dict(residuals="reuse",
+                                            remat="none")),
+                          ("interleaved2", {})):
+            schedule = {"zb-reuse": "zb",
+                        "interleaved2": "interleaved:2"}.get(sched, sched)
+            for ex in ("spmd", "mpmd"):
+                cases.append((f"smollm-{sched}-{ex}", dict(
+                    kind="grads", arch="smollm-360m",
+                    pcfg=dict(schedule=schedule, executor=ex, **kw))))
+        cases.append(("smollm-train-1f1b", dict(
+            kind="train", arch="smollm-360m",
+            pcfg=dict(schedule="1f1b"))))
+        cases.append(("launch-train-1f1b", dict(
+            kind="launch", arch="smollm-360m",
+            pcfg=dict(schedule="1f1b"))))
+        for ex in ("spmd", "mpmd"):
+            cases.append((f"unet-1f1b-{ex}", dict(
+                kind="hetero", pcfg=dict(schedule="1f1b", executor=ex))))
+    elif name == "r4":
+        for ex in ("spmd", "mpmd"):
+            cases.append((f"smollm-1f1b-{ex}", dict(
+                kind="grads", arch="smollm-360m",
+                pcfg=dict(schedule="1f1b", executor=ex))))
+        for wire, ex in (("bf16", "spmd"), ("int8-ef", "mpmd"),
+                         ("int8-ef", "spmd")):
+            cases.append((f"whisper-1f1b-stream-{wire}-{ex}", dict(
+                kind="grads", arch="whisper-tiny",
+                pcfg=dict(schedule="1f1b", executor=ex, wire=wire,
+                          stream_inputs=True))))
+    else:
+        raise ValueError(f"unknown suite {name!r}")
+    return cases
+
+
+def _model(case, pipe: int):
+    arch = configs.smoke_arch(case["arch"])
+    pcfg = _pcfg(case["arch"], pipe, **case["pcfg"])
+    return LMModel(arch, pcfg, dtype=torch.float32, device="cpu")
+
+
+def _params(model, case, rank=None):
+    if "params" in case:                  # given whole (a JAX oracle's)
+        params = torch.load(case["params"])
+        return params if rank is None else model.rank_share(params, rank)
+    return model.init(torch.Generator().manual_seed(0), rank=rank)
+
+
+def _batch_of(model, case):
+    if "batch" in case:
+        return torch.load(case["batch"])
+    return _batch(model.arch)
+
+
+def _grads(group, case, pipe: int):
+    model = _model(case, pipe)
+    grad_fn = steps.build_grad_fn(model, model.pcfg, "cpu", group=group)
+    loss, grads = grad_fn(_params(model, case, group and group.rank),
+                          _batch_of(model, case))
+    return {"loss": loss, "grads": grads, "park": dict(grad_fn.park_info)}
+
+
+def _train(group, case, pipe: int, n_steps: int = 2):
+    model = _model(case, pipe)
+    ocfg = optim.OptimizerConfig(**OCFG)
+    step = steps.build_train_step(model, model.pcfg, "cpu",
+                                  ShapeConfig("t", SEQ, BATCH, "train"),
+                                  ocfg, group=group)
+    params = _params(model, case, group and group.rank)
+    opt = optim.init(ocfg, params)
+    batch = _batch_of(model, case)
+    losses = []
+    for _ in range(n_steps):
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(metrics["loss"])
+    return {"losses": losses, "params": params}
+
+
+def _fail(group, case, pipe: int):
+    """Rank 1 raises inside a stage mid-step; the others wait on it."""
+    model = _model(case, pipe)
+    inner = model.make_stage_apply
+    calls = [0]
+
+    def failing(*a, **kw):
+        apply = inner(*a, **kw)
+
+        def stage_apply(*args):
+            calls[0] += 1
+            if group.rank == 1 and calls[0] == FAIL_AFTER:
+                raise RuntimeError("injected fault on pipe rank 1")
+            return apply(*args)
+        return stage_apply
+    model.make_stage_apply = failing
+    steps.build_grad_fn(model, model.pcfg, "cpu", group=group)(
+        _params(model, case, group.rank), _batch_of(model, case))
+    return {}
+
+
+def _launch(group, case, pipe: int):
+    """``launch.train.train``, the entry point ``--nproc`` runs in each
+    rank: two steps on the CPU."""
+    model = _model(case, pipe)
+    res = train_lib.train(model.arch, model.pcfg, seq_len=SEQ, batch=BATCH,
+                          steps=2, device="cpu", dtype=torch.float32,
+                          ocfg=optim.OptimizerConfig(**OCFG), group=group)
+    return {"losses": [r["loss"] for r in res["history"]],
+            "ranks": res.get("ranks")}
+
+
+UNET = UNetConfig(B=1, C=4, levels=3, img=32)
+
+
+def _hetero_pcfg(case, pipe: int) -> ParallelConfig:
+    return ParallelConfig(pipe=pipe, tp=1, data=1, n_micro=M, **case["pcfg"])
+
+
+def _hetero(group, case, pipe: int):
+    """A small U-Net, portals on: loss and every stage's grads."""
+    model = UNetModel(UNET, pipe)
+    pcfg = _hetero_pcfg(case, pipe)
+    prog = PH.build_hetero_program(
+        model, model.init(torch.Generator().manual_seed(0), "cpu"), pcfg,
+        "cpu")
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(BATCH, 3, UNET.img, UNET.img, generator=g)
+    y = torch.randn(BATCH, 3, UNET.img, UNET.img, generator=g)
+    park: Dict[str, Any] = {}
+    call = PH.hetero_grad_call(prog, pcfg, park, group=group)
+    stages = prog.stage_params if group is None else \
+        prog.stage_params[group.rank::pipe]
+    loss, grads = call(stages, x, y)
+    return {"loss": loss, "grads": grads, "park": park}
+
+
+RUN = {"grads": _grads, "train": _train, "fail": _fail, "hetero": _hetero,
+       "launch": _launch}
+
+
+def run_rank(rank: int, nproc: int, init_method: str, out_dir: str,
+             suite_name: str, extra=None) -> None:
+    """One pipe rank: the suite's cases in the group, then the
+    single-process runs of the cases ``k`` with ``k % nproc == rank``."""
+    torch.set_num_threads(1)
+    cases = extra or suite(suite_name, nproc)
+    group = mesh.init_pipe_group(rank, nproc, init_method, device="cpu",
+                                 timeout_s=60)
+    try:
+        dist = {name: RUN[case["kind"]](group, case, nproc)
+                for name, case in cases}
+    finally:
+        mesh.destroy_pipe_group(group)
+    ref = {name: RUN[case["kind"]](None, case, nproc)
+           for k, (name, case) in enumerate(cases) if k % nproc == rank}
+    torch.save({"dist": dist, "ref": ref},
+               os.path.join(out_dir, f"rank{rank}.pt"))

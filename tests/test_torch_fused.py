@@ -13,7 +13,8 @@ schedules bitwise equal to each other under ``grad_reduce="ordered"``,
 the launch formulas ``chip_smoke.py`` holds the card to, the 1F1B train
 curve, the fused step against the port's own ``gpipe`` step, and lossy
 wires (which run at pipe 2 but for int8-ef under gpipe's autograd, and are
-the identity at pipe 1).
+the identity at pipe 1), and 1F1B with its two stages in two processes (a
+gloo group on the CPU) against the same oracle.
 """
 import numpy as np
 import pytest
@@ -23,12 +24,13 @@ from test_torch_train import (  # noqa: F401  (fixtures used by name)
     ARCH, BATCH, COUNT_M, COUNT_SEQ, CURVE_STEPS, OCFG, SEQ, TOL,
     _assert_tree_close, _count_train_calls, _few_threads, _port, jax_ref)
 
+import _torch_dist_ranks as ranks_lib
 from repro_torch import configs
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.pipeline import pipeline_grad_call
 from repro_torch.core.skip import SkipSpec
 from repro_torch.interop import params_from_jax
-from repro_torch.launch import steps
+from repro_torch.launch import mesh, steps
 from repro_torch.launch.train import expected_train_launches
 from repro_torch.models.lm import head_loss_chunk
 from repro_torch.optim import optimizers as optim
@@ -79,6 +81,31 @@ def test_fused_loss_and_grads_match_jax_oracle(jax_ref, name, pipe):
     want = params_from_jax(jax_ref["grads"], arch=run["model"].arch,
                            src_pipe=1, pcfg=run["pcfg"], device="cpu")
     _assert_tree_close(run["grads"], want, f"{name} pipe {pipe}")
+
+
+def test_fused_1f1b_in_two_processes_matches_jax_oracle(jax_ref, tmp_path):
+    """Stages in their own processes (a gloo group of two on the CPU,
+    ``tests/_torch_dist_ranks.py``) on the oracle's weights and batch:
+    each rank's loss and gradients against the oracle's, as
+    :func:`test_fused_loss_and_grads_match_jax_oracle` holds one
+    process."""
+    model, pcfg, params, batch = _port(jax_ref, 2, schedule="1f1b")
+    torch.save(params, tmp_path / "params.pt")
+    torch.save(batch, tmp_path / "batch.pt")
+    case = dict(kind="grads", arch=ARCH, pcfg=dict(schedule="1f1b"),
+                params=str(tmp_path / "params.pt"),
+                batch=str(tmp_path / "batch.pt"))
+    mesh.spawn(ranks_lib.run_rank, 2,
+               (str(tmp_path), "jax", [("jax-1f1b", case)]), timeout_s=120,
+               rendezvous_dir=str(tmp_path))
+    want = params_from_jax(jax_ref["grads"], arch=model.arch, src_pipe=1,
+                           pcfg=pcfg, device="cpu")
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt")["dist"]["jax-1f1b"]
+        np.testing.assert_allclose(float(got["loss"]), jax_ref["loss"],
+                                   **TOL)
+        _assert_tree_close(got["grads"], model.rank_share(want, r),
+                           f"rank {r}")
 
 
 @pytest.mark.parametrize("pipe", [2, 4])

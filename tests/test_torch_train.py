@@ -490,10 +490,30 @@ def test_train_entry_point_on_cpu():
 # (h) what is not ported raises, naming its ROADMAP item
 # ---------------------------------------------------------------------------
 
-def _pipe_call(**kw):
+def _pipe_call(group=None, **kw):
     from repro_torch.core.pipeline import pipeline_call
     pipeline_call(lambda *a: a, cfg=configs.smoke_parallel(ARCH).with_(**kw),
-                  devices="cpu")
+                  devices="cpu", group=group)
+
+
+def _a_group():
+    """A pipe group's view, for what refuses one before it would talk."""
+    from repro_torch.core.p2p import PipeGroup
+    return PipeGroup(rank=0, size=2, device=torch.device("cpu"))
+
+
+def _gpipe_in_group():
+    arch = configs.smoke_arch(ARCH)
+    pcfg = configs.smoke_parallel(ARCH).with_(pipe=2, schedule="gpipe")
+    steps.build_grad_fn(LMModel(arch, pcfg, dtype=torch.float32,
+                                device="cpu"), pcfg, "cpu",
+                        group=_a_group())
+
+
+def _nccl_group():
+    from repro_torch.launch import mesh
+    mesh.init_pipe_group(0, 2, "file:///unused", device="cpu",
+                         backend="nccl")
 
 
 def _train_step(**kw):
@@ -524,6 +544,11 @@ UNPORTED = {
                    "A14"),
     "sharded_loader": (lambda mp: data.make_sharded_loader(), "A9"),
     "elastic_flags": (_train_cli, "A11"),
+    # stages in their own processes: the forward executor (A4b), NCCL (A4c)
+    "group_pipeline_call": (lambda mp: _pipe_call(pipe=2,
+                                                  group=_a_group()), "A4b"),
+    "group_gpipe": (lambda mp: _gpipe_in_group(), "A4b"),
+    "nccl": (lambda mp: _nccl_group(), "A4c"),
 }
 
 
