@@ -142,7 +142,26 @@ non-zero and no result line is printed):
             finite and falling; per-rank peak memory beside one process's,
             step and hop-wait ms on the host clock ("4 processes
             time-slicing one card").  A rank that fails or hangs fails the
-            phase with its traceback.
+            phase with its traceback.  Also in that group: smollm-360m
+            through gpipe (autograd's reverse clock-cycle across the
+            ranks, the hops carrying their cotangents back) and the U-Net
+            (5, 64) at 192 x 192, batch 32, pipe 4, m 8, fp32, gpipe with
+            its portals, through ``launch.train_hetero`` (a grad call and
+            3 SGD steps), each against one process: the loss, every
+            gradient's SHA-256 and the step-1 loss equal, the park and
+            route high-water equal to the forward plan's, one cotangent
+            hop for each chain and portal hop;
+18. dist_serve  serving with one process per pipe rank: four ranks on the
+            card, each holding its own stages' weights and caches,
+            through ``launch.serve.serve(group=)``: smollm-360m (32
+            layers), rwkv6-1.6b (24 layers, tp 1) and whisper-tiny (8
+            blocks, 2048 frames) at pipe 4, batch 8, prompt 2048, 32
+            tokens, bf16.  Against one process at pipe 4: the tokens and
+            the last logits' SHA-256 equal, the launches summed over the
+            ranks equal to the path's formula, each rank's cache bytes its
+            share of ``cache_protos``, 31 token hops from the last rank to
+            rank 0; prefill ms, decode tok/s, peak and cache GiB per rank
+            beside one process's ("4 processes time-slicing one card").
 
 The kernels summary line, then the card's ``nvidia-smi`` name and power
 limit, then the last line ``{"ok": true, "device": {...}}``.  It imports
@@ -2036,7 +2055,8 @@ def phase_grad_compression(torch, runs: dict, fp32):
 
 DIST_RANKS = 4
 DIST_STEPS = 3
-DIST_SMOLLM = (("1f1b", "spmd"), ("1f1b", "mpmd"), ("gpipe_tasked", "spmd"))
+DIST_SMOLLM = (("1f1b", "spmd"), ("1f1b", "mpmd"), ("gpipe_tasked", "spmd"),
+               ("gpipe", "spmd"))
 DIST_TIMEOUT_S = 900        # hard limit on the group, all its cases
 DIST_HOP_TIMEOUT_S = 300    # one rendezvous, hop or collective
 
@@ -2044,9 +2064,14 @@ DIST_HOP_TIMEOUT_S = 300    # one rendezvous, hop or collective
 def dist_cases():
     """The cases the four ranks run, in order: smollm-360m at full width
     and depth (32 layers, seq 4096, batch 16, m 8, remat "full", bf16),
-    pipe 4, under each (schedule, executor) of ``DIST_SMOLLM``, then
-    whisper-tiny (all 8 blocks), pipe 4, 1f1b, streamed, int8-ef wire."""
+    pipe 4, under each (schedule, executor) of ``DIST_SMOLLM`` (gpipe's
+    backward is autograd's, across the processes); whisper-tiny (all 8
+    blocks), pipe 4, 1f1b, streamed, int8-ef wire; the U-Net (5, 64) at
+    192 x 192, batch 32, pipe 4, m 8, fp32, gpipe with its portals,
+    through ``launch.train_hetero``."""
     from repro_torch import configs
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.launch.train_hetero import PAPER
     smollm = configs.get_parallel("smollm-360m").with_(
         data=1, tp=1, pipe=DIST_RANKS, n_micro=8, remat="full")
     cases = [dict(name=f"smollm-{s}-{e}", arch="smollm-360m",
@@ -2056,6 +2081,11 @@ def dist_cases():
                       pcfg=whisper_pcfg(DIST_RANKS, schedule="1f1b",
                                         stream_inputs=True, wire="int8-ef"),
                       seq=WHISPER_SEQ, batch=WHISPER_BATCH, steps=0))
+    cases.append(dict(name="unet-gpipe-spmd", arch="unet",
+                      mcfg=PAPER["unet"], batch=32, steps=DIST_STEPS,
+                      pcfg=ParallelConfig(pipe=DIST_RANKS, tp=1, data=1,
+                                          n_micro=8, remat="full",
+                                          portals=True, schedule="gpipe")))
     return cases
 
 
@@ -2094,6 +2124,8 @@ def dist_run(torch, case, group, device: str = "cuda"):
     from repro_torch.models.lm import LMModel
     from repro_torch.optim import optimizers as optim
 
+    if "mcfg" in case:
+        return dist_run_hetero(torch, case, group, device)
     arch, pcfg = case.get("arch_cfg") or configs.get_arch(case["arch"]), \
         case["pcfg"]
     dev = torch.device(device) if group is None else group.device
@@ -2146,20 +2178,66 @@ def dist_run(torch, case, group, device: str = "cuda"):
     return out
 
 
+def dist_run_hetero(torch, case, group, device: str = "cuda"):
+    """The U-Net case, as pipe rank ``group.rank`` or (``group`` None) in
+    one process, through ``launch.train_hetero``: a grad call
+    (``hetero_grad_call``) on ``build_problem``'s weights from seed 0 and
+    its fixed batch (the loss on the last rank,
+    the SHA-256 of every gradient leaf, per rank of the whole model's when
+    in one process, the buffer high-water and hops, the launches, the
+    peak), then ``train_hetero(..., group=)`` for ``steps`` SGD steps
+    from the same weights (losses, step ms)."""
+    from repro_torch.launch import train_hetero as TH
+    from repro_torch.models import pipeline_hetero as PH
+
+    pcfg = case["pcfg"]
+    dev = torch.device(device) if group is None else group.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _, prog, stages, x, y = TH.build_problem(
+        case["mcfg"], pcfg, batch=case["batch"], device=dev, group=group)
+    park = {}
+    call = PH.hetero_grad_call(prog, pcfg, park, group=group)
+    fns = train_counters()
+    _dist_sync(torch, dev)
+    t0 = time.perf_counter()
+    loss, grads = call(stages, x, y)
+    _dist_sync(torch, dev)
+    out = {"loss": None if loss is None else float(loss).hex(),
+           "grad_ms": (time.perf_counter() - t0) * 1e3,
+           "launches": {k: fn.launches for k, fn in fns.items()},
+           "park": park, "peak_gib": _dist_peak_gib(torch, dev)}
+    if group is None:
+        out["digests"] = [digests(torch, dict(enumerate(
+            grads[r::pcfg.pipe]))) for r in range(pcfg.pipe)]
+    else:
+        out["digests"] = digests(torch, dict(enumerate(grads)))
+    del grads, prog, stages, call
+    res = TH.train_hetero(case["mcfg"], pcfg, batch=case["batch"],
+                          steps=case["steps"], device=dev,
+                          ocfg=TH.sgd(HETERO_LR), group=group)
+    out.update(losses=[r["loss"] for r in res["history"]],
+               step_ms=[r["step_s"] * 1e3 for r in res["history"]],
+               peak_gib=_dist_peak_gib(torch, dev))
+    return out
+
+
 def dist_rank(rank: int, nproc: int, init_method: str, out_dir: str,
-              cases, device: str) -> None:
-    """A pipe rank of ``dist_train`` (a spawned process): every case in the
-    group, its records to ``out_dir/rank<r>.json``."""
+              cases, device: str, phase: str = "dist_train") -> None:
+    """A pipe rank of ``dist_train`` or ``dist_serve`` (a spawned
+    process): every case in the group, its records to
+    ``out_dir/rank<r>.json``."""
     import torch
     from repro_torch.launch import mesh
 
+    run = {"dist_train": dist_run, "dist_serve": serve_run}[phase]
     group = mesh.init_pipe_group(rank, nproc, init_method, device=device,
                                  timeout_s=DIST_HOP_TIMEOUT_S)
     out = {}
     try:
         with deterministic(torch):
             for case in cases:
-                out[case["name"]] = dist_run(torch, case, group)
+                out[case["name"]] = run(torch, case, group, device)
                 if group.device.type == "cuda":
                     torch.cuda.empty_cache()
     finally:
@@ -2176,46 +2254,73 @@ def dist_gates(torch, case, ranks, one):
     from repro_torch.launch.train import expected_train_launches
     from repro_torch.models.lm import LMModel
 
-    arch, pcfg = case.get("arch_cfg") or configs.get_arch(case["arch"]), \
-        case["pcfg"]
+    pcfg = case["pcfg"]
+    gpipe = pcfg.schedule == "gpipe"
     bad = []
+    last = len(ranks) - 1
     for r, got in enumerate(ranks):
-        if got["loss"] != one["loss"]:
+        if got["loss"] != one["loss"] and (r == last or "mcfg" not in case):
             bad.append(f"rank {r} loss {got['loss']} != {one['loss']}")
         diff = sorted(k for k in one["digests"][r]
                       if got["digests"].get(k) != one["digests"][r][k])
         if diff or got["digests"].keys() != one["digests"][r].keys():
             bad.append(f"rank {r} grads differ: {diff}")
-    tplan = plan_for(pcfg.schedule, pcfg.n_micro, pcfg.pipe,
-                     skips=LMModel(arch, pcfg, device="meta").skips(),
-                     portals=pcfg.portals, residuals=pcfg.residuals,
-                     wire=pcfg.wire)
+    if "mcfg" in case:
+        from repro_torch.models.unet import UNetModel
+        skips = UNetModel(case["mcfg"], pcfg.pipe).skip_edges()
+    else:
+        arch = case.get("arch_cfg") or configs.get_arch(case["arch"])
+        skips = LMModel(arch, pcfg, device="meta").skips()
+    # gpipe runs the forward plan; autograd's backward crosses its hops
+    tplan = plan_for("gpipe_fwd" if gpipe else pcfg.schedule, pcfg.n_micro,
+                     pcfg.pipe, skips=skips, portals=pcfg.portals,
+                     residuals=pcfg.residuals, wire=pcfg.wire)
     for r, got in enumerate(ranks):
         want = specialize(tplan, r).buffer_slots()
-        if not pcfg.stream_inputs:
+        if gpipe:
+            want = {"park": want["park"]}
+        elif not pcfg.stream_inputs:
             want.pop("fs")
         if got["park"]["buffer_slots"] != want:
             bad.append(f"rank {r} high-water {got['park']['buffer_slots']} "
                        f"!= specialize's {want}")
     for rt in tplan.routes:
         highs = [got["park"]["per_route"][rt.key] for got in ranks]
-        if (max(h["depth"] for h in highs), max(h["g_depth"] for h in highs)
-                ) != (rt.depth, rt.g_depth):
+        if max(h["depth"] for h in highs) != rt.depth or (
+                not gpipe and max(h["g_depth"] for h in highs) != rt.g_depth):
             bad.append(f"route {rt.key} high-water {highs}")
-    # the carry and every skip are [mb, S, d]; the fp32 codec ships the
-    # bf16 model's bytes, a lossy one is priced per fp32-equivalent byte
-    numel = case["batch"] // pcfg.n_micro * case["seq"] * arch.d_model
-    carry = numel * (2 if pcfg.wire == "fp32" else 4)
-    rep = plan_wire_report(tplan, carry)
     got = {c: {k: sum(g["park"]["hops"][c][k] for g in ranks)
                for k in ("hops", "bytes")}
            for c in ("chain", "cotangent", "portal")}
+    # the carry and every skip are [mb, S, d]; the fp32 codec ships the
+    # bf16 model's bytes, a lossy one is priced per fp32-equivalent byte
+    # (the U-Net's carries change shape from stage to stage: hops only)
+    numel = (0 if "mcfg" in case else
+             case["batch"] // pcfg.n_micro * case["seq"] * arch.d_model)
+    rep = plan_wire_report(tplan, numel * (2 if pcfg.wire == "fp32" else 4))
     h = rep["hops"]
     want = {"chain": h["chain"], "portal": h["route_value"],
-            "cotangent": h["cotangent_chain"] + h["route_cotangent"]}
-    if {c: v["hops"] for c, v in got.items()} != want \
-            or any(got[c]["bytes"] != rep["per_class"][c] for c in got):
-        bad.append(f"hops {got} != the plan's {want}, {rep['per_class']}")
+            "cotangent": (h["chain"] + h["route_value"] if gpipe else
+                          h["cotangent_chain"] + h["route_cotangent"])}
+    per_class = dict(rep["per_class"])
+    if gpipe:          # a cotangent in the wire's dtype for every payload
+        per_class["cotangent"] = per_class["chain"] + per_class["portal"]
+    if {c: v["hops"] for c, v in got.items()} != want or (
+            "mcfg" not in case
+            and any(got[c]["bytes"] != per_class[c] for c in got)):
+        bad.append(f"hops {got} != the plan's {want}, {per_class}")
+    if "mcfg" in case:
+        losses = ranks[0]["losses"]
+        if any(g["losses"] != losses for g in ranks):
+            bad.append("ranks report different losses")
+        if losses[0] != one["losses"][0]:
+            bad.append(f"step 1 loss {losses[0]} != one process's "
+                       f"{one['losses'][0]}")
+        if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+            bad.append(f"losses {losses} not finite and falling")
+        if any(any(g["launches"].values()) for g in ranks):
+            bad.append("the U-Net launched kernels of the port")
+        return bad
     expected = expected_train_launches(pcfg, arch, case["seq"])
     calls = [[g["launches"]] + g.get("step_launches", []) for g in ranks]
     summed = [{k: sum(c[i][k] for c in calls) for k in expected}
@@ -2249,11 +2354,13 @@ def phase_dist_train(torch, device: str = "cuda", cases=None):
 
     cases = cases or dist_cases()
     one, t0 = {}, time.perf_counter()
+
+    def key(case):                 # one process: spmd and mpmd the same
+        return case["arch"], case["pcfg"].with_(executor="spmd")
     with deterministic(torch):
         for case in cases:
-            key = case["pcfg"].with_(executor="spmd")   # one process: same
-            if key not in one:
-                one[key] = dist_run(torch, case, None, device)
+            if key(case) not in one:
+                one[key(case)] = dist_run(torch, case, None, device)
                 if device == "cuda":
                     torch.cuda.empty_cache()
     t_one = time.perf_counter() - t0
@@ -2268,7 +2375,7 @@ def phase_dist_train(torch, device: str = "cuda", cases=None):
     bad = {}
     for case in cases:
         ranks = [s[case["name"]] for s in saved]
-        ref = one[case["pcfg"].with_(executor="spmd")]
+        ref = one[key(case)]
         bad[case["name"]] = dist_gates(torch, case, ranks, ref)
         for g in ranks:
             for rec in [g["launches"]] + g.get("step_launches", []):
@@ -2279,12 +2386,17 @@ def phase_dist_train(torch, device: str = "cuda", cases=None):
               "schedule": case["pcfg"].schedule,
               "executor": case["pcfg"].executor,
               "stream_inputs": case["pcfg"].stream_inputs,
-              "wire": case["pcfg"].wire, "seq": case["seq"],
+              "wire": case["pcfg"].wire, "seq": case.get("seq"),
+              "config": (dataclasses.asdict(case["mcfg"]) if "mcfg" in case
+                         else None),
               "batch": case["batch"], "n_micro": case["pcfg"].n_micro,
-              "remat": case["pcfg"].remat, "dtype": "bfloat16",
+              "remat": case["pcfg"].remat,
+              "dtype": "float32" if "mcfg" in case else "bfloat16",
               "where": f"{DIST_RANKS} processes time-slicing one card",
               "losses": ranks[0].get("losses"),
+              "one_process_losses": ref.get("losses"),
               "step_ms_per_rank": [g.get("step_ms") for g in ranks],
+              "one_process_step_ms": ref.get("step_ms"),
               "grad_call_ms_per_rank": [g["grad_ms"] for g in ranks],
               "one_process_grad_call_ms": ref["grad_ms"],
               "peak_gib_per_rank": [g["peak_gib"] for g in ranks],
@@ -2307,6 +2419,172 @@ def phase_dist_train(torch, device: str = "cuda", cases=None):
     failed = {k: v for k, v in bad.items() if v}
     if failed:
         raise AssertionError(f"dist_train: {failed}")
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# dist_serve: serving with one process per pipe rank
+# ---------------------------------------------------------------------------
+
+DIST_SERVE = ("smollm-360m", "rwkv6-1.6b", "whisper-tiny")
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 2048, 32
+
+
+def dist_serve_cases():
+    """One case per model of ``DIST_SERVE`` at full width and depth, pipe
+    4 (smollm-360m's 16 and rwkv6-1.6b's 8 cut to 4, tp and data 1), bf16,
+    batch 8, a 2048-token prompt (and whisper-tiny's 2048 frames), 32
+    tokens."""
+    from repro_torch import configs
+    return [dict(name=f"{a}-serve", arch=a, batch=SERVE_BATCH,
+                 prompt=SERVE_PROMPT, gen=SERVE_GEN,
+                 pcfg=configs.get_parallel(a).with_(
+                     data=1, tp=1, dp2=1, pipe=DIST_RANKS))
+            for a in DIST_SERVE]
+
+
+def serve_run(torch, case, group, device: str = "cuda"):
+    """One serving case through ``launch.serve.serve``, as pipe rank
+    ``group.rank`` or (``group`` None) in one process: weights from seed
+    0 (the rank's share), prompts from seed 1.  Where the logits land
+    (the last rank): the tokens, the logits' SHA-256, whether they are
+    finite; everywhere: the launches, cache bytes, prefill ms, decode
+    tok/s, the peak, and in a group the hops and high-water."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    from repro_torch.launch.serve import serve
+
+    arch = case.get("arch_cfg") or configs.get_arch(case["arch"])
+    train_counters()
+    res = serve(arch, case["pcfg"], prompt_len=case["prompt"],
+                gen=case["gen"], batch=case["batch"], device=device,
+                dtype=torch.bfloat16, seed=0, group=group)
+    out = {"launches": res["launches"], "n_micro": res["n_micro"],
+           "cache_bytes": res["cache_bytes"],
+           "prefill_ms": res["prefill_s"] * 1e3,
+           "decode_tok_per_s": res["decode_tok_per_s"],
+           "peak_gib": res.get("peak_mem_bytes", 0) / 2 ** 30,
+           "backward_launches": flash_attention_bwd.launches
+           + rmsnorm_bwd.launches}
+    if res["logits"] is not None:
+        lg = res["logits"]
+        out.update(tokens=res["tokens"].tolist(),
+                   logits=digests(torch, {"logits": lg})["logits"],
+                   logits_shape=list(lg.shape),
+                   finite=bool(torch.isfinite(lg).all()))
+    if group is not None:
+        out.update(hops=res["hops"], park=res["park"])
+    return out
+
+
+def serve_gates(torch, case, ranks, one):
+    """Why the four ranks' serving of ``case`` disagrees with one
+    process's or with the path's counts, as a list."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.serve import expected_serve_launches
+    from repro_torch.models.lm import LMModel
+    from repro_torch.tree import tree_leaves
+
+    arch = case.get("arch_cfg") or configs.get_arch(case["arch"])
+    bad, last = [], ranks[-1]
+    if last.get("tokens") != one["tokens"]:
+        bad.append("tokens differ from one process's")
+    if last.get("logits") != one["logits"]:
+        bad.append("last logits differ from one process's")
+    if not (last.get("finite") and last.get("logits_shape")
+            == [case["batch"], 1, arch.vocab]):
+        bad.append(f"logits not finite [B, 1, V]: {last.get('logits_shape')}")
+    m = one["n_micro"]
+    want = expected_serve_launches(arch, m, case["gen"])
+    summed = {ph: {k: sum(g["launches"][ph][k] for g in ranks)
+                   for k in want[ph]} for ph in want}
+    if summed != want or one["launches"] != want:
+        bad.append(f"launches over the ranks {summed}, one process "
+                   f"{one['launches']}, the path's {want}")
+    if any(g["backward_launches"] for g in ranks + [one]):
+        bad.append("serving launched a backward kernel")
+    model = LMModel(arch, case["pcfg"].with_(n_micro=m), dtype=torch.bfloat16,
+                    device="meta")
+    dshape = ShapeConfig("d", case["prompt"] + case["gen"], case["batch"],
+                         "decode")
+    for r, g in enumerate(ranks):
+        share = model.init_cache(dshape, m, filled=False, rank=r)
+        nbytes = sum(a.numel() * a.element_size() for a in tree_leaves(share))
+        if g["cache_bytes"] != nbytes:
+            bad.append(f"rank {r} cache {g['cache_bytes']} bytes, its share "
+                       f"of cache_protos {nbytes}")
+        tok = g["hops"]["token"]["hops"]
+        if tok != (case["gen"] - 1 if r == len(ranks) - 1 else 0):
+            bad.append(f"rank {r} sent {tok} token hops")
+    if sum(g["cache_bytes"] for g in ranks) != one["cache_bytes"]:
+        bad.append("the ranks' caches do not add up to one process's")
+    return bad
+
+
+def phase_dist_serve(torch, device: str = "cuda", cases=None):
+    """``dist_serve``: four pipe ranks in four processes on the one card
+    (gloo, hops through pinned host memory), each holding its own stages'
+    weights and caches, serving every case of ``dist_serve_cases`` against
+    one process at the same pipe (deterministic algorithms in both)."""
+    import tempfile
+    from repro_torch.launch import mesh
+
+    cases = cases or dist_serve_cases()
+    one, t0 = {}, time.perf_counter()
+    with deterministic(torch):
+        for case in cases:
+            one[case["name"]] = serve_run(torch, case, None, device)
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        mesh.spawn(dist_rank, DIST_RANKS,
+                   (out_dir, cases, device, "dist_serve"),
+                   timeout_s=DIST_TIMEOUT_S)
+        saved = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+                 for r in range(DIST_RANKS)]
+    t_group = time.perf_counter() - t0
+    totals = {k: 0 for k in KERNELS}
+    bad = {}
+    for case in cases:
+        ranks = [s[case["name"]] for s in saved]
+        ref = one[case["name"]]
+        bad[case["name"]] = serve_gates(torch, case, ranks, ref)
+        for g in ranks:
+            for rec in g["launches"].values():
+                for k, n in rec.items():
+                    totals[k] += n
+        emit({"phase": "dist_serve", "case": case["name"],
+              "arch": case["arch"], "pipe": DIST_RANKS,
+              "n_micro": ref["n_micro"], "batch": case["batch"],
+              "prompt": case["prompt"], "gen": case["gen"],
+              "dtype": "bfloat16",
+              "where": f"{DIST_RANKS} processes time-slicing one card",
+              "prefill_ms_per_rank": [g["prefill_ms"] for g in ranks],
+              "one_process_prefill_ms": ref["prefill_ms"],
+              "decode_tok_per_s": ranks[-1]["decode_tok_per_s"],
+              "one_process_decode_tok_per_s": ref["decode_tok_per_s"],
+              "peak_gib_per_rank": [g["peak_gib"] for g in ranks],
+              "one_process_peak_gib": ref["peak_gib"],
+              "cache_gib_per_rank": [g["cache_bytes"] / 2 ** 30
+                                     for g in ranks],
+              "one_process_cache_gib": ref["cache_bytes"] / 2 ** 30,
+              "hops_per_rank": [{c: v["hops"] for c, v in g["hops"].items()
+                                 if v["hops"]} for g in ranks],
+              "hop_wait_ms_per_class": {
+                  c: max(g["hops"][c]["wait_s"] for g in ranks) * 1e3
+                  for c in ranks[0]["hops"]},
+              "launches_per_rank": [g["launches"] for g in ranks],
+              "sample_tokens": ranks[-1].get("tokens", [[]])[0][:8],
+              "unequal": bad[case["name"]]})
+    emit({"phase": "dist_serve", "one_process_s": t_one,
+          "group_s": t_group, "launches": totals})
+    failed = {k: v for k, v in bad.items() if v}
+    if failed:
+        raise AssertionError(f"dist_serve: {failed}")
     return totals
 
 
@@ -2360,6 +2638,9 @@ def main() -> int:
     runs.clear()
     torch.cuda.empty_cache()
     for k, n in phase_dist_train(torch).items():
+        launches[k] += n
+    torch.cuda.empty_cache()
+    for k, n in phase_dist_serve(torch).items():
         launches[k] += n
     kernels = []
     for kname in KERNELS:

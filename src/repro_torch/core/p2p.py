@@ -14,7 +14,8 @@ at the read.
 
 * :class:`LocalHop`: every rank in this process (the default).  A payload
   waits in an outbox for the next tick's arrivals and moves with
-  ``.to(device)``, a no-op when every stage sits on one card.
+  ``.to(device)``, a no-op when every stage sits on one card; autograd
+  sees one graph through it.
 * :class:`P2PHop`: one pipe rank per process (:class:`PipeGroup`).  A
   payload for another rank is a ``torch.distributed`` message exchange on
   the stream's tag: a preamble of four int64 (micro, stage, header bytes,
@@ -38,10 +39,25 @@ send is posted before its rank blocks on a receive, so no rank waits on
 one that has not posted.
 
 :class:`P2PHop` counts, per payload class (``chain``, ``cotangent``,
-``portal``, ``stream``, and ``embed`` for the step's tied-embedding
-exchange), the hops this rank sent, their payload bytes (the wire tree's
-leaves: what ``core/wire.plan_wire_report`` prices) and the host-clock
-seconds this rank waited on sends and receives of the class.
+``portal``, ``stream``, and, outside the plan's classes, ``embed`` for the
+step's tied-embedding exchange and ``token`` for the token a server's last
+rank sends rank 0 each decode step), the hops this rank sent, their
+payload bytes (the wire tree's leaves: what ``core/wire.plan_wire_report``
+prices) and the host-clock seconds this rank waited on sends and receives
+of the class.
+
+Autograd across processes (:class:`Backprop`, the forward executor under
+grad): a payload whose leaves require grad leaves a *sink* on its sender,
+a 0-d tensor whose backward waits for the payload's cotangent from the
+destination and hands it to the wire tree's leaves; on the receiver the
+leaves are the outputs of an *arrival* node whose backward ships their
+cotangent back on the payload's cotangent stream (``b`` for ``f``,
+``g:<route>`` for ``r:<route>``), tagged like the payload.  The cotangent
+of a wire tree travels in the wire's dtype (a bf16 wire's cotangent is
+bf16), as autograd transposes the casts around the hop.  Each rank
+differentiates its loss (the last rank) together with its sinks; its
+engine visits micro-batches in descending order, as one process's does
+stage by stage, so every sum folds in the single-process order.
 """
 from __future__ import annotations
 
@@ -49,7 +65,7 @@ import json
 import time
 import zlib
 from dataclasses import dataclass
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -58,7 +74,7 @@ from repro_torch.tree import tree_leaves, tree_map
 Tag = Tuple[int, int]                 # (micro, global stage)
 
 #: payload classes a rank counts; the first three are plan_wire_report's
-CLASSES = ("chain", "cotangent", "portal", "stream", "embed")
+CLASSES = ("chain", "cotangent", "portal", "stream", "embed", "token")
 
 
 def payload_class(stream: str) -> str:
@@ -71,7 +87,18 @@ def payload_class(stream: str) -> str:
         return "portal"
     if stream == "s":
         return "stream"
+    if stream == "tok":
+        return "token"
     return "embed"
+
+
+def cotangent_stream(stream: str) -> str:
+    """The stream a payload's cotangent travels back on."""
+    if stream == "f":
+        return "b"
+    if stream.startswith("r:"):
+        return "g:" + stream[2:]
+    raise ValueError(f"stream {stream!r} carries no cotangent")
 
 
 @dataclass
@@ -94,6 +121,16 @@ class PipeGroup:
         return self.rank == self.size - 1
 
 
+def hop_node(wire):
+    """The payload behind one autograd node (a view), as a pipe group's
+    sink is: the cotangents of its uses on the destination sum before they
+    meet the sender's other uses of the value, so that one process sums in
+    the order the ranks must.  That order is not the plain graph's: at
+    pipe 4 whisper-tiny's gradients move by a few ulp
+    (``tests/test_torch_whisper.py::test_gpipe_hop_node_order``)."""
+    return tree_map(lambda a: a.view_as(a) if a.requires_grad else a, wire)
+
+
 class LocalHop:
     """Every rank in this process: the outbox, keyed by (stream,
     destination rank), holds one payload until the next tick's arrivals."""
@@ -108,6 +145,8 @@ class LocalHop:
         if (stream, dst) in self.outbox:
             raise RuntimeError(f"stream {stream}: two values reach rank "
                                f"{dst} on one tick")
+        if src != dst and torch.is_grad_enabled():
+            wire = hop_node(wire)
         self.outbox[(stream, dst)] = (tag, wire, proto)
 
     def take(self, stream: str, src: int, dst: int, expect: bool):
@@ -209,6 +248,9 @@ class P2PHop:
         self.inflight: Dict[str, List[Any]] = {}  # stream -> (works, bufs)
         self.sent_layouts: Dict[Tuple[str, int, int], str] = {}
         self.recv_layouts: Dict[Tuple[str, int, int], Any] = {}
+        # cotangents that landed before the backward asked for them
+        self.early: Dict[Tuple[str, int], Dict[Tag, Any]] = {}
+        self.backprop: Optional["Backprop"] = None   # set under grad
         self.stats = {c: {"hops": 0, "bytes": 0, "wait_s": 0.0}
                       for c in CLASSES}
 
@@ -223,22 +265,29 @@ class P2PHop:
                                    f"{dst} on one tick")
             self.local[stream] = (tag, wire, proto)
             return
+        grad = []
+        if self.backprop is not None:        # the cotangent comes back
+            leaves = tree_leaves(wire)
+            grad = [k for k, a in enumerate(leaves) if a.requires_grad]
+            if grad:
+                self.backprop.sink(cotangent_stream(stream), dst, tag,
+                                   [leaves[k] for k in grad])
         if not self.latch:
-            self._send(stream, dst, tag, wire, proto)
+            self._send(stream, dst, tag, wire, proto, grad)
             return
         if stream in self.latched:
             raise RuntimeError(f"stream {stream}: the send register of rank "
                                f"{self.rank} is latched twice in one tick")
         self.wait(stream)                       # the register is reused
-        self.latched[stream] = (dst, tag, (wire, proto))
+        self.latched[stream] = (dst, tag, (wire, proto, grad))
 
     def post(self, stream: str) -> None:
         """mpmd: send what the stream latched on the previous tick."""
         if stream not in self.latched:
             raise RuntimeError(f"stream {stream}: the plan ships from rank "
                                f"{self.rank} but nothing was latched")
-        dst, tag, (wire, proto) = self.latched.pop(stream)
-        self._send(stream, dst, tag, wire, proto)
+        dst, tag, (wire, proto, grad) = self.latched.pop(stream)
+        self._send(stream, dst, tag, wire, proto, grad)
 
     def check_posted(self, t: int) -> None:
         if self.latched:
@@ -270,11 +319,29 @@ class P2PHop:
         self.wait("s")
         return out
 
-    def _send(self, stream, dst, tag, wire, proto) -> None:
+    def send_cotangent(self, stream: str, dst: int, tag: Tag, tree) -> None:
+        """Post a payload's cotangent (``{str(leaf index): tensor}``, the
+        leaves that got one) back to its sender, tagged like the payload;
+        :meth:`finish` waits for it."""
+        self._send(stream, dst, tag, tree, None)
+
+    def recv_cotangent(self, stream: str, src: int, tag: Tag):
+        """The cotangent tagged ``tag`` from ``src``: taken from those that
+        landed early, or received, parking any other that lands first."""
+        early = self.early.setdefault((stream, src), {})
+        while tag not in early:
+            got, tree, _ = self.recv_tree(stream, src)
+            if got in early:
+                raise RuntimeError(f"stream {stream}: two cotangents for "
+                                   f"{got} from rank {src}")
+            early[got] = tree
+        return early.pop(tag)
+
+    def _send(self, stream, dst, tag, wire, proto, grad=()) -> None:
         leaves = tree_leaves(wire)
         layout = json.dumps({"wire": _layout(wire),
                              "proto": None if proto is None
-                             else _layout(proto)})
+                             else _layout(proto), "grad": list(grad)})
         key = (stream, dst, tag[1])
         header = b""
         if self.sent_layouts.get(key) != layout:
@@ -336,10 +403,19 @@ class P2PHop:
             return item
         if not expect:
             return None
-        return self.recv_tree(stream, src)
+        tag, wire, proto, grad = self._recv(stream, src)
+        if grad and self.backprop is not None:
+            wire = Arrival(self.backprop, cotangent_stream(stream), src, tag,
+                           wire, grad)
+        return tag, wire, proto
 
     def recv_tree(self, stream: str, src: int):
         """Receive one payload from ``src``: ``(tag, wire, proto)``."""
+        return self._recv(stream, src)[:3]
+
+    def _recv(self, stream: str, src: int):
+        """One payload from ``src``, and the indices of the wire leaves
+        whose sender waits for their cotangent."""
         tg = _stream_tag(stream)
         t0 = time.perf_counter()
         pre = torch.empty(4, dtype=torch.int64)
@@ -376,7 +452,7 @@ class P2PHop:
         proto = None if layout["proto"] is None else _rebuild(
             layout["proto"],
             lambda dt, shp: torch.empty(shp, dtype=dt, device="meta"))
-        return (micro, stage), wire, proto
+        return (micro, stage), wire, proto, layout.get("grad", [])
 
     def finish(self) -> None:
         """Wait for every send; raise if a payload never left or landed."""
@@ -384,6 +460,185 @@ class P2PHop:
         self.wait_sends()
         if self.local:
             raise RuntimeError(f"payloads never landed: {sorted(self.local)}")
+        stray = {k: sorted(v) for k, v in self.early.items() if v}
+        if stray:
+            raise RuntimeError(f"cotangents nobody asked for: {stray}")
+
+
+# ---------------------------------------------------------------------------
+# Autograd across processes
+# ---------------------------------------------------------------------------
+
+class _Sink(torch.autograd.Function):
+    """On the sender: a 0-d stand-in for the leaves it shipped, whose
+    backward waits for their cotangent."""
+
+    @staticmethod
+    def forward(ctx, bp, key, *leaves):
+        ctx.bp, ctx.key, ctx.n = bp, key, len(leaves)
+        return torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+
+    @staticmethod
+    def backward(ctx, _):
+        return (None, None) + tuple(ctx.bp._wait(ctx.key, ctx.n))
+
+
+class _Arrive(torch.autograd.Function):
+    """On the receiver: the landed leaves as outputs of a node whose
+    backward ships their cotangent to the sender."""
+
+    @staticmethod
+    def forward(ctx, bp, rec, anchor, *leaves):
+        ctx.bp, ctx.rec = bp, rec
+        ctx.set_materialize_grads(False)       # an unused leaf ships none
+        return leaves
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.bp._ship(ctx.rec, grads)
+        return (None, None, None) + (None,) * len(grads)
+
+
+class Arrival:
+    """A payload that landed under grad, parked as it came: its arrival
+    node is made by :meth:`resolve`, at the read that consumes it, so
+    that on the receiver's engine it runs right after that task's stage
+    (the order :class:`Backprop` relies on)."""
+
+    def __init__(self, bp: "Backprop", stream: str, src: int, tag: Tag,
+                 wire, grad: Sequence[int]):
+        self.bp, self.stream, self.src, self.tag = bp, stream, src, tag
+        self.wire, self.grad = wire, list(grad)
+
+    def resolve(self):
+        """The wire tree, its leaves that carry a cotangent differentiable."""
+        leaves = tree_leaves(self.wire)
+        outs = dict(zip(self.grad, self.bp.arrive(
+            self.stream, self.src, self.tag,
+            [leaves[k] for k in self.grad])))
+        it = iter(range(len(leaves)))
+        return tree_map(lambda a: outs.get(next(it), a), self.wire)
+
+
+class Backprop:
+    """One differentiable forward call's reverse clock-cycle.
+
+    Pass one to the forward executor (``pipeline_call``'s ``call(...,
+    backprop=bp)``) under grad, then :meth:`grad`.  In one process it is
+    ``torch.autograd.grad``.  In a pipe group the executor's
+    :class:`P2PHop` registers a sink for every payload it sent and an
+    arrival for every payload it received (module docstring), and
+    :meth:`grad` differentiates the rank's roots with its sinks, so the
+    engine blocks on a sink until its cotangent lands and ships each
+    arrival's cotangent as soon as its consumers are done.
+
+    An arrival whose leaves nothing on its rank used never runs its
+    backward; its sender still waits, so it ships an empty cotangent
+    instead (the sender adds nothing, as one process's autograd would):
+    when the rank's engine reaches an earlier micro-batch, or at the end.
+    That relies on the engine visiting micro-batches in descending order:
+    it runs ready nodes by descending sequence number, and an arrival is
+    made at the read that consumes it (:class:`Arrival`), after every
+    node of the earlier micro-batches.  A backward that comes back to a
+    later micro-batch raises."""
+
+    def __init__(self):
+        self.hop: Optional[P2PHop] = None
+        self.anchor: Optional[torch.Tensor] = None
+        self.sinks: List[torch.Tensor] = []
+        self.arrivals: List[Dict[str, Any]] = []
+        self.reached: Optional[int] = None    # the micro-batch backward is at
+
+    def attach(self, hop: P2PHop) -> None:
+        if self.hop is not None:
+            raise RuntimeError("a Backprop serves one forward call")
+        self.hop, hop.backprop = hop, self
+        # the arrivals' common input: asking for its gradient makes the
+        # engine run every arrival that a root reaches
+        self.anchor = torch.zeros((), device=hop.device, requires_grad=True)
+
+    def sink(self, stream: str, src: int, tag: Tag, leaves) -> None:
+        """A payload left for ``src`` (as ``tag``); its cotangent comes
+        back from there on ``stream``."""
+        self.sinks.append(_Sink.apply(self, (stream, src, tag), *leaves))
+
+    def arrive(self, stream: str, dst: int, tag: Tag, leaves):
+        """A payload landed from ``dst``: its leaves, differentiable,
+        whose cotangent goes back to ``dst`` on ``stream``."""
+        rec = {"stream": stream, "dst": dst, "tag": tag, "fired": False}
+        self.arrivals.append(rec)
+        return _Arrive.apply(self, rec, self.anchor, *leaves)
+
+    def _ship(self, rec, grads) -> None:
+        self._reach(rec["tag"][0])
+        if rec["fired"]:
+            raise RuntimeError(f"the cotangent of {rec['tag']} on stream "
+                               f"{rec['stream']} came after it was given up")
+        rec["fired"] = True
+        self.hop.send_cotangent(rec["stream"], rec["dst"], rec["tag"],
+                                {str(k): g.contiguous()
+                                 for k, g in enumerate(grads)
+                                 if g is not None})
+
+    def _wait(self, key, n: int):
+        stream, src, tag = key
+        self._reach(tag[0])
+        tree = self.hop.recv_cotangent(stream, src, tag)
+        return [tree.get(str(k)) for k in range(n)]
+
+    def _reach(self, micro: int) -> None:
+        """The backward is at ``micro``: it may not go back to a later
+        micro-batch, whose unfired arrivals are given up here."""
+        if self.reached is not None and micro > self.reached:
+            raise RuntimeError(
+                f"the backward came back to micro-batch {micro} after "
+                f"micro-batch {self.reached}: the arrivals of the later "
+                "micro-batches were given up on the assumption that "
+                "autograd visits micro-batches in descending order")
+        self.reached = micro
+        self._flush(micro)
+
+    def _flush(self, micro: Optional[int] = None) -> None:
+        """Ship an empty cotangent for every arrival of a later micro-batch
+        than ``micro`` (of every one, with None) whose backward has not
+        run: nothing on this rank used it."""
+        for rec in self.arrivals:
+            if not rec["fired"] and (micro is None or rec["tag"][0] > micro):
+                rec["fired"] = True
+                self.hop.send_cotangent(rec["stream"], rec["dst"],
+                                        rec["tag"], {})
+
+    def grad(self, roots: Sequence[torch.Tensor], inputs: Sequence[Any],
+             seeds: Optional[Sequence[Any]] = None) -> List[torch.Tensor]:
+        """The gradients of ``roots`` (seeded by ``seeds``, default ones)
+        with respect to ``inputs``, zeros where unused.  In a pipe group
+        ``roots`` are this rank's (the loss on the last rank, none
+        elsewhere): its sinks join them, and every cotangent it owes is
+        shipped and sent before this returns."""
+        roots, inputs = list(roots), list(inputs)
+        seeds = list(seeds) if seeds is not None else [None] * len(roots)
+        outs = roots + self.sinks
+        wrt = inputs + ([self.anchor] if self.anchor is not None else [])
+        if outs:
+            g = torch.autograd.grad(outs, wrt,
+                                    seeds + [None] * len(self.sinks),
+                                    allow_unused=True, materialize_grads=True)
+        else:
+            g = [torch.zeros_like(x) for x in wrt]
+        if self.hop is not None:
+            self._flush()
+            self.hop.finish()
+        return list(g[:len(inputs)])
+
+
+def group_loss(group: PipeGroup, loss):
+    """The last rank's loss on every rank (0-d fp32 on its device; the
+    others pass anything, None included)."""
+    import torch.distributed as dist
+    buf = (loss.detach().float().reshape(1).cpu() if group.last
+           else torch.zeros(1, dtype=torch.float32))
+    dist.broadcast(buf, src=group.size - 1, group=group.group)
+    return loss if group.last else buf[0].to(group.device)
 
 
 def _stream_tag(stream: str) -> int:

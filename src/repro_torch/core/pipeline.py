@@ -68,15 +68,18 @@ each route's values and cotangents, on the hops that cross ranks.
 
 Hops (:mod:`repro_torch.core.p2p`): by default every stage runs in this
 process and a hop is ``.to()``.  Given a pipe group
-(:mod:`repro_torch.launch.mesh`), the fused executor runs one rank's column
+(:mod:`repro_torch.launch.mesh`), either executor runs one rank's column
 of the plan in each process and a hop to another rank is a
 ``torch.distributed`` message of the wire tree, sent eagerly
-(``executor="spmd"``) or latched one tick ahead (``"mpmd"``).
+(``executor="spmd"``) or latched one tick ahead (``"mpmd"``).  Serving
+keeps each rank's own stages' caches; under autograd the forward
+executor's hops carry their cotangents back (:class:`p2p.Backprop`), so
+autograd's reverse clock-cycle crosses the processes.
 
-What raises: the forward executor in several processes (ROADMAP A4b,
-:func:`check_no_group`), data and tensor parallelism (A9,
-:func:`check_single_replica`), and an ``int8-ef`` wire under autograd in
-the forward executor (:func:`check_plan`).
+What raises: data and tensor parallelism (A9,
+:func:`check_single_replica`), an ``int8-ef`` wire under autograd in the
+forward executor (:func:`check_plan`), and streamed inputs under autograd
+in the forward executor across processes (ROADMAP A4d).
 """
 from __future__ import annotations
 
@@ -123,18 +126,6 @@ def check_single_replica(cfg: ParallelConfig) -> None:
             f"tp={cfg.tp}, data={cfg.data}, pod={cfg.pod}, dp2={cfg.dp2}: "
             "tensor and data parallelism are not ported yet (ROADMAP A9); "
             "pass tp=1, data=1, pod=1, dp2=1")
-
-
-def check_no_group(group, what: str) -> None:
-    """The forward executor runs every stage in one process: serving with
-    per-rank KV caches and ``schedule="gpipe"`` under autograd across
-    processes are ROADMAP A4b."""
-    if group is not None:
-        raise NotImplementedError(
-            f"{what} with a pipe group: the forward executor across "
-            "processes (serving with per-rank caches, schedule='gpipe' "
-            "under autograd) is not ported yet (ROADMAP A4b); train with a "
-            "fused schedule (1f1b, gpipe_tasked, interleaved:v, zb)")
 
 
 def check_plan(tplan: plan_lib.TaskPlan, cfg: ParallelConfig, *,
@@ -357,7 +348,7 @@ class _Slots:
         if held[0] != tag:
             raise RuntimeError(f"{self.name} slot {slot} of rank {r} holds "
                                f"{held[0]}, the task wants {tag}")
-        return held[1]
+        return held[1].value() if isinstance(held[1], _Landed) else held[1]
 
     def highs(self) -> Tuple[int, ...]:
         """High-water per rank, in rank order."""
@@ -367,6 +358,19 @@ class _Slots:
         if any(self.slots.values()):
             raise RuntimeError(f"{self.name} slots still hold values after "
                                f"the last tick: {self.slots}")
+
+
+class _Landed:
+    """A payload parked as it landed under grad in a pipe group
+    (:class:`p2p.Arrival`): its arrival node and its decode run at the
+    read that consumes it (a forward executor read releases its slot)."""
+
+    def __init__(self, link: "_Link", wire, proto):
+        self.link, self.wire, self.proto = link, wire, proto
+
+    def value(self):
+        return self.link.wire.dec(self.link.stream, self.wire.resolve(),
+                                  self.proto)
 
 
 class _Link:
@@ -393,7 +397,9 @@ class _Link:
             if item is not None:
                 tag, wire, proto = item
                 self.buf.put(r, slot, tag,
-                             self.wire.dec(self.stream, wire, proto))
+                             _Landed(self, wire, proto)
+                             if isinstance(wire, p2p.Arrival)
+                             else self.wire.dec(self.stream, wire, proto))
 
 
 class _Route:
@@ -518,6 +524,35 @@ def _send_skips(routes: Sequence[_Route], t: int, r: int, micro: int,
                            "SkipSpec")
 
 
+def _hop(tplan: plan_lib.TaskPlan, cfg: ParallelConfig, devices,
+         group: Optional[p2p.PipeGroup]):
+    """``(devices, hop)`` of one executor call: one device per global
+    stage and the in-process outbox, or, in a pipe group, the group's
+    device for every stage and the message hop under ``cfg.executor``."""
+    R, S = tplan.n_ranks, tplan.n_stages
+    if group is None:
+        devices = stage_devices(devices, S)
+        return devices, p2p.LocalHop(R, devices)
+    if group.size != R:
+        raise ValueError(f"plan is for pipe={R}; the group has "
+                         f"{group.size} ranks")
+    return [group.device] * S, p2p.P2PHop(group, cfg.executor)
+
+
+def _post_latched(hop, tplan: plan_lib.TaskPlan, routes, t: int,
+                  me: int) -> None:
+    """mpmd: what rank ``me`` latched on tick ``t - 1`` leaves now, where
+    the plan's send columns say (a forward plan's ``b_send_slot`` is
+    empty)."""
+    if tplan.send_slot[t - 1, me] >= 0:
+        hop.post("f")
+    if tplan.b_send_slot[t - 1, me] >= 0:
+        hop.post("b")
+    for route in routes:
+        route.post(t, me, hop)
+    hop.check_posted(t)
+
+
 def _stage_trees(stage_params, stages: Sequence[int], devices
                  ) -> Dict[int, Any]:
     """``{s: stage s's parameter tree on devices[s]}`` for the global
@@ -551,7 +586,9 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
                        tplan: plan_lib.TaskPlan,
                        devices: Any,
                        resident=None,
-                       park_info: Optional[Dict[str, Any]] = None):
+                       park_info: Optional[Dict[str, Any]] = None,
+                       group: Optional[p2p.PipeGroup] = None,
+                       backprop: Optional[p2p.Backprop] = None):
     """Execute one forward-only event plan for a mini-batch.
 
     ``devices`` is one device per stage (or one for all).
@@ -573,46 +610,79 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
     ``cfg.stream_inputs`` and ``m % pipe == 0`` the inputs stream
     (:class:`_Stream`).  F+B plans run through
     :func:`run_pipeline_grad_tasks`.
+
+    With a pipe ``group`` this process runs rank ``group.rank``'s column
+    of the plan on ``group.device``, hopping to the other ranks as
+    :func:`run_pipeline_grad_tasks` does under ``cfg.executor``'s send
+    discipline: ``stage_params`` is this rank's stage (a tree stacked
+    ``[1, ...]`` or a sequence of one tree), ``resident`` leaves lead
+    with ``[1]``, ``inputs_mb`` is read on rank 0 (None elsewhere) and the
+    last rank gets the outputs.  ``park_info`` receives ``rank``,
+    ``buffer_slots`` (``{"park": n}``), ``per_route`` and ``hops``.
+    Under grad mode pass a :class:`p2p.Backprop` and differentiate with
+    its ``grad``: each hop's cotangent comes back through it, counted
+    under ``hops["cotangent"]`` as it ships.  Streamed inputs under grad
+    across processes are ROADMAP A4d and raise.
     """
     check_single_replica(cfg)
     if tplan.has_backward:
         raise ValueError("plans with backward tasks run through "
                          "run_pipeline_grad_tasks (pipeline_grad_call)")
-    check_plan(tplan, cfg, autograd=torch.is_grad_enabled())
-    remat = cfg.remat if torch.is_grad_enabled() else "none"
+    grad = torch.is_grad_enabled()
+    check_plan(tplan, cfg, autograd=grad)
+    remat = cfg.remat if grad else "none"
     R, m = tplan.n_ranks, tplan.n_micro
     if (R, m) != (cfg.pipe, cfg.n_micro):
         raise ValueError(f"plan is for pipe={R}, m={m}; config has "
                          f"pipe={cfg.pipe}, n_micro={cfg.n_micro}")
-    devices = stage_devices(devices, R)
+    streaming = _streaming(tplan, cfg)
+    devices, hop = _hop(tplan, cfg, devices, group)
+    if group is not None and grad:
+        if streaming:
+            raise NotImplementedError(
+                "stream_inputs in the forward executor under autograd "
+                "across processes: the shards' rotations would carry their "
+                "cotangents back too, not ported yet (ROADMAP A4d); stream "
+                "with a fused schedule (1f1b, gpipe_tasked, interleaved:v, "
+                "zb) or without a group")
+        if backprop is None:
+            raise ValueError("the forward executor under grad in a pipe "
+                             "group needs a p2p.Backprop to carry the "
+                             "cotangents back")
+        backprop.attach(hop)
+    mine = list(hop.ranks)                  # one stage per rank here
     resident = {} if resident is None else resident
-    params_s = _stage_trees(stage_params, range(R), devices)
+    params_s = _stage_trees(stage_params, mine, devices)
     for leaf in tree_leaves(resident):
-        if leaf.shape[0] != R:
+        if leaf.shape[0] != len(mine):
             raise ValueError(f"stacked leaf {tuple(leaf.shape)} does not "
-                             f"lead with n_stages={R}")
-    resident_s = [tree_map(lambda a: a[s], resident) for s in range(R)]
-    for s in range(R):
+                             f"lead with n_stages={len(mine)}")
+    resident_s = {s: tree_map(lambda a: a[c], resident)
+                  for c, s in enumerate(mine)}
+    for s in mine:
         for leaf in tree_leaves(resident_s[s]):
             if leaf.device != devices[s]:
                 raise ValueError(f"resident state of stage {s} lives on "
                                  f"{leaf.device}, stage on {devices[s]}")
 
-    hop = p2p.LocalHop(R, devices)
     park = _Slots("park", hop.ranks)
     wire = _Wire(tplan)
     chain = _Link(park, wire, "f", hop, lambda r: (r - 1) % R)
     routes = [_Route(rt, wire, hop) for rt in tplan.routes]
-    stream = (_Stream(inputs_mb, R, hop) if _streaming(tplan, cfg)
-              else None)
+    stream = _Stream(inputs_mb, R, hop) if streaming else None
+    latch = group is not None and cfg.executor == "mpmd"
     outputs: List[Any] = [None] * m
     for t in range(tplan.n_ticks):
+        if latch and t:
+            _post_latched(hop, tplan, routes, t, group.rank)
         # 1. arrivals: last tick's boundary outputs and skips park
         chain.land(t, tplan.park_recv)
         for route in routes:
             route.land(t)
+        if group is not None and not latch:
+            hop.wait_sends()               # spmd: last tick's sends are done
         # 2. each rank runs at most one task; its forward consumes the slots
-        for r in range(R):
+        for r in hop.ranks:
             if int(tplan.kind[t, r]) == NOP:
                 continue
             i = int(tplan.micro[t, r])
@@ -643,11 +713,17 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
     for buf in [park] + routes:
         buf.check_empty()
     if park_info is not None:
-        park_info["per_stage_park"] = park.highs()
+        if group is None:
+            park_info["per_stage_park"] = park.highs()
+        else:
+            park_info.update(rank=group.rank,
+                             buffer_slots={"park": park.high[group.rank]},
+                             hops=hop.stats)
         if routes:
             park_info["per_route"] = {route.rt.key: route.high(False)
                                       for route in routes}
-    stacked = tree_map(lambda *xs: torch.stack(xs), *outputs)
+    stacked = (tree_map(lambda *xs: torch.stack(xs), *outputs)
+               if R - 1 in mine else None)
     return [None] * (R - 1) + [stacked], resident
 
 
@@ -676,7 +752,8 @@ def pipeline_call(stage_apply: StageApplyFn,
                   skips: Sequence[SkipSpec] = (),
                   park_info: Optional[Dict[str, Any]] = None,
                   group: Optional[p2p.PipeGroup] = None):
-    """Build ``(stage_params, inputs_mb, resident) -> (outputs, resident)``.
+    """Build ``(stage_params, inputs_mb, resident, *, backprop) ->
+    (outputs, resident)``.
 
     ``devices`` is one device per stage (or one device for all).  Forward
     execution always runs the GPipe clock-cycle plan; the plan is lowered
@@ -685,21 +762,29 @@ def pipeline_call(stage_apply: StageApplyFn,
     last stage's ``[m, ...]`` collection (:func:`last_stage_output`).  The
     call is differentiable: under grad mode autograd records the
     clock-cycle and its backward is the reverse one, with each stage
-    recomputed under ``cfg.remat``.  Every stage runs in this process: a
-    pipe ``group`` raises (ROADMAP A4b).
+    recomputed under ``cfg.remat``; pass a :class:`p2p.Backprop` as
+    ``backprop`` and take the gradients with its ``grad``.
+
+    With a pipe ``group`` this process runs one rank
+    (:func:`run_pipeline_tasks` says what it passes and gets back) under
+    ``cfg.executor``'s send discipline, and ``devices`` is ignored.  Under
+    grad the ``backprop`` is required: each rank's ``backprop.grad``
+    differentiates its own roots (the loss on the last rank, nothing
+    elsewhere) and the cotangents cross between the processes.
     """
     check_single_replica(cfg)
-    check_no_group(group, "pipeline_call")
     if cfg.virtual_stages > 1:
         raise ValueError("interleaved schedules are train-only; forward "
                          "execution runs the clock-cycle plan")
     tplan = plan_lib.plan_for("gpipe_fwd", cfg.n_micro, cfg.pipe,
                               skips=skips, portals=cfg.portals, wire=cfg.wire)
 
-    def call(stage_params, inputs_mb, resident=None):
+    def call(stage_params, inputs_mb, resident=None, *,
+             backprop: Optional[p2p.Backprop] = None):
         return run_pipeline_tasks(stage_apply, stage_params, inputs_mb, cfg,
                                   tplan=tplan, devices=devices,
-                                  resident=resident, park_info=park_info)
+                                  resident=resident, park_info=park_info,
+                                  group=group, backprop=backprop)
 
     call.tplan = tplan
     return call
@@ -807,15 +892,7 @@ def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
     if (R, m) != (cfg.pipe, cfg.n_micro):
         raise ValueError(f"plan is for pipe={R}, m={m}; config has "
                          f"pipe={cfg.pipe}, n_micro={cfg.n_micro}")
-    if group is None:
-        devices = stage_devices(devices, S)
-        hop = p2p.LocalHop(R, devices)
-    else:
-        if group.size != R:
-            raise ValueError(f"plan is for pipe={R}; the group has "
-                             f"{group.size} ranks")
-        devices = [group.device] * S
-        hop = p2p.P2PHop(group, cfg.executor)
+    devices, hop = _hop(tplan, cfg, devices, group)
     mine = [s for s in range(S) if s % R in hop.ranks]  # stages run here
     first, last = 0 in mine, S - 1 in mine
     reuse = tplan.residuals == "reuse"
@@ -898,16 +975,8 @@ def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
         fs = _Slots("fs", hop.ranks)
     latch = group is not None and cfg.executor == "mpmd"
     for t in range(tplan.n_ticks):
-        # 0. mpmd: what a rank latched on tick t - 1 leaves now
         if latch and t:
-            me = group.rank
-            if tplan.send_slot[t - 1, me] >= 0:
-                hop.post("f")
-            if tplan.b_send_slot[t - 1, me] >= 0:
-                hop.post("b")
-            for route in routes:
-                route.post(t, me, hop)
-            hop.check_posted(t)
+            _post_latched(hop, tplan, routes, t, group.rank)
         # 1. arrivals: forward carries from rank r - 1, cotangents from r + 1,
         #    skip values and cotangents from their routes' previous hop
         chain_f.land(t, tplan.park_recv)

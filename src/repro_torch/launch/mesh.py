@@ -3,10 +3,11 @@
 Counterpart of :mod:`repro.launch.mesh` for the ``pipe`` axis only.  Where
 the reference lays a device mesh out and runs every stage inside one
 ``shard_map`` program, the port starts one process per pipe rank and
-joins them in a ``torch.distributed`` group; the fused executor then runs
+joins them in a ``torch.distributed`` group; either executor then runs
 each rank's column of the plan in its own process
-(``pipeline_grad_call(..., group=...)``) and hops over point-to-point
-messages (:mod:`repro_torch.core.p2p`).
+(``pipeline_grad_call(..., group=...)``, ``pipeline_call(...,
+group=...)``) and hops over point-to-point messages
+(:mod:`repro_torch.core.p2p`).
 
 The backend is gloo, whose messages take host tensors: a CUDA payload
 crosses through pinned host memory.  That runs on one card too: every rank

@@ -6,7 +6,11 @@ KV caches, or RWKV-6 states) are read and updated on each stage's forward
 ticks, per micro-batch slot.  The full configs run with ``data=1`` and
 ``tp=1`` (the port has no tensor parallelism): all pipeline stages on the
 one card given by ``--device`` (the default ``cuda``; ``cpu`` runs the plain
-versions of the kernels).
+versions of the kernels), in this process or, with ``--nproc R`` (pipe R),
+one pipe rank in each of R spawned processes joined over gloo
+(:mod:`repro_torch.launch.mesh`), each holding its own stages' weights and
+caches; the last rank samples and sends each token to rank 0, which embeds
+it for the next decode step.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --prompt-len 2048 \\
         --gen 32 --batch 8
@@ -15,6 +19,8 @@ versions of the kernels).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
         --prompt-len 2048 --gen 32 --batch 8
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --nproc 4 \\
+        --prompt-len 2048 --gen 32 --batch 8
 
 An enc-dec (whisper) prefills ``frames`` (random, the stub frontend's
 frame embeddings) with the prompt as ``dec_tokens``, both ``prompt_len``
@@ -23,19 +29,22 @@ long, as the reference does.
 from __future__ import annotations
 
 import argparse
+import json
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch import configs
 from repro_torch.configs.base import ArchConfig, ParallelConfig, ShapeConfig
+from repro_torch.core import p2p
 from repro_torch.devices import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.wkv6 import wkv6
-from repro_torch.launch import steps
+from repro_torch.launch import mesh, steps
 from repro_torch.models.lm import LMModel
+from repro_torch.tree import tree_leaves
 
 
 def _launches() -> Dict[str, int]:
@@ -90,40 +99,76 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _add_hops(total: Dict[str, Dict[str, float]], hops) -> None:
+    for c, rec in hops.items():
+        for k, v in rec.items():
+            total[c][k] += v
+
+
 def serve(arch: ArchConfig, pcfg: ParallelConfig, *, prompt_len: int,
           gen: int, batch: int, device="cuda", dtype=torch.bfloat16,
-          seed: int = 0, temperature: float = 0.0) -> Dict[str, Any]:
+          seed: int = 0, temperature: float = 0.0,
+          group: Optional[p2p.PipeGroup] = None) -> Dict[str, Any]:
     """Prefill a random prompt batch, then decode ``gen - 1`` more tokens.
 
     Weights come from ``seed``, prompts (and an enc-dec's frames,
     :func:`prompt_batch`) from ``seed + 1``.  Returns the
     generated tokens, the last logits and the timings; ``launches`` holds
-    the kernel launches of the prefill and of all decode steps."""
-    dev = resolve_device(device)
+    the kernel launches of the prefill and of all decode steps.
+
+    With a pipe ``group`` (:func:`repro_torch.launch.mesh.init_pipe_group`)
+    this process serves its rank's share on ``group.device`` (``device``
+    is ignored): its stages' weights (``LMModel.init(..., rank=)``) and
+    caches (``init_cache(..., rank=)``).  Every rank draws the same
+    prompts, so the last rank's sampler state is one process's; rank 0
+    embeds, the last rank samples and sends each token to rank 0 (the
+    ``token`` hop class).  ``tokens``, ``logits`` and the timings are the
+    last rank's (None elsewhere, but the timings: each rank's own, the
+    clocks started together); ``launches``, ``cache_bytes``, ``hops``
+    (per payload class over the prefill and every decode step) and
+    ``park`` (each plan's high-water) are this rank's, and every rank gets
+    ``ranks``: per rank those, its peak memory on a card, and the last
+    rank's tokens."""
+    dev = resolve_device(device) if group is None else group.device
+    rank = None if group is None else group.rank
+    first = group is None or group.first
+    last = group is None or group.last
     max_len = prompt_len + gen
     pshape = ShapeConfig("prefill", prompt_len, batch, "prefill")
     dshape = ShapeConfig("decode", max_len, batch, "decode")
     pcfg = pcfg.with_(n_micro=configs.derive_n_micro(pshape, pcfg))
     model = LMModel(arch, pcfg, dtype=dtype, device=dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                        rank=rank)
+    park_p: Dict[str, Any] = {}
+    park_d: Dict[str, Any] = {}
     prefill = steps.build_prefill_step(model, pcfg, model.stage_devices,
-                                       pshape)
-    decode = steps.build_serve_step(model, pcfg, model.stage_devices, dshape)
-    cache = model.init_cache(dshape, pcfg.n_micro, filled=False)
+                                       pshape, park_info=park_p, group=group)
+    decode = steps.build_serve_step(model, pcfg, model.stage_devices, dshape,
+                                    park_info=park_d, group=group)
+    cache = model.init_cache(dshape, pcfg.n_micro, filled=False, rank=rank)
     tok_gen = torch.Generator(device=dev).manual_seed(seed + 1)
     prompts = torch.randint(0, arch.vocab, (batch, prompt_len),
                             generator=tok_gen, device=dev)
     pbatch = prompt_batch(arch, prompts, dtype, tok_gen)
+    hop = None if group is None or group.size == 1 else p2p.P2PHop(group)
+    hops = {c: {"hops": 0, "bytes": 0, "wait_s": 0.0} for c in p2p.CLASSES}
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    if group is not None:
+        import torch.distributed as dist
+        _sync(dev)
+        dist.barrier(group=group.group)          # start the clocks together
 
     l0 = _launches()
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, cache, pbatch)
+    logits, cache = prefill(params, cache, pbatch if first else None)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     l1 = _launches()
+    if group is not None:
+        _add_hops(hops, park_p["hops"])
 
     def pick(lg):
         if temperature > 0:
@@ -131,18 +176,29 @@ def serve(arch: ArchConfig, pcfg: ParallelConfig, *, prompt_len: int,
             return torch.multinomial(probs, 1, generator=tok_gen)
         return torch.argmax(lg, -1)
 
-    tokens = pick(logits)
+    tokens = pick(logits) if last else None
     generated = [tokens]
     t0 = time.perf_counter()
     for _ in range(gen - 1):
-        logits, cache = decode(params, cache, tokens)
-        tokens = pick(logits)
-        generated.append(tokens)
+        if hop is not None:            # the last rank's token to rank 0
+            if last:
+                hop.send_tree("tok", 0, tokens)
+            elif first:
+                tokens = hop.recv_tree("tok", group.size - 1)[1]
+        logits, cache = decode(params, cache, tokens if first else None)
+        if group is not None:
+            _add_hops(hops, park_d["hops"])
+        if last:
+            tokens = pick(logits)
+            generated.append(tokens)
     _sync(dev)
     t_decode = time.perf_counter() - t0
     l2 = _launches()
+    if hop is not None:
+        hop.finish()
+        _add_hops(hops, hop.stats)
     out = {
-        "tokens": torch.cat(generated, 1).cpu().numpy(),
+        "tokens": torch.cat(generated, 1).cpu().numpy() if last else None,
         "logits": logits,
         "n_micro": pcfg.n_micro,
         "prefill_s": t_prefill,
@@ -152,9 +208,21 @@ def serve(arch: ArchConfig, pcfg: ParallelConfig, *, prompt_len: int,
             "prefill": {k: l1[k] - l0[k] for k in l0},
             "decode": {k: l2[k] - l1[k] for k in l0},
         },
+        "cache_bytes": sum(a.nbytes for a in tree_leaves(cache)),
     }
     if dev.type == "cuda":
         out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    if group is not None:
+        import torch.distributed as dist
+        out["hops"] = hops
+        out["park"] = {"prefill": dict(park_p, hops=None),
+                       "decode": dict(park_d, hops=None)}
+        mine = {k: out[k] for k in ("launches", "cache_bytes", "hops",
+                                    "park", "prefill_s", "decode_s",
+                                    "decode_tok_per_s", "peak_mem_bytes",
+                                    "tokens") if k in out}
+        out["ranks"] = [None] * group.size
+        dist.all_gather_object(out["ranks"], mine, group=group.group)
     return out
 
 
@@ -169,6 +237,9 @@ def main():
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--nproc", type=int, default=0,
+                    help="run each pipe rank in its own process (pipe = "
+                         "nproc), over gloo")
     args = ap.parse_args()
 
     if args.smoke:
@@ -179,22 +250,72 @@ def main():
         arch = configs.get_arch(args.arch)
         pcfg = configs.get_parallel(args.arch).with_(data=1, tp=1)
         dtype = torch.bfloat16
+    if args.nproc:
+        pcfg = pcfg.with_(pipe=args.nproc)
     dev = resolve_device(args.device)
-    res = serve(arch, pcfg, prompt_len=args.prompt_len, gen=args.gen,
-                batch=args.batch, device=dev, dtype=dtype, seed=args.seed,
-                temperature=args.temperature)
+    job = dict(arch=arch, pcfg=pcfg, prompt_len=args.prompt_len,
+               gen=args.gen, batch=args.batch, dtype=dtype, seed=args.seed,
+               temperature=args.temperature)
+    if not args.nproc:
+        _report(serve(device=dev, **job), dev, args)
+        return
+    if dev.type == "cuda":        # once here, not once in every rank
+        from repro_torch.kernels import build
+        build.build_all()
+    # no overall deadline: a hang fails at the group's wait timeout, a
+    # rank that raises fails the group
+    mesh.spawn(_rank_main, args.nproc, (args.device, job, args),
+               timeout_s=None)
+
+
+def _rank_main(rank: int, nproc: int, init_method: str, device: str,
+               job: Dict[str, Any], args) -> None:
+    """One pipe rank of ``--nproc``: join the group, serve, and on rank 0
+    print the group's records."""
+    group = mesh.init_pipe_group(rank, nproc, init_method, device=device,
+                                 pcfg=job["pcfg"])
+    try:
+        res = serve(group=group, **job)
+        _check_finite(res)
+        if group.first:
+            _report(res, group.device, args)
+    finally:
+        mesh.destroy_pipe_group(group)
+
+
+def _report(res: Dict[str, Any], dev: torch.device, args) -> None:
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "cpu")
-    print(f"[serve] {arch.name} pipe={pcfg.pipe} m={res['n_micro']} on "
-          f"{where}: prefill {args.batch}x{args.prompt_len} in "
-          f"{res['prefill_s'] * 1e3:.1f} ms")
+    ranks = res.get("ranks")
+    procs = f" in {len(ranks)} processes (gloo)" if ranks else ""
+    last = ranks[-1] if ranks else res
+    print(f"[serve] {args.arch} m={res['n_micro']} on {where}{procs}: "
+          f"prefill {args.batch}x{args.prompt_len} in "
+          f"{last['prefill_s'] * 1e3:.1f} ms")
     print(f"[serve] decoded {args.gen - 1} steps x {args.batch} seqs in "
-          f"{res['decode_s']:.3f}s ({res['decode_tok_per_s']:.1f} tok/s)")
-    if "peak_mem_bytes" in res:
-        print(f"[serve] peak memory {res['peak_mem_bytes'] / 2**30:.2f} GiB")
-    print(f"[serve] kernel launches {res['launches']}")
-    print(f"[serve] sample tokens: {res['tokens'][0][:12].tolist()}")
-    if not bool(torch.isfinite(res["logits"]).all()):
+          f"{last['decode_s']:.3f}s ({last['decode_tok_per_s']:.1f} tok/s)")
+    if ranks:
+        for r, rec in enumerate(ranks):
+            peak = (f"peak memory {rec['peak_mem_bytes'] / 2**30:.2f} GiB, "
+                    if "peak_mem_bytes" in rec else "")
+            hops = {c: v["hops"] for c, v in rec["hops"].items()
+                    if v["hops"]}
+            print(f"[serve] rank {r}: {peak}cache "
+                  f"{rec['cache_bytes'] / 2**30:.3f} GiB, launches "
+                  f"{json.dumps(rec['launches'])}, hops {json.dumps(hops)}")
+    else:
+        if "peak_mem_bytes" in res:
+            print(f"[serve] peak memory {res['peak_mem_bytes'] / 2**30:.2f} "
+                  "GiB")
+        print(f"[serve] kernel launches {res['launches']}")
+    print(f"[serve] sample tokens: {last['tokens'][0][:12].tolist()}")
+    _check_finite(res)
+
+
+def _check_finite(res: Dict[str, Any]) -> None:
+    """The logits are finite where they land (the last rank)."""
+    if res["logits"] is not None \
+            and not bool(torch.isfinite(res["logits"]).all()):
         raise RuntimeError("non-finite logits")
 
 

@@ -19,10 +19,9 @@ import torch
 from repro_torch.configs.base import ParallelConfig, ShapeConfig
 from repro_torch.core import checkpointing
 from repro_torch.core import p2p
-from repro_torch.core.pipeline import (check_no_group, check_plan,
-                                       last_stage_output, microbatch,
-                                       pipeline_call, pipeline_grad_call,
-                                       unmicrobatch)
+from repro_torch.core.pipeline import (check_plan, last_stage_output,
+                                       microbatch, pipeline_call,
+                                       pipeline_grad_call, unmicrobatch)
 from repro_torch.models.lm import LMModel
 from repro_torch.optim import optimizers as optim
 from repro_torch.runtime.compression import EFCompressor
@@ -84,7 +83,7 @@ def build_train_step(model: LMModel, pcfg: ParallelConfig, devices: Any,
     each step.
 
     With a pipe ``group`` (:mod:`repro_torch.launch.mesh`) the step runs
-    one pipe rank of a fused schedule (:func:`build_grad_fn`): ``params``
+    one pipe rank of its schedule (:func:`build_grad_fn`): ``params``
     and ``opt_state`` are this rank's share (``LMModel.init(...,
     rank=...)``), the optimizer's global norm and its finiteness decision
     are agreed over the group (a tied embedding's copy on the last rank
@@ -130,40 +129,71 @@ def build_grad_fn(model: LMModel, pcfg: ParallelConfig, devices: Any, *,
     micro-batch's head loss on the last stage, then the embed VJP on the
     input cotangents plus the tied embedding's gradient through the head.
 
-    With a pipe ``group`` (fused schedules only: ``"gpipe"`` raises,
-    ROADMAP A4b) this process runs one rank: ``params`` is its share
-    (``LMModel.init(..., rank=...)``) and so are the grads.  Rank 0
-    embeds and takes the embed VJP, the last rank runs the head and its
-    loss; a tied embedding's head part goes from the last rank to rank 0,
-    which adds it in the single-process order and sends the sum back, so
-    both copies get the same gradient.  Every rank returns the loss.
+    With a pipe ``group`` this process runs one rank: ``params`` is its
+    share (``LMModel.init(..., rank=...)``) and so are the grads.  Rank 0
+    embeds and takes the embed's gradient, the last rank runs the head
+    and its loss; a tied embedding's head part goes from the last rank to
+    rank 0, which adds it in the single-process order and sends the sum
+    back, so both copies get the same gradient.  Every rank returns the
+    loss.  Under ``"gpipe"`` the hops carry their cotangents back
+    (:class:`p2p.Backprop`), so autograd's reverse clock-cycle runs across
+    the processes.
     """
     checkpointing.check_policy(pcfg.remat)
     base = pcfg.schedule_spec.base
     if base == "gpipe":
-        check_no_group(group, "schedule='gpipe'")
-        return _build_grad_fn_gpipe(model, pcfg, devices)
+        return _build_grad_fn_gpipe(model, pcfg, devices, group)
     if base in FUSED_SCHEDULES:
         return _build_grad_fn_fused(model, pcfg, devices, group)
     raise ValueError(f"unknown schedule {pcfg.schedule!r}; want 'gpipe', "
                      "'gpipe_tasked', '1f1b', 'interleaved:v', or 'zb'")
 
 
-def _build_grad_fn_gpipe(model, pcfg, devices):
+def _build_grad_fn_gpipe(model, pcfg, devices, group=None):
     park_info: Dict[str, Any] = {}
-    loss_fn = build_loss_fn(model, pcfg, devices, park_info=park_info)
+    loss_fn = build_loss_fn(model, pcfg, devices, park_info=park_info,
+                            group=group)
     check_plan(loss_fn.tplan, pcfg, autograd=True)
+    first = group is None or group.first
+    last = group is None or group.last
 
     def grad_fn(params, batch, loss_scale=None):
         grad_params = tree_map(lambda p: p.detach().requires_grad_(), params)
+        bp = p2p.Backprop()
+        roots = []
         with torch.enable_grad():
-            loss = loss_fn(grad_params, batch)
-            scaled = loss * loss_scale if loss_scale is not None else loss
-            flat = iter(torch.autograd.grad(scaled, tree_leaves(grad_params)))
-        return loss.detach(), tree_map(lambda _: next(flat), params)
+            loss = loss_fn(grad_params, batch, backprop=bp)
+            if last:
+                roots = [loss * loss_scale if loss_scale is not None
+                         else loss]
+            flat = iter(bp.grad(roots, tree_leaves(grad_params)))
+        grads = tree_map(lambda _: next(flat), params)
+        if group is not None:
+            hop = p2p.P2PHop(group)
+            if model.arch.tie_embeddings and first != last:
+                # the head's part (the last rank's copy) + the lookup's
+                grads["embed"] = _tied_sum(group, hop, grads["embed"],
+                                           first)
+            hop.finish()
+            park_info["hops"]["embed"] = hop.stats["embed"]
+            loss = p2p.group_loss(group, loss)
+        return loss.detach(), grads
 
     grad_fn.tplan, grad_fn.park_info = loss_fn.tplan, park_info
     return grad_fn
+
+
+def _tied_sum(group: p2p.PipeGroup, hop: p2p.P2PHop, own, first: bool):
+    """A tied embedding's gradient on rank 0 and the last rank: rank 0
+    adds the last rank's head part to its own lookup part, in the
+    single-process order, and sends the sum back."""
+    if first:
+        head = hop.recv_tree("embed", group.size - 1)[1]
+        total = tree_map(lambda gl, gh: gl + gh, own, head)
+        hop.send_tree("embed", group.size - 1, total)
+        return total
+    hop.send_tree("embed", 0, own)
+    return hop.recv_tree("embed", 0)[1]
 
 
 def _build_grad_fn_fused(model, pcfg, devices, group=None):
@@ -210,51 +240,52 @@ def _build_grad_fn_fused(model, pcfg, devices, group=None):
             flat = iter(torch.autograd.grad([x for x, _ in outs],
                                             tree_leaves(emb),
                                             [g for _, g in outs]))
-            # the head's part: the last stage's (zeros, as autograd gives
-            # an unused input, when untied)
-            if last:
-                g_tied = g_head["embed"]
-            elif tied:
-                g_tied = hop.recv_tree("embed", group.size - 1)[1]
-            else:
-                g_tied = tree_map(torch.zeros_like, params["embed"])
-            grads["embed"] = tree_map(lambda gh: next(flat) + gh, g_tied)
+            own = tree_map(lambda _: next(flat), params["embed"])
             if tied and not last:
-                hop.send_tree("embed", group.size - 1, grads["embed"])
+                grads["embed"] = _tied_sum(group, hop, own, True)
+            else:
+                # the head's part: the last stage's (zeros, as autograd
+                # gives an unused input, when untied)
+                head = (g_head["embed"] if last
+                        else tree_map(torch.zeros_like, own))
+                grads["embed"] = tree_map(lambda gl, gh: gl + gh, own, head)
         elif last and tied:                 # the last rank's copy
-            hop.send_tree("embed", 0, g_head["embed"])
-            grads["embed"] = hop.recv_tree("embed", 0)[1]
+            grads["embed"] = _tied_sum(group, hop, g_head["embed"], False)
         if group is not None:
             hop.finish()
             park_info["hops"]["embed"] = hop.stats["embed"]
-            loss = _group_loss(group, loss)
+            loss = p2p.group_loss(group, loss)
         return loss, {k: grads[k] for k in params}
 
     grad_fn.tplan, grad_fn.park_info = tplan, park_info
     return grad_fn
 
 
-def _group_loss(group: p2p.PipeGroup, loss):
-    """The last rank's loss on every rank (0-d fp32 on its device)."""
-    import torch.distributed as dist
-    buf = (loss.detach().float().reshape(1).cpu() if group.last
-           else torch.zeros(1, dtype=torch.float32))
-    dist.broadcast(buf, src=group.size - 1, group=group.group)
-    return loss if group.last else buf[0].to(group.device)
-
-
 def build_loss_fn(model: LMModel, pcfg: ParallelConfig, devices: Any, *,
-                  park_info: Optional[Dict[str, Any]] = None):
-    """loss_fn(params, batch) -> mean token cross-entropy (0-d fp32): embed,
-    micro-batch, the GPipe forward clock-cycle, un-micro-batch, the chunked
-    head loss.  Differentiable: the loss of the ``gpipe`` train step."""
+                  park_info: Optional[Dict[str, Any]] = None,
+                  group: Optional[p2p.PipeGroup] = None):
+    """loss_fn(params, batch, backprop=None) -> mean token cross-entropy
+    (0-d fp32): embed, micro-batch, the GPipe forward clock-cycle,
+    un-micro-batch, the chunked head loss.  Differentiable: the loss of the
+    ``gpipe`` train step, which passes a :class:`p2p.Backprop` and
+    differentiates with it.  With a pipe ``group`` this process runs one
+    rank: ``params`` is its share, rank 0 embeds ``batch``, the last rank
+    returns the loss (None elsewhere), and under grad the ``backprop`` is
+    required (:func:`pipeline_call`)."""
     pipe = pipeline_call(model.make_stage_apply(model.consts()), cfg=pcfg,
                          devices=devices, skips=model.skips(),
-                         park_info=park_info)
+                         park_info=park_info, group=group)
+    first = group is None or group.first
+    last = group is None or group.last
 
-    def loss_fn(params, batch):
-        fresh = model.embed_inputs(params["embed"], batch)
-        outs, _ = pipe(params["stages"], microbatch(fresh, pcfg.n_micro))
+    def loss_fn(params, batch, backprop: Optional[p2p.Backprop] = None):
+        inputs_mb = None
+        if first:
+            fresh = model.embed_inputs(params["embed"], batch)
+            inputs_mb = microbatch(fresh, pcfg.n_micro)
+        outs, _ = pipe(params["stages"], inputs_mb, backprop=backprop)
+        if not last:
+            return None
         h = unmicrobatch(last_stage_output(outs)["h"])
         return model.head_loss(params, h, batch["labels"])
 
@@ -264,25 +295,33 @@ def build_loss_fn(model: LMModel, pcfg: ParallelConfig, devices: Any, *,
 
 def build_prefill_step(model: LMModel, pcfg: ParallelConfig, devices: Any,
                        shape: ShapeConfig, *,
-                       park_info: Optional[Dict[str, Any]] = None):
+                       park_info: Optional[Dict[str, Any]] = None,
+                       group: Optional[p2p.PipeGroup] = None):
     """prefill_step(params, cache, batch) -> (last_token_logits, cache).
 
     ``cache`` (from ``model.init_cache``) is filled in place and returned.
     ``batch`` holds ``tokens``, or an enc-dec's ``frames`` and
     ``dec_tokens``; the encoder memory reaches the decoder stages as skips
-    (``model.skips()``)."""
+    (``model.skips()``).  With a pipe ``group`` this process runs one
+    rank: ``params`` and ``cache`` are its share (``model.init(...,
+    rank=)``, ``model.init_cache(..., rank=)``), rank 0 embeds ``batch``
+    and the last rank returns the logits (None elsewhere)."""
     consts = model.consts()
     stage_apply = model.make_stage_apply(consts, prefill=True)
     pipe = pipeline_call(stage_apply, cfg=pcfg, devices=devices,
-                         skips=model.skips(), park_info=park_info)
+                         skips=model.skips(), park_info=park_info,
+                         group=group)
 
     def prefill_step(params, cache, batch):
+        logits = inputs_mb = None
         with torch.inference_mode():
-            fresh = model.embed_inputs(params["embed"], batch)
-            inputs_mb = microbatch(fresh, pcfg.n_micro)
+            if group is None or group.first:
+                fresh = model.embed_inputs(params["embed"], batch)
+                inputs_mb = microbatch(fresh, pcfg.n_micro)
             outs, cache = pipe(params["stages"], inputs_mb, cache)
-            h = unmicrobatch(last_stage_output(outs)["h"])
-            logits = model.head_logits(params, h[:, -1:, :])
+            if group is None or group.last:
+                h = unmicrobatch(last_stage_output(outs)["h"])
+                logits = model.head_logits(params, h[:, -1:, :])
         return logits, cache
 
     prefill_step.tplan = pipe.tplan
@@ -291,7 +330,8 @@ def build_prefill_step(model: LMModel, pcfg: ParallelConfig, devices: Any,
 
 def build_serve_step(model: LMModel, pcfg: ParallelConfig, devices: Any,
                      shape: ShapeConfig, *,
-                     park_info: Optional[Dict[str, Any]] = None):
+                     park_info: Optional[Dict[str, Any]] = None,
+                     group: Optional[p2p.PipeGroup] = None):
     """serve_step(params, cache, tokens) -> (logits [B,1,V], cache).
 
     One decode tick: the request batch is micro-batched through the
@@ -299,19 +339,25 @@ def build_serve_step(model: LMModel, pcfg: ParallelConfig, devices: Any,
     inference); each layer's ring cache advances in place.  No skip runs
     here: an enc-dec's decoder reads the encoder memory from its cross
     caches, which prefill filled.  Every step embeds its token at position
-    ``shape.seq_len``, as the reference does."""
+    ``shape.seq_len``, as the reference does.  With a pipe ``group`` as
+    in :func:`build_prefill_step`: rank 0 embeds ``tokens`` (None
+    elsewhere) and the last rank returns the logits."""
     consts = model.consts()
     stage_apply = model.make_stage_apply_decode(consts)
     pipe = pipeline_call(stage_apply, cfg=pcfg, devices=devices,
-                         park_info=park_info)
+                         park_info=park_info, group=group)
 
     def serve_step(params, cache, tokens):
+        logits = inputs_mb = None
         with torch.inference_mode():
-            h = model.embed_decode(params["embed"], tokens, pos=shape.seq_len)
-            inputs_mb = microbatch({"h": h}, pcfg.n_micro)
+            if group is None or group.first:
+                h = model.embed_decode(params["embed"], tokens,
+                                       pos=shape.seq_len)
+                inputs_mb = microbatch({"h": h}, pcfg.n_micro)
             outs, cache = pipe(params["stages"], inputs_mb, cache)
-            h1 = unmicrobatch(last_stage_output(outs)["h"])
-            logits = model.head_logits(params, h1)
+            if group is None or group.last:
+                h1 = unmicrobatch(last_stage_output(outs)["h"])
+                logits = model.head_logits(params, h1)
         return logits, cache
 
     serve_step.tplan = pipe.tplan

@@ -5,8 +5,9 @@ scheduler (``--schedule 1f1b``, ``gpipe_tasked``, ``interleaved:v``, ``zb``).
 Counterpart of :mod:`repro.launch.train`'s loop.  All pipeline stages sit on
 the one card given by ``--device`` (the default ``cuda``; ``cpu`` runs the
 plain versions of the kernels), in this process or, with ``--nproc R``
-(a fused schedule, pipe R), one pipe rank in each of R spawned processes
-joined over gloo (:mod:`repro_torch.launch.mesh`); the full configs run
+(pipe R, any schedule: gpipe's autograd backward crosses the processes
+too), one pipe rank in each of R spawned processes joined over gloo
+(:mod:`repro_torch.launch.mesh`); the full configs run
 with ``data=1`` and ``tp=1``.  The reference's ``ElasticTrainer``
 supervisor (async checkpoints, injected faults, elastic re-plan) is
 ROADMAP A11: its flags raise.
@@ -18,6 +19,8 @@ ROADMAP A11: its flags raise.
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --steps 5 --pipe 2 [--schedule 1f1b] [--arch whisper-tiny]
     PYTHONPATH=src python -m repro_torch.launch.train --schedule 1f1b \\
+        --nproc 4 --steps 3 --seq-len 4096 --batch 16 --n-micro 8
+    PYTHONPATH=src python -m repro_torch.launch.train --schedule gpipe \\
         --nproc 4 --steps 3 --seq-len 4096 --batch 16 --n-micro 8
 """
 from __future__ import annotations
@@ -189,7 +192,7 @@ def train(arch: ArchConfig, pcfg: ParallelConfig, *, seq_len: int, batch: int,
     ``history``.
 
     With a pipe ``group`` (:func:`repro_torch.launch.mesh.init_pipe_group`;
-    a fused schedule) this process trains its rank's share on
+    any schedule) this process trains its rank's share on
     ``group.device`` (``device`` is ignored): every rank reads the same
     batches, each record's metrics are the group's (one loss, one grad
     norm) and its ``step_s`` and launches this rank's, and ``park_info``
@@ -299,8 +302,8 @@ def main():
     ap.add_argument("--trace", action="store_true",
                     help="profile one more step: device ms by kernel family")
     ap.add_argument("--nproc", type=int, default=0,
-                    help="run each pipe rank in its own process (a fused "
-                         "schedule; pipe = nproc), over gloo")
+                    help="run each pipe rank in its own process (pipe = "
+                         "nproc; any schedule, gpipe included), over gloo")
     # the reference's ElasticTrainer flags (ROADMAP A11)
     ap.add_argument("--ckpt-dir")
     ap.add_argument("--ckpt-every", type=int)

@@ -5,7 +5,9 @@ or the fused F+B scheduler, with skip routes for U-Net's crossing skips.
 A model trains from random weights on one fixed seeded batch against a
 seeded random target (MSE), with SGD and momentum 0.9 at a constant lr, in
 fp32 (the program turns TF32 off while it runs:
-``pipeline_hetero.fp32_math``).  All stages sit on one device.
+``pipeline_hetero.fp32_math``).  All stages sit on one device, in one
+process or, given a pipe group (:mod:`repro_torch.launch.mesh`), one pipe
+rank's stages in each process of the group.
 ``PAPER`` holds the paper's speed settings, U-Net (B, C) = (5, 64) at
 192 x 192 and AmoebaNet-D (L, F) = (18, 256) at 224 x 224:
 
@@ -21,6 +23,7 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from repro_torch.configs.base import ParallelConfig
+from repro_torch.core import p2p
 from repro_torch.devices import resolve_device
 from repro_torch.models import pipeline_hetero as PH
 from repro_torch.models.amoebanet import AmoebaConfig, AmoebaNetModel
@@ -48,35 +51,58 @@ def sgd(lr: float) -> optim.OptimizerConfig:
                                  warmup_steps=0, min_lr_ratio=1.0)
 
 
-def build_train_step(mcfg: ModelConfig, pcfg: ParallelConfig, *, batch: int,
-                     device="cuda", seed: int = 0,
-                     ocfg: Optional[optim.OptimizerConfig] = None):
-    """The model (``n_stages = pcfg.pipe * pcfg.virtual_stages``), random
-    weights, one fixed batch and target from ``seed``, and its train step:
-    ``(model, step)`` with ``step() -> (loss, grad_norm)`` updating the
-    weights and SGD state in place.  ``step.tplan`` is the plan and
-    ``step.park_info`` the executor's buffer and route high-water of the
-    last step."""
-    dev = resolve_device(device)
-    ocfg = ocfg or sgd(0.01)
+def build_problem(mcfg: ModelConfig, pcfg: ParallelConfig, *, batch: int,
+                  device="cuda", seed: int = 0,
+                  group: Optional[p2p.PipeGroup] = None):
+    """The model (``n_stages = pcfg.pipe * pcfg.virtual_stages``), its
+    program on random weights from ``seed``, one fixed batch and target
+    from ``seed + 1``: ``(model, prog, stages, x, y)``.  ``stages`` are
+    the stage trees this process trains: all of them, or with a pipe
+    ``group`` its rank's (``prog.stage_params[rank::pipe]``, on
+    ``group.device``; ``device`` is ignored), every rank drawing the
+    whole model and the batch."""
+    dev = resolve_device(device) if group is None else group.device
     cls = UNetModel if isinstance(mcfg, UNetConfig) else AmoebaNetModel
     model = cls(mcfg, pcfg.pipe * pcfg.virtual_stages)
     params = model.init(torch.Generator(device=dev).manual_seed(seed), dev)
     prog = PH.build_hetero_program(model, params, pcfg, dev)
+    stages = (prog.stage_params if group is None
+              else prog.stage_params[group.rank::pcfg.pipe])
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     x = torch.randn(batch, mcfg.in_ch, mcfg.img, mcfg.img, generator=g,
                     device=dev)
     y = torch.randn(target_shape(mcfg, batch), generator=g, device=dev)
-    tree = dict(enumerate(prog.stage_params))       # updated in place
+    return model, prog, stages, x, y
+
+
+def build_train_step(mcfg: ModelConfig, pcfg: ParallelConfig, *, batch: int,
+                     device="cuda", seed: int = 0,
+                     ocfg: Optional[optim.OptimizerConfig] = None,
+                     group: Optional[p2p.PipeGroup] = None):
+    """The problem of :func:`build_problem` and its train step:
+    ``(model, step)`` with ``step() -> (loss, grad_norm)`` updating the
+    weights and SGD state in place.  ``step.tplan`` is the plan and
+    ``step.park_info`` the executor's buffer and route high-water of the
+    last step.
+
+    With a pipe ``group`` this process trains its rank's stages: the loss
+    comes from the last rank and the grad norm and the finiteness
+    decision from the whole group (``optim.apply(..., group=)``)."""
+    ocfg = ocfg or sgd(0.01)
+    model, prog, stages, x, y = build_problem(
+        mcfg, pcfg, batch=batch, device=device, seed=seed, group=group)
+    tree = dict(enumerate(stages))                  # updated in place
     state = [optim.init(ocfg, tree)]
     info: Dict[str, Any] = {}
-    call = PH.hetero_grad_call(prog, pcfg, info)
+    call = PH.hetero_grad_call(prog, pcfg, info, group=group)
 
     def step():
-        loss, grads = call(prog.stage_params, x, y)
+        loss, grads = call(stages, x, y)
+        if group is not None:
+            loss = p2p.group_loss(group, loss)
         _, state[0], metrics = optim.apply(ocfg, state[0], tree,
                                            dict(enumerate(grads)),
-                                           loss=loss)
+                                           loss=loss, group=group)
         return loss, metrics["grad_norm"]
 
     step.tplan, step.park_info = call.tplan, info
@@ -91,7 +117,8 @@ def _sync(dev: torch.device) -> None:
 def train_hetero(mcfg: ModelConfig, pcfg: ParallelConfig, *, batch: int,
                  steps: int, device="cuda", seed: int = 0,
                  ocfg: Optional[optim.OptimizerConfig] = None,
-                 trace: bool = False) -> Dict[str, Any]:
+                 trace: bool = False,
+                 group: Optional[p2p.PipeGroup] = None) -> Dict[str, Any]:
     """Train ``steps`` steps on one fixed batch.  Returns one record per
     step (loss, grad norm, ``step_s`` on the host clock around the
     synchronized step), the buffer and route high-water of the last step
@@ -100,12 +127,20 @@ def train_hetero(mcfg: ModelConfig, pcfg: ParallelConfig, *, batch: int,
     (3 x the forward's, ``model.conv_flops``; the recompute not counted)
     and their rate, and on a card the peak memory from the first step on.
     ``trace`` (a card only) runs one more step under the profiler
-    (:func:`profile_serve.device_profile`); it is not in ``history``."""
-    dev = resolve_device(device)
-    if trace and dev.type != "cuda":
-        raise ValueError("trace profiles the card: pass a CUDA device")
+    (:func:`profile_serve.device_profile`); it is not in ``history``.
+
+    With a pipe ``group`` this process trains its rank's stages
+    (:func:`build_train_step`): each record holds the group's loss and
+    grad norm and this rank's ``step_s``, ``park_info`` is this rank's
+    (``buffer_slots``, ``per_route``, per-class ``hops``) and every rank
+    also gets ``ranks``: per rank its ``park_info``, ``step_s`` and, on a
+    card, its peak memory in GiB."""
+    dev = resolve_device(device) if group is None else group.device
+    if trace and (dev.type != "cuda" or group is not None):
+        raise ValueError("trace profiles the card from one process: pass a "
+                         "CUDA device and no pipe group")
     model, step = build_train_step(mcfg, pcfg, batch=batch, device=dev,
-                                   seed=seed, ocfg=ocfg)
+                                   seed=seed, ocfg=ocfg, group=group)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     history = []
@@ -136,4 +171,12 @@ def train_hetero(mcfg: ModelConfig, pcfg: ParallelConfig, *, batch: int,
     if trace:
         from repro_torch.launch.profile_serve import device_profile
         out["trace"] = device_profile(step, dev)
+    if group is not None:
+        import torch.distributed as dist
+        mine = {"park_info": out["park_info"],
+                "step_s": [rec["step_s"] for rec in history]}
+        if "peak_mem_gib" in summary:
+            mine["peak_mem_gib"] = summary["peak_mem_gib"]
+        out["ranks"] = [None] * group.size
+        dist.all_gather_object(out["ranks"], mine, group=group.group)
     return out

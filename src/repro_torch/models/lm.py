@@ -371,28 +371,41 @@ class LMModel:
         return total / (Bsz * S)
 
     # ----------------------------------------------------------------- caches
-    def cache_protos(self, shape: ShapeConfig, n_micro: int):
+    def cache_protos(self, shape: ShapeConfig, n_micro: int, *,
+                     rank: Optional[int] = None):
         """Stacked resident cache leaves as ``(shape, dtype)``:
-        ``[n_stages, L_per_stage, m, mb, ...]``."""
+        ``[n_stages, L_per_stage, m, mb, ...]``; with ``rank`` (a pipe
+        rank), only its stages' (``rank, rank + pipe, ...``):
+        ``[n_stages // pipe, L_per_stage, m, mb, ...]``."""
         mb = shape.global_batch // n_micro
         slots_len = shape.seq_len + 64
         per_layer = self.block_cache_proto(self.arch, mb, slots_len, self.dtype)
+        n = (self.n_stages if rank is None
+             else len(range(rank, self.n_stages, self.pcfg.pipe)))
 
         def stack(p):
             shp, dt = p
-            return ((self.n_stages, self.L_per_stage, n_micro) + tuple(shp), dt)
+            return ((n, self.L_per_stage, n_micro) + tuple(shp), dt)
         return _map_protos(stack, per_layer)
 
-    def init_cache(self, shape: ShapeConfig, n_micro: int, *, filled: bool):
+    def init_cache(self, shape: ShapeConfig, n_micro: int, *, filled: bool,
+                   rank: Optional[int] = None):
         """Zero caches on this model's device; ``filled`` marks them as
-        already holding ``seq_len`` tokens."""
+        already holding ``seq_len`` tokens.  With ``rank``, only that pipe
+        rank's stages' caches (:meth:`cache_protos`), bitwise the rows
+        :meth:`cache_share` takes of the whole cache."""
         def mk(p):
             shp, dt = p
             z = torch.zeros(shp, dtype=dt, device=self.device)
             if filled and dt == torch.int32 and len(shp) == 3:
                 z.fill_(shape.seq_len)
             return z
-        return _map_protos(mk, self.cache_protos(shape, n_micro))
+        return _map_protos(mk, self.cache_protos(shape, n_micro, rank=rank))
+
+    def cache_share(self, cache, rank: int):
+        """Pipe rank ``rank``'s share of a whole cache (or cache protos'
+        shapes): its stages' rows, in chunk order; views of ``cache``."""
+        return tree_map(lambda a: a[rank::self.pcfg.pipe], cache)
 
 
 def _map_protos(fn, protos):

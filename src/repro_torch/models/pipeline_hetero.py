@@ -18,7 +18,7 @@ Skip connections crossing stage boundaries follow paper §3.3:
 
 On one card both do the same work (the hop is ``.to()`` onto the same
 device); what portals save, copies on the cards in between, needs stages on
-several cards.  The fused schedules also run one rank per process
+several cards.  Every schedule also runs one rank per process
 (``hetero_grad_call(..., group=...)``).
 
 The programs compute in fp32: :func:`hetero_forward` and the call of
@@ -40,10 +40,11 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from repro_torch.configs.base import ParallelConfig
+from repro_torch.core import p2p
 from repro_torch.core.p2p import PipeGroup
-from repro_torch.core.pipeline import (check_no_group, last_stage_output,
-                                       microbatch, pipeline_call,
-                                       pipeline_grad_call, unmicrobatch)
+from repro_torch.core.pipeline import (last_stage_output, microbatch,
+                                       pipeline_call, pipeline_grad_call,
+                                       unmicrobatch)
 from repro_torch.core.skip import SkipSpec
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.tree import tree_leaves, tree_map
@@ -152,38 +153,44 @@ def hetero_grad_call(program: HeteroProgram, pcfg: ParallelConfig,
     plan; ``park_info`` (a dict) receives each call's buffer and route
     high-water.
 
-    With a pipe ``group`` (a fused schedule: ``"gpipe"`` raises, ROADMAP
-    A4b) the call runs one rank: it takes that rank's stage trees in chunk
-    order (``program.stage_params[rank::pipe]``) and returns their grads,
-    and the loss on the last rank (None on the others).
+    With a pipe ``group`` the call runs one rank: it takes that rank's
+    stage trees in chunk order (``program.stage_params[rank::pipe]``) and
+    returns their grads, and the loss on the last rank (None on the
+    others).  Under ``"gpipe"`` the skips' and the chain's cotangents
+    cross the processes through :class:`p2p.Backprop`.
     """
     m = pcfg.n_micro
+    first = group is None or group.first
+    last = group is None or group.last
     if pcfg.schedule_spec.base == "gpipe":
-        check_no_group(group, "schedule='gpipe'")
         pipe = pipeline_call(program.stage_apply, cfg=pcfg,
                              devices=program.device, skips=program.skips,
-                             park_info=park_info)
+                             park_info=park_info, group=group)
 
         @fp32_math()
         def call(stage_params, x_batch, y_batch):
             ps = [tree_map(lambda a: a.detach().requires_grad_(), p)
                   for p in stage_params]
-            y_mb = microbatch({"y": y_batch}, m)
+            bp = p2p.Backprop()
+            loss, roots = None, []
             with torch.enable_grad():
-                outs, _ = pipe(ps, microbatch({"x": x_batch}, m))
-                out = last_stage_output(outs)["x"]
-                loss = torch.zeros((), dtype=torch.float32,
-                                   device=out.device)
-                for i in range(m):                # ascending micro order
-                    loss = loss + micro_loss(None, {"x": out[i]},
-                                             {"y": y_mb["y"][i]})
-                loss = loss / m
-                # allow_unused: the U-Net head's norm is never applied
-                flat = iter(torch.autograd.grad(
-                    loss, [leaf for p in ps for leaf in tree_leaves(p)],
-                    allow_unused=True, materialize_grads=True))
-            return loss.detach(), [tree_map(lambda _: next(flat), p)
-                                   for p in stage_params]
+                inputs_mb = microbatch({"x": x_batch}, m) if first else None
+                outs, _ = pipe(ps, inputs_mb, backprop=bp)
+                if last:
+                    out = last_stage_output(outs)["x"]
+                    y_mb = microbatch({"y": y_batch}, m)
+                    loss = torch.zeros((), dtype=torch.float32,
+                                       device=out.device)
+                    for i in range(m):            # ascending micro order
+                        loss = loss + micro_loss(None, {"x": out[i]},
+                                                 {"y": y_mb["y"][i]})
+                    loss = loss / m
+                    roots = [loss]
+                # the U-Net head's norm is never applied: zeros
+                flat = iter(bp.grad(roots, [leaf for p in ps
+                                            for leaf in tree_leaves(p)]))
+            return (None if loss is None else loss.detach(),
+                    [tree_map(lambda _: next(flat), p) for p in stage_params])
 
         call.tplan = pipe.tplan
         return call

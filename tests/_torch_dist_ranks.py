@@ -1,9 +1,11 @@
 """The pipe ranks of ``tests/test_torch_dist.py`` (and of the one
-multi-process case of ``tests/test_torch_fused.py``): each spawned process
+multi-process case each of ``tests/test_torch_fused.py`` and
+``tests/test_torch_serve.py``): each spawned process
 joins a gloo group on the CPU, runs every case of its suite as one rank,
 then computes the single-process runs of the cases dealt to it, and saves
 both under ``out_dir``.  Its own module, so that a spawned process imports
-this and the port, not a test file's imports.
+this and the port, not a test file's imports: no JAX (a case held against
+the JAX reference reads the parent's numpy arrays).
 
 Every rank and every single-process run keeps torch to one thread: CPU
 matmuls may sum in another order at another thread count.
@@ -11,6 +13,7 @@ matmuls may sum in another order at another thread count.
 from __future__ import annotations
 
 import os
+import pickle
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
@@ -18,7 +21,9 @@ import torch
 
 from repro_torch import configs
 from repro_torch.configs.base import ParallelConfig, ShapeConfig
+from repro_torch.interop import params_from_jax
 from repro_torch.launch import mesh, steps
+from repro_torch.launch import serve as serve_lib
 from repro_torch.launch import train as train_lib
 from repro_torch.models import pipeline_hetero as PH
 from repro_torch.models.lm import LMModel
@@ -26,6 +31,7 @@ from repro_torch.models.unet import UNetConfig, UNetModel
 from repro_torch.optim import optimizers as optim
 
 BATCH, SEQ, M = 8, 16, 4
+PROMPT, GEN = 12, 4       # serving: prompt length, tokens generated
 OCFG = dict(lr=2e-3, warmup_steps=2, total_steps=20, clip_norm=1.0)
 FAIL_AFTER = 3            # the failing rank raises at this stage call
 
@@ -76,6 +82,28 @@ def suite(name: str, nproc: int) -> List[Tuple[str, Dict[str, Any]]]:
         for ex in ("spmd", "mpmd"):
             cases.append((f"unet-1f1b-{ex}", dict(
                 kind="hetero", pcfg=dict(schedule="1f1b", executor=ex))))
+        # the forward executor: gpipe under autograd, and serving
+        for arch in ("smollm-360m", "whisper-tiny"):
+            for ex in ("spmd", "mpmd"):
+                cases.append((f"{arch.split('-')[0]}-gpipe-{ex}", dict(
+                    kind="grads", arch=arch,
+                    pcfg=dict(schedule="gpipe", executor=ex))))
+        cases.append(("whisper-gpipe-bf16-spmd", dict(
+            kind="grads", arch="whisper-tiny",
+            pcfg=dict(schedule="gpipe", wire="bf16"))))
+        for ex in ("spmd", "mpmd"):
+            cases.append((f"unet-gpipe-{ex}", dict(
+                kind="hetero", pcfg=dict(schedule="gpipe", executor=ex))))
+        cases.append(("smollm-train-gpipe", dict(
+            kind="train", arch="smollm-360m",
+            pcfg=dict(schedule="gpipe"))))
+        cases.append(("launch-train-gpipe", dict(
+            kind="launch", arch="smollm-360m",
+            pcfg=dict(schedule="gpipe"))))
+        for arch, ex in (("smollm-360m", "spmd"), ("smollm-360m", "mpmd"),
+                         ("rwkv6-1.6b", "spmd"), ("whisper-tiny", "mpmd")):
+            cases.append((f"{arch.split('-')[0]}-serve-{ex}", dict(
+                kind="serve", arch=arch, pcfg=dict(executor=ex))))
     elif name == "r4":
         for ex in ("spmd", "mpmd"):
             cases.append((f"smollm-1f1b-{ex}", dict(
@@ -87,6 +115,17 @@ def suite(name: str, nproc: int) -> List[Tuple[str, Dict[str, Any]]]:
                 kind="grads", arch="whisper-tiny",
                 pcfg=dict(schedule="1f1b", executor=ex, wire=wire,
                           stream_inputs=True))))
+        # the forward executor: mem's three destinations and a carry the
+        # first decoder stage drops; streamed serving
+        cases.append(("whisper-gpipe-spmd", dict(
+            kind="grads", arch="whisper-tiny",
+            pcfg=dict(schedule="gpipe"))))
+        cases.append(("smollm-gpipe-mpmd", dict(
+            kind="grads", arch="smollm-360m",
+            pcfg=dict(schedule="gpipe", executor="mpmd"))))
+        cases.append(("whisper-serve-stream-spmd", dict(
+            kind="serve", arch="whisper-tiny",
+            pcfg=dict(stream_inputs=True))))
     else:
         raise ValueError(f"unknown suite {name!r}")
     return cases
@@ -167,6 +206,46 @@ def _launch(group, case, pipe: int):
             "ranks": res.get("ranks")}
 
 
+def _serve(group, case, pipe: int):
+    """``launch.serve.serve``, what ``serve --nproc`` runs in each rank:
+    a PROMPT-token batch of BATCH, GEN tokens greedy."""
+    model = _model(case, pipe)
+    res = serve_lib.serve(model.arch, model.pcfg, prompt_len=PROMPT,
+                          gen=GEN, batch=BATCH, device="cpu",
+                          dtype=torch.float32, group=group)
+    return {k: res.get(k) for k in ("tokens", "logits", "n_micro",
+                                    "cache_bytes", "hops", "park", "ranks")}
+
+
+def _serve_jax(group, case, pipe: int):
+    """Prefill and decode on the JAX reference's weights, prompts and
+    tokens (numpy, ``case["ref"]``): the last rank's logits."""
+    model = _model(case, pipe)
+    with open(case["ref"], "rb") as f:
+        ref = pickle.load(f)
+    params = params_from_jax(ref["params"], arch=model.arch, src_pipe=1,
+                             pcfg=model.pcfg, device="cpu")
+    rank = None if group is None else group.rank
+    if rank is not None:
+        params = model.rank_share(params, rank)
+    batch, n_prompt = ref["prompts"].shape
+    pshape = ShapeConfig("p", n_prompt, batch, "prefill")
+    dshape = ShapeConfig("d", ref["decode_len"], batch, "decode")
+    prefill = steps.build_prefill_step(model, model.pcfg, "cpu", pshape,
+                                       group=group)
+    decode = steps.build_serve_step(model, model.pcfg, "cpu", dshape,
+                                    group=group)
+    cache = model.init_cache(dshape, model.pcfg.n_micro, filled=False,
+                             rank=rank)
+    logits, cache = prefill(params, cache,
+                            {"tokens": torch.from_numpy(ref["prompts"])})
+    out = {"prefill": logits, "decode": []}
+    for tok in ref["tokens"]:
+        logits, cache = decode(params, cache, torch.from_numpy(tok))
+        out["decode"].append(logits)
+    return out
+
+
 UNET = UNetConfig(B=1, C=4, levels=3, img=32)
 
 
@@ -193,7 +272,7 @@ def _hetero(group, case, pipe: int):
 
 
 RUN = {"grads": _grads, "train": _train, "fail": _fail, "hetero": _hetero,
-       "launch": _launch}
+       "launch": _launch, "serve": _serve, "serve_jax": _serve_jax}
 
 
 def run_rank(rank: int, nproc: int, init_method: str, out_dir: str,

@@ -1,5 +1,5 @@
-"""Stages in their own processes: the fused executor across gloo ranks on
-the CPU, against the port's own single-process executor.
+"""Stages in their own processes: both executors across gloo ranks on
+the CPU, against the port's own single-process executors.
 
 One spawned group per world size (R = 2 and R = 4,
 ``tests/_torch_dist_ranks.py``) runs all its cases and saves them, with
@@ -21,6 +21,23 @@ keeps torch to one thread.  The cases:
   equal; the same through ``launch.train.train`` (what ``--nproc`` runs),
   with every rank's records on every rank;
 * a U-Net's fused 1F1B at R = 2 (``hetero_grad_call`` with the group);
+* the forward executor under autograd (``schedule="gpipe"``, the
+  cotangents crossing through ``p2p.Backprop``): smollm, whisper (and
+  under a bf16 wire) and the U-Net with its portals at R = 2 under spmd
+  and mpmd, whisper at R = 4 (``mem``'s three destinations, a carry the
+  first decoder stage drops): the loss and every gradient bitwise, the
+  park and route high-water equal to the forward plan's, chain and portal
+  hops and bytes equal to ``plan_wire_report``'s, one cotangent hop per
+  chain and portal hop; two AdamW steps and ``launch.train.train`` with
+  gpipe, as for 1F1B;
+* serving with per-rank caches through ``launch.serve.serve(group=)``
+  (what ``serve --nproc`` runs): smollm (spmd, mpmd), rwkv6 and whisper
+  at R = 2, whisper streamed at R = 4: tokens and last logits bitwise
+  equal to one process's, each rank's cache bytes its share of
+  ``cache_protos``, one token hop a decode step, the chain and portal
+  hops and the park and route high-water the plans' (two ranks on the
+  JAX reference's weights are held against the JAX serve in
+  ``tests/test_torch_serve.py``, beside its JAX run);
 * a rank that raises mid-step fails the group within its time limit,
   naming the rank and the error, with a deadline on the group or none;
 * ``plan.specialize`` equals the reference's over the fused schedules.
@@ -53,13 +70,16 @@ GRAD_CASES = [(name, n) for sname, n in (("r2", 2), ("r4", 4))
               for name, case in SUITES[sname] if case["kind"] == "grads"]
 HETERO_CASES = [name for name, case in SUITES["r2"]
                 if case["kind"] == "hetero"]
+SERVE_CASES = [(name, n) for sname, n in (("r2", 2), ("r4", 4))
+               for name, case in SUITES[sname] if case["kind"] == "serve"]
 
 
 def _spawn(out_dir, suite, nproc, cases=None, timeout_s=SPAWN_S):
     """Run one group; each rank's saved ``{"dist", "ref"}``."""
     mesh.spawn(ranks_lib.run_rank, nproc, (str(out_dir), suite, cases),
                timeout_s=timeout_s, rendezvous_dir=str(out_dir))
-    return [torch.load(out_dir / f"rank{r}.pt") for r in range(nproc)]
+    return [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+            for r in range(nproc)]
 
 
 def collect(saved):
@@ -106,11 +126,28 @@ def share_pairs(model, share, whole, rank):
     return pairs
 
 
+def _gpipe(model) -> bool:
+    return model.pcfg.schedule == "gpipe"
+
+
 def _tplan(model):
+    """The plan the executor runs: the forward plan for gpipe."""
     p = model.pcfg
-    return tplan_lib.plan_for(p.schedule, p.n_micro, p.pipe,
-                              skips=model.skips(), portals=p.portals,
-                              residuals=p.residuals, wire=p.wire)
+    return tplan_lib.plan_for("gpipe_fwd" if _gpipe(model) else p.schedule,
+                              p.n_micro, p.pipe, skips=model.skips(),
+                              portals=p.portals, residuals=p.residuals,
+                              wire=p.wire)
+
+
+def _want_slots(tplan, r, streamed):
+    """The buffer high-water a rank reports: ``specialize``'s, the
+    families its executor holds (the forward executor: park)."""
+    want = tplan_lib.specialize(tplan, r).buffer_slots()
+    if not tplan.has_backward:
+        return {"park": want["park"]}
+    if not streamed:
+        want.pop("fs")
+    return want
 
 
 @pytest.mark.parametrize("name, nproc", GRAD_CASES)
@@ -134,16 +171,15 @@ def test_dist_buffer_high_water_equals_specialize(runs, name, nproc):
     streamed = model.pcfg.stream_inputs
     for r, got in enumerate(runs[(name, nproc)]["dist"]):
         park = got["park"]
-        want = tplan_lib.specialize(tplan, r).buffer_slots()
-        if not streamed:
-            want.pop("fs")
         assert park["rank"] == r
-        assert park["buffer_slots"] == want, f"rank {r}"
+        assert park["buffer_slots"] == _want_slots(tplan, r, streamed), \
+            f"rank {r}"
     for k, rt in enumerate(tplan.routes):
         highs = [got["park"]["per_route"][rt.key]
                  for got in runs[(name, nproc)]["dist"]]
         assert max(h["depth"] for h in highs) == rt.depth, rt.key
-        assert max(h["g_depth"] for h in highs) == rt.g_depth, rt.key
+        if tplan.has_backward:
+            assert max(h["g_depth"] for h in highs) == rt.g_depth, rt.key
     assert bool(tplan.routes) == model.arch.is_encdec
 
 
@@ -163,11 +199,36 @@ def test_dist_hops_and_bytes_equal_plan_wire_report(runs, name, nproc):
            for c in ("chain", "cotangent", "portal")}
     h = report["hops"]
     assert got["chain"]["hops"] == h["chain"] > 0
-    assert got["cotangent"]["hops"] == h["cotangent_chain"] + \
-        h["route_cotangent"]
     assert got["portal"]["hops"] == h["route_value"]
-    for c in got:
+    for c in ("chain", "portal"):
         assert got[c]["bytes"] == report["per_class"][c], c
+    if not _gpipe(model):
+        assert got["cotangent"]["hops"] == h["cotangent_chain"] + \
+            h["route_cotangent"]
+        assert got["cotangent"]["bytes"] == report["per_class"]["cotangent"]
+        return
+    # autograd's: one cotangent a chain or portal hop, in the wire's
+    # dtype; a payload its stage never reads ships an empty one
+    assert got["cotangent"]["hops"] == h["chain"] + h["route_value"]
+    unused = model.pcfg.n_micro * _dropped(model) \
+        * report["per_class"]["chain"] // h["chain"]
+    assert got["cotangent"]["bytes"] == report["per_class"]["chain"] + \
+        report["per_class"]["portal"] - unused
+
+
+def _dropped(model) -> int:
+    """Hops a micro-batch makes whose payload the receiving stage never
+    reads, all the carry's size: whisper's carry into a stage whose first
+    layer starts the decoder (it reads ``dec_in``), and ``mem`` into a
+    stage of padding only (no cross-attention)."""
+    if not model.arch.is_encdec:
+        return 0
+    c = model.consts()
+    carry = sum(1 for s in range(1, model.n_stages)
+                if c["is_dec_first"][s, 0])
+    mem = sum(1 for edge in model.skips() if edge.name == "mem"
+              for d in edge.dsts if not c["cross"][d].any())
+    return carry + mem
 
 
 @pytest.mark.parametrize("name", HETERO_CASES)
@@ -188,18 +249,20 @@ def test_dist_hetero_bitwise_slots_and_hops(runs, name):
                 assert torch.equal(a, want[path]), f"rank {r} {path}"
     pcfg = ranks_lib._hetero_pcfg(_case(name, 2), 2)
     model = ranks_lib.UNetModel(ranks_lib.UNET, 2)
-    tplan = tplan_lib.plan_for(pcfg.schedule, pcfg.n_micro, 2,
-                               skips=model.skip_edges(), portals=True)
+    gpipe = pcfg.schedule == "gpipe"
+    tplan = tplan_lib.plan_for("gpipe_fwd" if gpipe else pcfg.schedule,
+                               pcfg.n_micro, 2, skips=model.skip_edges(),
+                               portals=True)
     h = plan_wire_report(tplan, 1)["hops"]
     hops = {c: sum(got["park"]["hops"][c]["hops"] for got in run["dist"])
             for c in ("chain", "cotangent", "portal")}
+    cot = (h["chain"] + h["route_value"] if gpipe
+           else h["cotangent_chain"] + h["route_cotangent"])
     assert hops == {"chain": h["chain"], "portal": h["route_value"],
-                    "cotangent": h["cotangent_chain"] + h["route_cotangent"]}
+                    "cotangent": cot}
     assert hops["portal"] > 0
     for r, got in enumerate(run["dist"]):
-        want = tplan_lib.specialize(tplan, r).buffer_slots()
-        want.pop("fs")
-        assert got["park"]["buffer_slots"] == want
+        assert got["park"]["buffer_slots"] == _want_slots(tplan, r, False)
 
 
 def test_dist_two_train_steps(runs):
@@ -207,7 +270,15 @@ def test_dist_two_train_steps(runs):
     another order than one process, so the clip scale may move in its
     last bit; the first loss is bitwise, the rest within TOL, and both
     copies of the embedding take the same update."""
-    name = "smollm-train-1f1b"
+    _check_two_train_steps(runs, "smollm-train-1f1b")
+
+
+def test_dist_two_gpipe_train_steps(runs):
+    """The same two steps through gpipe's autograd across the ranks."""
+    _check_two_train_steps(runs, "smollm-train-gpipe")
+
+
+def _check_two_train_steps(runs, name):
     run, model = runs[(name, 2)], _model(name, 2)
     ref = run["ref"]
     for r, got in enumerate(run["dist"]):
@@ -229,7 +300,16 @@ def test_dist_launch_train_records(runs):
     """``launch.train.train`` with a group (what ``--nproc`` runs): every
     rank reports the group's losses, the first bitwise one process's, and
     every rank gets each rank's high-water and hops."""
-    run = runs[("launch-train-1f1b", 2)]
+    _check_launch_train(runs, "launch-train-1f1b")
+
+
+def test_dist_launch_gpipe_train_records(runs):
+    """``train --nproc 2 --schedule gpipe``'s ranks."""
+    _check_launch_train(runs, "launch-train-gpipe")
+
+
+def _check_launch_train(runs, name):
+    run = runs[(name, 2)]
     ref = run["ref"]["losses"]
     for r, got in enumerate(run["dist"]):
         assert got["losses"][0] == ref[0], f"rank {r}"
@@ -240,6 +320,76 @@ def test_dist_launch_train_records(runs):
     assert run["ref"]["ranks"] is None
     hops = [rec["park_info"]["hops"] for rec in run["dist"][0]["ranks"]]
     assert hops[0]["chain"]["hops"] == hops[1]["cotangent"]["hops"] > 0
+
+
+@pytest.mark.parametrize("name, nproc", SERVE_CASES)
+def test_dist_serve_bitwise_equal_single_process(runs, name, nproc):
+    """``serve(group=)``: the last rank's tokens and last logits bitwise
+    one process's (the others return none); every rank gets every rank's
+    records and the last rank's tokens."""
+    run = runs[(name, nproc)]
+    ref, last = run["ref"], run["dist"][-1]
+    assert np.array_equal(last["tokens"], ref["tokens"])
+    assert torch.equal(last["logits"], ref["logits"])
+    assert last["tokens"].shape == (ranks_lib.BATCH, ranks_lib.GEN)
+    for r, got in enumerate(run["dist"][:-1]):
+        assert got["tokens"] is None and got["logits"] is None, f"rank {r}"
+    for got in run["dist"]:
+        assert len(got["ranks"]) == nproc
+        assert np.array_equal(got["ranks"][-1]["tokens"], ref["tokens"])
+
+
+@pytest.mark.parametrize("name, nproc", SERVE_CASES)
+def test_dist_serve_caches_hops_and_high_water(runs, name, nproc):
+    """Each rank holds its stages' caches only (its share of
+    ``cache_protos``); the last rank sends rank 0 one token a decode step;
+    the chain and portal hops and the park and route high-water of the
+    prefill and of each decode step are the plans'."""
+    from repro_torch.configs.base import ShapeConfig
+    run, model = runs[(name, nproc)], _model(name, nproc)
+    m = run["ref"]["n_micro"]
+    pcfg = model.pcfg.with_(n_micro=m)
+    model = ranks_lib.LMModel(model.arch, pcfg, dtype=torch.float32,
+                              device="cpu")
+    dshape = ShapeConfig("d", ranks_lib.PROMPT + ranks_lib.GEN,
+                         ranks_lib.BATCH, "decode")
+    whole = model.cache_protos(dshape, m)
+    plans = {"prefill": tplan_lib.plan_for(
+        "gpipe_fwd", m, nproc, skips=model.skips(), portals=pcfg.portals),
+        "decode": tplan_lib.plan_for("gpipe_fwd", m, nproc)}
+    steps = {"prefill": 1, "decode": ranks_lib.GEN - 1}
+    total = {c: 0 for c in ("chain", "portal")}
+    for r, got in enumerate(run["dist"]):
+        share = model.cache_protos(dshape, m, rank=r)
+        assert _proto_leaves(share) == [((1,) + tuple(shp[1:]), dt)
+                                        for shp, dt in _proto_leaves(whole)]
+        assert got["cache_bytes"] == sum(
+            np.prod(shp) * torch.empty((), dtype=dt).element_size()
+            for shp, dt in _proto_leaves(share)) > 0, f"rank {r}"
+        want_tok = ranks_lib.GEN - 1 if r == nproc - 1 else 0
+        assert got["hops"]["token"]["hops"] == want_tok, f"rank {r}"
+        assert got["hops"]["cotangent"]["hops"] == 0
+        for phase, tplan in plans.items():
+            park = got["park"][phase]
+            assert park["buffer_slots"] == _want_slots(tplan, r, False)
+            for rt in tplan.routes:
+                assert park["per_route"][rt.key]["depth"] <= rt.depth
+        for c in total:
+            total[c] += got["hops"][c]["hops"]
+    for c, key in (("chain", "chain"), ("portal", "route_value")):
+        assert total[c] == sum(
+            n * plan_wire_report(plans[p], 1)["hops"][key]
+            for p, n in steps.items()), c
+    for rt in plans["prefill"].routes:
+        assert max(got["park"]["prefill"]["per_route"][rt.key]["depth"]
+                   for got in run["dist"]) == rt.depth, rt.key
+    assert bool(plans["prefill"].routes) == model.arch.is_encdec
+
+
+def _proto_leaves(protos):
+    if isinstance(protos, dict):
+        return [leaf for v in protos.values() for leaf in _proto_leaves(v)]
+    return [protos]
 
 
 @pytest.mark.parametrize("timeout_s", [SPAWN_S, None])

@@ -9,8 +9,11 @@ round trips bitwise into fresh tensors, the layout header goes once per
 class counts its hops and bytes, the mpmd register latches and posts
 where it is told, and every disagreement between plan and payloads
 raises.  ``LocalHop``, the in-process default, is held to the same
-refusals.  The executors across real gloo ranks are in
-``tests/test_torch_dist.py``.
+refusals.  Under grad (``p2p.Backprop``) a payload's cotangent comes back
+to its sender bitwise what one process's autograd gives, an arrival
+nothing used sends an empty one, and cotangents that land before they
+are asked for wait in their slot.  The executors across real gloo ranks
+are in ``tests/test_torch_dist.py``.
 """
 from collections import defaultdict, deque
 
@@ -142,7 +145,8 @@ def test_layout_header_once_per_stream_source_and_stage():
 
 @pytest.mark.parametrize("stream, cls", [
     ("f", "chain"), ("b", "cotangent"), ("g:mem@2", "cotangent"),
-    ("r:mem@2", "portal"), ("s", "stream"), ("embed", "embed")])
+    ("r:mem@2", "portal"), ("s", "stream"), ("embed", "embed"),
+    ("tok", "token")])
 def test_each_stream_counts_under_its_class(stream, cls):
     net, (a, b) = _pair()
     value = {"x": torch.zeros(5, 7), "n": torch.zeros(3, dtype=torch.int64)}
@@ -273,3 +277,124 @@ def test_local_hop_refusals():
     with pytest.raises(RuntimeError, match="has no slot"):
         hop.take("b", 1, 0, expect=False)
     hop.finish()
+
+
+# ---------------------------------------------------------------------------
+# autograd across the hop (p2p.Backprop)
+# ---------------------------------------------------------------------------
+
+def _grad_pair(executor="spmd"):
+    net, hops = _pair(executor)
+    bps = [p2p.Backprop(), p2p.Backprop()]
+    for hop, bp in zip(hops, bps):
+        bp.attach(hop)
+    return net, hops, bps
+
+
+@pytest.mark.parametrize("executor", ["spmd", "mpmd"])
+def test_cotangent_comes_back_bitwise(executor):
+    """Rank 0 ships ``3 w``, rank 1 differentiates ``sum(h^2 + h)`` with
+    its arrival; rank 0's gradient of ``w`` equals one process's, and the
+    cotangent is one hop of the payload's bytes."""
+    w = torch.randn(4, 5, generator=torch.Generator().manual_seed(0))
+    w1 = w.clone().requires_grad_()
+    u = 3 * w1
+    want = torch.autograd.grad((u ** 2 + u).sum(), w1)[0]
+    net, (a, b), (bp0, bp1) = _grad_pair(executor)
+    w0 = w.clone().requires_grad_()
+    with torch.enable_grad():
+        a.put("f", 0, 1, (0, 1), {"h": 3 * w0}, None)
+        if executor == "mpmd":
+            a.post("f")
+        h = b.take("f", 0, 1, expect=True)[1].resolve()["h"]
+        assert h.requires_grad
+        bp1.grad([(h ** 2 + h).sum()], [])
+        got = bp0.grad([], [w0])[0]
+    assert torch.equal(got, want)
+    assert b.stats["cotangent"] == {"hops": 1, "bytes": 4 * 20,
+                                    "wait_s": b.stats["cotangent"]["wait_s"]}
+
+
+def test_unused_arrival_ships_an_empty_cotangent():
+    """An arrival nothing on its rank reads runs no backward: its sender
+    gets an empty cotangent and adds nothing (zeros where unused)."""
+    net, (a, b), (bp0, bp1) = _grad_pair()
+    w = torch.ones(3, requires_grad=True)
+    v = torch.ones(2, requires_grad=True)
+    with torch.enable_grad():
+        a.put("f", 0, 1, (0, 1), {"h": w * 2}, None)
+        b.take("f", 0, 1, expect=True)[1].resolve()
+        bp1.grad([(v * 5).sum()], [v])
+        assert torch.equal(bp0.grad([], [w])[0], torch.zeros(3))
+    assert (b.stats["cotangent"]["hops"], b.stats["cotangent"]["bytes"]) \
+        == (1, 0)
+
+
+def _two_micro_pair(consume_order):
+    """Rank 0 ships ``3 w`` as micro 0 and ``5 w`` as micro 1; rank 1
+    reads them in ``consume_order`` and differentiates the sum of both
+    squared: the engine visits the arrival read last first."""
+    w = torch.randn(2, 3, generator=torch.Generator().manual_seed(1))
+    net, (a, b), (bp0, bp1) = _grad_pair()
+    w0 = w.clone().requires_grad_()
+    with torch.enable_grad():
+        for micro, k in ((0, 3), (1, 5)):
+            a.put("f", 0, 1, (micro, 1), {"h": k * w0}, None)
+        got = {micro: b.take("f", 0, 1, expect=True)[1]
+               for micro in (0, 1)}
+        h = {micro: got[micro].resolve()["h"] for micro in consume_order}
+        root = (h[0] ** 2).sum() + (h[1] ** 2).sum()
+    return w, w0, root, bp0, bp1, b
+
+
+def test_two_micro_batches_consumed_in_order():
+    """Micro 1's payload read after micro 0's, as the forward executor
+    reads them: the backward ships micro 1's cotangent, then micro 0's,
+    and rank 0's gradient is one process's bitwise."""
+    w, w0, root, bp0, bp1, b = _two_micro_pair((0, 1))
+    w1 = w.clone().requires_grad_()
+    want = torch.autograd.grad(((3 * w1) ** 2).sum() + ((5 * w1) ** 2).sum(),
+                               w1)[0]
+    with torch.enable_grad():
+        bp1.grad([root], [])
+        got = bp0.grad([], [w0])[0]
+    assert torch.equal(got, want)
+    assert bp1.reached == 0
+    assert (b.stats["cotangent"]["hops"], b.stats["cotangent"]["bytes"]) \
+        == (2, 2 * 4 * 6)
+
+
+def test_backward_back_to_a_later_micro_batch_raises():
+    """Micro 1's payload read after micro 0's was consumed, so the engine
+    reaches micro 0 first and gives micro 1's arrival up: its backward
+    coming after that raises, naming the order it relied on."""
+    _, _, root, _, bp1, _ = _two_micro_pair((1, 0))
+    with torch.enable_grad(), \
+            pytest.raises(RuntimeError, match="descending order"):
+        bp1.grad([root], [])
+
+
+def test_cotangents_landing_early_wait_in_their_slot():
+    """The backward asks for micro 0's cotangent, micro 1's lands first:
+    it waits in its slot until asked for; one asked for twice raises."""
+    net, (a, b) = _pair()
+    for micro in (1, 0):
+        b.send_cotangent("b", 0, (micro, 1), {"0": torch.full((2,), micro)})
+    assert torch.equal(a.recv_cotangent("b", 1, (0, 1))["0"],
+                       torch.zeros(2, dtype=torch.int64))
+    assert a.early[("b", 1)].keys() == {(1, 1)}
+    with pytest.raises(RuntimeError, match="nobody asked for"):
+        a.finish()
+    assert torch.equal(a.recv_cotangent("b", 1, (1, 1))["0"],
+                       torch.ones(2, dtype=torch.int64))
+    a.finish()
+
+
+def test_backprop_serves_one_call():
+    _, (a, b) = _pair()
+    bp = p2p.Backprop()
+    bp.attach(a)
+    with pytest.raises(RuntimeError, match="one forward call"):
+        bp.attach(b)
+    with pytest.raises(ValueError, match="carries no cotangent"):
+        p2p.cotangent_stream("s")

@@ -5,8 +5,11 @@ restacked onto the port's layout) and the same prompts (numpy, seeded): the
 port's prefill logits, every KV-cache leaf and three greedy decode steps'
 logits must equal the JAX ``build_prefill_step`` / ``build_serve_step``
 results at pipe 1 within ``tests/test_oracle.py``'s fp32 tolerance, for the
-port at pipe 1, 2 and 4.  The JAX side runs its blocked-jnp path, and once
-its Pallas kernels in interpret mode.
+port at pipe 1, 2 and 4, and for two pipe ranks in their own processes
+(``serve`` with a group's steps, ``tests/_torch_dist_ranks.py``; the ranks
+import no JAX and read the weights, prompts and tokens as numpy).  The JAX
+side runs its blocked-jnp path, and once its Pallas kernels in interpret
+mode.
 """
 import jax
 import jax.numpy as jnp
@@ -151,6 +154,44 @@ def _assert_matches(ref, got):
 def test_port_serve_matches_jax(jax_ref, pipe, m):
     got = _port_run(jax_ref, pipe, m)
     _assert_matches(jax_ref, got)
+
+
+def test_two_ranks_serve_matches_jax(jax_ref, tmp_path):
+    """Two pipe ranks on gloo, each with its share of the JAX reference's
+    weights (``interop.params_from_jax``, then ``rank_share``), prefill
+    the JAX prompts and decode the JAX tokens: the last rank's logits are
+    within TOL of the JAX serve's, pick its greedy tokens, and are bitwise
+    one process's at pipe 2; rank 0 returns none."""
+    import pickle
+    import _torch_dist_ranks as ranks_lib
+    from repro_torch.launch import mesh
+    path = tmp_path / "jax_serve.pkl"
+    with open(path, "wb") as f:
+        pickle.dump({"params": jax_ref["params"],
+                     "prompts": jax_ref["prompts"],
+                     "tokens": jax_ref["tokens"], "decode_len": DECODE_LEN},
+                    f)
+    case = dict(kind="serve_jax", arch=ARCH, pcfg={}, ref=str(path))
+    mesh.spawn(ranks_lib.run_rank, 2, (str(tmp_path), "r2", [("jax", case)]),
+               timeout_s=120, rendezvous_dir=str(tmp_path))
+    saved = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    first, last = (s["dist"]["jax"] for s in saved)
+    assert first["prefill"] is None
+    np.testing.assert_allclose(last["prefill"].numpy(), jax_ref["prefill"],
+                               **TOL, err_msg="prefill logits")
+    assert len(last["decode"]) == len(jax_ref["decode"]) == STEPS
+    for i, (g, w) in enumerate(zip(last["decode"], jax_ref["decode"])):
+        np.testing.assert_allclose(g.numpy(), w, **TOL,
+                                   err_msg=f"decode step {i}")
+    # the greedy tokens the ranks would pick are the JAX serve's
+    picked = [last["prefill"]] + last["decode"][:-1]
+    for i, (g, tok) in enumerate(zip(picked, jax_ref["tokens"])):
+        assert np.array_equal(g.argmax(-1).numpy(), tok), f"token {i}"
+    one = saved[0]["ref"]["jax"]          # one process at pipe 2
+    assert torch.equal(last["prefill"], one["prefill"])
+    for g, w in zip(last["decode"], one["decode"]):
+        assert torch.equal(g, w)
 
 
 def test_port_serve_matches_jax_pallas_interpret(monkeypatch):

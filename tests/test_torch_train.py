@@ -502,12 +502,24 @@ def _a_group():
     return PipeGroup(rank=0, size=2, device=torch.device("cpu"))
 
 
-def _gpipe_in_group():
+def _gpipe_in_group(**kw):
     arch = configs.smoke_arch(ARCH)
-    pcfg = configs.smoke_parallel(ARCH).with_(pipe=2, schedule="gpipe")
-    steps.build_grad_fn(LMModel(arch, pcfg, dtype=torch.float32,
-                                device="cpu"), pcfg, "cpu",
-                        group=_a_group())
+    pcfg = configs.smoke_parallel(ARCH).with_(pipe=2, schedule="gpipe", **kw)
+    return steps.build_grad_fn(LMModel(arch, pcfg, dtype=torch.float32,
+                                       device="cpu"), pcfg, "cpu",
+                               group=_a_group())
+
+
+def _streamed_gpipe_in_group():
+    """Rank 0's call refuses before it would talk to rank 1."""
+    from repro_torch.core import p2p
+    from repro_torch.core.pipeline import pipeline_call
+    cfg = configs.smoke_parallel(ARCH).with_(pipe=2, n_micro=2,
+                                             stream_inputs=True)
+    call = pipeline_call(lambda *a: a, cfg=cfg, devices="cpu",
+                         group=_a_group())
+    with torch.enable_grad():
+        call([{}], {"h": torch.zeros(2, 1)}, backprop=p2p.Backprop())
 
 
 def _nccl_group():
@@ -544,10 +556,8 @@ UNPORTED = {
                    "A14"),
     "sharded_loader": (lambda mp: data.make_sharded_loader(), "A9"),
     "elastic_flags": (_train_cli, "A11"),
-    # stages in their own processes: the forward executor (A4b), NCCL (A4c)
-    "group_pipeline_call": (lambda mp: _pipe_call(pipe=2,
-                                                  group=_a_group()), "A4b"),
-    "group_gpipe": (lambda mp: _gpipe_in_group(), "A4b"),
+    # stages in their own processes: streamed gpipe (A4d), NCCL (A4c)
+    "group_gpipe_stream": (lambda mp: _streamed_gpipe_in_group(), "A4d"),
     "nccl": (lambda mp: _nccl_group(), "A4c"),
 }
 
@@ -580,6 +590,34 @@ def _two_steps(**kw):
         losses.append(float(metrics["loss"]))
     assert all(np.isfinite(losses)) and float(metrics["finite"]) == 1.0
     return losses, opt
+
+
+# ROADMAP A4b, which raised above until it was ported: the forward executor
+# takes a pipe group (run across processes in tests/test_torch_dist.py)
+def _group_pipe_call():
+    from repro_torch.core.pipeline import pipeline_call
+    call = pipeline_call(lambda *a: a, cfg=configs.smoke_parallel(ARCH).with_(
+        pipe=2), devices="cpu", group=_a_group())
+    return call.tplan
+
+
+A4B = {"group_pipeline_call": _group_pipe_call,
+       "group_gpipe": lambda: _gpipe_in_group().tplan}
+
+
+@pytest.mark.parametrize("case", sorted(A4B))
+def test_forward_executor_takes_a_group(case):
+    """Built with a group, the forward executor runs the clock-cycle plan
+    (one column of it a process); under grad a call without a
+    ``p2p.Backprop`` to carry the cotangents back refuses before it
+    would talk to another rank."""
+    from repro_torch.core.pipeline import run_pipeline_tasks
+    tplan = A4B[case]()
+    assert not tplan.has_backward and tplan.n_ranks == 2
+    cfg = configs.smoke_parallel(ARCH).with_(pipe=2, n_micro=tplan.n_micro)
+    with torch.enable_grad(), pytest.raises(ValueError, match="Backprop"):
+        run_pipeline_tasks(lambda *a: a, [{}], None, cfg, tplan=tplan,
+                           devices="cpu", group=_a_group())
 
 
 # ROADMAP A5 and A7, which raised above until they were ported: each now

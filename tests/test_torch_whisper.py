@@ -38,6 +38,7 @@ from repro.models import lm as jlm
 
 from repro_torch import configs
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.core import p2p
 from repro_torch.interop import params_from_jax
 from repro_torch.launch import steps
 from repro_torch.launch.serve import expected_serve_launches
@@ -398,6 +399,31 @@ def test_loss_and_grads_match_jax_oracle(jax_ref, name, pipe):
             for s, l in enc:
                 assert not g[s, l].any(), (path, s, l)
                 assert not want_items[path][s, l].any(), (path, s, l)
+
+
+def test_gpipe_hop_node_order(jax_ref, monkeypatch):
+    """One process puts an autograd node on every cross-rank hop
+    (``p2p.hop_node``) so that it sums a value's cotangents per hop, the
+    order a pipe group must keep (``tests/test_torch_dist.py`` holds the
+    ranks bitwise to it).  That order is not the plain graph's: at pipe 4
+    whisper's gradients move, by a few ulp (7.5e-9 at most when it was
+    introduced).  Both orders stay within TOL of the JAX oracle, and the
+    move is pinned here."""
+    run = _run(jax_ref, "gpipe", 4)
+    monkeypatch.setattr(p2p, "hop_node", lambda wire: wire)
+    model, pcfg, params = _port(jax_ref, 4, **SCHEDULES["gpipe"])
+    batch = {k: torch.from_numpy(v) for k, v in jax_ref["batch"].items()}
+    loss, grads = steps.build_grad_fn(model, pcfg, "cpu")(params, batch)
+    assert torch.equal(loss, run["loss"])
+    want = dict(tree_items(params_from_jax(
+        jax_ref["grads"], arch=model.arch, src_pipe=1, pcfg=pcfg,
+        device="cpu")))
+    shift = 0.0
+    for (path, a), (_, b) in zip(tree_items(grads),
+                                 tree_items(run["grads"])):
+        _close(a, want[path].numpy(), f"plain graph {path}")
+        shift = max(shift, float((a - b).abs().max()))
+    assert 0 < shift < 1e-7, shift
 
 
 # ---------------------------------------------------------------------------
