@@ -4,8 +4,9 @@ proof that the port builds, agrees with itself, serves and trains on one GPU.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
-Phases (each prints JSON lines; any failure raises, so the exit code is
-non-zero and no result line is printed):
+Phases (each prints JSON lines and then a ``phase_done`` line with its
+seconds; any failure raises, so the exit code is non-zero and no result
+line is printed):
 
 1. device   the card's name and ``nvidia-smi`` name / power limit;
 2. build    the three CUDA sources from ``src/repro_torch/kernels/csrc``
@@ -13,8 +14,9 @@ non-zero and no result line is printed):
             count of wgmma (HGMMA) and mma.sync (HMMA) instructions in the
             SASS: the bf16 attention forward, dQ and dK/dV kernels must hold
             HGMMA (the backward ones no HMMA), the chunked WKV passes HMMA;
-            each kernel's registers and spills (no WKV or backward kernel
-            may spill) and any wgmma that ptxas serialised;
+            each kernel's registers and spills (no WKV or backward kernel,
+            the WKV-6 backward's four among them, may spill) and any wgmma
+            that ptxas serialised;
 3. kernels  each kernel against its plain PyTorch version on the card over
             a grid of shapes (RMSNorm, forward and backward, at the row
             counts both training paths give it; WKV in both its chunked and
@@ -32,8 +34,15 @@ non-zero and no result line is printed):
             versions over a grid that holds the training path's shapes, and
             again at every timed shape, the bf16 attention backward twice
             at the training call (bitwise equal), the autograd checks (the
-            Functions' outputs carry a grad_fn, a CUDA WKV-6 call under
-            grad raises), then both
+            Functions' outputs carry a grad_fn, WKV-6's too); the WKV-6
+            backward through its Function against autograd through the
+            plain version, every gradient (dr, dk, dv, dw, du, ds0), H 32,
+            over T 1, 16, 64, 65, 100, 130 (both forward forms, masked
+            tails), decays that underflow to w = 0, a random s0, with and
+            without a cotangent on the final state, and at rwkv6's
+            training call [2,32,4096,64] bf16, then timed there beside its
+            bound and by kernel; then the attention and RMSNorm backwards
+            (RMSNorm also at rwkv6's [2,4096,2048])
             timed beside the bound and the PyTorch call that computes the
             same backward (SDPA's, F.rms_norm's: yardsticks only), with the
             achieved TFLOP/s and the bound's share of the time; the
@@ -43,7 +52,8 @@ non-zero and no result line is printed):
             the plain versions on the CPU, prefill + 4 decode steps, logits
             compared: smollm-360m at full width, 4 layers, pipe 2, fp32;
             rwkv6-1.6b at full width, 2 layers, pipe 2, fp32; and training:
-            smollm-360m at full width, 4 layers, pipe 2, seq 256, fp32, the
+            smollm-360m at full width, 4 layers, and rwkv6-1.6b at full
+            width, 2 layers (tp 1), pipe 2, seq 256, fp32, the
             GPipe loss and every gradient leaf compared (each leaf also
             within 1e-4 of its own largest entry); then the fused F+B
             executor the same way (``train_fused_gpu_vs_cpu``, batch 4):
@@ -68,10 +78,14 @@ non-zero and no result line is printed):
             model-FLOPs share and the traced step's device ms by kernel
             family and idle share; then the same cell through the fused
             executor with schedule "1f1b" (``train_fused``), whose park
-            high-water per rank must also equal the plan's;
-7. memory   peak device memory of one train step with remat "full" and
-            with "none" (all 32 layers, seq 4096, batch 4, m 4, where
-            "none" fits on the card): "full" must be the lower;
+            high-water per rank must also equal the plan's; then
+            rwkv6-1.6b the same way (``rwkv6_train``: all 24 layers, pipe
+            8, tp 1, gpipe and 1f1b), with the WKV-6 backward's share of
+            the traced step's device time;
+7. memory   peak device memory of one train step under remat "full",
+            "dots", "dots_no_batch" and "none" (all 32 layers, seq 4096,
+            batch 4, m 4, where "none" fits on the card): each selective
+            policy must lie between "full" and "none";
 8. hetero_gpu_vs_cpu  the heterogeneous pipelines (paper §4.2) with skip
             routes, the port against itself: U-Net (1, 8), 4 levels at
             64 x 64 and AmoebaNet (6, 32) at 64 x 64, pipe 4, batch 8, m 4,
@@ -153,8 +167,8 @@ non-zero and no result line is printed):
             hop for each chain and portal hop;
 18. dist_serve  serving with one process per pipe rank: four ranks on the
             card, each holding its own stages' weights and caches,
-            through ``launch.serve.serve(group=)``: smollm-360m (32
-            layers), rwkv6-1.6b (24 layers, tp 1) and whisper-tiny (8
+            through ``launch.serve.serve(group=)``: smollm-360m and
+            rwkv6-1.6b (tp 1) cut to 8 layers, and whisper-tiny (8
             blocks, 2048 frames) at pipe 4, batch 8, prompt 2048, 32
             tokens, bf16.  Against one process at pipe 4: the tokens and
             the last logits' SHA-256 equal, the launches summed over the
@@ -214,7 +228,7 @@ GRAD_REL = 1e-4   # training: each grad leaf's gap over its largest entry
 # an index_add_ of fp32 atomics over repeated tokens on CUDA.
 NONDETERMINISTIC_LEAVES = ("embed/tok",)
 KERNELS = ("flash_attention", "rmsnorm", "wkv6", "flash_attention_bwd",
-           "rmsnorm_bwd")
+           "rmsnorm_bwd", "wkv6_bwd")
 
 
 def emit(obj) -> None:
@@ -696,7 +710,8 @@ def phase_backward(torch):
         flash_attention_cuda)
     from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd,
                                              rmsnorm_bwd_plain)
-    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.kernels.wkv6 import (uses_chunked_form, wkv6, wkv6_bwd,
+                                          wkv6_bwd_plain)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -778,27 +793,114 @@ def phase_backward(torch):
                 if not ok:
                     raise AssertionError(f"rmsnorm backward disagrees: {res}")
 
-    # -- autograd: the Functions carry grad_fn; WKV under grad raises -------
+    # -- autograd: the Functions carry grad_fn, WKV's too -------------------
     q = randn(1, 15, 64, 64, dtype=torch.bfloat16).requires_grad_()
     k, v = (randn(1, 5, 64, 64, dtype=torch.bfloat16) for _ in range(2))
     x = randn(4, D_MODEL, dtype=torch.bfloat16).requires_grad_()
     s = randn(D_MODEL, dtype=torch.bfloat16)
-    a_out, n_out = flash_attention(q, k, v), rmsnorm(x, s)
-    if a_out.grad_fn is None or n_out.grad_fn is None:
-        raise AssertionError("a kernel Function's output has no grad_fn")
     r = randn(1, 32, 64, 64, dtype=torch.bfloat16).requires_grad_()
     w = torch.full((1, 32, 64, 64), 0.9, device=dev)
     u = torch.zeros(32, 64, device=dev)
     s0 = torch.zeros(1, 32, 64, 64, device=dev)
-    try:
-        wkv6(r, r.detach(), r.detach(), w, u, s0)
-    except NotImplementedError as e:
-        wkv_msg = str(e)
-    else:
-        raise AssertionError("wkv6 on CUDA under grad did not raise")
-    emit({"check": "autograd", "attention_grad_fn": type(a_out.grad_fn).__name__,
-          "rmsnorm_grad_fn": type(n_out.grad_fn).__name__,
-          "wkv6_under_grad": wkv_msg, "ok": True})
+    outs = {"attention": flash_attention(q, k, v), "rmsnorm": rmsnorm(x, s),
+            "wkv6": wkv6(r, r.detach(), r.detach(), w, u, s0)[0]}
+    if any(o.grad_fn is None for o in outs.values()):
+        raise AssertionError("a kernel Function's output has no grad_fn")
+    emit({"check": "autograd", **{f"{n}_grad_fn": type(o.grad_fn).__name__
+                                  for n, o in outs.items()}, "ok": True})
+
+    # -- WKV-6 backward: every gradient against autograd through the plain
+    #    version on the card, H 32, from a random s0 with a random cotangent
+    #    on the final state (and without one: the model's case); bf16 with
+    #    T >= 64 runs the chunked forward, fp32 and T < 64 the serial one;
+    #    65 / 100 / 130 leave a masked tail, "extreme" decays underflow to
+    #    w = 0 -----------------------------------------------------------------
+    def wkv_case(B, T, dt, decay="normal"):
+        r, k, v = (randn(B, 32, T, 64, dtype=dt) * 0.5 for _ in range(3))
+        w = torch.exp(-torch.exp(randn(B, 32, T, 64, dtype=torch.float32)
+                                 * (0.5 if decay == "normal" else 3.0)))
+        u = randn(32, 64, dtype=torch.float32) * 0.5
+        s0 = randn(B, 32, 64, 64, dtype=torch.float32) * 0.3
+        do = randn(B, 32, T, 64, dtype=dt)
+        return (r, k, v, w, u, s0), do
+
+    def wkv_check(args, do, ds, dname, **rec):
+        """The kernels (through the WKV6 Function, as the model calls them)
+        against the plain backward; returns the plain call's device ms and
+        the largest |kernel - plain|."""
+        xs = [a.clone().requires_grad_() for a in args]
+        out, state = wkv6(*xs)
+        outs, cots = ([out, state], [do, ds]) if ds is not None \
+            else ([out], [do])
+        got = torch.autograd.grad(outs, xs, cots)
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        want = wkv6_bwd_plain(*args, do, ds)
+        t1.record()
+        torch.cuda.synchronize()
+        res = {n: bwd_close(torch, "float32" if g.dtype == torch.float32
+                            else dname, g, w_)
+               for n, g, w_ in zip(("dr", "dk", "dv", "dw", "du", "ds0"),
+                                   got, want)}
+        ok = all(r_[0] for r_ in res.values())
+        emit({"check": "wkv6_bwd", **rec, "dtype": dname,
+              "w_dtype": "float32", "ds_T": ds is not None,
+              "forward_form": ("chunked" if uses_chunked_form(
+                  args[0].dtype, args[0].shape[2]) else "serial"),
+              "max_abs_err": {n: r_[1] for n, r_ in res.items()},
+              "max_abs_ref": {n: r_[2] for n, r_ in res.items()}, "ok": ok})
+        if not ok:
+            raise AssertionError(f"wkv6 backward disagrees: {res}")
+        return t0.elapsed_time(t1), max(r_[1] for r_ in res.values())
+
+    for T in (1, 16, 64, 65, 100, 130):
+        for decay in ("normal", "extreme"):
+            for dname, dt in dtypes.items():
+                args, do = wkv_case(2, T, dt, decay)
+                ds = randn(2, 32, 64, 64, dtype=torch.float32)
+                wkv_check(args, do, ds, dname, B=2, H=32, T=T, decay=decay)
+                wkv_check(args, do, None, dname, B=2, H=32, T=T, decay=decay)
+    # the training call: micro-batch 2 of seq 4096, bf16, w fp32 (the plain
+    # version's one call is its timing)
+    B, H, T, n = 2, 32, 4096, 64
+    args, do = wkv_case(B, T, torch.bfloat16)
+    wkv_plain_ms, err = wkv_check(args, do, None, "bfloat16", B=B, H=H, T=T,
+                                  decay="normal", call="training")
+    # bytes: r, k, v, dout read, dr, dk, dv written (bf16); w read, dw
+    # written (fp32); u, s0 read, du, ds0 written (fp32).  Operations, as
+    # the forward's row counts them: a chunked backward's ten 64 x 64 x 64
+    # products a chunk on bf16 tensor cores (r k^T, the chunk's state k~^T v,
+    # dout v^T, dr's two, dk's two, dv's two, r^T dout for G); the serial
+    # form's six 64 x 64 FMA sweeps a step and head (the state recomputed
+    # from its checkpoint, dr, dk, dw, dv and the G step) on the fp32 CUDA
+    # cores, beside it
+    wkv_bytes = (B * H * T * n * (7 * 2 + 2 * 4)
+                 + 2 * (H * n * 4 + B * H * n * n * 4))
+    wkv_tc_flops = 10 * 2 * n ** 3 * B * H * (-(-T // 64))
+    wkv_serial_flops = 6 * 2 * B * H * T * n * n
+    bytes_s = wkv_bytes / HBM_BYTES_PER_S
+    ops_s = wkv_tc_flops / PEAK_BF16_FLOPS
+    wkv_rec = {
+        "name": "wkv6_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/ops.py:99",
+        "max_abs_err": err,
+        "ms": device_ms(torch, lambda: wkv6_bwd(*args, do), 20),
+        "plain_ms": wkv_plain_ms,
+        "library_ms": None,
+        "bound_ms": 1e3 * max(bytes_s, ops_s),
+        "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+        "serial_fp32_ops_bound_ms": 1e3 * wkv_serial_flops / PEAK_FP32_FLOPS,
+        "shape": [B, H, T, n], "dtype": "bfloat16", "w_dtype": "float32",
+        "bytes": wkv_bytes, "tc_flops": wkv_tc_flops,
+        "serial_flops": wkv_serial_flops,
+        "per_kernel_us": kernel_us(torch, lambda: wkv6_bwd(*args, do), 5),
+    }
+    wkv_rec = with_rates(wkv_rec, wkv_tc_flops)
+    emit({"phase": "kernel_timing", **wkv_rec})
+    del args, do
 
     # -- timing: attention at q [1,15,S,64] causal (S 2048, 4096; bf16 and
     #    fp32) and at the training path's [2,15,4096,64] bf16; RMSNorm at
@@ -883,8 +985,10 @@ def phase_backward(torch):
         attn_timing(2, 4096, "bfloat16", hq=6, hkv=6, causal=causal)
     norm_timing((1, 2048, D_MODEL))
     norm_timing((16, 4096, D_MODEL))
+    norm_timing((2, 4096, 2048))          # rwkv6-1.6b's group norm, training
     return {"flash_attention_bwd": attn_timing(2, 4096, "bfloat16"),
-            "rmsnorm_bwd": norm_timing((2, 4096, D_MODEL))}
+            "rmsnorm_bwd": norm_timing((2, 4096, D_MODEL)),
+            "wkv6_bwd": wkv_rec}
 
 
 def serve_gaps(torch, arch, pcfg, prompt: int, batch: int = 2,
@@ -974,20 +1078,23 @@ def grad_gaps(torch, paths, got, want):
     return errs, tops, bad
 
 
-def phase_train_port(torch, n_layers: int = 4, seq: int = 256):
+def phase_train_port(torch, arch_name: str = "smollm-360m",
+                     n_layers: int = 4, seq: int = 256):
     """Training, the port against itself: the GPipe loss and every gradient
     leaf through the kernels on the card vs the plain versions on the CPU,
-    same weights and batch (fp32), so a dropped gradient cannot pass."""
+    same weights and batch (fp32), so a dropped gradient cannot pass.
+    smollm-360m runs attention and RMSNorm and their backward kernels,
+    rwkv6-1.6b (tp 1) the WKV-6 and its group norm's."""
     from repro_torch import configs
     from repro_torch.launch import steps
     from repro_torch.models.lm import LMModel
     from repro_torch.tree import tree_items, tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    arch = dataclasses.replace(configs.get_arch("smollm-360m"),
+    arch = dataclasses.replace(configs.get_arch(arch_name),
                                n_layers=n_layers)
-    pcfg = configs.get_parallel("smollm-360m").with_(pipe=2, data=1,
-                                                      n_micro=2)
+    pcfg = configs.get_parallel(arch_name).with_(pipe=2, tp=1, data=1,
+                                                  n_micro=2)
     batch = 2
     g = torch.Generator().manual_seed(3)
     data = {k: torch.randint(0, arch.vocab, (batch, seq), generator=g)
@@ -1187,16 +1294,15 @@ def phase_train(torch, schedule: str = "gpipe",
     high-water per rank to the plan's; whisper-tiny (pipe 8: ``mem``
     3 -> (4, 5, 6, 7), ``dec_in`` 0 -> 4) is phase ``whisper_train``, whose
     park and route high-water must equal the plan's ``depth`` /
-    ``g_depth``."""
+    ``g_depth``; rwkv6-1.6b (pipe 8, tp 2 cut to 1, as served) is phase
+    ``rwkv6_train``, which also reports the WKV-6 backward's share of the
+    traced step's device time."""
     from repro_torch import configs
     from repro_torch.core.plan import plan_for
     from repro_torch.launch.train import (expected_train_launches,
                                           launches, train)
     from repro_torch.models.lm import LMModel
     from repro_torch.optim.optimizers import OptimizerConfig
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd)
-    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
 
     arch = configs.get_arch(arch_name)
     pcfg = configs.get_parallel(arch_name).with_(
@@ -1204,8 +1310,7 @@ def phase_train(torch, schedule: str = "gpipe",
     seq, batch, n_steps = 4096, 16, 5
     ocfg = OptimizerConfig(lr=5e-4, warmup_steps=0, min_lr_ratio=1.0,
                            dynamic_loss_scale=True)
-    for fn in (flash_attention, flash_attention_bwd, rmsnorm, rmsnorm_bwd):
-        fn.launches = 0
+    train_counters()
     res = train(arch, pcfg, seq_len=seq, batch=batch, steps=n_steps,
                 device="cuda", dtype=torch.bfloat16, seed=0, ocfg=ocfg,
                 fixed_batch=True, trace=True)
@@ -1222,8 +1327,10 @@ def phase_train(torch, schedule: str = "gpipe",
     route_plan = {rt.key: ({"depth": rt.depth, "g_depth": rt.g_depth}
                            if tplan.has_backward else {"depth": rt.depth})
                   for rt in tplan.routes}
-    phase = ("whisper_train" if arch.is_encdec else
+    phase = ("whisper_train" if arch.is_encdec else "rwkv6_train"
+             if arch.family == "ssm" else
              "train" if schedule == "gpipe" else "train_fused")
+    fam = res["trace"]["by_family_ms"]
     rec = {"phase": phase,
            "arch": arch.name, "n_layers": arch.n_layers + arch.enc_layers,
            "pipe": pcfg.pipe, "tp": pcfg.tp, "data": pcfg.data,
@@ -1239,11 +1346,17 @@ def phase_train(torch, schedule: str = "gpipe",
            "model_flops_per_step": res["model_flops_per_step"],
            "model_flops_share": (res["model_flops_per_step"] / step_s
                                  / PEAK_BF16_FLOPS),
-           "model_flops_formula": "3 x (2 x matmul weights x tokens + 2 x 2 "
-                                  "x hd x Hq x visible (q, k) pairs: "
-                                  "S (S + 1) / 2 causal, S x S for the "
-                                  "encoder and cross-attention) over the "
-                                  "step time and 989 TFLOP/s",
+           "model_flops_formula": (
+               "3 x (2 x matmul weights x tokens + 2 x 2 x K x V x heads x "
+               "layers x tokens for the WKV recurrence) over the step time "
+               "and 989 TFLOP/s" if arch.family == "ssm" else
+               "3 x (2 x matmul weights x tokens + 2 x 2 x hd x Hq x "
+               "visible (q, k) pairs: S (S + 1) / 2 causal, S x S for the "
+               "encoder and cross-attention) over the step time and 989 "
+               "TFLOP/s"),
+           "wkv6_bwd_share_of_device_ms": (
+               fam.get("wkv6_bwd (ours)", 0.0) / res["trace"]["device_ms"]
+               if res["trace"]["device_ms"] else None),
            "peak_mem_gib": res["peak_mem_bytes"] / 2 ** 30,
            "skips": [(e.name, e.src_stage, list(e.dsts)) for e in skips],
            "park_high_water": res["park_info"],
@@ -1275,7 +1388,8 @@ def phase_train(torch, schedule: str = "gpipe",
 
 
 def phase_memory(torch):
-    """Peak memory of one train step, remat "full" against "none".
+    """Peak memory of one train step under each remat policy: "full",
+    "dots", "dots_no_batch" and "none".
 
     The bytes first (smollm-360m, bf16, 32 layers, seq 4096, batch 4, m 4:
     16,384 tokens).  "none" keeps every layer's saved activations until its
@@ -1285,14 +1399,20 @@ def phase_memory(torch):
     state: it fits on the 80 GB card.  "full" keeps each stage's input
     (16 stages x 4 micro-batches x 7.9 MB) and one stage's recompute at a
     time beside ~6 GB of weights, gradients and optimizer state, which the
-    optimizer updates in place one leaf at a time: ~8 GB."""
+    optimizer updates in place one leaf at a time: ~8 GB.  "dots" keeps,
+    beside "full"'s, the outputs of q, k, v, o and the three MLP products:
+    960 + 320 + 320 + 960 + 2 x 2,560 + 960 = 8,640 bf16 values a token a
+    layer, 70.8 MB a layer and micro-batch, 9.06 GB over 32 layers and 4
+    micro-batches: ~15-16.5 GiB.  On the card attention is a kernel, so no
+    ``bmm`` runs and "dots_no_batch" keeps the same.  Each must lie
+    between "full" and "none"."""
     from repro_torch import configs
     from repro_torch.launch.train import train
     from repro_torch.optim.optimizers import OptimizerConfig
 
     arch = configs.get_arch("smollm-360m")
     peaks = {}
-    for remat in ("full", "none"):
+    for remat in ("full", "dots", "dots_no_batch", "none"):
         pcfg = configs.get_parallel("smollm-360m").with_(
             data=1, tp=1, n_micro=4, remat=remat)
         res = train(arch, pcfg, seq_len=4096, batch=4, steps=1,
@@ -1303,12 +1423,16 @@ def phase_memory(torch):
         if not math.isfinite(res["history"][0]["loss"]):
             raise AssertionError(f"remat {remat}: non-finite loss")
         torch.cuda.empty_cache()
+    ok = all(peaks["full"] < peaks[p] < peaks["none"]
+             for p in ("dots", "dots_no_batch"))
     emit({"phase": "memory", "arch": arch.name, "seq": 4096, "batch": 4,
           "n_micro": 4, "pipe": 16, "dtype": "bfloat16",
-          "peak_mem_gib": peaks, "ok": peaks["full"] < peaks["none"]})
-    if not peaks["full"] < peaks["none"]:
-        raise AssertionError(f"remat full peak {peaks['full']} GiB is not "
-                             f"below none's {peaks['none']} GiB")
+          "peak_mem_gib": peaks,
+          "dots_minus_dots_no_batch_mib":
+              (peaks["dots"] - peaks["dots_no_batch"]) * 1024, "ok": ok})
+    if not ok:
+        raise AssertionError(f"peaks {peaks} GiB: want full < dots, "
+                             "dots_no_batch < none")
 
 
 # ---------------------------------------------------------------------------
@@ -1443,7 +1567,7 @@ def phase_hetero_train(torch, mname: str, schedule: str):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
-    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
     from repro_torch.launch.train_hetero import PAPER, sgd, train_hetero
 
     batch = {"unet": 32, "amoebanet": 64}[mname]
@@ -1451,7 +1575,7 @@ def phase_hetero_train(torch, mname: str, schedule: str):
                           portals=True, schedule=schedule)
     kernels = {"flash_attention": flash_attention, "rmsnorm": rmsnorm,
                "wkv6": wkv6, "flash_attention_bwd": flash_attention_bwd,
-               "rmsnorm_bwd": rmsnorm_bwd}
+               "rmsnorm_bwd": rmsnorm_bwd, "wkv6_bwd": wkv6_bwd}
     for fn in kernels.values():
         fn.launches = 0
     res = train_hetero(PAPER[mname], pcfg, batch=batch, steps=5,
@@ -1553,12 +1677,13 @@ def phase_serve(torch, arch_name: str):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
-    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
     from repro_torch.launch.serve import expected_serve_launches, serve
 
     counters = {"flash_attention": flash_attention, "rmsnorm": rmsnorm,
                 "wkv6": wkv6}
-    backward = (flash_attention_bwd, rmsnorm_bwd)   # serving runs none
+    # serving runs none
+    backward = (flash_attention_bwd, rmsnorm_bwd, wkv6_bwd)
     arch = configs.get_arch(arch_name)
     pcfg = configs.get_parallel(arch_name).with_(data=1, tp=1)
     batch, prompt, gen = 8, 2048, 32
@@ -1635,9 +1760,11 @@ def train_counters():
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
     fns = {"flash_attention": flash_attention,
            "flash_attention_bwd": flash_attention_bwd,
-           "rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_bwd}
+           "rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_bwd,
+           "wkv6": wkv6, "wkv6_bwd": wkv6_bwd}
     for fn in fns.values():
         fn.launches = 0
     return fns
@@ -2055,6 +2182,10 @@ def phase_grad_compression(torch, runs: dict, fp32):
 
 DIST_RANKS = 4
 DIST_STEPS = 3
+# layers of the LMs dist_serve's ranks serve: smollm-360m's 32 and
+# rwkv6-1.6b's 24 cut to 8 (two a rank) to keep the script inside its time
+# limit; every bitwise gate holds at any depth
+DIST_LAYERS = 8
 DIST_SMOLLM = (("1f1b", "spmd"), ("1f1b", "mpmd"), ("gpipe_tasked", "spmd"),
                ("gpipe", "spmd"))
 DIST_TIMEOUT_S = 900        # hard limit on the group, all its cases
@@ -2431,13 +2562,19 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 2048, 32
 
 
 def dist_serve_cases():
-    """One case per model of ``DIST_SERVE`` at full width and depth, pipe
-    4 (smollm-360m's 16 and rwkv6-1.6b's 8 cut to 4, tp and data 1), bf16,
+    """One case per model of ``DIST_SERVE`` at full width, pipe 4
+    (smollm-360m's 16 and rwkv6-1.6b's 8 cut to 4, tp and data 1), bf16,
     batch 8, a 2048-token prompt (and whisper-tiny's 2048 frames), 32
-    tokens."""
+    tokens; the two LMs at ``DIST_LAYERS`` layers, whisper-tiny at its
+    full 8 blocks."""
     from repro_torch import configs
-    return [dict(name=f"{a}-serve", arch=a, batch=SERVE_BATCH,
-                 prompt=SERVE_PROMPT, gen=SERVE_GEN,
+
+    def arch(a):
+        full = configs.get_arch(a)
+        return (full if full.is_encdec
+                else dataclasses.replace(full, n_layers=DIST_LAYERS))
+    return [dict(name=f"{a}-serve", arch=a, arch_cfg=arch(a),
+                 batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN,
                  pcfg=configs.get_parallel(a).with_(
                      data=1, tp=1, dp2=1, pipe=DIST_RANKS))
             for a in DIST_SERVE]
@@ -2453,6 +2590,7 @@ def serve_run(torch, case, group, device: str = "cuda"):
     from repro_torch import configs
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    from repro_torch.kernels.wkv6 import wkv6_bwd
     from repro_torch.launch.serve import serve
 
     arch = case.get("arch_cfg") or configs.get_arch(case["arch"])
@@ -2466,7 +2604,7 @@ def serve_run(torch, case, group, device: str = "cuda"):
            "decode_tok_per_s": res["decode_tok_per_s"],
            "peak_gib": res.get("peak_mem_bytes", 0) / 2 ** 30,
            "backward_launches": flash_attention_bwd.launches
-           + rmsnorm_bwd.launches}
+           + rmsnorm_bwd.launches + wkv6_bwd.launches}
     if res["logits"] is not None:
         lg = res["logits"]
         out.update(tokens=res["tokens"].tolist(),
@@ -2588,6 +2726,23 @@ def phase_dist_serve(torch, device: str = "cuda", cases=None):
     return totals
 
 
+PHASE_SECONDS = {}
+
+
+def timed(name: str, fn, *args):
+    """Run one phase; print and keep its seconds on the host clock."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    emit({"phase_done": name, "seconds": PHASE_SECONDS[name]})
+    return out
+
+
+def add(launches: dict, counts: dict) -> None:
+    for k, n in counts.items():
+        launches[k] += n
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -2597,51 +2752,55 @@ def main() -> int:
     import torch
 
     t0 = time.perf_counter()
-    name, smi = phase_device(torch)
-    phase_build()
-    timing = phase_kernels(torch)
-    timing.update(phase_backward(torch))
-    phase_port(torch, "smollm-360m", n_layers=4, prompt=256)
-    phase_port(torch, "rwkv6-1.6b", n_layers=2, prompt=128)
-    phase_train_port(torch)
-    phase_train_fused_port(torch)
+    name, smi = timed("device", phase_device, torch)
+    timed("build", phase_build)
+    timing = timed("kernels", phase_kernels, torch)
+    timing.update(timed("backward", phase_backward, torch))
+    timed("port_gpu_vs_cpu smollm-360m", phase_port, torch, "smollm-360m",
+          4, 256)
+    timed("port_gpu_vs_cpu rwkv6-1.6b", phase_port, torch, "rwkv6-1.6b", 2,
+          128)
+    timed("train_gpu_vs_cpu smollm-360m", phase_train_port, torch)
+    timed("train_gpu_vs_cpu rwkv6-1.6b", phase_train_port, torch,
+          "rwkv6-1.6b", 2, 256)
+    timed("train_fused_gpu_vs_cpu", phase_train_fused_port, torch)
     launches = {k: 0 for k in KERNELS}
     for arch_name in ("smollm-360m", "rwkv6-1.6b"):
-        for k, n in phase_serve(torch, arch_name).items():
-            launches[k] += n
-    for schedule in ("gpipe", "1f1b"):
-        for k, n in phase_train(torch, schedule).items():
-            launches[k] += n
-    phase_memory(torch)
+        add(launches, timed(f"serve {arch_name}", phase_serve, torch,
+                            arch_name))
+    for arch_name in ("smollm-360m", "rwkv6-1.6b"):
+        for schedule in ("gpipe", "1f1b"):
+            add(launches, timed(f"train {arch_name} {schedule}", phase_train,
+                                torch, schedule, arch_name))
+            torch.cuda.empty_cache()
+    timed("memory", phase_memory, torch)
     torch.cuda.empty_cache()
-    phase_hetero_port(torch)
+    timed("hetero_gpu_vs_cpu", phase_hetero_port, torch)
     for mname in ("unet", "amoebanet"):
         for schedule in ("gpipe", "1f1b"):
-            phase_hetero_train(torch, mname, schedule)
+            timed(f"hetero_train {mname} {schedule}", phase_hetero_train,
+                  torch, mname, schedule)
             torch.cuda.empty_cache()
-    phase_hetero_memory(torch)
+    timed("hetero_memory", phase_hetero_memory, torch)
     torch.cuda.empty_cache()
-    phase_whisper_port(torch)
-    for k, n in phase_serve(torch, "whisper-tiny").items():
-        launches[k] += n
+    timed("whisper_gpu_vs_cpu", phase_whisper_port, torch)
+    add(launches, timed("serve whisper-tiny", phase_serve, torch,
+                        "whisper-tiny"))
     for schedule in ("gpipe", "1f1b"):
-        for k, n in phase_train(torch, schedule, "whisper-tiny").items():
-            launches[k] += n
+        add(launches, timed(f"whisper_train {schedule}", phase_train, torch,
+                            schedule, "whisper-tiny"))
         torch.cuda.empty_cache()
     runs = {}          # whisper runs the stream and wire phases share
-    stream_totals = phase_stream(torch, runs)
-    wire_totals, fp32 = phase_wire(torch, runs)
-    for totals in (stream_totals, wire_totals,
-                   phase_grad_compression(torch, runs, fp32)):
-        for k, n in totals.items():
-            launches[k] += n
+    add(launches, timed("stream", phase_stream, torch, runs))
+    wire_totals, fp32 = timed("wire", phase_wire, torch, runs)
+    add(launches, wire_totals)
+    add(launches, timed("grad_compression", phase_grad_compression, torch,
+                        runs, fp32))
     runs.clear()
     torch.cuda.empty_cache()
-    for k, n in phase_dist_train(torch).items():
-        launches[k] += n
+    add(launches, timed("dist_train", phase_dist_train, torch))
     torch.cuda.empty_cache()
-    for k, n in phase_dist_serve(torch).items():
-        launches[k] += n
+    add(launches, timed("dist_serve", phase_dist_serve, torch))
     kernels = []
     for kname in KERNELS:
         rec = timing[kname]
@@ -2652,7 +2811,8 @@ def main() -> int:
                                    "bound_ms", "bound_by", "library_ms")})
         if launches[kname] == 0:
             raise AssertionError(f"{kname} never launched on the main path")
-    emit({"phase": "done", "seconds": time.perf_counter() - t0})
+    emit({"phase": "done", "seconds": time.perf_counter() - t0,
+          "phase_seconds": PHASE_SECONDS})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,4 +1,4 @@
-// RWKV-6 (Finch) WKV recurrence forward for Hopper (sm_90a).
+// RWKV-6 (Finch) WKV recurrence for Hopper (sm_90a): forward and backward.
 //
 //   out_t = r_t · (S_t + u ⊙ k_t ⊗ v_t)        S_{t+1} = diag(w_t) S_t + k_t ⊗ v_t
 //
@@ -10,7 +10,10 @@
 // decay algebra: that overflows once a chunk's decays multiply below e^-88
 // and needs T % 64 == 0.  The chunked form here references every decay
 // factor to the boundary between the two positions it joins, so each is
-// 2^x with x <= 0 and nothing overflows; it takes any T.
+// 2^x with x <= 0 and nothing overflows; it takes any T.  The backward,
+// wkv6_bwd (section 3), replaces the reference's custom VJP, which has no
+// Pallas kernel: repro/kernels/ops.py::_wkv6_bwd, the VJP of the sequential
+// ref.wkv6.
 //
 // Bound on this card.  At the serving prefill (one micro-batch: B = 1,
 // H = 32, T = 2048, bf16 r/k/v/out, fp32 w) one call must move 51.4 MB
@@ -153,11 +156,12 @@ __device__ __forceinline__ void load8(const bf16* p, float (&x)[8]) {
   }
 }
 
-// Copy ROWS rows of COLS values (row stride kN in global, `stride` in shared
-// memory) asynchronously with NT threads, zero-filling rows at or past
-// `valid`.  The shape is compiled in, so each thread's copies unroll.
+// Copy ROWS rows of COLS values, starting at step `row0` of a [T_len, kN]
+// tensor (row0 may be negative; row stride kN in global, `stride` in shared
+// memory), asynchronously with NT threads, zero-filling the rows outside
+// [0, T_len).  The shape is compiled in, so each thread's copies unroll.
 template <int ROWS, int COLS, int NT = kThreads, typename E>
-__device__ __forceinline__ void stage_rows(E* dst, int stride, const E* src, int valid) {
+__device__ __forceinline__ void stage_rows(E* dst, int stride, const E* src, int row0, int T_len) {
   constexpr int kPerRow = COLS * sizeof(E) / 16;
   constexpr int kCopies = ROWS * kPerRow;
 #pragma unroll
@@ -165,13 +169,17 @@ __device__ __forceinline__ void stage_rows(E* dst, int stride, const E* src, int
     const int i = threadIdx.x + m * NT;
     if (kCopies % NT == 0 || i < kCopies) {
       const int row = i / kPerRow, col = (i % kPerRow) * (16 / sizeof(E));
-      const bool ok = row < valid;
-      cp_async16(dst + row * stride + col, src + (ok ? (size_t)row * kN + col : 0), ok);
+      const int t = row0 + row;
+      const bool ok = t >= 0 && t < T_len;
+      cp_async16(dst + row * stride + col, src + (ok ? (size_t)t * kN + col : 0), ok);
     }
   }
 }
 
-template <typename T, typename TW>
+// kRev runs time backwards (step T - 1 first): the WKV backward's dv pass,
+// which is this same recurrence on the cotangents (wkv6_bwd below).  A null
+// s0 starts from zero; a null out or sT is not written.
+template <typename T, typename TW, bool kRev>
 __global__ void __launch_bounds__(kThreads)
 wkv6_serial_kernel(const T* __restrict__ r, const T* __restrict__ k,
                    const T* __restrict__ v, const TW* __restrict__ w,
@@ -189,18 +197,18 @@ wkv6_serial_kernel(const T* __restrict__ r, const T* __restrict__ k,
   const size_t sbase = (size_t)bh * kN * kN + v0 + col;
   const int n_blk = (T_len + kSteps - 1) / kSteps;
 
+  // ring stage bi holds steps bi * kSteps .. (the last kSteps, reversed, with kRev)
   auto load = [&](int bi, int b) {
-    const int t0 = bi * kSteps;
-    const int valid = T_len - t0;
-    stage_rows<kSteps, kN>(&sm.r[b][0][0], kN, r + base + (size_t)t0 * kN, valid);
-    stage_rows<kSteps, kN>(&sm.k[b][0][0], kN, k + base + (size_t)t0 * kN, valid);
-    stage_rows<kSteps, kN>(&sm.w[b][0][0], kN, w + base + (size_t)t0 * kN, valid);
-    stage_rows<kSteps, kSlice>(&sm.v[b][0][0], kSlice, v + base + (size_t)t0 * kN + v0, valid);
+    const int row0 = kRev ? T_len - kSteps - bi * kSteps : bi * kSteps;
+    stage_rows<kSteps, kN>(&sm.r[b][0][0], kN, r + base, row0, T_len);
+    stage_rows<kSteps, kN>(&sm.k[b][0][0], kN, k + base, row0, T_len);
+    stage_rows<kSteps, kN>(&sm.w[b][0][0], kN, w + base, row0, T_len);
+    stage_rows<kSteps, kSlice>(&sm.v[b][0][0], kSlice, v + base + v0, row0, T_len);
   };
 
   float S[8];
 #pragma unroll
-  for (int q = 0; q < 8; ++q) S[q] = s0[sbase + (size_t)(8 * grp + q) * kN];
+  for (int q = 0; q < 8; ++q) S[q] = s0 ? s0[sbase + (size_t)(8 * grp + q) * kN] : 0.f;
 
   load(0, 0);
   cp_async_commit();
@@ -224,11 +232,12 @@ wkv6_serial_kernel(const T* __restrict__ r, const T* __restrict__ k,
     }
     __syncthreads();
     for (int i = 0; i < n; ++i) {          // n is uniform over the block
+      const int si = kRev ? kSteps - 1 - i : i;             // row in the stage
       float rr[8], kk[8], ww[8];
-      load8(&sm.r[b][i][8 * grp], rr);
-      load8(&sm.k[b][i][8 * grp], kk);
-      load8(&sm.w[b][i][8 * grp], ww);
-      const float vj = to_f32(sm.v[b][i][col]);
+      load8(&sm.r[b][si][8 * grp], rr);
+      load8(&sm.k[b][si][8 * grp], kk);
+      load8(&sm.w[b][si][8 * grp], ww);
+      const float vj = to_f32(sm.v[b][si][col]);
       float y = 0.f;
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
@@ -237,22 +246,25 @@ wkv6_serial_kernel(const T* __restrict__ r, const T* __restrict__ k,
       }
 #pragma unroll
       for (int d = 1; d < 8; d <<= 1) y += __shfl_xor_sync(0xffffffffu, y, d);
-      if (grp == 0)
-        store(out + base + (size_t)(bi * kSteps + i) * kN + v0 + col, y + vj * sm.beta[i]);
+      const int t = kRev ? T_len - 1 - (bi * kSteps + i) : bi * kSteps + i;
+      if (grp == 0 && out != nullptr)
+        store(out + base + (size_t)t * kN + v0 + col, y + vj * sm.beta[si]);
     }
     __syncthreads();                       // stage b and beta are consumed
     if (bi + 2 < n_blk) load(bi + 2, b);
     cp_async_commit();
   }
+  if (sT != nullptr) {
 #pragma unroll
-  for (int q = 0; q < 8; ++q) sT[sbase + (size_t)(8 * grp + q) * kN] = S[q];
+    for (int q = 0; q < 8; ++q) sT[sbase + (size_t)(8 * grp + q) * kN] = S[q];
+  }
 }
 
-template <typename T, typename TW>
+template <typename T, typename TW, bool kRev = false>
 cudaError_t launch_serial(const void* r, const void* k, const void* v, const void* w,
                           const float* u, const float* s0, void* out, float* sT, int B,
                           int H, int T_len, cudaStream_t stream) {
-  wkv6_serial_kernel<T, TW><<<dim3(B * H, kN / kSlice), kThreads, 0, stream>>>(
+  wkv6_serial_kernel<T, TW, kRev><<<dim3(B * H, kN / kSlice), kThreads, 0, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const TW*>(w), u, s0, static_cast<T*>(out), sT, H, T_len);
   return cudaGetLastError();
@@ -306,10 +318,10 @@ wkv6_update_kernel(const bf16* __restrict__ k, const bf16* __restrict__ v,
   const int bh = blockIdx.x, ci = blockIdx.y;
   const int valid = min(kChunk, T_len - ci * kChunk);
   const size_t base = ((size_t)bh * T_len + (size_t)ci * kChunk) * kN;
-  stage_rows<kChunk, kN>(&sm.k[0][0], kN, k + base, valid);
-  stage_rows<kChunk, kN>(&sm.w[0][0], kN, w + base, valid);
+  stage_rows<kChunk, kN>(&sm.k[0][0], kN, k + base, 0, valid);
+  stage_rows<kChunk, kN>(&sm.w[0][0], kN, w + base, 0, valid);
   cp_async_commit();
-  stage_rows<kChunk, kN>(&sm.v[0][0], kPad, v + base, valid);
+  stage_rows<kChunk, kN>(&sm.v[0][0], kPad, v + base, 0, valid);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
@@ -603,11 +615,11 @@ wkv6_out_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
   // w first (its own group: the scan starts when it lands), raw into cp
   constexpr int kWStride = kPadF * sizeof(float) / sizeof(TW);
   const TW* wr = reinterpret_cast<const TW*>(&sm.cp[0][0]);
-  stage_rows<kChunk, kN>(reinterpret_cast<TW*>(&sm.cp[0][0]), kWStride, w + base, valid);
+  stage_rows<kChunk, kN>(reinterpret_cast<TW*>(&sm.cp[0][0]), kWStride, w + base, 0, valid);
   cp_async_commit();
-  stage_rows<kChunk, kN>(&sm.r[0][0], kPad, r + base, valid);
-  stage_rows<kChunk, kN>(&sm.k[0][0], kPad, k + base, valid);
-  stage_rows<kChunk, kN>(&sm.v[0][0], kPad, v + base, valid);
+  stage_rows<kChunk, kN>(&sm.r[0][0], kPad, r + base, 0, valid);
+  stage_rows<kChunk, kN>(&sm.k[0][0], kPad, k + base, 0, valid);
+  stage_rows<kChunk, kN>(&sm.v[0][0], kPad, v + base, 0, valid);
   cp_async_commit();
   if (tid < kN) sm.u[tid] = u[(bh % H) * kN + tid];
   cp_async_wait<1>();
@@ -704,6 +716,267 @@ cudaError_t launch_chunked(const void* r, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// 3. Backward (wkv6_bwd): four launches, fp32 math on the CUDA cores
+// ---------------------------------------------------------------------------
+//
+// With G_t = dL/dS_t (G_T = dS_T) and S_t the state before step t:
+//   dr_t = S_t dout_t + u ⊙ k_t (v_t · dout_t)       (row sums over V)
+//   dk_t = G_{t+1} v_t + r_t ⊙ u (v_t · dout_t)
+//   dw_t = rowsum(G_{t+1} ⊙ S_t)
+//   du   = sum over b, t of r_t ⊙ k_t (v_t · dout_t)
+//   dv_t = G_{t+1}^T k_t + (r_t · (u ⊙ k_t)) dout_t  (column sums over K)
+//   G_t  = diag(w_t) G_{t+1} + r_t ⊗ dout_t,           ds0 = G_0
+//
+// S_t is never got back by dividing by w (it underflows to 0): a forward
+// pass keeps S at every 64th step and the rows pass recomputes forward
+// within each chunk.  Rows of S and G evolve independently (the decay is per
+// row), and so do their columns, so each sum has a pass laid out for it:
+//
+// (a) wkv6_ckpt_kernel, grid (B·H, 4), elementwise: S_{64 c} for every chunk
+//     c into a scratch (S_0 = s0), 4 state elements a thread, 64 steps of k,
+//     w and v staged in shared memory at a time.
+// (b) wkv6_serial_kernel<kRev = true>: the G recurrence is the forward one
+//     run backwards in time on (r', k', v') = (k, r, dout) from S'_0 = dS_T:
+//     its output is dv and its final state ds0.
+// (c) wkv6_bwd_rows_kernel, grid (B·H, 4 blocks of 16 rows), 256 threads:
+//     16 threads a row, 4 columns each.  Chunks run last to first: stage the
+//     chunk's inputs, run forward from the chunk's checkpoint (dr, and S at
+//     every 16th step into shared memory), then backwards by sub-chunks of
+//     16 steps: recompute the sub-chunk's 16 states into registers and step
+//     G back through them (dk, dw, du).  A row's sums over its 16 threads are
+//     warp shuffles within a half-warp; the chunk's dr, dk, dw leave through
+//     shared memory, 16 rows at a time.
+// (d) wkv6_du_kernel: du summed over the batch, in order (deterministic).
+//
+// Bound at the training call (B 2, H 32, T 4096, bf16 r/k/v/dout/dr/dk/dv,
+// fp32 w/dw): the bytes named in kernels/wkv6.py::wkv6_bwd_cuda.  The
+// scratch adds B·H·ceil(T/64)·64·64 fp32 of checkpoints (64 MB there),
+// written once and read once.
+
+constexpr int kBwdRows = 16;      // state rows a block of the rows pass owns
+constexpr int kBwdSub = 16;       // steps a sub-chunk of the rows pass
+constexpr int kBwdThreads = 256;  // kBwdRows rows x 16 threads of 4 columns
+
+template <typename T, typename TW>
+__global__ void __launch_bounds__(kBwdThreads)
+wkv6_ckpt_kernel(const T* __restrict__ k, const T* __restrict__ v, const TW* __restrict__ w,
+                 const float* __restrict__ s0, float* __restrict__ ckpt, int T_len, int n_chunks) {
+  __shared__ __align__(16) float kk[kChunk][kN];
+  __shared__ __align__(16) float ww[kChunk][kN];
+  __shared__ float vv[kChunk][kSlice];
+  const int tid = threadIdx.x, col = tid & (kSlice - 1), rg = tid >> 4;   // rows 4 rg ..
+  const int bh = blockIdx.x, v0 = blockIdx.y * kSlice;
+  const size_t base = (size_t)bh * T_len * kN;
+  const size_t off = (size_t)(4 * rg) * kN + v0 + col;
+  float S[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) S[q] = s0[(size_t)bh * kN * kN + off + (size_t)q * kN];
+  for (int c = 0; c < n_chunks; ++c) {
+    float* dst = ckpt + ((size_t)bh * n_chunks + c) * kN * kN + off;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) dst[(size_t)q * kN] = S[q];
+    if (c == n_chunks - 1) break;          // the last chunk's steps are not needed
+    const size_t g = base + (size_t)c * kChunk * kN;       // a whole chunk: 64 steps
+    __syncthreads();
+    for (int i = tid; i < kChunk * kN; i += kBwdThreads) {
+      kk[i / kN][i % kN] = to_f32(k[g + i]);
+      ww[i / kN][i % kN] = to_f32(w[g + i]);
+    }
+    for (int i = tid; i < kChunk * kSlice; i += kBwdThreads)
+      vv[i / kSlice][i % kSlice] = to_f32(v[g + (size_t)(i / kSlice) * kN + v0 + i % kSlice]);
+    __syncthreads();
+#pragma unroll 4
+    for (int t = 0; t < kChunk; ++t) {
+      const float4 wq = *reinterpret_cast<const float4*>(&ww[t][4 * rg]);
+      const float4 kq = *reinterpret_cast<const float4*>(&kk[t][4 * rg]);
+      const float x = vv[t][col];
+      S[0] = fmaf(wq.x, S[0], kq.x * x);
+      S[1] = fmaf(wq.y, S[1], kq.y * x);
+      S[2] = fmaf(wq.z, S[2], kq.z * x);
+      S[3] = fmaf(wq.w, S[3], kq.w * x);
+    }
+  }
+}
+
+struct RowsSmem {
+  float v[kChunk][kN];
+  float d[kChunk][kN];            // dout
+  float r[kChunk][kBwdRows];      // the block's rows of r, k, w
+  float k[kChunk][kBwdRows];
+  float w[kChunk][kBwdRows];
+  float vd[kChunk];               // v_t · dout_t
+  float sub[kChunk / kBwdSub][kBwdRows][kN];   // S at each sub-chunk's start
+  float dr[kChunk][kBwdRows];     // the chunk's outputs
+  float dk[kChunk][kBwdRows];
+  float dw[kChunk][kBwdRows];
+};
+
+// Sum over the 16 lanes of a half-warp (one state row).
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float dot4(float4 a, float4 b) {
+  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, a.w * b.w)));
+}
+__device__ __forceinline__ float4 axpy4(float a, float4 x, float b, float4 y) {   // a x + b y
+  return make_float4(fmaf(a, x.x, b * y.x), fmaf(a, x.y, b * y.y), fmaf(a, x.z, b * y.z),
+                     fmaf(a, x.w, b * y.w));
+}
+
+template <typename T, typename TW>
+__global__ void __launch_bounds__(kBwdThreads)
+wkv6_bwd_rows_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                     const TW* __restrict__ w, const float* __restrict__ u,
+                     const T* __restrict__ dout, const float* __restrict__ dsT,
+                     const float* __restrict__ ckpt, T* __restrict__ dr, T* __restrict__ dk,
+                     TW* __restrict__ dw, float* __restrict__ du_part, int H, int T_len,
+                     int n_chunks) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  RowsSmem& sm = *reinterpret_cast<RowsSmem*>(smem_raw);
+  const int tid = threadIdx.x, row = tid >> 4, c0 = 4 * (tid & 15);
+  const int bh = blockIdx.x, k0 = blockIdx.y * kBwdRows;
+  const int K = k0 + row;                                  // this thread's state row
+  const size_t base = (size_t)bh * T_len * kN;
+  const size_t state = (size_t)bh * kN * kN + (size_t)K * kN + c0;
+  const float uk = u[(bh % H) * kN + K];
+  float4 G = dsT ? ld4(dsT + state) : make_float4(0.f, 0.f, 0.f, 0.f);
+  float du = 0.f;
+  for (int c = n_chunks - 1; c >= 0; --c) {
+    const int t0 = c * kChunk, n = min(kChunk, T_len - t0);
+    __syncthreads();                       // the last chunk's outputs are out
+    for (int i = tid; i < kChunk * kN; i += kBwdThreads) {
+      const int t = i / kN;
+      const size_t g = base + (size_t)t0 * kN + i;
+      sm.v[t][i % kN] = t < n ? to_f32(v[g]) : 0.f;
+      sm.d[t][i % kN] = t < n ? to_f32(dout[g]) : 0.f;
+    }
+    for (int i = tid; i < kChunk * kBwdRows; i += kBwdThreads) {
+      const int t = i / kBwdRows, j = i % kBwdRows;
+      const size_t g = base + (size_t)(t0 + t) * kN + k0 + j;
+      sm.r[t][j] = t < n ? to_f32(r[g]) : 0.f;
+      sm.k[t][j] = t < n ? to_f32(k[g]) : 0.f;
+      sm.w[t][j] = t < n ? to_f32(w[g]) : 0.f;
+    }
+    __syncthreads();
+    {  // v_t · dout_t: 4 lanes a step
+      const int t = tid >> 2, q = tid & 3;
+      float x = 0.f;
+#pragma unroll
+      for (int j = q * (kN / 4); j < (q + 1) * (kN / 4); ++j) x = fmaf(sm.v[t][j], sm.d[t][j], x);
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      if (q == 0) sm.vd[t] = x;
+    }
+    __syncthreads();
+    // forward through the chunk from its checkpoint: dr, and S at each
+    // sub-chunk's start
+    float4 S = ld4(ckpt + ((size_t)bh * n_chunks + c) * kN * kN + (size_t)K * kN + c0);
+#pragma unroll 1
+    for (int s = 0; s < kChunk / kBwdSub; ++s) {
+      *reinterpret_cast<float4*>(&sm.sub[s][row][c0]) = S;
+#pragma unroll 4
+      for (int i = 0; i < kBwdSub; ++i) {
+        const int t = s * kBwdSub + i;
+        if (t >= n) break;                 // uniform over the block
+        const float a = row_sum(dot4(S, ld4(&sm.d[t][c0])));
+        const float kt = sm.k[t][row];
+        if ((tid & 15) == 0) sm.dr[t][row] = fmaf(uk * kt, sm.vd[t], a);
+        S = axpy4(sm.w[t][row], S, kt, ld4(&sm.v[t][c0]));
+      }
+    }
+    // backwards, a sub-chunk at a time: its 16 states recomputed into
+    // registers, then G stepped back through them
+#pragma unroll 1
+    for (int s = kChunk / kBwdSub - 1; s >= 0; --s) {
+      if (s * kBwdSub >= n) continue;      // uniform over the block
+      float4 hist[kBwdSub];
+      float4 x = ld4(&sm.sub[s][row][c0]);
+#pragma unroll
+      for (int i = 0; i < kBwdSub; ++i) {
+        const int t = s * kBwdSub + i;
+        hist[i] = x;
+        x = axpy4(sm.w[t][row], x, sm.k[t][row], ld4(&sm.v[t][c0]));
+      }
+#pragma unroll
+      for (int i = kBwdSub - 1; i >= 0; --i) {
+        const int t = s * kBwdSub + i;
+        if (t < n) {                       // uniform over the block
+          const float b = row_sum(dot4(G, ld4(&sm.v[t][c0])));
+          const float q = row_sum(dot4(G, hist[i]));
+          const float rt = sm.r[t][row];
+          if ((tid & 15) == 0) {
+            const float x1 = sm.vd[t];
+            sm.dk[t][row] = fmaf(rt * uk, x1, b);
+            sm.dw[t][row] = q;
+            du = fmaf(rt * sm.k[t][row], x1, du);
+          }
+          G = axpy4(sm.w[t][row], G, rt, ld4(&sm.d[t][c0]));
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < kChunk * kBwdRows; i += kBwdThreads) {
+      const int t = i / kBwdRows, j = i % kBwdRows;
+      if (t < n) {
+        const size_t g = base + (size_t)(t0 + t) * kN + k0 + j;
+        store(dr + g, sm.dr[t][j]);
+        store(dk + g, sm.dk[t][j]);
+        store(dw + g, sm.dw[t][j]);
+      }
+    }
+  }
+  if ((tid & 15) == 0) du_part[(size_t)bh * kN + K] = du;
+}
+
+__global__ void __launch_bounds__(kBwdThreads)
+wkv6_du_kernel(const float* __restrict__ du_part, float* __restrict__ du, int B, int H) {
+  const int i = blockIdx.x * kBwdThreads + threadIdx.x;      // h * 64 + channel
+  if (i >= H * kN) return;
+  float x = 0.f;
+  for (int b = 0; b < B; ++b) x += du_part[(size_t)b * H * kN + i];
+  du[i] = x;
+}
+
+template <typename T, typename TW>
+cudaError_t launch_bwd(const void* r, const void* k, const void* v, const void* w,
+                       const float* u, const float* s0, const void* dout, const float* dsT,
+                       void* dr, void* dk, void* dv, void* dw, float* du, float* ds0,
+                       float* scratch, int B, int H, int T_len, cudaStream_t stream) {
+  const int n_chunks = (T_len + kChunk - 1) / kChunk;
+  float* ckpt = scratch;
+  float* du_part = scratch + (size_t)B * H * n_chunks * kN * kN;
+  const T* rt = static_cast<const T*>(r);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const TW* wt = static_cast<const TW*>(w);
+  const dim3 grid(B * H, kN / kBwdRows);
+  wkv6_ckpt_kernel<T, TW><<<dim3(B * H, kN / kSlice), kBwdThreads, 0, stream>>>(
+      kt, vt, wt, s0, ckpt, T_len, n_chunks);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // dv and ds0: the forward recurrence backwards in time on (k, r, dout)
+  err = launch_serial<T, TW, true>(k, r, dout, w, u, dsT, dv, ds0, B, H, T_len, stream);
+  if (err != cudaSuccess) return err;
+  auto kr = wkv6_bwd_rows_kernel<T, TW>;
+  const int sr = static_cast<int>(sizeof(RowsSmem));
+  err = cudaFuncSetAttribute(kr, cudaFuncAttributeMaxDynamicSharedMemorySize, sr);
+  if (err != cudaSuccess) return err;
+  kr<<<grid, kBwdThreads, sr, stream>>>(rt, kt, vt, wt, u, static_cast<const T*>(dout), dsT,
+                                        ckpt, static_cast<T*>(dr), static_cast<T*>(dk),
+                                        static_cast<TW*>(dw), du_part, H, T_len, n_chunks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  wkv6_du_kernel<<<(H * kN + kBwdThreads - 1) / kBwdThreads, kBwdThreads, 0, stream>>>(
+      du_part, du, B, H);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  r, k, v and out share `dtype`; w is
@@ -739,5 +1012,40 @@ extern "C" int wkv6_fwd(const void* r, const void* k, const void* v, const void*
   } else {
     err = cudaErrorInvalidValue;
   }
+  return static_cast<int>(err);
+}
+
+// The backward of wkv6_fwd (section 3 above).  r, k, v, dout, dr, dk and dv
+// share `dtype`; w and dw are float32 or `dtype` (`w_dtype`); u [H, 64], s0,
+// dsT, ds0 [B, H, 64, 64] and du [H, 64] are float32.  dsT may be null (no
+// cotangent for the final state).  `scratch` holds B * H * ceil(T / 64) *
+// 64 * 64 + B * H * 64 floats.  The same layout and alias rules as wkv6_fwd.
+// Returns a cudaError_t.
+extern "C" int wkv6_bwd(const void* r, const void* k, const void* v, const void* w,
+                        const void* u, const void* s0, const void* dout, const void* dsT,
+                        void* dr, void* dk, void* dv, void* dw, void* du, void* ds0,
+                        void* scratch, int B, int H, int T_len, int dtype, int w_dtype,
+                        void* stream) {
+  if (B <= 0 || H <= 0 || T_len <= 0 || scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* uf = static_cast<const float*>(u);
+  const float* s0f = static_cast<const float*>(s0);
+  const float* dsTf = static_cast<const float*>(dsT);
+  float* duf = static_cast<float*>(du);
+  float* ds0f = static_cast<float*>(ds0);
+  float* sc = static_cast<float*>(scratch);
+  cudaError_t err;
+  if (dtype == 0 && w_dtype == 0)
+    err = launch_bwd<float, float>(r, k, v, w, uf, s0f, dout, dsTf, dr, dk, dv, dw, duf, ds0f,
+                                   sc, B, H, T_len, st);
+  else if (dtype == 1 && w_dtype == 0)
+    err = launch_bwd<bf16, float>(r, k, v, w, uf, s0f, dout, dsTf, dr, dk, dv, dw, duf, ds0f,
+                                  sc, B, H, T_len, st);
+  else if (dtype == 1 && w_dtype == 1)
+    err = launch_bwd<bf16, bf16>(r, k, v, w, uf, s0f, dout, dsTf, dr, dk, dv, dw, duf, ds0f,
+                                 sc, B, H, T_len, st);
+  else
+    err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

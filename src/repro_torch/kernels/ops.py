@@ -3,9 +3,11 @@
 A CUDA tensor goes to the hand-written Hopper kernel, which launches or
 raises; a CPU tensor goes to the kernel's plain PyTorch version.  There is no
 backend probe and no fallback: the device of the tensor decides.  Under grad,
-attention and RMSNorm run through their autograd Functions, whose backward
-dispatches the same way (the reference's custom VJPs); WKV-6 on the card
-has no backward yet and raises.  Operands
+attention, RMSNorm and WKV-6 run through their autograd Functions, whose
+backward dispatches the same way (the reference's custom VJPs: attention's
+rule ``ref._mha_core_bwd``, WKV-6's the VJP of the sequential ``ref.wkv6``;
+RMSNorm's has none and takes the gradient of the plain ``ref.rmsnorm``), a
+hand-written backward kernel on the card.  Operands
 are made contiguous here (the kernels take dense row-major tensors; the
 reference's arrays have no layout), a no-op for the usual callers.
 """

@@ -1,12 +1,17 @@
-"""RWKV-6 WKV recurrence: the Hopper kernels' wrapper and its plain version.
+"""RWKV-6 WKV recurrence: the Hopper kernels' wrappers, their plain versions
+and the autograd Function that joins them.
 
-Counterpart of :mod:`repro.kernels.rwkv6` (``wkv6_pallas``).  The CUDA
-source is ``csrc/wkv6.cu``; see its header for the bound and the design.
-:func:`wkv6` launches the kernels for CUDA tensors (or raises) and runs
-:func:`wkv6_plain` only for tensors that lie on the CPU.
+Counterpart of :mod:`repro.kernels.rwkv6` (``wkv6_pallas``) and of the
+reference's custom VJP around it (``repro.kernels.ops``, whose backward is
+the VJP of the sequential ``ref.wkv6``).  The CUDA source is
+``csrc/wkv6.cu``; see its header for the bounds and the design.
+:func:`wkv6` and :func:`wkv6_bwd` launch the kernels for CUDA tensors (or
+raise) and run the plain versions only for tensors that lie on the CPU.
+When grad mode is on and an input requires grad, the forward goes through
+:class:`WKV6`, whose backward is :func:`wkv6_bwd` on either device.
 
-One entry point, ``wkv6_fwd``, runs one of two forms, picked here by dtype
-and T (:func:`uses_chunked_form`):
+The forward entry point, ``wkv6_fwd``, runs one of two forms, picked here by
+dtype and T (:func:`uses_chunked_form`):
 
 * bf16 r/k/v with T >= 64 (the prefill): the chunked form in three kernels:
   each chunk's state update ``U = k~^T v`` and decay ``2^G`` (one block a
@@ -23,10 +28,21 @@ and T (:func:`uses_chunked_form`):
 At the serving prefill ([1, 32, 2048, 64] bf16, w fp32) the call must move
 51.4 MB, 15.3 us at 3.35 TB/s: bound by bytes.
 
+The backward entry point, ``wkv6_bwd``, is serial fp32 math on the CUDA
+cores in four launches for either dtype: a checkpoint of the state every 64
+steps, the dv / ds0 pass (the recurrence backwards in time on the
+cotangents), the rows pass (dr, dk, dw, recomputing the state forward
+within each chunk from its checkpoint: w may underflow to 0, so the state is
+never got back by division) and du's sum over the batch.  Its scratch holds
+the checkpoints.  At the training call ([2, 32, 4096, 64] bf16, w fp32) it
+must move ~372 MB (111 us at 3.35 TB/s) and do six 64 x 64 FMA sweeps a
+step and head (12.9 GFLOP, 192 us on the 67 TFLOP/s fp32 CUDA cores).
+
 r/k/w: [B, H, T, K]; v: [B, H, T, V]; u: [H, K]; s0: [B, H, K, V] fp32.
 Returns (out [B, H, T, V] in r's dtype, state_T [B, H, K, V] fp32).  The
 kernels take K = V = 64 (RWKV-6's head size) and any T >= 1; the plain
-version takes any K and V.  One call counts one launch, whichever form runs.
+version takes any K and V.  One call counts one launch, whichever form runs,
+forward or backward.
 """
 from __future__ import annotations
 
@@ -113,23 +129,110 @@ def wkv6_cuda(r, k, v, w, u, s0):
     return out, state
 
 
-def wkv6(r, k, v, w, u, s0):
-    """WKV-6 forward from state ``s0``: the kernel on CUDA, plain on CPU.
+def wkv6_bwd_plain(r, k, v, w, u, s0, dout, dsT=None):
+    """(dr, dk, dv, dw, du, ds0) in the inputs' dtypes: autograd through
+    the plain forward (the reference's rule: the VJP of ``ref.wkv6``)."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_() for t in (r, k, v, w, u, s0)]
+        out, state = ref.wkv6(*xs)
+        out = out.to(r.dtype)
+        outs, cots = [out], [dout]
+        if dsT is not None:
+            outs.append(state)
+            cots.append(dsT)
+        # without dsT, w's last step reaches nothing: its gradient is 0
+        return torch.autograd.grad(outs, xs, cots, allow_unused=True,
+                                   materialize_grads=True)
 
-    The kernel has no backward yet, so on CUDA a call that would need one
-    (grad mode on and an input that requires grad) raises here, at the
-    forward; the plain version on the CPU differentiates through torch."""
+
+def wkv6_bwd_cuda(r, k, v, w, u, s0, dout, dsT=None):
+    """Launch ``csrc/wkv6.cu``'s backward (four kernels, one launch
+    counted); returns (dr, dk, dv, dw, du, ds0) in the dtypes of r, k, v, w,
+    u and s0.  ``dsT`` (the final state's cotangent) may be None."""
+    tensors = (r, k, v, w, u, s0, dout) + (() if dsT is None else (dsT,))
+    build.on_one_card(tensors, "wkv6_bwd_cuda")
+    check_inputs(r, k, v, w, u, s0)
+    if dout.shape != v.shape or dout.dtype != v.dtype \
+            or not dout.is_contiguous():
+        raise ValueError(f"wkv6 backward: dout {tuple(dout.shape)} "
+                         f"{dout.dtype} must be a contiguous tensor like v "
+                         f"{tuple(v.shape)} {v.dtype}")
+    if dsT is not None and (dsT.shape != s0.shape or dsT.dtype != s0.dtype
+                            or not dsT.is_contiguous()):
+        raise ValueError(f"wkv6 backward: dsT {tuple(dsT.shape)} "
+                         f"{dsT.dtype} must be a contiguous tensor like s0")
+    B, H, T, _ = r.shape
+    grads = [torch.empty_like(t) for t in (r, k, v, w, u, s0)]
+    scratch = torch.empty(B * H * (-(-T // CHUNK) * HEAD_SIZE + 1)
+                          * HEAD_SIZE, dtype=torch.float32, device=r.device)
+    build.aligned(tensors + tuple(grads) + (scratch,), "wkv6_bwd_cuda")
+    lib = build.load("wkv6")
+    fn = lib.wkv6_bwd
+    fn.argtypes = build.c_args(*"p" * 15, "i", "i", "i", "i", "i", "p")
+    fn.restype = build.ctypes.c_int
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(t.data_ptr() for t in (r, k, v, w, u, s0, dout)),
+                 None if dsT is None else dsT.data_ptr(),
+                 *(g.data_ptr() for g in grads), scratch.data_ptr(),
+                 B, H, T, _DTYPES[r.dtype], _DTYPES[w.dtype], stream)
+    build.check(err, "wkv6_bwd")
+    wkv6_bwd.launches += 1
+    return tuple(grads)
+
+
+def _forward(r, k, v, w, u, s0):
     if r.is_cuda:
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (r, k, v, w, u, s0)):
-            raise NotImplementedError(
-                "the WKV-6 kernel has no backward yet: rwkv6 training is "
-                "ROADMAP B3 (the kernel) and A8 (ssm training)")
         return wkv6_cuda(r, k, v, w, u, s0)
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, s0)
     raise ValueError(f"wkv6: unsupported device {r.device}")
 
 
+def wkv6_bwd(r, k, v, w, u, s0, dout, dsT=None):
+    """WKV-6 backward: the kernels on CUDA, the plain version on CPU."""
+    if r.is_cuda:
+        return wkv6_bwd_cuda(r, k, v, w, u, s0, dout, dsT)
+    if r.device.type == "cpu":
+        return wkv6_bwd_plain(r, k, v, w, u, s0, dout, dsT)
+    raise ValueError(f"wkv6_bwd: unsupported device {r.device}")
+
+
+wkv6_bwd.launches = 0
+"""Backward launches so far; a caller resets it to 0 around the run it counts."""
+
+
+class WKV6(torch.autograd.Function):
+    """WKV-6 whose backward is :func:`wkv6_bwd`: it saves only the inputs
+    (the kernel recomputes the states it needs), and an input that does not
+    require grad gets None."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        ctx.set_materialize_grads(False)
+        return _forward(r, k, v, w, u, s0)
+
+    @staticmethod
+    def backward(ctx, dout, dsT):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        dout = (torch.zeros_like(v) if dout is None
+                else dout.to(v.dtype).contiguous())
+        dsT = None if dsT is None else dsT.float().contiguous()
+        grads = wkv6_bwd(r, k, v, w, u, s0, dout, dsT)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def wkv6(r, k, v, w, u, s0):
+    """WKV-6 forward from state ``s0``: the kernel on CUDA, plain on CPU;
+    differentiable through :class:`WKV6` when grad is wanted."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u, s0)):
+        return WKV6.apply(r, k, v, w, u, s0)
+    return _forward(r, k, v, w, u, s0)
+
+
 wkv6.launches = 0
-"""Kernel launches so far; a caller resets it to 0 around the run it counts."""
+"""Forward kernel launches so far; a caller resets it to 0 around the run it
+counts."""

@@ -47,6 +47,7 @@ from repro_torch.devices import resolve_device
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
 from repro_torch.launch import mesh
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models.lm import LMModel
@@ -62,25 +63,31 @@ def launches() -> Dict[str, int]:
     """The training path's kernel launch counters, forward and backward."""
     return {"flash_attention": flash_attention.launches,
             "flash_attention_bwd": flash_attention_bwd.launches,
-            "rmsnorm": rmsnorm.launches, "rmsnorm_bwd": rmsnorm_bwd.launches}
+            "rmsnorm": rmsnorm.launches, "rmsnorm_bwd": rmsnorm_bwd.launches,
+            "wkv6": wkv6.launches, "wkv6_bwd": wkv6_bwd.launches}
 
 
 def stage_kernel_calls(arch: ArchConfig, pcfg: ParallelConfig):
-    """Per global stage, the attention and RMSNorm kernel calls one
+    """Per global stage, the attention, RMSNorm and WKV-6 kernel calls one
     micro-batch's forward makes, and whether the head's norm is an RMSNorm.
 
     Every slot of the stage's layout runs its layer (an identity-padding
-    slot too, gated by its mask): one attention, a second on a layer whose
-    ``cross`` flag is set, and its norms (two, three with ``cross``) where
-    the arch's norm is RMSNorm.  LayerNorm is plain torch: no kernel."""
+    slot too, gated by its mask).  A dense or enc-dec layer: one attention,
+    a second on a layer whose ``cross`` flag is set, and its norms (two,
+    three with ``cross``) where the arch's norm is RMSNorm (LayerNorm is
+    plain torch: no kernel).  An ssm (RWKV-6) layer: one WKV-6 and one
+    RMSNorm, its time mix's group norm (its block norms are the arch's)."""
     consts = LMModel(arch, pcfg, device="meta").consts()
-    slots = consts["mask"].shape
-    cross = consts.get("cross", np.zeros(slots, np.float32)) > 0
+    n_stages, per = consts["mask"].shape
     rms = arch.norm == "rms"
-    attn = [int(slots[1] + cross[s].sum()) for s in range(slots[0])]
-    norms = [int(rms) * (2 * slots[1] + int(cross[s].sum()))
-             for s in range(slots[0])]
-    return attn, norms, rms
+    if arch.family == "ssm":
+        zero = [0] * n_stages
+        return zero, [per * (1 + 2 * int(rms))] * n_stages, [per] * n_stages, rms
+    cross = consts.get("cross", np.zeros((n_stages, per), np.float32)) > 0
+    attn = [int(per + cross[s].sum()) for s in range(n_stages)]
+    norms = [int(rms) * (2 * per + int(cross[s].sum()))
+             for s in range(n_stages)]
+    return attn, norms, [0] * n_stages, rms
 
 
 def expected_train_launches(pcfg: ParallelConfig, arch: ArchConfig,
@@ -88,33 +95,42 @@ def expected_train_launches(pcfg: ParallelConfig, arch: ArchConfig,
     """Kernel launches one train step of ``arch`` implies under ``pcfg``
     (m = ``pcfg.n_micro`` micro-batches, nc head-loss chunks of ``seq``):
     the formula ``chip_smoke.py`` and the CPU tests hold the counters of
-    :func:`launches` to.  A and N are the attention and RMSNorm calls of
-    one micro-batch's forward over all stages, A_last and N_last the last
-    stage's (:func:`stage_kernel_calls`); the head adds RMSNorms only where
-    its norm is one.
+    :func:`launches` to.  A, N and W are the attention, RMSNorm and WKV-6
+    calls of one micro-batch's forward over all stages, A_last, N_last and
+    W_last the last stage's (:func:`stage_kernel_calls`); the head adds
+    RMSNorms only where its norm is one.  Each kernel's backward runs once
+    for each of its forward calls that autograd differentiates.
 
     ``gpipe`` (autograd backward): every forward call once per micro-batch,
     again for each micro-batch recomputed before its backward (all m with
-    remat "full", m - 1 without the last when ``remat_last_micro`` is
-    False, none with "none"), and once backward; the head's norm once per
-    loss chunk forward and again in that chunk's recompute (the chunks are
-    always checkpointed) and once backward.
+    remat "full", "dots" or "dots_no_batch", m - 1 without the last when
+    ``remat_last_micro`` is False, none with "none"), and once backward; the
+    head's norm once per loss chunk forward and again in that chunk's
+    recompute (the chunks are always checkpointed) and once backward.  The
+    selective policies keep only the outputs of matrix products, which no
+    kernel computes: a kernel's outputs are recomputed as under "full", so
+    the counts equal "full"'s (``core/checkpointing.py``).
 
     Fused schedules: each micro-batch runs every stage once on its F tick
     (except the last stage, whose F tick runs nothing), once more for
     each graph a backward tick builds (``graphs``: the fused B; zb's Bx and
     Bw, or Bx alone when Bw differentiates Bx's graph under
     ``residuals="reuse"``), once more in each backward that recomputes the
-    stage (zb reuse under remat "full": Bx's graph is checkpointed) and
-    once backward for each ``autograd.grad`` (``grads``: B, or Bx and Bw).
-    The head runs per micro-batch: its chunks once in each graph and once
-    more in each backward (their own recompute); where the stage is
-    recomputed as well, that recompute also runs nc - 1 of them (PyTorch's
-    nested checkpoint stops early once it holds the last tensor it saved)."""
+    stage (zb reuse under a remat policy other than "none": Bx's graph is
+    checkpointed) and once backward for each ``autograd.grad`` (``grads``:
+    B, or Bx and Bw).  The head runs per micro-batch: its chunks once in
+    each graph and once more in each backward (their own recompute); where
+    the stage is recomputed as well, that recompute also runs nc - 1 of them
+    (PyTorch's nested checkpoint stops early once it holds the last tensor
+    it saved).
+
+    So at rwkv6-1.6b's full config (24 layers, pipe 8, m 8, remat "full"):
+    384 WKV-6 and 192 backward launches a gpipe step, 360 and 192 a 1F1B
+    step; an RMSNorm (the group norm) beside each."""
     from repro_torch.models.lm import head_loss_chunk
     m, nc = pcfg.n_micro, seq // head_loss_chunk(seq)
-    attn, norms, rms_head = stage_kernel_calls(arch, pcfg)
-    A, N, hn = sum(attn), sum(norms), int(rms_head)
+    attn, norms, wkv, rms_head = stage_kernel_calls(arch, pcfg)
+    A, N, W, hn = sum(attn), sum(norms), sum(wkv), int(rms_head)
     base = pcfg.schedule.split(":")[0]
     if base == "gpipe":
         replays = 0 if pcfg.remat == "none" else (
@@ -122,7 +138,8 @@ def expected_train_launches(pcfg: ParallelConfig, arch: ArchConfig,
         return {"flash_attention": A * (m + replays),
                 "flash_attention_bwd": A * m,
                 "rmsnorm": N * (m + replays) + hn * 2 * nc,
-                "rmsnorm_bwd": N * m + hn * nc}
+                "rmsnorm_bwd": N * m + hn * nc,
+                "wkv6": W * (m + replays), "wkv6_bwd": W * m}
     reuse = base == "zb" and pcfg.residuals == "reuse"
     graphs = 2 if base == "zb" and not reuse else 1
     grads = 2 if base == "zb" else 1
@@ -132,26 +149,42 @@ def expected_train_launches(pcfg: ParallelConfig, arch: ArchConfig,
     return {"flash_attention": (runs * A - attn[-1]) * m,
             "flash_attention_bwd": grads * A * m,
             "rmsnorm": (runs * N - norms[-1]) * m + hn * head * m,
-            "rmsnorm_bwd": grads * N * m + hn * grads * nc * m}
+            "rmsnorm_bwd": grads * N * m + hn * grads * nc * m,
+            "wkv6": (runs * W - wkv[-1]) * m, "wkv6_bwd": grads * W * m}
 
 
 def model_flops_per_step(arch: ArchConfig, seq_len: int, batch: int) -> float:
     """Model FLOPs of one training step (recompute not counted): 3 x the
-    forward, whose FLOPs are 2 per matmul weight per token (attention
-    projections, the MLP (three matrices for SwiGLU, two for GELU), an
-    enc-dec decoder's cross-attention projections, and the head, tied or
-    not) plus the attention products, 2 x 2 x hd x Hq per visible (query,
-    key) pair: S (S + 1) / 2 a sequence for causal self-attention, S x S
-    for an encoder's self-attention and a decoder's cross-attention (the
-    memory has S frames)."""
-    a, d = arch.attn, arch.d_model
+    forward, whose FLOPs are 2 per matmul weight per token plus what is not
+    a weight product.
+
+    dense and enc-dec: the attention projections, the MLP (three matrices
+    for SwiGLU, two for GELU), an enc-dec decoder's cross-attention
+    projections and the head, tied or not; plus the attention products,
+    2 x 2 x hd x Hq per visible (query, key) pair: S (S + 1) / 2 a sequence
+    for causal self-attention, S x S for an encoder's self-attention and a
+    decoder's cross-attention (the memory has S frames).
+
+    ssm (RWKV-6): per layer the time mix's five D x D projections (r, k, v,
+    the gate g and the output), its decay LoRA (D x 64 and 64 x D), the
+    channel mix's D x F, F x D and D x D, and the head; plus the WKV
+    recurrence, 2 x 2 x K x V per token and head (the read ``r (S + u k v)``
+    and the state update ``diag(w) S + k v``, as two products)."""
+    d, tokens = arch.d_model, seq_len * batch
+    if arch.family == "ssm":
+        from repro_torch.models.blocks import RWKV_HEAD, RWKV_LORA
+        layer = 5 * d * d + 2 * d * RWKV_LORA + 2 * d * arch.d_ff + d * d
+        weights = arch.n_layers * layer + d * arch.vocab
+        recurrence = arch.n_layers * (d // RWKV_HEAD) * 2 * 2 \
+            * RWKV_HEAD * RWKV_HEAD * tokens
+        return 3.0 * (2.0 * weights * tokens + recurrence)
+    a = arch.attn
     enc, dec = arch.enc_layers, arch.n_layers
     attn_w = d * a.head_dim * 2 * (a.n_heads + a.n_kv_heads)
     mlp_w = (3 if arch.act == "silu" else 2) * d * arch.d_ff
     cross = dec if arch.is_encdec else 0
     weights = (enc + dec) * (attn_w + mlp_w) + cross * attn_w \
         + d * arch.vocab
-    tokens = seq_len * batch
     pairs = dec * seq_len * (seq_len + 1) // 2 + (enc + cross) * seq_len ** 2
     attn = batch * 2 * 2 * a.head_dim * a.n_heads * pairs
     return 3.0 * (2.0 * weights * tokens + attn)

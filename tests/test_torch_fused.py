@@ -43,6 +43,10 @@ SCHEDULES = {
     "zb-reuse": dict(schedule="zb", residuals="reuse", remat="none"),
     # Bx's graph checkpointed: Bw recomputes the stage inside its backward
     "zb-reuse-full": dict(schedule="zb", residuals="reuse", remat="full"),
+    # Bx's graph keeps the products: both backwards recompute the rest
+    "zb-reuse-dots": dict(schedule="zb", residuals="reuse", remat="dots"),
+    "zb-reuse-dots_no_batch": dict(schedule="zb", residuals="reuse",
+                                   remat="dots_no_batch"),
     "interleaved2": dict(schedule="interleaved:2"),
 }
 # the schedules of one stage per rank: bitwise equal to each other
@@ -118,6 +122,17 @@ def test_schedules_bitwise_equal_under_ordered_reduce(jax_ref, pipe):
                         f"{name} vs {FLAT[0]} pipe {pipe}")
 
 
+@pytest.mark.parametrize("name", ["zb-reuse-dots", "zb-reuse-dots_no_batch"])
+def test_zb_reuse_selective_bitwise_equal_to_zb_recompute(jax_ref, name):
+    """The reference's acceptance test for residual reuse
+    (``tests/test_oracle.py``: zb reuse under "dots" is bitwise zb
+    recompute): Bx keeps the policy's stored products in its graph and
+    Bw differentiates that graph a second time, replaying them; the loss
+    and every gradient equal zb's with residuals "recompute"."""
+    _assert_bitwise(_fused(jax_ref, name, 2), _fused(jax_ref, "zb", 2),
+                    f"{name} vs zb")
+
+
 @pytest.mark.parametrize("name", ["1f1b", "zb"])
 def test_running_reduce_close_to_ordered_and_stable(jax_ref, name):
     ordered = _fused(jax_ref, name, 4)
@@ -161,7 +176,8 @@ def test_fused_kernel_contract_and_call_counts_on_cpu(monkeypatch, name):
         assert calls == {"flash_attention": fwd,
                          "flash_attention_bwd": L * m,
                          "rmsnorm": 2 * fwd + 2 * nc * m,
-                         "rmsnorm_bwd": 2 * L * m + nc * m}
+                         "rmsnorm_bwd": 2 * L * m + nc * m,
+                         "wkv6": 0, "wkv6_bwd": 0}
     assert np.isfinite(float(metrics["loss"]))
 
 

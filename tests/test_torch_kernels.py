@@ -24,7 +24,8 @@ from repro_torch.kernels.flash_attention import (check_bwd_inputs,
 from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd,
                                          rmsnorm_bwd_cuda, rmsnorm_bwd_plain,
                                          rmsnorm_cuda, rmsnorm_plain)
-from repro_torch.kernels.wkv6 import wkv6, wkv6_cuda, wkv6_plain
+from repro_torch.kernels.wkv6 import (wkv6, wkv6_bwd, wkv6_bwd_cuda,
+                                      wkv6_bwd_plain, wkv6_cuda, wkv6_plain)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # fp32: a different summation order (tests/test_kernels.py's 2e-5 for
@@ -389,15 +390,40 @@ def test_kernel_functions_carry_autograd_on_the_card(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-def test_wkv6_kernel_under_grad_raises_at_the_forward(cuda_device):
-    r = torch.zeros(1, 32, 64, 64, device=cuda_device, requires_grad=True)
-    w = torch.full((1, 32, 64, 64), 0.9, device=cuda_device)
-    u = torch.zeros(32, 64, device=cuda_device)
-    s0 = torch.zeros(1, 32, 64, 64, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="B3"):
-        wkv6(r, r.detach(), r.detach(), w, u, s0)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [1, 16, 64, 100, 130])
+@pytest.mark.parametrize("decay", ["normal", "extreme"])
+def test_wkv6_kernel_backward_matches_plain_autograd(cuda_device, dtype, T,
+                                                     decay):
+    """Under grad the card's WKV-6 runs through the WKV6 Function, whose
+    backward launches ``wkv6_bwd``: every gradient (dr, dk, dv, dw, du,
+    ds0) against autograd through the plain version on the same card and
+    inputs, from a non-zero s0 with a cotangent on the final state; bf16
+    with T >= 64 takes the chunked forward, the rest the serial one; a
+    masked tail (T 100, 130) and decays that underflow to w = 0."""
+    dt = DTYPES[dtype]
+    g = torch.Generator(device=cuda_device).manual_seed(T)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device)
+    r, k, v = (randn(2, 4, T, 64).to(dt) * 0.5 for _ in range(3))
+    w = torch.exp(-torch.exp(randn(2, 4, T, 64)
+                             * (0.5 if decay == "normal" else 3.0)))
+    u, s0 = randn(4, 64) * 0.5, randn(2, 4, 64, 64) * 0.3
+    do, ds = randn(2, 4, T, 64).to(dt), randn(2, 4, 64, 64)
+    xs = [x.clone().requires_grad_() for x in (r, k, v, w, u, s0)]
+    launched = wkv6_bwd.launches
+    out, state = wkv6(*xs)
+    got = torch.autograd.grad([out, state], xs, [do, ds])
+    torch.cuda.synchronize()
+    assert wkv6_bwd.launches == launched + 1
+    want = wkv6_bwd_plain(r, k, v, w, u, s0, do, ds)
+    for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+        assert a.dtype == b.dtype, name
+        _assert_bwd_close(a, b, "float32" if a.dtype == torch.float32
+                          else dtype, name)
     with torch.no_grad():
-        out, _ = wkv6(r, r, r, w, u, s0)
+        out, _ = wkv6(*xs)
     assert out.grad_fn is None
 
 
@@ -411,6 +437,10 @@ def test_backward_wrappers_refuse_cpu_tensors_and_their_contract():
     x = torch.ones(2, 64)
     with pytest.raises(ValueError, match="CUDA"):
         rmsnorm_bwd_cuda(x, torch.ones(64), x)
+    r = torch.zeros(1, 2, 3, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv6_bwd_cuda(r, r, r, r, torch.zeros(2, 64),
+                      torch.zeros(1, 2, 64, 64), r)
     q = torch.zeros(1, 2, 4, 64)
     lse = torch.zeros(1, 2, 4)
     with pytest.raises(ValueError, match="CUDA"):
@@ -426,8 +456,9 @@ def test_backward_wrappers_refuse_cpu_tensors_and_their_contract():
 
 
 def test_wkv6_on_cpu_differentiates_through_the_plain_version():
-    """Only the card's WKV lacks a backward: the CPU plain version keeps
-    torch's autograd (the rwkv6 CPU tests train nothing, but may)."""
+    """On the CPU the WKV6 Function's backward is the plain one (autograd
+    through the sequential recurrence); the rwkv6 CPU tests train through
+    it against the JAX oracle."""
     r = torch.randn(1, 2, 5, 8, requires_grad=True)
     w = torch.full((1, 2, 5, 8), 0.9)
     out, _ = wkv6(r, r, r, w, torch.zeros(2, 8), torch.zeros(1, 2, 8, 8))
@@ -477,12 +508,76 @@ def test_wkv6_on_cpu_differentiates_through_the_plain_version():
     ("void (anonymous namespace)::wkv6_serial_kernel<float, float>(float "
      "const*, float const*, float const*, float const*, float const*, "
      "float const*, float*, float*, int, int)", "wkv6 (ours)"),
+    ("void (anonymous namespace)::wkv6_serial_kernel<__nv_bfloat16, float, "
+     "false>(__nv_bfloat16 const*, ...)", "wkv6 (ours)"),
+    ("void (anonymous namespace)::wkv6_serial_kernel<__nv_bfloat16, float, "
+     "true>(__nv_bfloat16 const*, ...)", "wkv6_bwd (ours)"),
+    ("void (anonymous namespace)::wkv6_ckpt_kernel<__nv_bfloat16, float>("
+     "__nv_bfloat16 const*, ...)", "wkv6_bwd (ours)"),
+    ("void (anonymous namespace)::wkv6_bwd_rows_kernel<float, float>(float "
+     "const*, ...)", "wkv6_bwd (ours)"),
+    ("(anonymous namespace)::wkv6_du_kernel(float const*, float*, int, int)",
+     "wkv6_bwd (ours)"),
 ])
 def test_profile_labels_the_kernel_symbols(name, family):
     """The trace's kernel names (demangled, as the profiler shows them) land
     in the kernel families that profile_serve reports."""
     from repro_torch.launch.profile_serve import _family
     assert _family(name) == family
+
+
+@pytest.mark.cuda
+def test_profile_summary_agrees_with_the_event_tree(cuda_device):
+    """``profile_summary`` reads the profiler's private raw event list; on
+    one trace its family sums, kernel count and ranges equal those of the
+    public event tree (``prof.events()``, a range's kernels being those of
+    its CPU children), kernels outside any range and the backward's
+    included."""
+    from collections import defaultdict
+    from repro_torch.launch.profile_serve import _family, profile_summary
+    x = torch.randn(2, 256, 960, device=cuda_device, dtype=torch.bfloat16,
+                    requires_grad=True)
+    scale = torch.ones(960, device=cuda_device, dtype=torch.bfloat16)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        loss = 0
+        for _ in range(3):
+            with torch.profiler.record_function("step"):
+                y = rmsnorm(x, scale)
+                with torch.profiler.record_function("inner"):
+                    y = y @ y.transpose(-1, -2)
+            loss = loss + y.float().sum()
+        loss.backward()
+        torch.cuda.synchronize()
+    got = profile_summary(prof, 1e3, ("step", "inner"))
+
+    def under(e):
+        return list(e.kernels) + [k for c in e.cpu_children for k in under(c)]
+    fam, n = defaultdict(float), 0
+    ranges = {r: {"device_ms": 0.0, "kernels": 0, "calls": 0}
+              for r in ("step", "inner")}
+    for e in prof.events():
+        if e.is_user_annotation:
+            if e.device_type == torch.autograd.DeviceType.CPU \
+                    and e.name in ranges:
+                ks = under(e)
+                ranges[e.name]["device_ms"] += sum(k.duration for k in ks) / 1e3
+                ranges[e.name]["kernels"] += len(ks)
+                ranges[e.name]["calls"] += 1
+        elif e.device_type == torch.autograd.DeviceType.CUDA:
+            fam[_family(e.name)] += e.device_time / 1e3
+            n += 1
+    assert got["device_events"] == n > 0
+    assert set(got["by_family_ms"]) == set(fam)
+    for f, ms in fam.items():
+        assert got["by_family_ms"][f] == pytest.approx(ms, rel=1e-6, abs=1e-6)
+    for r, want in ranges.items():
+        assert want["calls"] == 3 and want["kernels"] > 0, r
+        assert got["ranges"][r]["calls"] == want["calls"], r
+        assert got["ranges"][r]["kernels"] == want["kernels"], r
+        assert got["ranges"][r]["device_ms"] == pytest.approx(
+            want["device_ms"], rel=1e-6, abs=1e-6), r
 
 
 def test_build_rebuilds_when_a_shared_header_changes(tmp_path, monkeypatch):

@@ -38,6 +38,7 @@ from repro_torch.interop import params_from_jax, to_tensor
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import wkv6 as wkv_mod
 from repro_torch.launch import steps
+from repro_torch.launch.train import expected_train_launches
 from repro_torch.models.lm import LMModel
 from repro_torch.tree import tree_items
 
@@ -332,6 +333,121 @@ def test_rwkv_serve_matches_jax_pallas_interpret(monkeypatch):
     """The JAX side through wkv6_pallas and rmsnorm_pallas (interpret)."""
     ref_out = _jax_run(True, monkeypatch)
     _assert_matches(ref_out, _port_run(ref_out, 2, 2))
+
+
+# ---------------------------------------------------------------------------
+# Training: the WKV-6 gradient, rwkv6 through the pipeline
+# ---------------------------------------------------------------------------
+
+WKV_GRADS = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+
+@pytest.mark.parametrize("shape", [WKV_SHAPES[1], WKV_SHAPES[4]], ids=str)
+def test_wkv6_backward_vs_jax_vjp(shape):
+    """The plain backward (autograd through ``wkv6_plain``) and the
+    :class:`WKV6` Function's CPU path against ``jax.vjp`` of the
+    reference's ``ref.wkv6`` (the reference's own rule, ``ops.py``), all
+    six gradients, from a non-zero s0 with a cotangent on the final
+    state."""
+    B, H, T, K, V, _ = shape
+    inputs = _wkv_inputs(B, H, T, K, V, seed=5)
+    rng = np.random.default_rng(6)
+    don = rng.standard_normal((B, H, T, V)).astype(np.float32)
+    dsn = rng.standard_normal((B, H, K, V)).astype(np.float32)
+    args = ("r", "k", "v", "w", "u", "s0")
+    _, vjp = jax.vjp(jref.wkv6, *(jnp.asarray(inputs[a]) for a in args))
+    want = vjp((jnp.asarray(don), jnp.asarray(dsn)))
+    xs = [torch.from_numpy(inputs[a]) for a in args]
+    do, ds = torch.from_numpy(don), torch.from_numpy(dsn)
+    got = wkv_mod.wkv6_bwd_plain(*xs, do, ds)
+    xs = [x.clone().requires_grad_() for x in xs]
+    out, state = wkv_mod.wkv6(*xs)
+    assert type(out.grad_fn).__name__ == "WKV6Backward"
+    through = torch.autograd.grad([out, state], xs, [do, ds])
+    for name, g, f, w in zip(WKV_GRADS, got, through, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL,
+                                   err_msg=name)
+        assert torch.equal(f, g), name
+
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_M = 8, 16, 4
+
+
+@pytest.fixture(scope="module")
+def jax_train_ref(jax_ref):
+    """The sequential JAX oracle's loss and grads (``test_torch_train``'s
+    ``_oracle_loss_fn``) at pipe 1 on ``jax_ref``'s weights, one seeded
+    batch."""
+    from test_torch_train import _oracle_loss_fn
+    arch = _widen(jconfigs.smoke_arch(ARCH))
+    pcfg = jconfigs.smoke_parallel(ARCH).with_(n_micro=TRAIN_M)
+    model = JLMModel(arch, pcfg, dtype=jnp.float32)
+    rng = np.random.default_rng(3)
+    batch = {k: rng.integers(0, arch.vocab, (TRAIN_BATCH, TRAIN_SEQ))
+             .astype(np.int32) for k in ("tokens", "labels")}
+    loss, grads = jax.jit(jax.value_and_grad(_oracle_loss_fn(
+        model, TRAIN_M)))(jax_ref["params"], jax.tree.map(jnp.asarray, batch))
+    return {"params": jax_ref["params"], "batch": batch,
+            "loss": float(loss), "grads": jax.device_get(grads)}
+
+
+def _train_grads(ref_, pipe, **pcfg_kw):
+    """The port's loss and grads at ``pipe`` on the oracle's weights and
+    batch, through ``build_grad_fn`` (gpipe: autograd)."""
+    arch = _widen(configs.smoke_arch(ARCH))
+    pcfg = configs.smoke_parallel(ARCH).with_(pipe=pipe, n_micro=TRAIN_M,
+                                              **pcfg_kw)
+    model = LMModel(arch, pcfg, dtype=torch.float32, device="cpu")
+    params = params_from_jax(ref_["params"], arch=arch, src_pipe=1,
+                             pcfg=pcfg, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in ref_["batch"].items()}
+    loss, grads = steps.build_grad_fn(model, pcfg, "cpu")(params, batch)
+    return loss, grads, arch, pcfg
+
+
+def test_rwkv_train_loss_and_grads_match_jax_oracle(jax_train_ref):
+    """rwkv6 smoke (two heads) at pipe 2, m 4, gpipe: the loss and every
+    gradient leaf against the sequential JAX oracle's, through the WKV6
+    Function's backward."""
+    from test_torch_train import _assert_tree_close
+    loss, grads, arch, pcfg = _train_grads(jax_train_ref, 2)
+    np.testing.assert_allclose(float(loss), jax_train_ref["loss"], **TOL)
+    want = params_from_jax(jax_train_ref["grads"], arch=arch, src_pipe=1,
+                           pcfg=pcfg, device="cpu")
+    _assert_tree_close(grads, want, "rwkv6 pipe 2")
+    assert all(float(g.abs().max()) > 0 for _, g in tree_items(grads))
+
+
+def test_rwkv_1f1b_bitwise_equals_gpipe_tasked(jax_train_ref):
+    """The fused executor's 1F1B and GPipe schedules run the same
+    (stage, micro) work and fold it in micro order under
+    ``grad_reduce="ordered"``: loss and grads bitwise equal."""
+    a = _train_grads(jax_train_ref, 2, schedule="1f1b")
+    b = _train_grads(jax_train_ref, 2, schedule="gpipe_tasked")
+    assert torch.equal(a[0], b[0])
+    for (path, x), (_, y) in zip(tree_items(a[1]), tree_items(b[1])):
+        assert torch.equal(x, y), path
+
+
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
+def test_rwkv_train_kernel_contract_and_call_counts_on_cpu(monkeypatch,
+                                                         schedule):
+    """A train step of rwkv6 smoke at pipe 2 on the CPU path: every WKV-6
+    and RMSNorm call, forward and backward, meets its CUDA kernel's
+    contract, and the counts equal ``expected_train_launches``: one WKV-6
+    and one RMSNorm (the group norm) a layer and micro-batch, each
+    recomputed under remat "full", and one backward each."""
+    from test_torch_train import COUNT_M, _count_train_calls
+    seq = 64                  # no RMSNorm head: one loss chunk is enough
+    calls, metrics, arch, pcfg = _count_train_calls(
+        monkeypatch, ARCH, seq, schedule=schedule)
+    L, m = arch.n_layers, COUNT_M
+    fwd = 2 * L * m if schedule == "gpipe" else 2 * L * m - L // 2 * m
+    assert calls == {"flash_attention": 0, "flash_attention_bwd": 0,
+                     "rmsnorm": fwd, "rmsnorm_bwd": L * m, "wkv6": fwd,
+                     "wkv6_bwd": L * m}
+    assert calls == expected_train_launches(pcfg, arch, seq)
+    assert np.isfinite(float(metrics["loss"]))
 
 
 # ---------------------------------------------------------------------------

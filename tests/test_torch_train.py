@@ -339,17 +339,62 @@ def test_gpipe_train_curve_matches_jax_oracle(jax_ref):
 # (g) remat policies
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("remat, remat_layers", [("none", False),
-                                                 ("full", True)])
+@pytest.mark.parametrize("remat, remat_layers", [
+    ("none", False), ("full", True), ("dots", False), ("dots", True),
+    ("dots_no_batch", False), ("dots_no_batch", True)])
 def test_remat_policies_give_equal_grads(jax_ref, remat, remat_layers):
     """Recompute replays the same ops on the same inputs: the grads equal
-    those of the default ``remat="full"`` bit for bit."""
+    those of the default ``remat="full"`` bit for bit.  The selective
+    policies read the stored products where "full" computes them again:
+    the same bits."""
     base = _loss_and_grads(*_port(jax_ref, 2))
     other = _loss_and_grads(*_port(jax_ref, 2, remat=remat,
                                    remat_layers=remat_layers))
     assert torch.equal(base[0], other[0])
     for (path, a), (_, b) in zip(tree_items(base[1]), tree_items(other[1])):
         assert torch.equal(a, b), path
+
+
+def _saved_products(monkeypatch, ref_, remat, remat_layers=False):
+    """The outputs each selective region stored over one gpipe grad call
+    at pipe 2, counted by op name."""
+    made = []
+
+    class Spy(checkpointing.Selection):
+        def __init__(self, ops):
+            super().__init__(ops)
+            made.append(self)
+    monkeypatch.setattr(checkpointing, "Selection", Spy)
+    model, pcfg, params, batch = _port(ref_, 2, remat=remat,
+                                       remat_layers=remat_layers)
+    _loss_and_grads(model, pcfg, params, batch)
+    counts = {}
+    for sel in made:
+        for op, kept in sel.saved.items():
+            counts[str(op)] = counts.get(str(op), 0) + len(kept)
+    return len(made), counts
+
+
+@pytest.mark.parametrize("remat", ["dots", "dots_no_batch"])
+def test_selective_policies_keep_the_products_they_name(monkeypatch, jax_ref,
+                                                        remat):
+    """On the CPU the attention runs as torch ops: "dots" keeps its
+    ``bmm`` outputs beside the projections' ``mm``, "dots_no_batch" only
+    the ``mm``; one selection per (stage, micro-batch); with
+    ``remat_layers`` every layer is a "full" region inside and nothing is
+    kept (a nested checkpoint keeps only its inputs)."""
+    n, counts = _saved_products(monkeypatch, jax_ref, remat)
+    assert n == 2 * M
+    L = configs.smoke_arch(ARCH).n_layers
+    # per layer and micro-batch: q, k, v, o and the three MLP products
+    assert counts["aten.mm.default"] == 7 * L * M
+    if remat == "dots":
+        assert counts["aten.bmm.default"] > 0
+    else:
+        assert set(counts) == {"aten.mm.default"}
+    n, counts = _saved_products(monkeypatch, jax_ref, remat,
+                                remat_layers=True)
+    assert n == 2 * M and counts == {}
 
 
 def test_wrap_stage_for_micro_elides_the_last_recompute():
@@ -372,18 +417,20 @@ def test_wrap_stage_for_micro_elides_the_last_recompute():
 COUNT_M, COUNT_SEQ = 2, 1024      # seq 1024: two head-loss chunks
 
 
-def _count_train_calls(monkeypatch, **pcfg_kw):
-    """Run one train step (m = COUNT_M, seq COUNT_SEQ) on the CPU path with
-    every kernel's plain version wrapped by its CUDA contract check and a
-    call counter; returns the counts (keyed as ``launches()``), the step's
-    metrics, the layers and the config."""
+def _count_train_calls(monkeypatch, arch_name=ARCH, seq=COUNT_SEQ,
+                       **pcfg_kw):
+    """Run one train step (m = COUNT_M, ``seq``) of ``arch_name``'s
+    smoke arch on the CPU path with every kernel's plain version wrapped by
+    its CUDA contract check and a call counter; returns the counts (keyed
+    as ``launches()``), the step's metrics, the layers and the config."""
     import dataclasses
 
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import rmsnorm as rn_mod
+    from repro_torch.kernels import wkv6 as wkv_mod
 
     calls = dict.fromkeys(("flash_attention", "flash_attention_bwd",
-                           "rmsnorm", "rmsnorm_bwd"), 0)
+                           "rmsnorm", "rmsnorm_bwd", "wkv6", "wkv6_bwd"), 0)
 
     def counted(name, check, plain):
         def fn(*args, **kw):
@@ -399,6 +446,11 @@ def _count_train_calls(monkeypatch, **pcfg_kw):
         rn_mod.check_inputs(x, scale)
         assert dy.shape == x.shape and dy.is_contiguous()
 
+    def wkv_bwd_check(r, k, v, w, u, s0, dout, dsT=None):
+        wkv_mod.check_inputs(r, k, v, w, u, s0)
+        assert dout.shape == v.shape and dout.dtype == v.dtype
+        assert dout.is_contiguous() and dsT is None
+
     for mod, name, key, check in (
             (fa_mod, "flash_attention_plain", "flash_attention",
              lambda q, k, v, **_: fa_mod.check_inputs(q, k, v)),
@@ -406,14 +458,18 @@ def _count_train_calls(monkeypatch, **pcfg_kw):
              attn_bwd_check),
             (rn_mod, "rmsnorm_plain", "rmsnorm",
              lambda x, s, eps=1e-6: rn_mod.check_inputs(x, s)),
-            (rn_mod, "rmsnorm_bwd_plain", "rmsnorm_bwd", norm_bwd_check)):
+            (rn_mod, "rmsnorm_bwd_plain", "rmsnorm_bwd", norm_bwd_check),
+            (wkv_mod, "wkv6_plain", "wkv6", wkv_mod.check_inputs),
+            (wkv_mod, "wkv6_bwd_plain", "wkv6_bwd", wkv_bwd_check)):
         monkeypatch.setattr(mod, name, counted(key, check,
                                                getattr(mod, name)))
-    arch = configs.smoke_arch(ARCH)
-    arch = dataclasses.replace(arch, attn=dataclasses.replace(
-        arch.attn, head_dim=64))
-    m, seq = COUNT_M, COUNT_SEQ
-    pcfg = configs.smoke_parallel(ARCH).with_(pipe=2, n_micro=m, **pcfg_kw)
+    arch = configs.smoke_arch(arch_name)
+    if arch.attn is not None:
+        arch = dataclasses.replace(arch, attn=dataclasses.replace(
+            arch.attn, head_dim=64))
+    m = COUNT_M
+    pcfg = configs.smoke_parallel(arch_name).with_(pipe=2, n_micro=m,
+                                                   **pcfg_kw)
     model = LMModel(arch, pcfg, dtype=torch.float32, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     ocfg = optim.OptimizerConfig()
@@ -426,13 +482,14 @@ def _count_train_calls(monkeypatch, **pcfg_kw):
     return calls, metrics, arch, pcfg
 
 
-@pytest.mark.parametrize("remat", ["full", "none"])
+@pytest.mark.parametrize("remat", ["full", "none", "dots", "dots_no_batch"])
 def test_train_kernel_contract_and_call_counts_on_cpu(monkeypatch, remat):
     """On the CPU path every call that reaches a kernel's plain version,
     forward or backward, meets the CUDA kernel's contract, and the calls of
     one train step follow chip_smoke.py's formulas: with L layers, m
     micro-batches and nc head-loss chunks, attention L m forwards (2 L m
-    with remat "full", which recomputes each stage) and L m backwards;
+    with remat "full", which recomputes each stage, and with the selective
+    policies, which recompute every kernel's output) and L m backwards;
     RMSNorm 2 L m (or 4 L m) + 2 nc forwards (the head's chunks are always
     recomputed) and 2 L m + nc backwards.  head_dim 64 so the attention
     contract holds; seq 1024 gives nc = 2."""
@@ -440,11 +497,11 @@ def test_train_kernel_contract_and_call_counts_on_cpu(monkeypatch, remat):
     L = arch.n_layers
     m, nc = COUNT_M, COUNT_SEQ // head_loss_chunk(COUNT_SEQ)
     assert nc == 2
-    recompute = 2 if remat == "full" else 1
+    recompute = 1 if remat == "none" else 2
     want = {"flash_attention": recompute * L * m,
             "flash_attention_bwd": L * m,
             "rmsnorm": recompute * 2 * L * m + 2 * nc,
-            "rmsnorm_bwd": 2 * L * m + nc}
+            "rmsnorm_bwd": 2 * L * m + nc, "wkv6": 0, "wkv6_bwd": 0}
     assert calls == want == expected_train_launches(pcfg, arch, COUNT_SEQ)
     assert np.isfinite(float(metrics["loss"]))
 
@@ -460,7 +517,7 @@ def test_remat_except_last_skips_one_recompute_per_stage(monkeypatch):
     m, nc = COUNT_M, COUNT_SEQ // head_loss_chunk(COUNT_SEQ)
     want = {"flash_attention": (2 * m - 1) * L, "flash_attention_bwd": L * m,
             "rmsnorm": (2 * m - 1) * 2 * L + 2 * nc,
-            "rmsnorm_bwd": 2 * L * m + nc}
+            "rmsnorm_bwd": 2 * L * m + nc, "wkv6": 0, "wkv6_bwd": 0}
     assert calls == want == expected_train_launches(pcfg, arch, COUNT_SEQ)
 
 
@@ -528,14 +585,6 @@ def _nccl_group():
                          backend="nccl")
 
 
-def _train_step(**kw):
-    arch = configs.smoke_arch(ARCH)
-    pcfg = configs.smoke_parallel(ARCH).with_(**kw)
-    steps.build_train_step(LMModel(arch, pcfg, dtype=torch.float32,
-                                   device="cpu"), pcfg, "cpu",
-                           ShapeConfig("t", 8, 4, "train"))
-
-
 def _train_cli(monkeypatch):
     import sys
     from repro_torch.launch import train
@@ -550,10 +599,6 @@ UNPORTED = {
     "pod2": (lambda mp: _pipe_call(pod=2), "A9"),
     # whisper's PARALLEL_OPTIMIZED folds four data replicas into dp2
     "dp2": (lambda mp: _pipe_call(dp2=4), "A9"),
-    "dots": (lambda mp: checkpointing.wrap_stage(lambda x: x, "dots"), "A14"),
-    "dots_reuse": (lambda mp: _train_step(schedule="zb", pipe=2,
-                                          residuals="reuse", remat="dots"),
-                   "A14"),
     "sharded_loader": (lambda mp: data.make_sharded_loader(), "A9"),
     "elastic_flags": (_train_cli, "A11"),
     # stages in their own processes: streamed gpipe (A4d), NCCL (A4c)
@@ -620,14 +665,18 @@ def test_forward_executor_takes_a_group(case):
                            devices="cpu", group=_a_group())
 
 
-# ROADMAP A5 and A7, which raised above until they were ported: each now
-# runs (held against the reference in tests/test_torch_transport.py)
+# ROADMAP A5, A7 and A14, which raised above until they were ported: each
+# now runs (A5 and A7 held against the reference in
+# tests/test_torch_transport.py, A14 bitwise against "full" and zb
+# recompute here and in tests/test_torch_fused.py)
 RETIRED = {
     "stream_inputs": dict(schedule="1f1b", stream_inputs=True),
     "wire_bf16": dict(wire="bf16"),
     "wire_int8_ef": dict(schedule="1f1b", wire="int8-ef"),
     "int8_ef": dict(grad_compression="int8_ef"),
     "ef_state": dict(schedule="1f1b", grad_compression="int8_ef"),
+    "dots": dict(remat="dots"),
+    "dots_reuse": dict(schedule="zb", residuals="reuse", remat="dots"),
 }
 
 
