@@ -13,10 +13,10 @@ line is printed):
             with ``nvcc`` for sm_90a, in parallel; per kernel function, the
             count of wgmma (HGMMA) and mma.sync (HMMA) instructions in the
             SASS: the bf16 attention forward, dQ and dK/dV kernels must hold
-            HGMMA (the backward ones no HMMA), the chunked WKV passes HMMA;
-            each kernel's registers and spills (no WKV or backward kernel,
-            the WKV-6 backward's four among them, may spill) and any wgmma
-            that ptxas serialised;
+            HGMMA (the backward ones no HMMA), the chunked WKV passes HMMA
+            (the backward's chunk pass too); each kernel's registers and
+            spills (no WKV or backward kernel, the WKV-6 backward's among
+            them, may spill) and any wgmma that ptxas serialised;
 3. kernels  each kernel against its plain PyTorch version on the card over
             a grid of shapes (RMSNorm, forward and backward, at the row
             counts both training paths give it; WKV in both its chunked and
@@ -37,11 +37,13 @@ line is printed):
             Functions' outputs carry a grad_fn, WKV-6's too); the WKV-6
             backward through its Function against autograd through the
             plain version, every gradient (dr, dk, dv, dw, du, ds0), H 32,
-            over T 1, 16, 64, 65, 100, 130 (both forward forms, masked
-            tails), decays that underflow to w = 0, a random s0, with and
-            without a cotangent on the final state, and at rwkv6's
-            training call [2,32,4096,64] bf16, then timed there beside its
-            bound and by kernel; then the attention and RMSNorm backwards
+            over T 1, 16, 64, 65, 100, 130, 256 (both forms, forward and
+            backward: bf16 with T >= 64 chunked, masked tails), decays
+            that underflow to w = 0, a random s0, with and without a
+            cotangent on the final state, and at rwkv6's training call
+            [2,32,4096,64] bf16, then timed there beside its bound and by
+            kernel, and run twice there (bitwise equal); then the
+            attention and RMSNorm backwards
             (RMSNorm also at rwkv6's [2,4096,2048])
             timed beside the bound and the PyTorch call that computes the
             same backward (SDPA's, F.rms_norm's: yardsticks only), with the
@@ -352,13 +354,16 @@ def sass_by_function(build, lib: str):
 # Kernel functions (a substring of the mangled name) and the tensor-core
 # instructions each must hold: the bf16 attention kernels run on wgmma
 # (HGMMA) and none on mma.sync (HMMA); the chunked WKV form's update and
-# output passes on mma.sync.
+# output passes on mma.sync, and the chunked backward's update and chunk
+# passes.
 SASS_GATES = {
     "flash_fwd_wgmma_kernel": {"HGMMA": True},
     "flash_bwd_dkdv_wgmma_kernel": {"HGMMA": True, "HMMA": False},
     "flash_bwd_dq_wgmma_kernel": {"HGMMA": True, "HMMA": False},
     "wkv6_update_kernel": {"HMMA": True},
     "wkv6_out_kernel": {"HMMA": True},
+    "wkv6_bwd_update_kernel": {"HMMA": True},
+    "wkv6_bwd_chunk_kernel": {"HMMA": True},
 }
 BWD_KERNELS = ("flash_bwd_", "rmsnorm_bwd_kernel", "rmsnorm_dscale_kernel")
 
@@ -812,9 +817,9 @@ def phase_backward(torch):
     # -- WKV-6 backward: every gradient against autograd through the plain
     #    version on the card, H 32, from a random s0 with a random cotangent
     #    on the final state (and without one: the model's case); bf16 with
-    #    T >= 64 runs the chunked forward, fp32 and T < 64 the serial one;
-    #    65 / 100 / 130 leave a masked tail, "extreme" decays underflow to
-    #    w = 0 -----------------------------------------------------------------
+    #    T >= 64 runs the chunked forms, forward and backward, fp32 and
+    #    T < 64 the serial ones; 65 / 100 / 130 leave a masked tail, 256
+    #    spans four chunks, "extreme" decays underflow to w = 0 ------------
     def wkv_case(B, T, dt, decay="normal"):
         r, k, v = (randn(B, 32, T, 64, dtype=dt) * 0.5 for _ in range(3))
         w = torch.exp(-torch.exp(randn(B, 32, T, 64, dtype=torch.float32)
@@ -845,17 +850,19 @@ def phase_backward(torch):
                for n, g, w_ in zip(("dr", "dk", "dv", "dw", "du", "ds0"),
                                    got, want)}
         ok = all(r_[0] for r_ in res.values())
+        form = ("chunked" if uses_chunked_form(args[0].dtype,
+                                               args[0].shape[2])
+                else "serial")
         emit({"check": "wkv6_bwd", **rec, "dtype": dname,
               "w_dtype": "float32", "ds_T": ds is not None,
-              "forward_form": ("chunked" if uses_chunked_form(
-                  args[0].dtype, args[0].shape[2]) else "serial"),
+              "forward_form": form, "backward_form": form,
               "max_abs_err": {n: r_[1] for n, r_ in res.items()},
               "max_abs_ref": {n: r_[2] for n, r_ in res.items()}, "ok": ok})
         if not ok:
             raise AssertionError(f"wkv6 backward disagrees: {res}")
         return t0.elapsed_time(t1), max(r_[1] for r_ in res.values())
 
-    for T in (1, 16, 64, 65, 100, 130):
+    for T in (1, 16, 64, 65, 100, 130, 256):
         for decay in ("normal", "extreme"):
             for dname, dt in dtypes.items():
                 args, do = wkv_case(2, T, dt, decay)
@@ -863,7 +870,7 @@ def phase_backward(torch):
                 wkv_check(args, do, ds, dname, B=2, H=32, T=T, decay=decay)
                 wkv_check(args, do, None, dname, B=2, H=32, T=T, decay=decay)
     # the training call: micro-batch 2 of seq 4096, bf16, w fp32 (the plain
-    # version's one call is its timing)
+    # version's one call is its timing); the chunked backward
     B, H, T, n = 2, 32, 4096, 64
     args, do = wkv_case(B, T, torch.bfloat16)
     wkv_plain_ms, err = wkv_check(args, do, None, "bfloat16", B=B, H=H, T=T,
@@ -899,8 +906,19 @@ def phase_backward(torch):
         "per_kernel_us": kernel_us(torch, lambda: wkv6_bwd(*args, do), 5),
     }
     wkv_rec = with_rates(wkv_rec, wkv_tc_flops)
+    # no atomics: two calls on the same inputs give the same bits
+    first = wkv6_bwd(*args, do)
+    again = wkv6_bwd(*args, do)
+    same = [bool(torch.equal(a, b)) for a, b in zip(first, again)]
+    wkv_rec["bitwise_run_to_run"] = all(same)
     emit({"phase": "kernel_timing", **wkv_rec})
-    del args, do
+    emit({"check": "wkv6_bwd_bitwise", "shape": [B, H, T, n],
+          "dtype": "bfloat16", "backward_form": "chunked",
+          "equal": dict(zip(("dr", "dk", "dv", "dw", "du", "ds0"), same)),
+          "ok": all(same)})
+    if not all(same):
+        raise AssertionError(f"wkv6 backward differs between calls: {same}")
+    del args, do, first, again
 
     # -- timing: attention at q [1,15,S,64] causal (S 2048, 4096; bf16 and
     #    fp32) and at the training path's [2,15,4096,64] bf16; RMSNorm at

@@ -159,8 +159,9 @@ __device__ __forceinline__ void load8(const bf16* p, float (&x)[8]) {
 // Copy ROWS rows of COLS values, starting at step `row0` of a [T_len, kN]
 // tensor (row0 may be negative; row stride kN in global, `stride` in shared
 // memory), asynchronously with NT threads, zero-filling the rows outside
-// [0, T_len).  The shape is compiled in, so each thread's copies unroll.
-template <int ROWS, int COLS, int NT = kThreads, typename E>
+// [0, T_len).  kRev stages steps row0, row0 - 1, ... (time reversed).  The
+// shape is compiled in, so each thread's copies unroll.
+template <int ROWS, int COLS, int NT = kThreads, bool kRev = false, typename E>
 __device__ __forceinline__ void stage_rows(E* dst, int stride, const E* src, int row0, int T_len) {
   constexpr int kPerRow = COLS * sizeof(E) / 16;
   constexpr int kCopies = ROWS * kPerRow;
@@ -169,7 +170,7 @@ __device__ __forceinline__ void stage_rows(E* dst, int stride, const E* src, int
     const int i = threadIdx.x + m * NT;
     if (kCopies % NT == 0 || i < kCopies) {
       const int row = i / kPerRow, col = (i % kPerRow) * (16 / sizeof(E));
-      const int t = row0 + row;
+      const int t = kRev ? row0 - row : row0 + row;
       const bool ok = t >= 0 && t < T_len;
       cp_async16(dst + row * stride + col, src + (ok ? (size_t)t * kN + col : 0), ok);
     }
@@ -280,6 +281,15 @@ constexpr int kPad = 72;      // bf16 row stride of staged 64-wide tiles (144 B)
 constexpr int kPadF = 68;     // fp32 row stride (272 B)
 constexpr int kSubs = kChunk / kSub;
 
+// The passes below run forwards in time, or with kRev backwards (the WKV
+// backward, section 3): a chunk's steps are then staged last first, so
+// staged row l is step 63 - l of the chunk, and the steps past T (the last
+// chunk's tail) are its first rows.  Whether staged row t is a step before T:
+template <bool kRev>
+__device__ __forceinline__ bool live(int t, int valid) {
+  return kRev ? t >= kChunk - valid : t < valid;
+}
+
 __device__ __forceinline__ float2 unpack(uint32_t x) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
 }
@@ -288,6 +298,41 @@ __device__ __forceinline__ float2 bf2(const bf16* p) {
 }
 __device__ __forceinline__ float2 f2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
+}
+
+// acc += op^T tile over the steps 16 s .. 16 s + 15, for the state rows
+// row0 .. row0 + 15 and columns col0 .. col0 + 8 NJ - 1 (acc in mma
+// layout): op a [channel][step] operand as bf16 hi and lo planes, tile a
+// [step][column] tile exact in bf16.  Every state update of the chunked
+// forms is this product.
+template <int NJ>
+__device__ __forceinline__ void state_mma(float (&acc)[NJ][4], const bf16* oph, const bf16* opl,
+                                          const bf16* tile, int s, int row0, int col0,
+                                          int lane) {
+  uint32_t ah[4], al[4];
+  ldsm(ah, frag_row(oph, kPad, row0, 16 * s, lane));
+  ldsm(al, frag_row(opl, kPad, row0, 16 * s, lane));
+#pragma unroll
+  for (int jp = 0; jp < NJ / 2; ++jp) {
+    uint32_t b[4];
+    ldsm_t(b, frag_row(tile, kPad, 16 * s, col0 + 16 * jp, lane));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mma(acc[2 * jp + h], ah, b[2 * h], b[2 * h + 1]);
+      mma(acc[2 * jp + h], al, b[2 * h], b[2 * h + 1]);
+    }
+  }
+}
+
+// Rows row0 .. row0 + 15 of a [64, 64] fp32 state from mma layout.
+__device__ __forceinline__ void store_state(const float (&acc)[8][4], float* dst, int row0,
+                                            int lane) {
+  float* p = dst + (size_t)(row0 + (lane >> 2)) * kN + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    *reinterpret_cast<float2*>(p + 8 * j) = make_float2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<float2*>(p + 8 * j + 8 * kN) = make_float2(acc[j][2], acc[j][3]);
+  }
 }
 
 // -- 1a. Chunk update, one block a (bh, chunk), all in parallel: what the
@@ -352,73 +397,72 @@ wkv6_update_kernel(const bf16* __restrict__ k, const bf16* __restrict__ v,
   __syncthreads();
   // U = k~^T v: warp w the channels 16 w .. + 15, all 64 columns
   const int lane = tid & 31, rows = 16 * (tid >> 5);
-  const int g = lane >> 2, c4 = lane & 3;
   float d[8][4] = {};
 #pragma unroll
-  for (int s = 0; s < kChunk / 16; ++s) {
-    uint32_t ah[4], al[4];
-    ldsm(ah, frag_row(&sm.kt[0][0][0], kPad, rows, 16 * s, lane));
-    ldsm(al, frag_row(&sm.kt[1][0][0], kPad, rows, 16 * s, lane));
-#pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {
-      uint32_t bv[4];
-      ldsm_t(bv, frag_row(&sm.v[0][0], kPad, 16 * s, 16 * jp, lane));
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mma(d[2 * jp + h], ah, bv[2 * h], bv[2 * h + 1]);
-        mma(d[2 * jp + h], al, bv[2 * h], bv[2 * h + 1]);
-      }
-    }
-  }
-  float* p = upd + chunk * kN * kN + (size_t)(rows + g) * kN + 2 * c4;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    *reinterpret_cast<float2*>(p + 8 * j) = make_float2(d[j][0], d[j][1]);
-    *reinterpret_cast<float2*>(p + 8 * j + 8 * kN) = make_float2(d[j][2], d[j][3]);
-  }
+  for (int s = 0; s < kChunk / 16; ++s)
+    state_mma(d, &sm.kt[0][0][0], &sm.kt[1][0][0], &sm.v[0][0], s, rows, 0, lane);
+  store_state(d, upd + chunk * kN * kN, rows, lane);
 }
 
 // -- 1b. State scan, elementwise: S_in[c] = S, S <- 2^{G_c} ⊙ S + U_c, serial
 //    over the chunks but with no dependence between state elements: each
 //    thread owns 4 of one head's 4096 and streams U and 2^G ahead of use
 //    (kScanAhead chunks of loads in flight), so the pass runs at the rate at
-//    which it can read U and write S_in.
+//    which it can read U and write S_in.  kRev runs the chunks last to
+//    first; a null s0 starts from zero, a null sT is not written; s_in may
+//    be upd (each thread reads a chunk's U before it writes its S_in).
 
 constexpr int kScanThreads = 256;
 constexpr int kScanAhead = 8;
 
+template <bool kRev = false, bool kBwd = false>
 __global__ void __launch_bounds__(kScanThreads)
-wkv6_scan_kernel(const float* __restrict__ upd, const float* __restrict__ decay,
-                 const float* __restrict__ s0, float* __restrict__ s_in,
-                 float* __restrict__ sT, int n_chunks) {
+wkv6_scan_kernel(const float* upd, const float* __restrict__ decay,
+                 const float* __restrict__ s0, float* s_in, float* __restrict__ sT,
+                 int n_chunks) {
   const int bh = blockIdx.x;
   const int idx = blockIdx.y * kScanThreads + threadIdx.x;   // float4 of the head's state
   const int row = idx >> 4;                                 // 16 float4 a row of 64
   const size_t head = (size_t)bh * n_chunks;
-  float4 S = reinterpret_cast<const float4*>(s0 + (size_t)bh * kN * kN)[idx];
-  for (int c0 = 0; c0 < n_chunks; c0 += kScanAhead) {
-    float4 u4[kScanAhead];
-    float dec[kScanAhead];
+  auto at = [&](int c) { return head + (kRev ? n_chunks - 1 - c : c); };
+  float4 S = s0 ? reinterpret_cast<const float4*>(s0 + (size_t)bh * kN * kN)[idx]
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 u4[kScanAhead];
+  float dec[kScanAhead];
+  auto fetch = [&](int c0) {
 #pragma unroll
     for (int a = 0; a < kScanAhead; ++a) {
       if (c0 + a < n_chunks) {
-        const size_t chunk = head + c0 + a;
+        const size_t chunk = at(c0 + a);
         u4[a] = reinterpret_cast<const float4*>(upd + chunk * kN * kN)[idx];
         dec[a] = decay[chunk * kN + row];
       }
     }
+  };
+  fetch(0);
+  for (int c0 = 0; c0 < n_chunks; c0 += kScanAhead) {
+    // this batch out of u4, the next one's loads issued before its stores
+    // (in place, they read other chunks)
+    float4 cu[kScanAhead];
+    float cd[kScanAhead];
+#pragma unroll
+    for (int a = 0; a < kScanAhead; ++a) {
+      cu[a] = u4[a];
+      cd[a] = dec[a];
+    }
+    fetch(c0 + kScanAhead);
 #pragma unroll
     for (int a = 0; a < kScanAhead; ++a) {
       if (c0 + a < n_chunks) {
-        reinterpret_cast<float4*>(s_in + (head + c0 + a) * kN * kN)[idx] = S;
-        S.x = fmaf(dec[a], S.x, u4[a].x);
-        S.y = fmaf(dec[a], S.y, u4[a].y);
-        S.z = fmaf(dec[a], S.z, u4[a].z);
-        S.w = fmaf(dec[a], S.w, u4[a].w);
+        reinterpret_cast<float4*>(s_in + at(c0 + a) * kN * kN)[idx] = S;
+        S.x = fmaf(cd[a], S.x, cu[a].x);
+        S.y = fmaf(cd[a], S.y, cu[a].y);
+        S.z = fmaf(cd[a], S.z, cu[a].z);
+        S.w = fmaf(cd[a], S.w, cu[a].w);
       }
     }
   }
-  reinterpret_cast<float4*>(sT + (size_t)bh * kN * kN)[idx] = S;
+  if (sT != nullptr) reinterpret_cast<float4*>(sT + (size_t)bh * kN * kN)[idx] = S;
 }
 
 // -- 1c. Output, one block a (bh, chunk), warp p the 16 rows of sub-chunk p.
@@ -436,7 +480,7 @@ struct OutSmem {
 
 // The 16 rows of sub-chunk P: out[t][0..63] for t = 16 P + g and
 // 16 P + g + 8 (g = lane / 4), accumulated in mma layout.
-template <int P>
+template <int P, bool kRev>
 __device__ __forceinline__ void out_rows(const OutSmem& sm, bf16* __restrict__ out, int valid,
                                          int lane) {
   const int g = lane >> 2, c4 = lane & 3;
@@ -580,19 +624,20 @@ __device__ __forceinline__ void out_rows(const OutSmem& sm, bf16* __restrict__ o
       }
     }
   }
+  const int o0 = kRev ? kChunk - 1 - r0 : r0, o1 = kRev ? kChunk - 1 - r1 : r1;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int col = 8 * j + 2 * c4;
-    if (r0 < valid)
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r0 * kN + col) =
+    if (live<kRev>(r0, valid))
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)o0 * kN + col) =
           __floats2bfloat162_rn(acc[j][0], acc[j][1]);
-    if (r1 < valid)
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r1 * kN + col) =
+    if (live<kRev>(r1, valid))
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)o1 * kN + col) =
           __floats2bfloat162_rn(acc[j][2], acc[j][3]);
   }
 }
 
-template <typename TW>
+template <typename TW, bool kRev = false>
 __global__ void __launch_bounds__(kThreads, 2)
 wkv6_out_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const TW* __restrict__ w,
@@ -615,11 +660,13 @@ wkv6_out_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
   // w first (its own group: the scan starts when it lands), raw into cp
   constexpr int kWStride = kPadF * sizeof(float) / sizeof(TW);
   const TW* wr = reinterpret_cast<const TW*>(&sm.cp[0][0]);
-  stage_rows<kChunk, kN>(reinterpret_cast<TW*>(&sm.cp[0][0]), kWStride, w + base, 0, valid);
+  const int row0 = kRev ? kChunk - 1 : 0;
+  stage_rows<kChunk, kN, kThreads, kRev>(reinterpret_cast<TW*>(&sm.cp[0][0]), kWStride,
+                                         w + base, row0, valid);
   cp_async_commit();
-  stage_rows<kChunk, kN>(&sm.r[0][0], kPad, r + base, 0, valid);
-  stage_rows<kChunk, kN>(&sm.k[0][0], kPad, k + base, 0, valid);
-  stage_rows<kChunk, kN>(&sm.v[0][0], kPad, v + base, 0, valid);
+  stage_rows<kChunk, kN, kThreads, kRev>(&sm.r[0][0], kPad, r + base, row0, valid);
+  stage_rows<kChunk, kN, kThreads, kRev>(&sm.k[0][0], kPad, k + base, row0, valid);
+  stage_rows<kChunk, kN, kThreads, kRev>(&sm.v[0][0], kPad, v + base, row0, valid);
   cp_async_commit();
   if (tid < kN) sm.u[tid] = u[(bh % H) * kN + tid];
   cp_async_wait<1>();
@@ -635,7 +682,7 @@ wkv6_out_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
       for (int i = 0; i < kSub; ++i) {
         const int t = kSub * ((tid >> 6) + 2 * rep) + i;
         const float wt = to_f32(wr[t * kWStride + ch]);
-        lw[rep][i] = t < valid ? __log2f(fmaxf(wt, kMinW)) : 0.f;
+        lw[rep][i] = live<kRev>(t, valid) ? __log2f(fmaxf(wt, kMinW)) : 0.f;
       }
     __syncthreads();
 #pragma unroll
@@ -673,10 +720,10 @@ wkv6_out_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
   __syncthreads();
   bf16* o = out + base;
   switch (tid >> 5) {                      // warp p: sub-chunk p
-    case 0: out_rows<0>(sm, o, valid, lane); break;
-    case 1: out_rows<1>(sm, o, valid, lane); break;
-    case 2: out_rows<2>(sm, o, valid, lane); break;
-    default: out_rows<3>(sm, o, valid, lane); break;
+    case 0: out_rows<0, kRev>(sm, o, valid, lane); break;
+    case 1: out_rows<1, kRev>(sm, o, valid, lane); break;
+    case 2: out_rows<2, kRev>(sm, o, valid, lane); break;
+    default: out_rows<3, kRev>(sm, o, valid, lane); break;
   }
 }
 
@@ -703,7 +750,7 @@ cudaError_t launch_chunked(const void* r, const void* k, const void* v, const vo
   ku<<<chunks, kThreads, su, stream>>>(kb, vb, wt, upd, decay, T_len, n_chunks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  wkv6_scan_kernel<<<dim3(B * H, kN * kN / 4 / kScanThreads), kScanThreads, 0, stream>>>(
+  wkv6_scan_kernel<><<<dim3(B * H, kN * kN / 4 / kScanThreads), kScanThreads, 0, stream>>>(
       upd, decay, s0, s_in, sT, n_chunks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -718,7 +765,7 @@ cudaError_t launch_chunked(const void* r, const void* k, const void* v, const vo
 
 
 // ---------------------------------------------------------------------------
-// 3. Backward (wkv6_bwd): four launches, fp32 math on the CUDA cores
+// 3. Backward (wkv6_bwd)
 // ---------------------------------------------------------------------------
 //
 // With G_t = dL/dS_t (G_T = dS_T) and S_t the state before step t:
@@ -729,31 +776,85 @@ cudaError_t launch_chunked(const void* r, const void* k, const void* v, const vo
 //   dv_t = G_{t+1}^T k_t + (r_t · (u ⊙ k_t)) dout_t  (column sums over K)
 //   G_t  = diag(w_t) G_{t+1} + r_t ⊗ dout_t,           ds0 = G_0
 //
-// S_t is never got back by dividing by w (it underflows to 0): a forward
-// pass keeps S at every 64th step and the rows pass recomputes forward
-// within each chunk.  Rows of S and G evolve independently (the decay is per
-// row), and so do their columns, so each sum has a pass laid out for it:
+// The G recurrence is the forward one run backwards in time on (r', k', v')
+// = (k, r, dout) from S'_0 = dS_T: its output is dv, its final state ds0.
+// S_t is never got back by dividing by w (w = exp(-exp(x)) underflows to
+// 0), so neither form uses the identity w_t dw_t = ... of other chunked
+// backwards.  Two forms, picked by the wrapper as the forward's are
+// (kernels/wkv6.py::uses_chunked_form, passed in as `chunked`):
 //
-// (a) wkv6_ckpt_kernel, grid (B·H, 4), elementwise: S_{64 c} for every chunk
-//     c into a scratch (S_0 = s0), 4 state elements a thread, 64 steps of k,
-//     w and v staged in shared memory at a time.
-// (b) wkv6_serial_kernel<kRev = true>: the G recurrence is the forward one
-//     run backwards in time on (r', k', v') = (k, r, dout) from S'_0 = dS_T:
-//     its output is dv and its final state ds0.
-// (c) wkv6_bwd_rows_kernel, grid (B·H, 4 blocks of 16 rows), 256 threads:
-//     16 threads a row, 4 columns each.  Chunks run last to first: stage the
-//     chunk's inputs, run forward from the chunk's checkpoint (dr, and S at
-//     every 16th step into shared memory), then backwards by sub-chunks of
-//     16 steps: recompute the sub-chunk's 16 states into registers and step
-//     G back through them (dk, dw, du).  A row's sums over its 16 threads are
-//     warp shuffles within a half-warp; the chunk's dr, dk, dw leave through
-//     shared memory, 16 rows at a time.
-// (d) wkv6_du_kernel: du summed over the batch, in order (deterministic).
+// 3a. bf16 r/k/v with T >= 64 (the training call): the chunked form, six
+//     launches, products on mma.sync tensor cores, the longest serial chain
+//     64 steps (a chunk's scan) instead of T:
+//   (1) wkv6_bwd_update_kernel, one block a (bh, chunk), all in parallel:
+//       what each chunk adds to the state, U_c = (k ⊙ 2^D)^T v (D the sum
+//       of lw after each step in the chunk), and to G going backwards,
+//       W_c = (r ⊙ 2^P)^T dout (P the sum of lw before each step), and the
+//       chunk's decay 2^{G_c}: the forward's update (1a) for both at once.
+//   (2) S_in, the state entering every chunk: the forward's scan (1b) from
+//       s0, written over U in place.
+//   (3) G_out, dL/dS leaving every chunk, and ds0: the same scan last chunk
+//       first from dS_T (or 0), G_in = 2^{G_c} ⊙ G_out + W_c, over W.
+//   (4) dv: the forward's output pass (1c) backwards in time on (k, r,
+//       dout) from each chunk's G_out.
+//   (5) wkv6_bwd_chunk_kernel, one block a (bh, chunk), all in parallel:
+//       dr, dk, dw and a du partial from S_in and G_out (below).
+//   (6) wkv6_du_kernel: du summed over the chunks and the batch, in order.
+//   No atomics: two calls give the same bits.  Launches (2)-(4) are the
+//   forward's kernels with a template flag true (kBwd or kRev), so a
+//   profile files their time under the backward.
+//
+//   The chunk pass cuts the chunk into four sub-chunks p of 16 steps and
+//   works with products of w over them, formed by running products (no
+//   log, no exp, no division, and w = 0 gives exact zeros as in the
+//   sequential reference): x_t over the steps of p before t, y_t over those
+//   after t, g_p over all 16, D[t,i] over the steps strictly between i and
+//   t.  The states at p's edges, S_p entering it and Γ_p leaving it, follow
+//   from S_in and G_out by S_{p+1} = g_p ⊙ S_p + (k ⊙ y)_p^T v_p and
+//   Γ_{p-1} = g_p ⊙ Γ_p + (r ⊙ x)_p^T dout_p (mma, the fp32 operand as
+//   bf16 hi + lo).  Then, with Z_t = S_p dout_t, X_t = Γ_p v_t (mma, the
+//   state as hi + lo B operands straight from its accumulators),
+//   A[t,i] = dout_t · v_i (mma, exact) and c_p = rowsum(S_p ⊙ Γ_p):
+//     dr_t = x_t Z_t + sum_{i<t} A[t,i] D[t,i] k_i + u k_t A[t,t]
+//     dk_t = y_t X_t + sum_{j>t} A[j,t] D[j,t] r_j + u r_t A[t,t]
+//     dw_t = x_t y_t c_p + y_t sum_{i<t} D[t,i] k_i X_i
+//            + x_t sum_{j>t} D[j,t] r_j Z_j + sum_{i<t<j} D[t,i] D[j,t] k_i r_j A[j,i]
+//   (i, j within p), which is rowsum(G_{t+1} ⊙ S_t) with
+//   S_t = x_t S_p + sum_{i<t} D[t,i] k_i v_i^T and
+//   G_{t+1} = y_t Γ_p + sum_{j>t} D[j,t] r_j dout_j^T expanded.  Warp
+//   (rows 16 rg, sub-chunks 2 h and 2 h + 1) steps S_in forward and G_out
+//   back to its sub-chunks' edges and forms Z, X and c there (four or six
+//   chain steps a warp); then thread (p, channel) walks its 16 steps in fp32
+//   registers and writes dr, dk, dw: the sums over i < t are recurrences
+//   in t (M[j] = sum_{i<t} D[t,i] k_i A[j,i] <- w_t M[j] + k_t A[j,t], of
+//   which dr_t takes M[t] and the triple sum sum_{j>t} D[j,t] r_j M[j]),
+//   those over j > t run over the products D[j,t] r_j formed afresh.  The scratch
+//   holds U then S_in, W then G_out, 2^G and the du partials: 2 * 64 * 64 +
+//   2 * 64 floats a chunk (B·H·ceil(T/64) chunks; 135 MB at the training
+//   call).
+//   ref.wkv6_subchunked_bwd mirrors this arithmetic in plain torch.
+//
+// 3b. fp32, or T < 64: the serial form, four launches, fp32 math on the CUDA
+//     cores (TF32 would break the fp32 tolerance of 1e-3).  Rows of S and G
+//     evolve independently (the decay is per row), and so do their columns,
+//     so each sum has a pass laid out for it:
+//   (a) wkv6_ckpt_kernel, grid (B·H, 4), elementwise: S_{64 c} for every
+//       chunk c into a scratch (S_0 = s0), 4 state elements a thread, 64
+//       steps of k, w and v staged in shared memory at a time.
+//   (b) wkv6_serial_kernel<kRev = true> on (k, r, dout) from dS_T: dv, ds0.
+//   (c) wkv6_bwd_rows_kernel, grid (B·H, 4 blocks of 16 rows), 256 threads:
+//       16 threads a row, 4 columns each.  Chunks run last to first: stage
+//       the chunk's inputs, run forward from the chunk's checkpoint (dr, and
+//       S at every 16th step into shared memory), then backwards by
+//       sub-chunks of 16 steps: recompute the sub-chunk's 16 states into
+//       registers and step G back through them (dk, dw, du).  A row's sums
+//       over its 16 threads are warp shuffles within a half-warp.
+//   (d) wkv6_du_kernel: du summed over the batch, in order.
 //
 // Bound at the training call (B 2, H 32, T 4096, bf16 r/k/v/dout/dr/dk/dv,
-// fp32 w/dw): the bytes named in kernels/wkv6.py::wkv6_bwd_cuda.  The
-// scratch adds B·H·ceil(T/64)·64·64 fp32 of checkpoints (64 MB there),
-// written once and read once.
+// fp32 w/dw): 372 MB to move, 111 us at 3.35 TB/s; the chunked form's
+// products are ten 64 x 64 x 64 a chunk, 21.7 us of bf16 tensor-core time,
+// so it is bound by bytes.  Its scratch is written and read on top of that.
 
 constexpr int kBwdRows = 16;      // state rows a block of the rows pass owns
 constexpr int kBwdSub = 16;       // steps a sub-chunk of the rows pass
@@ -934,17 +1035,33 @@ wkv6_bwd_rows_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* 
   if ((tid & 15) == 0) du_part[(size_t)bh * kN + K] = du;
 }
 
+// du[h] = the sum of each (b, h)'s n_parts partials over b and the parts:
+// block h, thread (q, channel) sums every fourth part of each b in order,
+// then the four sums are added in order (deterministic: no atomics).
 __global__ void __launch_bounds__(kBwdThreads)
-wkv6_du_kernel(const float* __restrict__ du_part, float* __restrict__ du, int B, int H) {
-  const int i = blockIdx.x * kBwdThreads + threadIdx.x;      // h * 64 + channel
-  if (i >= H * kN) return;
+wkv6_du_kernel(const float* __restrict__ du_part, float* __restrict__ du, int B, int H,
+               int n_parts) {
+  __shared__ float part[kBwdThreads / kN][kN];
+  const int h = blockIdx.x, ch = threadIdx.x % kN, q = threadIdx.x / kN;
+  constexpr int kQ = kBwdThreads / kN;
   float x = 0.f;
-  for (int b = 0; b < B; ++b) x += du_part[(size_t)b * H * kN + i];
-  du[i] = x;
+  for (int b = 0; b < B; ++b) {
+    const float* src = du_part + ((size_t)b * H + h) * n_parts * kN + ch;
+#pragma unroll 4
+    for (int c = q; c < n_parts; c += kQ) x += src[(size_t)c * kN];
+  }
+  part[q][ch] = x;
+  __syncthreads();
+  if (q == 0) {
+    float y = part[0][ch];
+#pragma unroll
+    for (int j = 1; j < kQ; ++j) y += part[j][ch];
+    du[h * kN + ch] = y;
+  }
 }
 
 template <typename T, typename TW>
-cudaError_t launch_bwd(const void* r, const void* k, const void* v, const void* w,
+cudaError_t launch_bwd_serial(const void* r, const void* k, const void* v, const void* w,
                        const float* u, const float* s0, const void* dout, const float* dsT,
                        void* dr, void* dk, void* dv, void* dw, float* du, float* ds0,
                        float* scratch, int B, int H, int T_len, cudaStream_t stream) {
@@ -972,8 +1089,438 @@ cudaError_t launch_bwd(const void* r, const void* k, const void* v, const void* 
                                         static_cast<TW*>(dw), du_part, H, T_len, n_chunks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  wkv6_du_kernel<<<(H * kN + kBwdThreads - 1) / kBwdThreads, kBwdThreads, 0, stream>>>(
-      du_part, du, B, H);
+  wkv6_du_kernel<<<H, kBwdThreads, 0, stream>>>(du_part, du, B, H, 1);
+  return cudaGetLastError();
+}
+
+// -- 3a (1). Both chunk updates, one block a (bh, chunk), 8 warps: what the
+//    chunk adds to the state, U = k~^T v with k~_t = k_t 2^{D_t} (D_t the
+//    sum of lw after step t in the chunk), and to G going backwards,
+//    W = r~^T dout with r~_t = r_t 2^{P_t} (P_t the sum of lw before t),
+//    and the chunk's decay 2^G.  Thread (quarter, channel) takes 16 steps;
+//    D_t and P_t are direct sums (the quarters' totals before or after its
+//    own, then a running sum), never a difference of large sums.  Warps 0-3
+//    form U, 4-7 W (16 state rows a warp, the fp32 operand as hi + lo).
+
+constexpr int kCbThreads = 256;
+
+template <typename TW>
+struct BwdUpdateSmem {
+  bf16 k[kChunk][kN];
+  bf16 r[kChunk][kN];
+  TW w[kChunk][kN];
+  bf16 v[kChunk][kPad];
+  bf16 d[kChunk][kPad];           // dout
+  bf16 kt[2][kN][kPad];           // k~ hi, lo: [channel][step]
+  bf16 rt[2][kN][kPad];           // r~
+  float tot[kSubs][kN];           // sum of lw over each quarter
+};
+
+template <typename TW>
+__global__ void __launch_bounds__(kCbThreads, 2)
+wkv6_bwd_update_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                       const TW* __restrict__ w, float* __restrict__ upd_s,
+                       float* __restrict__ upd_g, float* __restrict__ decay, int T_len,
+                       int n_chunks) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BwdUpdateSmem<TW>& sm = *reinterpret_cast<BwdUpdateSmem<TW>*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x, ci = blockIdx.y;
+  const int valid = min(kChunk, T_len - ci * kChunk);
+  const size_t base = ((size_t)bh * T_len + (size_t)ci * kChunk) * kN;
+  const size_t chunk = (size_t)bh * n_chunks + ci;
+  stage_rows<kChunk, kN, kCbThreads>(&sm.k[0][0], kN, k + base, 0, valid);
+  stage_rows<kChunk, kN, kCbThreads>(&sm.r[0][0], kN, r + base, 0, valid);
+  stage_rows<kChunk, kN, kCbThreads>(&sm.w[0][0], kN, w + base, 0, valid);
+  cp_async_commit();
+  stage_rows<kChunk, kN, kCbThreads>(&sm.v[0][0], kPad, v + base, 0, valid);
+  stage_rows<kChunk, kN, kCbThreads>(&sm.d[0][0], kPad, dout + base, 0, valid);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  const int ch = tid & (kN - 1), qt = tid >> 6;      // steps 16 qt ..
+  float lw[kSub], tot = 0.f;
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) {
+    const int t = kSub * qt + i;
+    lw[i] = t < valid ? log2w(to_f32(sm.w[t][ch])) : 0.f;
+    tot += lw[i];
+  }
+  sm.tot[qt][ch] = tot;
+  __syncthreads();
+  float pre = 0.f, suf = 0.f;
+#pragma unroll
+  for (int q = 0; q < kSubs; ++q) {
+    const float x = sm.tot[q][ch];
+    if (q < qt) pre += x;
+    if (q > qt) suf += x;
+  }
+  if (qt == 0)
+    decay[chunk * kN + ch] =
+        exp2f(((sm.tot[0][ch] + sm.tot[1][ch]) + sm.tot[2][ch]) + sm.tot[3][ch]);
+  float xk[kSub], xr[kSub];
+#pragma unroll
+  for (int i = kSub - 1; i >= 0; --i) {
+    xk[i] = __bfloat162float(sm.k[kSub * qt + i][ch]) * exp2f(suf);
+    suf += lw[i];
+  }
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) {
+    xr[i] = __bfloat162float(sm.r[kSub * qt + i][ch]) * exp2f(pre);
+    pre += lw[i];
+  }
+#pragma unroll
+  for (int i = 0; i < kSub; i += 2) {
+    const int t = kSub * qt + i;
+    uint32_t hi, lo;
+    split(xk[i], xk[i + 1], hi, lo);
+    *reinterpret_cast<uint32_t*>(&sm.kt[0][ch][t]) = hi;
+    *reinterpret_cast<uint32_t*>(&sm.kt[1][ch][t]) = lo;
+    split(xr[i], xr[i + 1], hi, lo);
+    *reinterpret_cast<uint32_t*>(&sm.rt[0][ch][t]) = hi;
+    *reinterpret_cast<uint32_t*>(&sm.rt[1][ch][t]) = lo;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  const int lane = tid & 31, wp = tid >> 5, rows = kSub * (wp & 3);
+  const bool su = wp < 4;
+  float acc[8][4] = {};
+#pragma unroll
+  for (int s = 0; s < kChunk / 16; ++s)
+    state_mma(acc, su ? &sm.kt[0][0][0] : &sm.rt[0][0][0],
+              su ? &sm.kt[1][0][0] : &sm.rt[1][0][0], su ? &sm.v[0][0] : &sm.d[0][0], s, rows,
+              0, lane);
+  store_state(acc, (su ? upd_s : upd_g) + chunk * kN * kN, rows, lane);
+}
+
+// -- 3a (5). The chunk pass: one block a (bh, chunk), 8 warps.
+
+struct ChunkBwdSmem {
+  bf16 v[kChunk][kPad];
+  bf16 d[kChunk][kPad];           // dout
+  bf16 ky[2][kN][kPad];           // (k ⊙ y)^T as bf16 hi, lo: [channel][step]
+  bf16 rx[2][kN][kPad];           // (r ⊙ x)^T
+  // Z_t = S_p dout_t and X_t = Γ_p v_t, [step][channel]; before them the
+  // chunk's r, k and w as loaded ([step][channel], 64 wide)
+  float sd[kChunk][kPadF];
+  float gv[kChunk][kPadF];
+  float a[kSubs][kSub][kSub + 4]; // A_p = dout_p v_p^T, [t][i]
+  float c[kSubs][kN];             // rowsum(S_p ⊙ Γ_p)
+  float g[kSubs][kN];             // products of w over each sub-chunk
+  float du[kSubs][kN];
+  float u[kN];
+};
+
+// Rows ch0 .. ch0 + 15, columns col0 .. col0 + 8 NJ - 1 of a [64, 64] fp32
+// state, in mma accumulator layout.
+template <int NJ>
+__device__ __forceinline__ void load_state(float (&st)[NJ][4], const float* __restrict__ src,
+                                           int ch0, int col0, int lane) {
+  const int g = lane >> 2, c4 = lane & 3;
+  const float* p = src + (size_t)(ch0 + g) * kN + col0 + 2 * c4;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const float2 lo = f2(p + 8 * j), hi = f2(p + 8 * j + 8 * kN);
+    st[j][0] = lo.x; st[j][1] = lo.y; st[j][2] = hi.x; st[j][3] = hi.y;
+  }
+}
+
+// One sub-chunk q of a state's chain on those rows and columns:
+// st <- gq ⊙ st + op_q^T tile_q, op = (k ⊙ y)^T or (r ⊙ x)^T as hi + lo
+// ([channel][step] rows), tile = v or dout (exact in bf16).
+template <int NJ>
+__device__ __forceinline__ void chain_step(float (&st)[NJ][4], const bf16 (*op)[kN][kPad],
+                                           const bf16* tile, const float* gq, int q, int ch0,
+                                           int col0, int lane) {
+  const int g = lane >> 2;
+  const float g0 = gq[ch0 + g], g1 = gq[ch0 + g + 8];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    st[j][0] *= g0; st[j][1] *= g0; st[j][2] *= g1; st[j][3] *= g1;
+  }
+  state_mma(st, &op[0][0][0], &op[1][0][0], tile, q, ch0, col0, lane);
+}
+
+// acc[t][ch] += sum_m tile[t][m] st[ch][m] for the steps t of sub-chunk p,
+// the warp's channels ch0 .. + 15 and the state's columns m = col0 .. : its
+// accumulators are the B operand as they stand (accumulator row = B
+// column), split into hi + lo.
+template <int NJ>
+__device__ __forceinline__ void edge_product(float (&acc)[2][4], const float (&st)[NJ][4],
+                                             const bf16* tile, int p, int col0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < NJ / 2; ++kk) {     // m = col0 + 16 kk ..
+    uint32_t a[4];
+    ldsm(a, frag_row(tile, kPad, kSub * p, col0 + 16 * kk, lane));
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {        // channels ch0 + 8 nt ..
+      uint32_t h0, l0, h1, l1;
+      split(st[2 * kk][2 * nt], st[2 * kk][2 * nt + 1], h0, l0);
+      split(st[2 * kk + 1][2 * nt], st[2 * kk + 1][2 * nt + 1], h1, l1);
+      mma(acc[nt], a, h0, h1);
+      mma(acc[nt], a, l0, l1);
+    }
+  }
+}
+
+__device__ __forceinline__ void store_edge(const float (&acc)[2][4], float (*out)[kPadF], int p,
+                                           int ch0, int lane) {
+  const int g = lane >> 2, c4 = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    const int col = ch0 + 8 * nt + 2 * c4;
+    *reinterpret_cast<float2*>(&out[kSub * p + g][col]) = make_float2(acc[nt][0], acc[nt][1]);
+    *reinterpret_cast<float2*>(&out[kSub * p + g + 8][col]) = make_float2(acc[nt][2], acc[nt][3]);
+  }
+}
+
+// The 16 steps of sub-chunk p in channel ch of a chunk's [step][channel]
+// tiles (global or staged): w (1 past T), k and r (0 past T) as floats.
+template <typename TW>
+__device__ __forceinline__ void load_column(const bf16* r, const bf16* k, const TW* w, int p,
+                                            int ch, int valid, float (&rr)[kSub],
+                                            float (&kk)[kSub], float (&ww)[kSub]) {
+#pragma unroll
+  for (int l = 0; l < kSub; ++l) {
+    const int t = kSub * p + l;
+    const bool ok = t < valid;
+    const int at = (ok ? t : 0) * kN + ch;
+    rr[l] = ok ? __bfloat162float(r[at]) : 0.f;
+    kk[l] = ok ? __bfloat162float(k[at]) : 0.f;
+    ww[l] = ok ? to_f32(w[at]) : 1.f;
+  }
+}
+
+template <typename TW>
+__global__ void __launch_bounds__(kCbThreads, 2)
+wkv6_bwd_chunk_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                      const TW* __restrict__ w, const float* __restrict__ u,
+                      const float* __restrict__ s_in, const float* __restrict__ g_out,
+                      bf16* __restrict__ dr, bf16* __restrict__ dk, TW* __restrict__ dw,
+                      float* __restrict__ du_part, int H, int T_len, int n_chunks) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  ChunkBwdSmem& sm = *reinterpret_cast<ChunkBwdSmem*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bh = blockIdx.x, ci = blockIdx.y;
+  const int valid = min(kChunk, T_len - ci * kChunk);
+  const size_t base = ((size_t)bh * T_len + (size_t)ci * kChunk) * kN;
+  const size_t chunk = (size_t)bh * n_chunks + ci;
+  bf16* in_r = reinterpret_cast<bf16*>(&sm.sd[0][0]);
+  bf16* in_k = in_r + kChunk * kN;
+  TW* in_w = reinterpret_cast<TW*>(in_k + kChunk * kN);
+  stage_rows<kChunk, kN, kCbThreads>(&sm.v[0][0], kPad, v + base, 0, valid);
+  stage_rows<kChunk, kN, kCbThreads>(&sm.d[0][0], kPad, dout + base, 0, valid);
+  stage_rows<kChunk, kN, kCbThreads>(in_r, kN, r + base, 0, valid);
+  stage_rows<kChunk, kN, kCbThreads>(in_k, kN, k + base, 0, valid);
+  stage_rows<kChunk, kN, kCbThreads>(in_w, kN, w + base, 0, valid);
+  cp_async_commit();
+  if (tid < kN) sm.u[tid] = u[(bh % H) * kN + tid];
+  cp_async_wait<0>();
+  __syncthreads();
+  const int p = tid >> 6, ch = tid & (kN - 1);       // thread (sub-chunk, channel)
+  {  // x, y and g by running products; (r ⊙ x)^T and (k ⊙ y)^T as hi + lo
+    float rr[kSub], kk[kSub], ww[kSub], xs[kSub], ys[kSub];
+    load_column(in_r, in_k, in_w, p, ch, valid, rr, kk, ww);
+    float a = 1.f, b = 1.f;
+#pragma unroll
+    for (int l = 0; l < kSub; ++l) {
+      xs[l] = a;
+      a *= ww[l];
+    }
+#pragma unroll
+    for (int l = kSub - 1; l >= 0; --l) {
+      ys[l] = b;
+      b *= ww[l];
+    }
+    sm.g[p][ch] = a;
+#pragma unroll
+    for (int l = 0; l < kSub; l += 2) {
+      uint32_t hi, lo;
+      split(rr[l] * xs[l], rr[l + 1] * xs[l + 1], hi, lo);
+      *reinterpret_cast<uint32_t*>(&sm.rx[0][ch][kSub * p + l]) = hi;
+      *reinterpret_cast<uint32_t*>(&sm.rx[1][ch][kSub * p + l]) = lo;
+      split(kk[l] * ys[l], kk[l + 1] * ys[l + 1], hi, lo);
+      *reinterpret_cast<uint32_t*>(&sm.ky[0][ch][kSub * p + l]) = hi;
+      *reinterpret_cast<uint32_t*>(&sm.ky[1][ch][kSub * p + l]) = lo;
+    }
+  }
+  __syncthreads();
+  {  // the edge states: warp (rows 16 rg, sub-chunks 2 hp, 2 hp + 1)
+    const int rg = warp & 3, hp = warp >> 2, ch0 = kSub * rg;
+    const int g = lane >> 2, c4 = lane & 3;
+    if (warp < kSubs) {                       // A_warp = dout v^T (exact products)
+      float acc[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t af[4], bf[4];
+        ldsm(af, frag_row(&sm.d[0][0], kPad, kSub * warp, 16 * kk, lane));
+        ldsm(bf, frag_row(&sm.v[0][0], kPad, kSub * warp, 16 * kk, lane));
+        mma(acc[0], af, bf[0], bf[2]);
+        mma(acc[1], af, bf[1], bf[3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        *reinterpret_cast<float2*>(&sm.a[warp][g][8 * nt + 2 * c4]) =
+            make_float2(acc[nt][0], acc[nt][1]);
+        *reinterpret_cast<float2*>(&sm.a[warp][g + 8][8 * nt + 2 * c4]) =
+            make_float2(acc[nt][2], acc[nt][3]);
+      }
+    }
+    // S_p stepped forward from S_in (kept from one sub-chunk to the next), Z;
+    // then Γ_p from G_out a half of its columns at a time, for c and X (S
+    // and half of Γ live: no spills at two blocks an SM)
+    const float* gt_out = g_out + chunk * kN * kN;
+    float S[8][4];
+    load_state(S, s_in + chunk * kN * kN, ch0, 0, lane);
+#pragma unroll 1
+    for (int q = 0; q < 2 * hp; ++q) chain_step(S, sm.ky, &sm.v[0][0], sm.g[q], q, ch0, 0, lane);
+#pragma unroll 1
+    for (int pp = 0; pp < 2; ++pp) {
+      const int q0 = 2 * hp + pp;
+      if (pp) chain_step(S, sm.ky, &sm.v[0][0], sm.g[q0 - 1], q0 - 1, ch0, 0, lane);
+      {
+        float z[2][4] = {};
+        edge_product(z, S, &sm.d[0][0], q0, 0, lane);
+        store_edge(z, sm.sd, q0, ch0, lane);
+      }
+      float x[2][4] = {}, c0 = 0.f, c1 = 0.f;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float Gm[4][4];
+        load_state(Gm, gt_out, ch0, 32 * hf, lane);
+#pragma unroll 1
+        for (int q = kSubs - 1; q > q0; --q)
+          chain_step(Gm, sm.rx, &sm.d[0][0], sm.g[q], q, ch0, 32 * hf, lane);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          c0 = fmaf(S[4 * hf + j][0], Gm[j][0], fmaf(S[4 * hf + j][1], Gm[j][1], c0));
+          c1 = fmaf(S[4 * hf + j][2], Gm[j][2], fmaf(S[4 * hf + j][3], Gm[j][3], c1));
+        }
+        edge_product(x, Gm, &sm.v[0][0], q0, 32 * hf, lane);
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        c0 += __shfl_xor_sync(0xffffffffu, c0, o);
+        c1 += __shfl_xor_sync(0xffffffffu, c1, o);
+      }
+      if (c4 == 0) {
+        sm.c[q0][ch0 + g] = c0;
+        sm.c[q0][ch0 + g + 8] = c1;
+      }
+      store_edge(x, sm.gv, q0, ch0, lane);
+    }
+  }
+  // the next pass's columns from global memory (L2), in flight across the
+  // barrier (the staged copies were overwritten by Z and X)
+  float rr[kSub], kk[kSub], ww[kSub];
+  load_column(r + base, k + base, w + base, p, ch, valid, rr, kk, ww);
+  __syncthreads();
+  {  // thread (p, ch): the sums over i < t and j > t within the sub-chunk,
+     // by running products and recurrences of w in fp32 registers:
+     //   M[j] = sum_{i<t} D[t,i] k_i A[j,i] (j >= t; dr_t takes M[t]),
+     //   yf = sum_{i<t} D[t,i] k_i X_i, xt = x_t,
+     // each advanced one step a t (M[j] <- w_t M[j] + k_t A[j,t], ...), and
+     // F[j] = D[j,t] r_j (j > t) by a running product, which ends at y_t
+    const float uc = sm.u[ch], cp = sm.c[p][ch];
+    const float (*A)[kSub + 4] = sm.a[p];
+    const float* zc = &sm.sd[kSub * p][ch];          // Z_t at zc[t * kPadF]
+    const float* xc = &sm.gv[kSub * p][ch];          // X_t
+    float M[kSub] = {}, yf = 0.f, xt = 1.f, du = 0.f;
+#pragma unroll
+    for (int t = 0; t < kSub; ++t) {
+      float F[kSub], f = 1.f;
+#pragma unroll
+      for (int j = t + 1; j < kSub; ++j) {
+        F[j] = f * rr[j];
+        f *= ww[j];
+      }
+      const float att = A[t][t], zt = zc[t * kPadF], xv = xc[t * kPadF];
+      const float drt = fmaf(xt, zt, M[t] + uc * kk[t] * att);
+      float dkt = fmaf(f, xv, uc * rr[t] * att), sb = 0.f, lt = 0.f;
+#pragma unroll
+      for (int j = t + 1; j < kSub; ++j) {
+        const float a = A[j][t];
+        dkt = fmaf(a, F[j], dkt);
+        sb = fmaf(F[j], zc[j * kPadF], sb);
+        lt = fmaf(F[j], M[j], lt);
+        M[j] = fmaf(ww[t], M[j], kk[t] * a);
+      }
+      const float dwt = fmaf(xt * f, cp, fmaf(f, yf, fmaf(xt, sb, lt)));
+      du = fmaf(rr[t] * kk[t], att, du);
+      const int row = kSub * p + t;
+      if (row < valid) {
+        const size_t at = base + (size_t)row * kN + ch;
+        dr[at] = __float2bfloat16_rn(drt);
+        dk[at] = __float2bfloat16_rn(dkt);
+        store(dw + at, dwt);
+      }
+      yf = fmaf(ww[t], yf, kk[t] * xv);
+      xt *= ww[t];
+      // no shared value is kept across steps (it would cost registers)
+      asm volatile("" ::: "memory");
+    }
+    sm.du[p][ch] = du;
+  }
+  __syncthreads();
+  if (tid < kN)
+    du_part[chunk * kN + tid] = ((sm.du[0][tid] + sm.du[1][tid]) + sm.du[2][tid]) + sm.du[3][tid];
+}
+
+template <typename TW>
+cudaError_t launch_bwd_chunked(const void* r, const void* k, const void* v, const void* w,
+                               const float* u, const float* s0, const void* dout,
+                               const float* dsT, void* dr, void* dk, void* dv, void* dw,
+                               float* du, float* ds0, float* scratch, int B, int H, int T_len,
+                               cudaStream_t stream) {
+  const int n_chunks = (T_len + kChunk - 1) / kChunk;
+  if (n_chunks > 65535) return cudaErrorInvalidValue;       // grid y
+  const size_t n = (size_t)B * H * n_chunks;
+  float* s_in = scratch;                  // U, then S_in in its place
+  float* g_out = s_in + n * kN * kN;      // W, then G_out
+  float* decay = g_out + n * kN * kN;
+  float* du_part = decay + n * kN;
+  const bf16* rb = static_cast<const bf16*>(r);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  const bf16* db = static_cast<const bf16*>(dout);
+  const TW* wt = static_cast<const TW*>(w);
+  const dim3 chunks(B * H, n_chunks);
+  const dim3 scan(B * H, kN * kN / 4 / kScanThreads);
+  auto ku = wkv6_bwd_update_kernel<TW>;
+  auto ko = wkv6_out_kernel<TW, true>;
+  auto kc = wkv6_bwd_chunk_kernel<TW>;
+  const int su = static_cast<int>(sizeof(BwdUpdateSmem<TW>));
+  const int so = static_cast<int>(sizeof(OutSmem));
+  const int sc = static_cast<int>(sizeof(ChunkBwdSmem));
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(ku, cudaFuncAttributeMaxDynamicSharedMemorySize, su)) ||
+      (err = cudaFuncSetAttribute(ko, cudaFuncAttributeMaxDynamicSharedMemorySize, so)) ||
+      (err = cudaFuncSetAttribute(kc, cudaFuncAttributeMaxDynamicSharedMemorySize, sc)))
+    return err;
+  // (1) U and W of every chunk, and its decay
+  ku<<<chunks, kCbThreads, su, stream>>>(rb, kb, vb, db, wt, s_in, g_out, decay, T_len,
+                                         n_chunks);
+  if ((err = cudaGetLastError())) return err;
+  // (2) S_in from s0; (3) G_out and ds0 from dS_T, last chunk first (in place)
+  wkv6_scan_kernel<false, true><<<scan, kScanThreads, 0, stream>>>(s_in, decay, s0, s_in,
+                                                                   nullptr, n_chunks);
+  if ((err = cudaGetLastError())) return err;
+  wkv6_scan_kernel<true, true><<<scan, kScanThreads, 0, stream>>>(g_out, decay, dsT, g_out,
+                                                                  ds0, n_chunks);
+  if ((err = cudaGetLastError())) return err;
+  // (4) dv: the output pass backwards in time on (k, r, dout) from G_out
+  ko<<<chunks, kThreads, so, stream>>>(kb, rb, db, wt, u, g_out, static_cast<bf16*>(dv), H,
+                                       T_len, n_chunks);
+  if ((err = cudaGetLastError())) return err;
+  // (5) dr, dk, dw and du's partials
+  kc<<<chunks, kCbThreads, sc, stream>>>(rb, kb, vb, db, wt, u, s_in, g_out,
+                                         static_cast<bf16*>(dr), static_cast<bf16*>(dk),
+                                         static_cast<TW*>(dw), du_part, H, T_len, n_chunks);
+  if ((err = cudaGetLastError())) return err;
+  // (6) du
+  wkv6_du_kernel<<<H, kBwdThreads, 0, stream>>>(du_part, du, B, H, n_chunks);
   return cudaGetLastError();
 }
 
@@ -1018,14 +1565,16 @@ extern "C" int wkv6_fwd(const void* r, const void* k, const void* v, const void*
 // The backward of wkv6_fwd (section 3 above).  r, k, v, dout, dr, dk and dv
 // share `dtype`; w and dw are float32 or `dtype` (`w_dtype`); u [H, 64], s0,
 // dsT, ds0 [B, H, 64, 64] and du [H, 64] are float32.  dsT may be null (no
-// cotangent for the final state).  `scratch` holds B * H * ceil(T / 64) *
-// 64 * 64 + B * H * 64 floats.  The same layout and alias rules as wkv6_fwd.
-// Returns a cudaError_t.
+// cotangent for the final state).  `chunked` selects the chunked form (3a,
+// bf16 only; `scratch` then holds B * H * ceil(T / 64) * (2 * 64 * 64 + 2 *
+// 64) floats), else the serial one (3b; B * H * (ceil(T / 64) * 64 * 64 +
+// 64) floats).  The same layout and alias rules as wkv6_fwd.  Returns a
+// cudaError_t.
 extern "C" int wkv6_bwd(const void* r, const void* k, const void* v, const void* w,
                         const void* u, const void* s0, const void* dout, const void* dsT,
                         void* dr, void* dk, void* dv, void* dw, void* du, void* ds0,
                         void* scratch, int B, int H, int T_len, int dtype, int w_dtype,
-                        void* stream) {
+                        int chunked, void* stream) {
   if (B <= 0 || H <= 0 || T_len <= 0 || scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1036,16 +1585,26 @@ extern "C" int wkv6_bwd(const void* r, const void* k, const void* v, const void*
   float* ds0f = static_cast<float*>(ds0);
   float* sc = static_cast<float*>(scratch);
   cudaError_t err;
-  if (dtype == 0 && w_dtype == 0)
-    err = launch_bwd<float, float>(r, k, v, w, uf, s0f, dout, dsTf, dr, dk, dv, dw, duf, ds0f,
-                                   sc, B, H, T_len, st);
-  else if (dtype == 1 && w_dtype == 0)
-    err = launch_bwd<bf16, float>(r, k, v, w, uf, s0f, dout, dsTf, dr, dk, dv, dw, duf, ds0f,
-                                  sc, B, H, T_len, st);
-  else if (dtype == 1 && w_dtype == 1)
-    err = launch_bwd<bf16, bf16>(r, k, v, w, uf, s0f, dout, dsTf, dr, dk, dv, dw, duf, ds0f,
-                                 sc, B, H, T_len, st);
-  else
+  if (chunked) {
+    if (dtype == 1 && w_dtype == 0)
+      err = launch_bwd_chunked<float>(r, k, v, w, uf, s0f, dout, dsTf, dr, dk, dv, dw, duf,
+                                      ds0f, sc, B, H, T_len, st);
+    else if (dtype == 1 && w_dtype == 1)
+      err = launch_bwd_chunked<bf16>(r, k, v, w, uf, s0f, dout, dsTf, dr, dk, dv, dw, duf,
+                                     ds0f, sc, B, H, T_len, st);
+    else
+      err = cudaErrorInvalidValue;
+  } else if (dtype == 0 && w_dtype == 0) {
+    err = launch_bwd_serial<float, float>(r, k, v, w, uf, s0f, dout, dsTf, dr, dk, dv, dw,
+                                          duf, ds0f, sc, B, H, T_len, st);
+  } else if (dtype == 1 && w_dtype == 0) {
+    err = launch_bwd_serial<bf16, float>(r, k, v, w, uf, s0f, dout, dsTf, dr, dk, dv, dw, duf,
+                                         ds0f, sc, B, H, T_len, st);
+  } else if (dtype == 1 && w_dtype == 1) {
+    err = launch_bwd_serial<bf16, bf16>(r, k, v, w, uf, s0f, dout, dsTf, dr, dk, dv, dw, duf,
+                                        ds0f, sc, B, H, T_len, st);
+  } else {
     err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }

@@ -269,6 +269,30 @@ def _split_bf16(x: torch.Tensor):
     return hi, (x - hi).to(torch.bfloat16).float()
 
 
+def _tensor_core(split_bf16: bool):
+    """A tensor-core product ``tc(eq, a, b)``: fp32, or with each operand
+    split into a bf16 hi/lo pair and hi*hi + hi*lo + lo*hi summed in fp32
+    (an operand exact in bf16 has lo = 0), as the kernels form it."""
+    def tc(eq, a, b):
+        if not split_bf16:
+            return torch.einsum(eq, a, b)
+        (ah, al), (bh, bl) = _split_bf16(a), _split_bf16(b)
+        return (torch.einsum(eq, ah, bh) + torch.einsum(eq, ah, bl)
+                + torch.einsum(eq, al, bh))
+    return tc
+
+
+def _chunk_update(kc, vc, lc, s, tc):
+    """One chunk of the state scan: ``2^G s + (k 2^D)^T v`` with ``D_i`` the
+    sum of lw after step i within the chunk (a direct suffix sum) and ``G``
+    the chunk's sum (the kernels' update and scan passes)."""
+    D = torch.nn.functional.pad(
+        torch.flip(torch.cumsum(torch.flip(lc[:, :, 1:], [2]), 2), [2]),
+        (0, 0, 0, 1))
+    return torch.exp2(lc.sum(2))[..., None] * s + tc(
+        "bhtk,bhtv->bhkv", kc * torch.exp2(D), vc)
+
+
 def wkv6_subchunked(r, k, v, w, u, state0=None, *, split_bf16: bool = False):
     """The chunked form of ``csrc/wkv6.cu`` in plain fp32 torch (tests only).
 
@@ -309,14 +333,7 @@ def wkv6_subchunked(r, k, v, w, u, state0=None, *, split_bf16: bool = False):
     s = (torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device)
          if state0 is None else state0.float())
 
-    def tc(eq, a, b):
-        """A tensor-core product: fp32, or bf16 hi/lo operand pairs."""
-        if not split_bf16:
-            return torch.einsum(eq, a, b)
-        (ah, al), (bh, bl) = _split_bf16(a), _split_bf16(b)
-        return (torch.einsum(eq, ah, bh) + torch.einsum(eq, ah, bl)
-                + torch.einsum(eq, al, bh))
-
+    tc = _tensor_core(split_bf16)
     outs = []
     for c in range(n):
         sl = slice(c * C, (c + 1) * C)
@@ -363,14 +380,150 @@ def wkv6_subchunked(r, k, v, w, u, state0=None, *, split_bf16: bool = False):
             acc = acc + tc("bhti,bhiv->bhtv", att, vc[:, :, :(p + 1) * P])
             out_c.append(acc)
         outs.append(torch.cat(out_c, dim=2))
-        # state pass: D_i = sum of lw after step i within the chunk
-        D = torch.nn.functional.pad(
-            torch.flip(torch.cumsum(torch.flip(lc[:, :, 1:], [2]), 2), [2]),
-            (0, 0, 0, 1))
-        Gc = lc.sum(2)                                        # [B,H,K]
-        s = torch.exp2(Gc)[..., None] * s + tc(
-            "bhtk,bhtv->bhkv", kc * torch.exp2(D), vc)
+        s = _chunk_update(kc, vc, lc, s, tc)
     out = torch.cat(outs, dim=2)[:, :, :T]
     if split_bf16:
         out = out.to(torch.bfloat16).float()
     return out, s
+
+
+def wkv6_subchunked_bwd(r, k, v, w, u, s0, dout, dsT=None, *,
+                        split_bf16: bool = False):
+    """The chunked backward of ``csrc/wkv6.cu`` in plain fp32 torch (tests
+    only): (dr, dk, dv, dw, du, ds0), the VJP of :func:`wkv6` from
+    cotangents ``dout`` and ``dsT`` (None: zero).
+
+    Time is cut into chunks of 64 steps, padded past T with k = v = r =
+    dout = 0 and w = 1.  With S_t the state before step t and G_t = dL/dS_t
+    (G_T = dsT), per chunk:
+
+    * ``S_in`` (the state entering each chunk) by the forward's chunk update
+      and scan (:func:`_chunk_update`); ``G_out`` (G leaving each chunk) and
+      ds0 by the same run backwards in time on (r, dout) from dsT, and dv by
+      the forward's chunked form backwards in time on (k, r, dout): ``G_t =
+      w_t G_{t+1} + r_t dout_t^T`` is the forward's recurrence there, its
+      output dv and its final state ds0.
+    * Sub-chunks p of 16 steps, with the products of w over them (no log,
+      no division): ``x_t`` over the steps of p before t, ``y_t`` over
+      those after t, ``g_p`` over all 16, ``D[t,i]`` over the steps
+      strictly between i and t.  The states at p's edges, ``S_p`` entering
+      it and ``Γ_p`` leaving it, follow from S_in and G_out by
+      ``S_{p+1} = g_p S_p + (k y)_p^T v_p`` and
+      ``Γ_{p-1} = g_p Γ_p + (r x)_p^T dout_p`` (tensor-core products).
+      Then with ``Z_t = S_p dout_t``, ``X_t = Γ_p v_t``,
+      ``A[t,i] = dout_t · v_i`` (products) and ``c_p = rowsum(S_p ⊙ Γ_p)``:
+        dr_t = x_t Z_t + sum_{i<t} A[t,i] D[t,i] k_i + u k_t A[t,t]
+        dk_t = y_t X_t + sum_{j>t} A[j,t] D[j,t] r_j + u r_t A[t,t]
+        dw_t = x_t y_t c_p + y_t sum_{i<t} D[t,i] k_i X_i
+               + x_t sum_{j>t} D[j,t] r_j Z_j
+               + sum_{i<t<j} D[t,i] D[j,t] k_i r_j A[j,i]
+        du  += r_t k_t A[t,t]
+      the sums over i and j within p in fp32, by recurrences in t (the sum
+      over i < t as ``M[j] <- w_t M[j] + k_t A[j,t]``, the sum over i < t of
+      dw's second term likewise): dw_t = rowsum(G_{t+1} ⊙ S_t)
+      with ``S_t = x_t S_p + sum_{i<t} D[t,i] k_i v_i^T`` and
+      ``G_{t+1} = y_t Γ_p + sum_{j>t} D[j,t] r_j dout_j^T``, never by
+      dividing by w (it underflows to 0).
+
+    ``split_bf16`` forms each product as the kernels do (an fp32 operand as
+    a bf16 hi/lo pair) and rounds dr, dk and dv to bf16.  Returns fp32
+    tensors of the shapes of r, k, v, w, u and s0."""
+    C, P = 64, 16
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+    n = -(-T // C)
+    pad = (0, 0, 0, n * C - T)
+    r, k, v, do = (torch.nn.functional.pad(x.float(), pad)
+                   for x in (r, k, v, dout))
+    w = torch.nn.functional.pad(w.float(), pad, value=1.0)
+    lw = torch.log2(torch.clamp(w, min=1e-30))
+    u = u.float()[None]                                       # [1, H, K]
+    gT = (torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device)
+          if dsT is None else dsT.float())
+    tc = _tensor_core(split_bf16)
+
+    def chunks(x):
+        return [x[:, :, c * C:(c + 1) * C] for c in range(n)]
+
+    s_in, s = [], s0.float()
+    for kc, vc, lc in zip(chunks(k), chunks(v), chunks(lw)):
+        s_in.append(s)
+        s = _chunk_update(kc, vc, lc, s, tc)
+    g_out, g = [None] * n, gT
+    for c in reversed(range(n)):
+        g_out[c] = g
+        rc, dc, lc = (torch.flip(x[:, :, c * C:(c + 1) * C], [2])
+                      for x in (r, do, lw))
+        g = _chunk_update(rc, dc, lc, g, tc)
+    ds0 = g
+    flip = lambda x: torch.flip(x, [2])                       # noqa: E731
+    dv, _ = wkv6_subchunked(flip(k), flip(r), flip(do), flip(w), u[0], gT,
+                            split_bf16=split_bf16)
+    dv = flip(dv)
+
+    dr, dk, dw = (torch.zeros_like(r) for _ in range(3))
+    du = torch.zeros((B, H, K), dtype=torch.float32, device=r.device)
+    for c in range(n):
+        S, Gam = s_in[c], g_out[c]
+        sub = [slice(c * C + p * P, c * C + (p + 1) * P) for p in range(C // P)]
+        wp = [w[:, :, sl] for sl in sub]
+        ones = torch.ones_like(wp[0][:, :, 0])
+        x, y, g = [], [], []
+        for ws in wp:                    # exclusive prefix / suffix products
+            xs, ys, a, b = [], [None] * P, ones, ones
+            for l in range(P):
+                xs.append(a)
+                a = a * ws[:, :, l]
+            for l in reversed(range(P)):
+                ys[l] = b
+                b = b * ws[:, :, l]
+            x.append(torch.stack(xs, 2))
+            y.append(torch.stack(ys, 2))
+            g.append(a)
+        Ss, Gs = [S], [None] * 4
+        for p in range(3):
+            Ss.append(g[p][..., None] * Ss[-1] + tc(
+                "bhtk,bhtv->bhkv", k[:, :, sub[p]] * y[p], v[:, :, sub[p]]))
+        Gs[3] = Gam
+        for p in (3, 2, 1):
+            Gs[p - 1] = g[p][..., None] * Gs[p] + tc(
+                "bhtk,bhtv->bhkv", r[:, :, sub[p]] * x[p], do[:, :, sub[p]])
+        for p, sl in enumerate(sub):
+            rp, kp, vp, dp, ws = r[:, :, sl], k[:, :, sl], v[:, :, sl],                 do[:, :, sl], w[:, :, sl]
+            Z = tc("bhtv,bhkv->bhtk", dp, Ss[p])
+            X = tc("bhtv,bhkv->bhtk", vp, Gs[p])
+            cp = (Ss[p] * Gs[p]).sum(-1)
+            A = torch.einsum("bhtv,bhiv->bhti", dp, vp)
+            # by recurrences in t, as the kernel runs them: M[j] = sum_{i<t}
+            # D[t,i] k_i A[j,i] (j >= t), yf = sum_{i<t} D[t,i] k_i X_i,
+            # xt = x_t; F[j] = D[j,t] r_j (j > t) by a running product that
+            # ends at y_t
+            zeros = torch.zeros_like(ones)
+            M, yf, xt = [zeros] * P, zeros, ones
+            for t in range(P):
+                F, f = {}, ones
+                for j in range(t + 1, P):
+                    F[j] = f * rp[:, :, j]
+                    f = f * ws[:, :, j]
+                att = A[:, :, t, t][..., None]
+                rt, kt, wt = rp[:, :, t], kp[:, :, t], ws[:, :, t]
+                drt = xt * Z[:, :, t] + (M[t] + u * kt * att)
+                dkt = f * X[:, :, t] + u * rt * att
+                sb, lt = zeros, zeros
+                for j in range(t + 1, P):
+                    a = A[:, :, j, t][..., None]
+                    dkt = dkt + a * F[j]
+                    sb = sb + F[j] * Z[:, :, j]
+                    lt = lt + F[j] * M[j]
+                    M[j] = wt * M[j] + kt * a
+                dwt = xt * f * cp + (f * yf + (xt * sb + lt))
+                dr[:, :, sl.start + t] = drt
+                dk[:, :, sl.start + t] = dkt
+                dw[:, :, sl.start + t] = dwt
+                du = du + rt * kt * att
+                yf = wt * yf + kt * X[:, :, t]
+                xt = xt * wt
+    dr, dk, dv, dw = (x[:, :, :T] for x in (dr, dk, dv, dw))
+    if split_bf16:
+        dr, dk, dv = (x.to(torch.bfloat16).float() for x in (dr, dk, dv))
+    return dr, dk, dv, dw, du.sum(0), ds0

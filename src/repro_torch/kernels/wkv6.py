@@ -28,15 +28,34 @@ dtype and T (:func:`uses_chunked_form`):
 At the serving prefill ([1, 32, 2048, 64] bf16, w fp32) the call must move
 51.4 MB, 15.3 us at 3.35 TB/s: bound by bytes.
 
-The backward entry point, ``wkv6_bwd``, is serial fp32 math on the CUDA
-cores in four launches for either dtype: a checkpoint of the state every 64
-steps, the dv / ds0 pass (the recurrence backwards in time on the
-cotangents), the rows pass (dr, dk, dw, recomputing the state forward
-within each chunk from its checkpoint: w may underflow to 0, so the state is
-never got back by division) and du's sum over the batch.  Its scratch holds
-the checkpoints.  At the training call ([2, 32, 4096, 64] bf16, w fp32) it
-must move ~372 MB (111 us at 3.35 TB/s) and do six 64 x 64 FMA sweeps a
-step and head (12.9 GFLOP, 192 us on the 67 TFLOP/s fp32 CUDA cores).
+The backward entry point, ``wkv6_bwd``, picks its form by the same rule
+(the wrapper passes ``chunked``).  w may underflow to 0, so neither form
+gets a state back by dividing by w:
+
+* bf16 with T >= 64 (the training call): the chunked form in six launches,
+  the longest serial chain a chunk's 64 steps: each chunk's contributions
+  to the state and, backwards in time, to dL/dS (tensor-core products), the
+  state entering every chunk and dL/dS leaving every chunk with ds0 (the
+  forward's elementwise scan, forwards from s0 and backwards from dS_T), dv
+  (the forward's output pass backwards in time on (k, r, dout)), then one
+  block a chunk for dr, dk, dw and du's partials: the states at each
+  16-step sub-chunk's edges by tensor-core products, their products with
+  dout and v, and the sums within a sub-chunk in fp32 with decays as
+  running products of w; du summed last, in order (no atomics).  Its
+  scratch holds both chunk states, the decays and du's partials; the plain
+  mirror of its arithmetic is ``ref.wkv6_subchunked_bwd``.
+* fp32, or T < 64: the serial form, fp32 math on the CUDA cores in four
+  launches: a checkpoint of the state every 64 steps, the dv / ds0 pass
+  (the recurrence backwards in time on the cotangents), the rows pass (dr,
+  dk, dw, recomputing the state forward within each chunk from its
+  checkpoint) and du's sum over the batch.  Its scratch holds the
+  checkpoints.
+
+At the training call ([2, 32, 4096, 64] bf16, w fp32) a backward must move
+~372 MB (111 us at 3.35 TB/s); the chunked form's products are ten 64 x 64
+x 64 a chunk (21.7 us of bf16 tensor-core time), the serial form's six
+64 x 64 FMA sweeps a step and head (12.9 GFLOP, 192 us on the 67 TFLOP/s
+fp32 CUDA cores).
 
 r/k/w: [B, H, T, K]; v: [B, H, T, V]; u: [H, K]; s0: [B, H, K, V] fp32.
 Returns (out [B, H, T, V] in r's dtype, state_T [B, H, K, V] fp32).  The
@@ -57,11 +76,15 @@ CHUNK = 64
 # scratch floats a chunk of the chunked form: S_in and U (64 x 64 fp32
 # each) and the chunk's decay 2^G (64 fp32)
 SCRATCH_PER_CHUNK = 2 * HEAD_SIZE * HEAD_SIZE + HEAD_SIZE
+# the chunked backward's: U then S_in, W then G_out (64 x 64 fp32 each), the
+# decay 2^G and du's partial (64 fp32 each)
+BWD_SCRATCH_PER_CHUNK = 2 * HEAD_SIZE * HEAD_SIZE + 2 * HEAD_SIZE
 
 
 def uses_chunked_form(dtype: torch.dtype, T: int) -> bool:
-    """The chunked form for bf16 r/k/v with T >= 64; :func:`wkv6_cuda` passes
-    ``wkv6_fwd`` a scratch exactly then, which selects that form."""
+    """The chunked forms for bf16 r/k/v with T >= 64, forward and backward;
+    :func:`wkv6_cuda` passes ``wkv6_fwd`` a scratch exactly then, which
+    selects that form, and :func:`wkv6_bwd_cuda` passes ``chunked``."""
     return dtype == torch.bfloat16 and T >= CHUNK
 
 
@@ -146,9 +169,10 @@ def wkv6_bwd_plain(r, k, v, w, u, s0, dout, dsT=None):
 
 
 def wkv6_bwd_cuda(r, k, v, w, u, s0, dout, dsT=None):
-    """Launch ``csrc/wkv6.cu``'s backward (four kernels, one launch
-    counted); returns (dr, dk, dv, dw, du, ds0) in the dtypes of r, k, v, w,
-    u and s0.  ``dsT`` (the final state's cotangent) may be None."""
+    """Launch ``csrc/wkv6.cu``'s backward (six kernels in the chunked form,
+    four in the serial one; one launch counted); returns (dr, dk, dv,
+    dw, du, ds0) in the dtypes of r, k, v, w, u and s0.  ``dsT`` (the final
+    state's cotangent) may be None."""
     tensors = (r, k, v, w, u, s0, dout) + (() if dsT is None else (dsT,))
     build.on_one_card(tensors, "wkv6_bwd_cuda")
     check_inputs(r, k, v, w, u, s0)
@@ -163,19 +187,23 @@ def wkv6_bwd_cuda(r, k, v, w, u, s0, dout, dsT=None):
                          f"{dsT.dtype} must be a contiguous tensor like s0")
     B, H, T, _ = r.shape
     grads = [torch.empty_like(t) for t in (r, k, v, w, u, s0)]
-    scratch = torch.empty(B * H * (-(-T // CHUNK) * HEAD_SIZE + 1)
-                          * HEAD_SIZE, dtype=torch.float32, device=r.device)
+    chunked = uses_chunked_form(r.dtype, T)
+    n = -(-T // CHUNK)
+    size = (n * BWD_SCRATCH_PER_CHUNK if chunked
+            else n * HEAD_SIZE * HEAD_SIZE + HEAD_SIZE)
+    scratch = torch.empty(B * H * size, dtype=torch.float32, device=r.device)
     build.aligned(tensors + tuple(grads) + (scratch,), "wkv6_bwd_cuda")
     lib = build.load("wkv6")
     fn = lib.wkv6_bwd
-    fn.argtypes = build.c_args(*"p" * 15, "i", "i", "i", "i", "i", "p")
+    fn.argtypes = build.c_args(*"p" * 15, *"i" * 6, "p")
     fn.restype = build.ctypes.c_int
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*(t.data_ptr() for t in (r, k, v, w, u, s0, dout)),
                  None if dsT is None else dsT.data_ptr(),
                  *(g.data_ptr() for g in grads), scratch.data_ptr(),
-                 B, H, T, _DTYPES[r.dtype], _DTYPES[w.dtype], stream)
+                 B, H, T, _DTYPES[r.dtype], _DTYPES[w.dtype], int(chunked),
+                 stream)
     build.check(err, "wkv6_bwd")
     wkv6_bwd.launches += 1
     return tuple(grads)

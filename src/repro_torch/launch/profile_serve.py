@@ -45,8 +45,9 @@ def _family(name: str) -> str:
     if "rmsnorm" in n:
         return "rmsnorm (ours)"
     if "wkv6" in n:
-        # the backward's four kernels; its dv pass is the serial form
-        # with time reversed (template argument true)
+        # the backward's kernels: its own names, or the forward's
+        # kernels with a template flag true (the serial dv pass and the
+        # chunked form's passes run backwards in time or for the backward)
         if any(t in n for t in ("bwd", "ckpt", "du_kernel", ", true>")):
             return "wkv6_bwd (ours)"
         return "wkv6 (ours)"

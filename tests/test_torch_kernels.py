@@ -391,7 +391,7 @@ def test_kernel_functions_carry_autograd_on_the_card(cuda_device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("T", [1, 16, 64, 100, 130])
+@pytest.mark.parametrize("T", [1, 16, 64, 65, 100, 130, 256, 1024])
 @pytest.mark.parametrize("decay", ["normal", "extreme"])
 def test_wkv6_kernel_backward_matches_plain_autograd(cuda_device, dtype, T,
                                                      decay):
@@ -399,8 +399,9 @@ def test_wkv6_kernel_backward_matches_plain_autograd(cuda_device, dtype, T,
     backward launches ``wkv6_bwd``: every gradient (dr, dk, dv, dw, du,
     ds0) against autograd through the plain version on the same card and
     inputs, from a non-zero s0 with a cotangent on the final state; bf16
-    with T >= 64 takes the chunked forward, the rest the serial one; a
-    masked tail (T 100, 130) and decays that underflow to w = 0."""
+    with T >= 64 takes the chunked forms, forward and backward, the rest
+    the serial ones; several chunks (256, 1024), masked tails (65: a
+    1-step tail, 100, 130) and decays that underflow to w = 0."""
     dt = DTYPES[dtype]
     g = torch.Generator(device=cuda_device).manual_seed(T)
 
@@ -425,6 +426,55 @@ def test_wkv6_kernel_backward_matches_plain_autograd(cuda_device, dtype, T,
     with torch.no_grad():
         out, _ = wkv6(*xs)
     assert out.grad_fn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [16, 64, 130])
+def test_wkv6_kernel_backward_bf16_w_matches_plain_autograd(cuda_device, T):
+    """w in bf16 as well (the kernels' other w dtype): both backward forms,
+    every gradient against autograd through the plain version, dw in bf16
+    held like the other bf16 gradients."""
+    g = torch.Generator(device=cuda_device).manual_seed(T + 3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device)
+    r, k, v = (randn(2, 4, T, 64).to(torch.bfloat16) * 0.5 for _ in range(3))
+    w = torch.exp(-torch.exp(randn(2, 4, T, 64) * 0.5)).to(torch.bfloat16)
+    u, s0 = randn(4, 64) * 0.5, randn(2, 4, 64, 64) * 0.3
+    do, ds = randn(2, 4, T, 64).to(torch.bfloat16), randn(2, 4, 64, 64)
+    got = wkv6_bwd(r, k, v, w, u, s0, do, ds)
+    torch.cuda.synchronize()
+    want = wkv6_bwd_plain(r, k, v, w, u, s0, do, ds)
+    for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+        assert a.dtype == b.dtype, name
+        _assert_bwd_close(a, b, "float32" if a.dtype == torch.float32
+                          else "bfloat16", name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,T", [("bfloat16", 130), ("bfloat16", 1024),
+                                     ("float32", 130)])
+@pytest.mark.parametrize("with_ds", [True, False])
+def test_wkv6_kernel_backward_is_bitwise_repeatable(cuda_device, dtype, T,
+                                                    with_ds):
+    """No atomics in either backward form: two calls on the same inputs give
+    the same bits in all six gradients (the training path's 1F1B ==
+    gpipe_tasked gate on rwkv6 needs it)."""
+    dt = DTYPES[dtype]
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device)
+    r, k, v = (randn(2, 4, T, 64).to(dt) * 0.5 for _ in range(3))
+    w = torch.exp(-torch.exp(randn(2, 4, T, 64) * 0.5))
+    u, s0 = randn(4, 64) * 0.5, randn(2, 4, 64, 64) * 0.3
+    do = randn(2, 4, T, 64).to(dt)
+    ds = randn(2, 4, 64, 64) if with_ds else None
+    first = wkv6_bwd(r, k, v, w, u, s0, do, ds)
+    again = wkv6_bwd(r, k, v, w, u, s0, do, ds)
+    for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "ds0"), first,
+                          again):
+        assert torch.equal(a, b), name
 
 
 # ---------------------------------------------------------------------------
@@ -518,6 +568,26 @@ def test_wkv6_on_cpu_differentiates_through_the_plain_version():
      "const*, ...)", "wkv6_bwd (ours)"),
     ("(anonymous namespace)::wkv6_du_kernel(float const*, float*, int, int)",
      "wkv6_bwd (ours)"),
+    # the chunked forms: the backward's launches carry a template flag true
+    ("void (anonymous namespace)::wkv6_scan_kernel<false, false>(float "
+     "const*, float const*, float const*, float*, float*, int)",
+     "wkv6 (ours)"),
+    ("void (anonymous namespace)::wkv6_out_kernel<__nv_bfloat16, false>("
+     "__nv_bfloat16 const*, ...)", "wkv6 (ours)"),
+    ("void (anonymous namespace)::wkv6_bwd_update_kernel<float>("
+     "__nv_bfloat16 const*, ...)", "wkv6_bwd (ours)"),
+    ("void (anonymous namespace)::wkv6_scan_kernel<false, true>(float "
+     "const*, float const*, float const*, float*, float*, int)",
+     "wkv6_bwd (ours)"),
+    ("void (anonymous namespace)::wkv6_scan_kernel<true, true>(float "
+     "const*, float const*, float const*, float*, float*, int)",
+     "wkv6_bwd (ours)"),
+    ("void (anonymous namespace)::wkv6_out_kernel<float, true>("
+     "__nv_bfloat16 const*, ...)", "wkv6_bwd (ours)"),
+    ("void (anonymous namespace)::wkv6_bwd_chunk_kernel<float>("
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, ...)", "wkv6_bwd (ours)"),
+    ("(anonymous namespace)::wkv6_du_kernel(float const*, float*, int, int, "
+     "int)", "wkv6_bwd (ours)"),
 ])
 def test_profile_labels_the_kernel_symbols(name, family):
     """The trace's kernel names (demangled, as the profiler shows them) land

@@ -204,6 +204,61 @@ def test_wkv6_subchunked_vs_jax_oracle(T, decay):
             _close(s, s_j, tol_s, f"state, {what}")
 
 
+# the Hopper kernel's chunked backward (ref.wkv6_subchunked_bwd) against
+# jax.vjp of the reference's sequential ref.wkv6: fp32 math at TOL; with its
+# tensor-core operands as bf16 hi + lo pairs and dr / dk / dv rounded to
+# bf16, at the card's backward tolerances (chip_smoke.py's BWD_BF16_REL of
+# each gradient's largest entry, BWD_FP32_TOL for the fp32 dw, du, ds0)
+BWD_BF16_REL, BWD_FP32_TOL = 2e-2, 1e-3
+
+
+@pytest.mark.parametrize("decay", ["normal", "extreme"])
+@pytest.mark.parametrize("B,T", [(2, 64), (1, 65), (1, 130)])
+def test_wkv6_subchunked_bwd_vs_jax_vjp(B, T, decay):
+    """All six gradients, from a random s0, with and without a cotangent on
+    the final state; T 65 and 130 leave masked tails (65: one step), and
+    extreme decays w = exp(-exp(3 N(0, 1))) underflow to w = 0."""
+    inputs = _wkv_inputs(B, 2, T, 64, 64, seed=T + B)
+    rng = np.random.default_rng(T + 7)
+    if decay == "extreme":
+        inputs["w"] = np.exp(-np.exp(
+            3 * rng.standard_normal(inputs["w"].shape))).astype(np.float32)
+        assert (inputs["w"] == 0).any()
+    don = rng.standard_normal((B, 2, T, 64)).astype(np.float32)
+    dsn = rng.standard_normal((B, 2, 64, 64)).astype(np.float32)
+    args = ("r", "k", "v", "w", "u", "s0")
+    for split in (False, True):
+        case = dict(inputs)
+        if split:          # the kernel's inputs: bf16 r/k/v and dout, fp32 w
+            case = {a: (torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+                        if a in "rkv" else x) for a, x in case.items()}
+            do_case = torch.from_numpy(don).to(torch.bfloat16).float().numpy()
+        else:
+            do_case = don
+        _, vjp = jax.vjp(jref.wkv6, *(jnp.asarray(case[a]) for a in args))
+        for ds_case in (dsn, None):
+            want = vjp((jnp.asarray(do_case), jnp.asarray(
+                np.zeros_like(dsn) if ds_case is None else ds_case)))
+            got = ref.wkv6_subchunked_bwd(
+                *(torch.from_numpy(case[a]) for a in args),
+                torch.from_numpy(do_case),
+                None if ds_case is None else torch.from_numpy(ds_case),
+                split_bf16=split)
+            for name, g, w in zip(WKV_GRADS, got, want):
+                what = f"{name}, split_bf16={split}, dsT={ds_case is not None}"
+                w = np.asarray(w)
+                assert g.shape == w.shape and bool(torch.isfinite(g).all()), what
+                if not split:
+                    np.testing.assert_allclose(g.numpy(), w, **TOL,
+                                               err_msg=what)
+                elif name in ("dr", "dk", "dv"):
+                    err = float(np.abs(g.numpy() - w).max())
+                    assert err <= BWD_BF16_REL * float(np.abs(w).max()), what
+                else:
+                    np.testing.assert_allclose(g.numpy(), w, rtol=BWD_FP32_TOL,
+                                               atol=BWD_FP32_TOL, err_msg=what)
+
+
 def test_wkv6_contract_rejects():
     good = {n: torch.zeros(s, dtype=torch.float32) for n, s in (
         ("r", (1, 2, 3, 64)), ("k", (1, 2, 3, 64)), ("v", (1, 2, 3, 64)),
