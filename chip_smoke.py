@@ -22,14 +22,18 @@ line is printed):
             counts both training paths give it; WKV in both its chunked and
             its serial form,
             with masked tails and decays that underflow to 0; attention
-            also at the training path's q [2,15,4096,64] with the lse the
+            at head_dim 64, 128 and 256 (gemma-2b's: causal, non-causal
+            and windowed, MQA 8:1 and MHA, both dtypes), and at the
+            training path's q [2,15,4096,64] with the lse the
             backward reads), then timed at
             the serving paths' shapes beside its plain version and one
             library call where PyTorch has one (the yardstick only); RMSNorm
             at both paths' widths (960 and 2048); attention also at
             whisper-tiny's training call, q [2,6,4096,64], non-causal and
-            causal; WKV also at one decode step, and by kernel from a
-            profiler trace;
+            causal, gemma-2b's q [2,8,4096,256] (kv 1 head, causal) and
+            deepseek-7b's prefill q [1,32,2048,128]; WKV also at one
+            decode step and at rwkv6's training call [2,32,4096,64], and
+            by kernel from a profiler trace;
    backward the attention and RMSNorm backward kernels against their plain
             versions over a grid that holds the training path's shapes, and
             again at every timed shape, the bf16 attention backward twice
@@ -49,7 +53,8 @@ line is printed):
             same backward (SDPA's, F.rms_norm's: yardsticks only), with the
             achieved TFLOP/s and the bound's share of the time; the
             attention backward also at whisper-tiny's q [2,6,4096,64],
-            non-causal and causal;
+            non-causal and causal, and at gemma-2b's q [2,8,4096,256]
+            (its grid holds head_dim 256 too);
 4. port     the same weights through the kernels on the card and through
             the plain versions on the CPU, prefill + 4 decode steps, logits
             compared: smollm-360m at full width, 4 layers, pipe 2, fp32;
@@ -62,14 +67,19 @@ line is printed):
             1f1b (m 2), zb with residuals "reuse" under remat "none" and
             "full" (m 4) and interleaved:2 (m 2), and 1f1b against
             gpipe_tasked on the card, bitwise equal but for the embedding's
-            leaf;
+            leaf; then gemma-2b at full width, 2 layers, pipe 2, fp32
+            (prompt and seq 256): serving and the GPipe loss and every
+            gradient, where the fp32 head_dim-256 kernels meet the CPU;
 5. serve    the main paths, each with the launch counters set to 0 just
             before it and read just after, through
             ``repro_torch.launch.serve.serve`` on one card with batch 8
             (m = 8), prompt 2048 and 32 generated tokens: smollm-360m, all
             32 layers, bf16, pipe 16, data 1; rwkv6-1.6b, all 24 layers,
-            bf16, pipe 8, tp 1, data 1.  The counters must equal what each
-            path implies;
+            bf16, pipe 8, tp 1, data 1; gemma-2b (18 layers, pipe 2),
+            deepseek-7b (30 layers in 32 slots, pipe 16), pixtral-12b (40
+            layers, pipe 8, 256 patch embeddings a prompt) and llama3-405b
+            at full width cut to 4 layers (pipe 4), tp 1.  The counters
+            must equal what each path implies;
 6. train    the training main path with the counters set to 0 just before
             and read just after, through ``repro_torch.launch.train.train``:
             smollm-360m, all 32 layers, bf16, pipe 16, data 1, seq 4096,
@@ -83,7 +93,12 @@ line is printed):
             high-water per rank must also equal the plan's; then
             rwkv6-1.6b the same way (``rwkv6_train``: all 24 layers, pipe
             8, tp 1, gpipe and 1f1b), with the WKV-6 backward's share of
-            the traced step's device time;
+            the traced step's device time; then gemma-2b the same way (18
+            layers, pipe 2, tp 1: ``train`` and ``train_fused`` records
+            with ``"arch": "gemma-2b"``), and ``fused_bitwise``: one grad
+            call of gemma-2b at that size through 1f1b and through
+            gpipe_tasked under deterministic algorithms, the loss and
+            every gradient bitwise equal;
 7. memory   peak device memory of one train step under remat "full",
             "dots", "dots_no_batch" and "none" (all 32 layers, seq 4096,
             batch 4, m 4, where "none" fits on the card): each selective
@@ -194,6 +209,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -231,6 +247,12 @@ GRAD_REL = 1e-4   # training: each grad leaf's gap over its largest entry
 NONDETERMINISTIC_LEAVES = ("embed/tok",)
 KERNELS = ("flash_attention", "rmsnorm", "wkv6", "flash_attention_bwd",
            "rmsnorm_bwd", "wkv6_bwd")
+# The dense-block archs served at full size beside smollm (gemma-2b at its
+# config's pipe 2, deepseek-7b at pipe 16, pixtral-12b with its patches at
+# pipe 8, tp cut to 1); llama3-405b at full width cut to 4 layers (pipe 4,
+# one a stage): its 126 (~810 GB of bf16 weights) do not fit one card
+DENSE_SERVE = ("gemma-2b", "deepseek-7b", "pixtral-12b", "llama3-405b")
+SERVE_LAYERS = {"llama3-405b": 4}
 
 
 def emit(obj) -> None:
@@ -466,6 +488,12 @@ def phase_kernels(torch):
     cases += [(1, 0, sq, sk, q_offset, 15, 5, 128)
               for sq, sk, q_offset in ((100, 100, 0), (1000, 1000, 0),
                                        (100, 300, 200))]
+    # D = 256 (gemma-2b): causal, non-causal and windowed, MQA 8:1 and MHA
+    cases += [(causal, window, sq, sk, q_offset, hq, hkv, 256)
+              for causal, window in ((1, 0), (0, 0), (1, 128))
+              for sq, sk, q_offset in ((100, 100, 0), (1000, 1000, 0),
+                                       (100, 300, 200))
+              for hq, hkv in ((8, 1), (4, 4))]
     for causal, window, sq, sk, q_offset, hq, hkv, d in cases:
         for dname, dt in dtypes.items():
             q = randn(1, hq, sq, d, dtype=dt)
@@ -588,14 +616,14 @@ def phase_kernels(torch):
     norm = norm_timing(D_MODEL)           # smollm-360m
     norm_rwkv = norm_timing(2048)         # rwkv6-1.6b's group norm
 
-    def attn_timing(b, hq, hkv, sq, causal, iters):
-        """The bf16 forward at q [b, hq, sq, 64], checked against its plain
+    def attn_timing(b, hq, hkv, sq, causal, iters, d=64):
+        """The bf16 forward at q [b, hq, sq, d], checked against its plain
         version (and its lse, at the training calls) and timed beside SDPA
         (the yardstick only) and its bound; non-causal work is every
         (query, key) pair, causal work the visible half."""
-        q = randn(b, hq, sq, 64, dtype=torch.bfloat16)
-        k = randn(b, hkv, sq, 64, dtype=torch.bfloat16)
-        v = randn(b, hkv, sq, 64, dtype=torch.bfloat16)
+        q = randn(b, hq, sq, d, dtype=torch.bfloat16)
+        k = randn(b, hkv, sq, d, dtype=torch.bfloat16)
+        v = randn(b, hkv, sq, d, dtype=torch.bfloat16)
         got, lse = flash_attention_cuda(q, k, v, causal=causal,
                                         return_lse=True)
         want, want_lse = ref.mha_blocked_fwd(q, k, v, causal=causal)
@@ -607,8 +635,8 @@ def phase_kernels(torch):
             raise AssertionError(f"flash_attention disagrees at q {[b, hq, sq]}"
                                  f" causal {causal}: {err}, lse {lse_err}")
         pairs = sq * (sq + 1) // 2 if causal else sq * sq
-        flops = 4 * 64 * hq * b * pairs                 # q k^T and p v
-        nbytes = 2 * 64 * b * sq * (hq + hkv + hkv + hq)
+        flops = 4 * d * hq * b * pairs                  # q k^T and p v
+        nbytes = 2 * d * b * sq * (hq + hkv + hkv + hq)
         rec = {
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -625,56 +653,71 @@ def phase_kernels(torch):
                                   flops / PEAK_BF16_FLOPS),
             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                          >= flops / PEAK_BF16_FLOPS else "operations"),
-            "shape": {"q": [b, hq, sq, 64], "kv": [b, hkv, sq, 64],
+            "shape": {"q": [b, hq, sq, d], "kv": [b, hkv, sq, d],
                       "causal": causal},
             "dtype": "bfloat16", "flops": flops,
         }
         return with_rates(rec, flops)
 
     attn = attn_timing(1, 15, 5, 2048, True, 50)      # smollm-360m prefill
+    # gemma-2b's training call (m 8: micro-batch 2), MQA 8:1 at D 256, and
+    # deepseek-7b's prefill call (m 8: micro-batch 1), MHA at D 128
+    wide = [attn_timing(2, 8, 1, 4096, True, 20, d=256)
+            | {"call": "gemma-2b training"},
+            attn_timing(1, 32, 32, 2048, True, 20, d=128)
+            | {"call": "deepseek-7b prefill"}]
     # whisper-tiny's training call (m 8: micro-batch 2), 6 heads over 6:
     # the encoder's self- and every cross-attention non-causal, the
     # decoder's self-attention causal
     whisper = [attn_timing(2, 6, 6, 4096, causal, 20) | {"call": "whisper"}
                for causal in (False, True)]
     # rwkv6-1.6b prefill: B = mb = 1, H = 32, T = 2048, bf16 r/k/v/out,
-    # fp32 w, u and state; no PyTorch call computes WKV-6 (library: none)
-    B, H, T, n = 1, 32, 2048, 64
-    args = wkv_inputs(B, T, torch.bfloat16, True)
-    err_w = max_err(torch, wkv6(*args)[0], wkv6_plain(*args)[0])
-    wkv_bytes = (B * H * T * n * (3 * 2 + 4 + 2)   # r, k, v, w in; out
-                 + H * n * 4 + 2 * B * H * n * n * 4)   # u; s0 in, sT out
-    # the chunked form's four 64 x 64 x 64 products a chunk (r S_in, r k^T,
-    # A v, k~^T v) on bf16 tensor cores; the serial form's 5 fp32 operations
-    # per (k, v) a step (r.S, w*S + k*v) on the CUDA cores, beside it
-    wkv_tc_flops = 4 * 2 * n ** 3 * B * H * (-(-T // 64))
-    wkv_serial_flops = 5 * B * H * T * n * n
-    bytes_s = wkv_bytes / HBM_BYTES_PER_S
-    ops_s = wkv_tc_flops / PEAK_BF16_FLOPS
+    # fp32 w, u and state; no PyTorch call computes WKV-6 (library: none);
+    # and its training call (m 8: micro-batch 2, seq 4096) from a zero state
+    n = 64
+
+    def wkv_timing(B, T, s0_random, plain_iters):
+        args = wkv_inputs(B, T, torch.bfloat16, s0_random)
+        err_w = max_err(torch, wkv6(*args)[0], wkv6_plain(*args)[0])
+        wkv_bytes = (B * 32 * T * n * (3 * 2 + 4 + 2)    # r, k, v, w in; out
+                     + 32 * n * 4 + 2 * B * 32 * n * n * 4)  # u; s0 in, sT out
+        # the chunked form's four 64 x 64 x 64 products a chunk (r S_in,
+        # r k^T, A v, k~^T v) on bf16 tensor cores; the serial form's 5 fp32
+        # operations per (k, v) a step (r.S, w*S + k*v) on the CUDA cores,
+        # beside it
+        wkv_tc_flops = 4 * 2 * n ** 3 * B * 32 * (-(-T // 64))
+        wkv_serial_flops = 5 * B * 32 * T * n * n
+        bytes_s = wkv_bytes / HBM_BYTES_PER_S
+        ops_s = wkv_tc_flops / PEAK_BF16_FLOPS
+        rec = {
+            "name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/rwkv6.py:35",
+            "max_abs_err": err_w,
+            "ms": device_ms(torch, lambda: wkv6(*args), 200),
+            "plain_ms": device_ms(torch, lambda: wkv6_plain(*args),
+                                  plain_iters),
+            "library_ms": None,
+            "bound_ms": 1e3 * max(bytes_s, ops_s),
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "serial_fp32_ops_bound_ms": 1e3 * wkv_serial_flops
+            / PEAK_FP32_FLOPS,
+            "shape": [B, 32, T, n], "dtype": "bfloat16",
+            "w_dtype": "float32", "bytes": wkv_bytes,
+            "tc_flops": wkv_tc_flops, "serial_flops": wkv_serial_flops,
+            "per_kernel_us": kernel_us(torch, lambda: wkv6(*args), 20),
+        }
+        return with_rates(rec, wkv_tc_flops)
+
+    wkv = wkv_timing(1, 2048, True, 2)
     dec = wkv_inputs(1, 1, torch.bfloat16, True)      # one decode step
     dec_bytes = (32 * n * (3 * 2 + 4 + 2) + 32 * n * 4
                  + 2 * 32 * n * n * 4)
-    wkv = {
-        "name": "wkv6", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/wkv6.cu",
-        "replaces": "src/repro/kernels/rwkv6.py:35",
-        "max_abs_err": err_w,
-        "ms": device_ms(torch, lambda: wkv6(*args), 200),
-        "plain_ms": device_ms(torch, lambda: wkv6_plain(*args), 2),
-        "library_ms": None,
-        "bound_ms": 1e3 * max(bytes_s, ops_s),
-        "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-        "serial_fp32_ops_bound_ms": 1e3 * wkv_serial_flops / PEAK_FP32_FLOPS,
-        "shape": [B, H, T, n], "dtype": "bfloat16", "w_dtype": "float32",
-        "bytes": wkv_bytes, "tc_flops": wkv_tc_flops,
-        "serial_flops": wkv_serial_flops,
-        "per_kernel_us": kernel_us(torch, lambda: wkv6(*args), 20),
-        "decode_shape": [1, 32, 1, n],
-        "decode_ms": device_ms(torch, lambda: wkv6(*dec), 500),
-        "decode_bound_ms": 1e3 * dec_bytes / HBM_BYTES_PER_S,
-    }
-    wkv = with_rates(wkv, wkv_tc_flops)
-    for rec in (norm, norm_rwkv, attn, *whisper, wkv):
+    wkv.update(decode_shape=[1, 32, 1, n],
+               decode_ms=device_ms(torch, lambda: wkv6(*dec), 500),
+               decode_bound_ms=1e3 * dec_bytes / HBM_BYTES_PER_S)
+    wkv_train = wkv_timing(2, 4096, False, 1) | {"call": "rwkv6-1.6b training"}
+    for rec in (norm, norm_rwkv, attn, *whisper, *wide, wkv, wkv_train):
         emit({"phase": "kernel_timing", **rec})
     return {"rmsnorm": norm, "flash_attention": attn, "wkv6": wkv}
 
@@ -735,6 +778,12 @@ def phase_backward(torch):
              for causal, window in ((True, 0), (False, 0), (True, 128),
                                     (True, 100))]
     cases.append((2, 15, 5, 4096, 64, True, 0))       # the training path's
+    # D = 256 (gemma-2b): MQA 8:1 and MHA over the same masks and lengths
+    cases += [(b, hq, hkv, sq, 256, causal, window)
+              for b, hq, hkv in ((1, 8, 1), (2, 4, 4))
+              for sq in (100, 192, 256, 2048)
+              for causal, window in ((True, 0), (False, 0), (True, 128),
+                                     (True, 100))]
     for b, hq, hkv, sq, d, causal, window in cases:
         for dname, dt in dtypes.items():
             q = randn(b, hq, sq, d, dtype=dt)
@@ -923,14 +972,14 @@ def phase_backward(torch):
     # -- timing: attention at q [1,15,S,64] causal (S 2048, 4096; bf16 and
     #    fp32) and at the training path's [2,15,4096,64] bf16; RMSNorm at
     #    [1,2048,960], [16,4096,960] and the path's [2,4096,960] bf16 ------
-    def attn_timing(b, sq, dname, hq=15, hkv=5, causal=True):
-        """The backward at q [b, hq, sq, 64], checked against its plain
+    def attn_timing(b, sq, dname, hq=15, hkv=5, causal=True, d=64):
+        """The backward at q [b, hq, sq, d], checked against its plain
         version and timed beside SDPA's backward and its bound; non-causal
         work is every (query, key) pair, causal work the visible half."""
         dt = dtypes[dname]
-        q = randn(b, hq, sq, 64, dtype=dt)
-        k, v = (randn(b, hkv, sq, 64, dtype=dt) for _ in range(2))
-        do = randn(b, hq, sq, 64, dtype=dt)
+        q = randn(b, hq, sq, d, dtype=dt)
+        k, v = (randn(b, hkv, sq, d, dtype=dt) for _ in range(2))
+        do = randn(b, hq, sq, d, dtype=dt)
         kw = dict(causal=causal)
         out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
         err = checked_max_err(torch, dname, "flash_attention_bwd", zip(
@@ -940,8 +989,8 @@ def phase_backward(torch):
         sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
                                               enable_gqa=hq != hkv)
         pairs = sq * (sq + 1) // 2 if causal else sq * sq
-        flops = 5 * 2 * 64 * hq * b * pairs
-        nbytes = (q.element_size() * 64 * b * sq * (4 * hq + 4 * hkv)
+        flops = 5 * 2 * d * hq * b * pairs
+        nbytes = (q.element_size() * d * b * sq * (4 * hq + 4 * hkv)
                   + 4 * b * hq * sq)
         peak = PEAK_BF16_FLOPS if dname == "bfloat16" else PEAK_FP32_FLOPS
         iters = 20 if sq <= 2048 else 5
@@ -958,7 +1007,7 @@ def phase_backward(torch):
             "bound_ms": 1e3 * max(flops / peak, nbytes / HBM_BYTES_PER_S),
             "bound_by": ("operations" if flops / peak >= nbytes / HBM_BYTES_PER_S
                          else "bytes"),
-            "shape": {"q": [b, hq, sq, 64], "kv": [b, hkv, sq, 64],
+            "shape": {"q": [b, hq, sq, d], "kv": [b, hkv, sq, d],
                       "causal": causal}, "dtype": dname, "flops": flops,
         }
         rec = with_rates(rec, flops)
@@ -1001,6 +1050,8 @@ def phase_backward(torch):
     # non-causal (encoder, cross) and causal (decoder self-attention)
     for causal in (False, True):
         attn_timing(2, 4096, "bfloat16", hq=6, hkv=6, causal=causal)
+    # gemma-2b's training call (micro-batch 2), MQA 8:1 at D 256
+    attn_timing(2, 4096, "bfloat16", hq=8, hkv=1, d=256)
     norm_timing((1, 2048, D_MODEL))
     norm_timing((16, 4096, D_MODEL))
     norm_timing((2, 4096, 2048))          # rwkv6-1.6b's group norm, training
@@ -1231,6 +1282,50 @@ def phase_train_fused_port(torch, n_layers: int = 4, seq: int = 256,
     if bad:
         raise AssertionError(f"fused training disagrees at {bad}")
 
+
+
+def phase_fused_bitwise(torch, arch_name: str = "gemma-2b", seq: int = 4096,
+                        batch: int = 16):
+    """1f1b against gpipe_tasked at full size on the card: one grad call of
+    each (bf16, the config's pipe, tp 1, m 8, remat "full") on the same
+    weights and batch, under :func:`deterministic` (in bf16 the embedding's
+    atomic index_add_ moves its gradient by ulps of 2^-8); the loss and
+    every gradient leaf bitwise equal."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import model_batch
+    from repro_torch.models.lm import LMModel
+    from repro_torch.tree import tree_items
+
+    arch = configs.get_arch(arch_name)
+    base = configs.get_parallel(arch_name).with_(data=1, tp=1, n_micro=8,
+                                                 remat="full")
+    runs, params, data = {}, None, None
+    for schedule in ("1f1b", "gpipe_tasked"):
+        pcfg = base.with_(schedule=schedule)
+        model = LMModel(arch, pcfg, dtype=torch.bfloat16, device="cuda")
+        if params is None:
+            params = model.init(torch.Generator(device=model.device
+                                                ).manual_seed(0))
+            data = model_batch(to_device(SyntheticLM(DataConfig(
+                seed=0, vocab=arch.vocab, seq_len=seq, global_batch=batch),
+                arch).batch_at(0), model.device), torch.bfloat16)
+        with deterministic(torch):       # the embedding's index_add_
+            loss, grads = steps.build_grad_fn(model, pcfg, model.device)(
+                params, data)
+        runs[schedule] = (loss.float(), [g for _, g in tree_items(grads)])
+    paths = [p for p, _ in tree_items(params)]
+    unequal, _ = bitwise_gaps(torch, paths, runs["1f1b"],
+                              runs["gpipe_tasked"])
+    emit({"phase": "fused_bitwise", "arch": arch.name,
+          "n_layers": arch.n_layers, "pipe": base.pipe, "n_micro": 8,
+          "seq": seq, "batch": batch, "dtype": "bfloat16",
+          "loss": float(runs["1f1b"][0]), "leaves": len(paths),
+          "bitwise_1f1b_vs_gpipe_tasked": not unequal,
+          "unequal_leaves": unequal, "ok": not unequal})
+    if unequal:
+        raise AssertionError(f"1f1b vs gpipe_tasked differ at {unequal}")
 
 def phase_whisper_port(torch, pipe: int = 4, seq: int = 256,
                        batch: int = 4):
@@ -1688,9 +1783,10 @@ def phase_hetero_memory(torch):
                              f"is not finite: {losses}")
 
 
-def phase_serve(torch, arch_name: str):
+def phase_serve(torch, arch_name: str, n_layers: Optional[int] = None):
     """One main path: counters set to 0 just before, read just after, and
-    held to ``launch.serve.expected_serve_launches``."""
+    held to ``launch.serve.expected_serve_launches``; ``n_layers`` cuts
+    the arch's depth (full width), the config's pipe and layout kept."""
     from repro_torch import configs
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
@@ -1703,6 +1799,9 @@ def phase_serve(torch, arch_name: str):
     # serving runs none
     backward = (flash_attention_bwd, rmsnorm_bwd, wkv6_bwd)
     arch = configs.get_arch(arch_name)
+    full_layers = arch.n_layers
+    if n_layers is not None:
+        arch = dataclasses.replace(arch, n_layers=n_layers)
     pcfg = configs.get_parallel(arch_name).with_(data=1, tp=1)
     batch, prompt, gen = 8, 2048, 32
     for fn in (*counters.values(), *backward):
@@ -1711,13 +1810,14 @@ def phase_serve(torch, arch_name: str):
                 device="cuda", dtype=torch.bfloat16, seed=0)
     totals = {k: fn.launches for k, fn in counters.items()}
     m, layers = res["n_micro"], arch.n_layers + arch.enc_layers
-    want = expected_serve_launches(arch, m, gen)
+    want = expected_serve_launches(arch, pcfg, m, gen)
     want_totals = {k: want["prefill"][k] + want["decode"][k] for k in totals}
     per_step = {k: v / (gen - 1) for k, v in res["launches"]["decode"].items()}
     logits = res["logits"]
     toks = res["tokens"]
     emit({"phase": "serve", "arch": arch.name, "family": arch.family,
-          "n_layers": layers, "pipe": pcfg.pipe, "tp": pcfg.tp,
+          "n_layers": layers, "n_layers_config": full_layers,
+          "frontend": arch.frontend, "pipe": pcfg.pipe, "tp": pcfg.tp,
           "data": pcfg.data, "n_micro": m, "batch": batch, "prompt": prompt,
           "gen": gen, "dtype": "bfloat16",
           "prefill_ms": res["prefill_s"] * 1e3,
@@ -1977,7 +2077,7 @@ def phase_stream(torch, runs: dict):
                                           gen))
             launched = counters["flash_attention"].launches - before
             if launched != expected_serve_launches(
-                    arch, 8, 2)["prefill"]["flash_attention"]:
+                    arch, pcfg, 8, 2)["prefill"]["flash_attention"]:
                 bad.append(f"prefill stream={s}: {launched} attention "
                            "launches")
             logits.append(out)
@@ -2653,7 +2753,7 @@ def serve_gates(torch, case, ranks, one):
             == [case["batch"], 1, arch.vocab]):
         bad.append(f"logits not finite [B, 1, V]: {last.get('logits_shape')}")
     m = one["n_micro"]
-    want = expected_serve_launches(arch, m, case["gen"])
+    want = expected_serve_launches(arch, case["pcfg"], m, case["gen"])
     summed = {ph: {k: sum(g["launches"][ph][k] for g in ranks)
                    for k in want[ph]} for ph in want}
     if summed != want or one["launches"] != want:
@@ -2782,15 +2882,27 @@ def main() -> int:
     timed("train_gpu_vs_cpu rwkv6-1.6b", phase_train_port, torch,
           "rwkv6-1.6b", 2, 256)
     timed("train_fused_gpu_vs_cpu", phase_train_fused_port, torch)
+    # gemma-2b at full width, 2 layers: the fp32 D-256 kernels on the card
+    timed("port_gpu_vs_cpu gemma-2b", phase_port, torch, "gemma-2b", 2, 256)
+    timed("train_gpu_vs_cpu gemma-2b", phase_train_port, torch, "gemma-2b",
+          2, 256)
     launches = {k: 0 for k in KERNELS}
     for arch_name in ("smollm-360m", "rwkv6-1.6b"):
         add(launches, timed(f"serve {arch_name}", phase_serve, torch,
                             arch_name))
-    for arch_name in ("smollm-360m", "rwkv6-1.6b"):
+    # the dense-block archs at full size (llama3-405b at full width, cut to
+    # 4 layers: SERVE_LAYERS)
+    for arch_name in DENSE_SERVE:
+        add(launches, timed(f"serve {arch_name}", phase_serve, torch,
+                            arch_name, SERVE_LAYERS.get(arch_name)))
+        torch.cuda.empty_cache()
+    for arch_name in ("smollm-360m", "rwkv6-1.6b", "gemma-2b"):
         for schedule in ("gpipe", "1f1b"):
             add(launches, timed(f"train {arch_name} {schedule}", phase_train,
                                 torch, schedule, arch_name))
             torch.cuda.empty_cache()
+    timed("fused_bitwise gemma-2b", phase_fused_bitwise, torch)
+    torch.cuda.empty_cache()
     timed("memory", phase_memory, torch)
     torch.cuda.empty_cache()
     timed("hetero_gpu_vs_cpu", phase_hetero_port, torch)

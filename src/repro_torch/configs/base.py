@@ -73,6 +73,8 @@ class ArchConfig:
     enc_len: int = 0              # fixed encoder sequence length (audio frames)
     # modality frontend stub: number of patch/frame embeddings prepended
     frontend: str = "none"        # none | audio_stub | vision_stub
+    # gemma: token embeddings times sqrt(d_model), a scalar of the model dtype
+    embed_scale: bool = False
     param_dtype: str = "bfloat16"
     # documentation pointer (public source tier)
     source: str = ""

@@ -5,7 +5,7 @@ ARCH = ArchConfig(
     name="gemma-2b", family="dense",
     n_layers=18, d_model=2048, d_ff=16384, vocab=256000,
     attn=AttentionConfig(n_heads=8, n_kv_heads=1, head_dim=256),
-    act="geglu", norm="rms", tie_embeddings=True,
+    act="geglu", norm="rms", tie_embeddings=True, embed_scale=True,
     source="arXiv:2403.08295; hf",
 )
 

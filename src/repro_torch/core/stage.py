@@ -13,7 +13,7 @@ and the port at pipe 4 hold the same per-layer weights in different stacks.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -94,24 +94,22 @@ def partition_layout(n_layers: int, n_stages: int,
     return StageLayout(Lp, mask, slot, sizes, tuple(bounds))
 
 
-def stack_layer_params(layer_params: Sequence[Any], n_stages: int,
-                       partition: Optional[Sequence[int]] = None) -> Any:
-    """Stack per-layer trees (one per layer) into ``[n_stages, L, ...]``.
-
-    Padding slots are zero-filled.  With ``partition`` each stage's slots
-    hold its own contiguous layer run; without, the flat front-to-back fill.
-    """
-    lay = partition_layout(len(layer_params), n_stages, partition)
-    return place_layers(layer_params, lay.slot_layer)
-
-
-def place_layers(layer_params: Sequence[Any], slot_layer: np.ndarray) -> Any:
+def place_layers(layer_params: Iterable[Any], slot_layer: np.ndarray) -> Any:
     """Stack per-layer trees onto a ``[S, L]`` slot grid: slot ``(s, l)``
     holds ``layer_params[slot_layer[s, l]]``, zeros where it is ``-1``.
     ``slot_layer`` may be a few stages' rows of a layout, indexing just
-    their layers (one pipe rank's share)."""
-    flat = tree_map(lambda *xs: torch.stack(xs), *layer_params)
-    return _place(flat, slot_layer)
+    their layers (one pipe rank's share).  Each layer is copied into its
+    slots as it comes, so ``layer_params`` may be a generator that draws
+    them in order: then the grid and one layer are all that is held (at
+    llama3-405b's width a layer is 6.4 GB of bf16)."""
+    S, L = slot_layer.shape
+    out = None
+    for i, p in enumerate(layer_params):
+        if out is None:
+            out = tree_map(lambda a: a.new_zeros((S, L) + a.shape), p)
+        for s, l in zip(*np.nonzero(slot_layer == i)):
+            tree_map(lambda dst, src: dst[s, l].copy_(src), out, p)
+    return out
 
 
 def _place(per_layer: Any, slot_layer: np.ndarray) -> Any:

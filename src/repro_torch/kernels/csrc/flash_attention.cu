@@ -44,6 +44,14 @@
 //   tile and a 4 x (4 * D / 64) patch of the output; the 16 threads of a
 //   row reduce max and sum with warp shuffles.
 //
+// Head dims 64, 128 and 256 (gemma-2b: MQA 8:1 at 256).  At 256 the bf16
+//   kernel's K / V tiles hold 64 keys (128-key tiles in two stages would
+//   take 256 KB beside the 64 KB q tile), and its producer is a warpgroup
+//   that lends its registers to the consumers (setmaxnreg), whose O
+//   accumulator of 64 x 256 fp32 alone is 128 registers a thread.  The
+//   fp32 kernel takes 256 as it is (217 KB of shared memory, 64 output
+//   columns a thread's row).
+//
 // Both mask the q and k edges that do not fill a tile inside the kernel;
 // nothing is padded in memory.  They launch on the caller's stream and
 // allocate nothing.  Given an ``lse`` pointer, both also write each row's
@@ -99,10 +107,22 @@
 //     TF32; a 256-thread block gives each thread a 4 x 4 patch of the 64 x 64
 //     score tile (row-major Q / dO against transposed K / V in shared memory,
 //     16-byte reads) and a 4 x (4 D / 64) patch of the tile it accumulates.
+//   At head_dim 256: the bf16 dK / dV kernel's accumulators would take 256
+//     registers a thread, so two blocks share each key tile, each owning 128
+//     of dK's and dV's columns: both recompute S^T and dP^T over all of D
+//     and take dV += P^T dO and dK += dS^T Q over their half (the same
+//     registers as at D 128); the dQ kernel streams 32-key K / V tiles
+//     (its Q and dO tiles take 128 KB).  Nine S x S x D products where the
+//     bound counts five.  The fp32 kernels stage D in chunks of 64 columns
+//     (a [D][68] K^T beside a [64][D + 4] Q no longer fits): S and dP sum
+//     over the chunks, each output chunk is a further pass, and dK / dV
+//     split their columns between two blocks the same way.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -133,6 +153,7 @@ struct Smem {
   static constexpr int kV = kBK * D;            // v    [BK][D]
   static constexpr int kPT = kBK * (kBQ + kPad);  // p^T [BK][BQ + pad]
   static constexpr size_t kBytes = sizeof(float) * (kQT + kKT + kV + kPT);
+  static_assert(kBytes <= 232448, "a block takes at most 227 KB of shared memory");
 };
 
 // Stage `rows_valid` rows of a [rows, D] tile from global memory into shared
@@ -327,14 +348,20 @@ using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int kBM = 128;                    // q rows per block: 2 warpgroups x 64
-constexpr int kBN = 128;                    // keys per k / v tile
 constexpr int kStages = 2;                  // k / v ring depth
 constexpr int kConsumers = 256;             // warps 0-7
-constexpr int kThreads = kConsumers + 32;   // + the producer warp
 constexpr int kRowBytes = 128;              // one swizzled panel row: 64 bf16
 
 template <int D>
 struct Smem {
+  // keys per k / v tile: at D 256, 128-key tiles in two stages would take
+  // 256 KB beside the q tile; 64-key tiles take 128 KB (192 KB in all)
+  static constexpr int kBN = D == 256 ? 64 : 128;
+  // the producer: one warp, or at D 256 a warpgroup that gives its registers
+  // to the consumers (setmaxnreg: 24 a thread for it, 240 for them), whose O
+  // accumulator alone takes 128 a thread (ptxas budgets 168 at 288 threads)
+  static constexpr bool kLendRegs = D == 256;
+  static constexpr int kThreads = kConsumers + (kLendRegs ? 128 : 32);
   static constexpr int kPanels = D / 64;
   static constexpr int kQBytes = kBM * D * 2;
   static constexpr int kTileBytes = kBN * D * 2;   // one k or v tile
@@ -345,16 +372,20 @@ struct Smem {
   // q_full, k_full[kStages], v_full[kStages], empty[kStages]
   static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages);
   static constexpr size_t kAlloc = kBytes + 1024;   // slack to align the base to 1024
+  static_assert(kAlloc <= 232448, "a block takes at most 227 KB of shared memory");
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Smem<D>::kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
                        float* __restrict__ lse, int hq, int hkv, int sq, int sk,
                        float scale_log2, int causal, int window, int q_offset) {
   using L = Smem<D>;
+  constexpr int kBN = L::kBN;
+  using ScoreMma = Wgmma<kBN>;   // S: 64 q rows x kBN keys
+  using OutMma = Wgmma<D>;       // O: 64 q rows x D
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base + L::kQ;
@@ -391,6 +422,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (tid >= kConsumers) {
     // ---- producer: lane 0 of warp 8 issues every copy ----
+    if constexpr (L::kLendRegs) setmaxnreg_dec<24>();
     if (tid == kConsumers) {
       mbar_arrive_expect_tx(q_full, L::kQBytes);
       for (int p = 0; p < L::kPanels; ++p)
@@ -411,6 +443,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     return;
   }
 
+  if constexpr (L::kLendRegs) setmaxnreg_inc<240>();
+
   // ---- consumers: warpgroup wg owns q rows 64 wg .. 64 wg + 63 of the tile ----
   const int wg = tid / 128;
   const int warp = (tid % 128) / 32;
@@ -425,9 +459,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   float o[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-  float s[64];
+  float s[kBN / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+  for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;   // l: this thread's share
 
   const uint32_t qa = sQ + wg * 64 * kRowBytes;
@@ -447,8 +481,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk / 4) * kBM * kRowBytes + (kk % 4) * 32;
       const uint32_t koff = (kk / 4) * kBN * kRowBytes + (kk % 4) * 32;
-      wgmma_ss_n128(s, sw128_desc(qa + off, 16, 1024), sw128_desc(ks + koff, 16, 1024),
-                    kk > 0);
+      ScoreMma::ss(s, sw128_desc(qa + off, 16, 1024), sw128_desc(ks + koff, 16, 1024), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -458,13 +491,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // p = 2^(s c - m) is the reference's exp(s scale - m') term for term (a
     // row masked so far has m = -1e30 and takes p = 1, as there)
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] *= scale_log2;
+    for (int i = 0; i < kBN / 2; ++i) s[i] *= scale_log2;
     const int k_first = kt * kBN;
     const bool edge = (k_first + kBN > sk) || (causal && k_first + kBN - 1 > wg_row_min) ||
                       (window > 0 && k_first <= wg_row_max - window);
     if (edge) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kBN / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = k_first + 8 * j + col_lane + e;
@@ -480,7 +513,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // online softmax: row max over this thread's 32 columns, then the 4 lanes
     float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < kBN / 8; ++j) {
       mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
       mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
     }
@@ -495,7 +528,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     m1 = mx1;
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < kBN / 8; ++j) {
       s[4 * j] = ex2(s[4 * j] - mx0);
       s[4 * j + 1] = ex2(s[4 * j + 1] - mx0);
       s[4 * j + 2] = ex2(s[4 * j + 2] - mx1);
@@ -513,20 +546,17 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       o[4 * j + 3] *= alpha1;
     }
 
-    // O += P V: 8 steps of k16 over the 128 keys; P from registers, V MN-major
-    // (LBO: the next 64-wide panel of d; SBO: the next 8 keys)
-    uint32_t pa[8][4];
+    // O += P V: kBN / 16 steps of k16 over the tile's keys; P from registers,
+    // V MN-major (LBO: the next 64-wide panel of d; SBO: the next 8 keys)
+    uint32_t pa[kBN / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) to_a_frag(s, kk, pa[kk]);
+    for (int kk = 0; kk < kBN / 16; ++kk) to_a_frag(s, kk, pa[kk]);
     mbar_wait(v_full(st), ph);
     wgmma_fence();
     reg_fence(o);
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const uint64_t dv = sw128_desc(vs + kk * 16 * kRowBytes, kBN * kRowBytes, 1024);
-      if constexpr (D == 64) wgmma_rs_n64(o, pa[kk], dv);
-      else wgmma_rs_n128(o, pa[kk], dv);
-    }
+    for (int kk = 0; kk < kBN / 16; ++kk)
+      OutMma::rs(o, pa[kk], sw128_desc(vs + kk * 16 * kRowBytes, kBN * kRowBytes, 1024));
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(o);
@@ -605,12 +635,13 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int b,
                    int hq, int hkv, int sq, int sk, float scale, int causal, int window,
                    int q_offset, cudaStream_t stream) {
-  static_assert(kBM == 128 && kBN == 128, "the maps' boxes are 128 rows");
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!make_map(encode, &tq, q, b * hq, sq, D) || !make_map(encode, &tk, k, b * hkv, sk, D) ||
-      !make_map(encode, &tv, v, b * hkv, sk, D))
+  constexpr int kBN = Smem<D>::kBN;
+  if (!make_map(encode, &tq, q, b * hq, sq, D, kBM) ||
+      !make_map(encode, &tk, k, b * hkv, sk, D, kBN) ||
+      !make_map(encode, &tv, v, b * hkv, sk, D, kBN))
     return cudaErrorInvalidValue;
   auto kern = flash_fwd_wgmma_kernel<D>;
   const size_t smem = Smem<D>::kAlloc;
@@ -618,9 +649,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
                                          (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(b * hq, (sq + kBM - 1) / kBM);
-  kern<<<grid, kThreads, smem, stream>>>(tq, tk, tv, static_cast<bf16*>(out), lse, hq, hkv, sq,
-                                         sk, scale * 1.4426950408889634f, causal, window,
-                                         q_offset);
+  kern<<<grid, Smem<D>::kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(out), lse, hq, hkv, sq, sk, scale * 1.4426950408889634f,
+      causal, window, q_offset);
   return cudaGetLastError();
 }
 
@@ -663,18 +694,18 @@ __device__ __forceinline__ void unpack(const float4& v, float (&f)[4]) {
   f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
 }
 
-// Rows [0, rows_valid) of a [kB, D] fp32 tile at src into shared memory,
-// row-major (dst[r * ld + d]) or transposed (dst[d * ld + r]); rows past the
-// edge are zero.
-template <int D, bool TRANSPOSE>
-__device__ __forceinline__ void stage(const float* __restrict__ src, int rows_valid, float* dst,
-                                      int ld) {
-  constexpr int kVecs = kB * D / 4;
+// Rows [0, rows_valid) of a [kB, W] fp32 tile at src (rows src_ld apart)
+// into shared memory, row-major (dst[r * ld + d]) or transposed
+// (dst[d * ld + r]); rows past the edge are zero.
+template <int W, bool TRANSPOSE>
+__device__ __forceinline__ void stage_cols(const float* __restrict__ src, int src_ld,
+                                           int rows_valid, float* dst, int ld) {
+  constexpr int kVecs = kB * W / 4;
   for (int e = threadIdx.x; e < kVecs; e += kThreads) {
-    const int r = (e * 4) / D;
-    const int d0 = (e * 4) % D;
+    const int r = (e * 4) / W;
+    const int d0 = (e * 4) % W;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows_valid) v = load4(src + (size_t)r * D + d0);
+    if (r < rows_valid) v = load4(src + (size_t)r * src_ld + d0);
     if (TRANSPOSE) {
       dst[(d0 + 0) * ld + r] = v.x;
       dst[(d0 + 1) * ld + r] = v.y;
@@ -686,19 +717,29 @@ __device__ __forceinline__ void stage(const float* __restrict__ src, int rows_va
   }
 }
 
+// A whole [kB, D] tile: stage_cols over all of its D columns
+template <int D, bool TRANSPOSE>
+__device__ __forceinline__ void stage(const float* __restrict__ src, int rows_valid, float* dst,
+                                      int ld) {
+  stage_cols<D, TRANSPOSE>(src, D, rows_valid, dst, ld);
+}
+
 __device__ __forceinline__ void stage_rows(const float* __restrict__ src, int n_valid,
                                            float* dst) {
   for (int i = threadIdx.x; i < kB; i += kThreads) dst[i] = i < n_valid ? src[i] : 0.f;
 }
 
-// acc[i][j] = sum_d A[4 tr + i][d] Bt[d][4 tc + j]; A row-major [kB][lda], Bt [D][kLT]
-template <int D>
-__device__ __forceinline__ void patch_abt(const float* A, int lda, const float* Bt, int tr,
-                                          int tc, float (&acc)[4][4]) {
+__device__ __forceinline__ void zero(float (&acc)[4][4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+}
+
+// acc[i][j] += sum_d A[4 tr + i][d] Bt[d][4 tc + j]; A row-major [kB][lda], Bt [D][kLT]
+template <int D>
+__device__ __forceinline__ void patch_abt_add(const float* A, int lda, const float* Bt, int tr,
+                                              int tc, float (&acc)[4][4]) {
 #pragma unroll 2
   for (int d = 0; d < D; d += 4) {
     float a[4][4], b[4][4];
@@ -713,6 +754,14 @@ __device__ __forceinline__ void patch_abt(const float* A, int lda, const float* 
 #pragma unroll
         for (int dd = 0; dd < 4; ++dd) acc[i][j] = fmaf(a[i][dd], b[dd][j], acc[i][j]);
   }
+}
+
+// acc[i][j] = sum_d A[4 tr + i][d] Bt[d][4 tc + j]
+template <int D>
+__device__ __forceinline__ void patch_abt(const float* A, int lda, const float* Bt, int tr,
+                                          int tc, float (&acc)[4][4]) {
+  zero(acc);
+  patch_abt_add<D>(A, lda, Bt, tr, tc, acc);
 }
 
 // acc[i][4 c + j] += sum_r X[r][4 tr + i] Y[r][64 c + 4 tc + j];
@@ -771,26 +820,37 @@ __device__ __forceinline__ void probs_and_dscores(float (&s)[4][4], float (&dp)[
 }
 
 // (a) delta[row] = sum_d dO[row][d] O[row][d]: a row is D * sizeof(T) / 16
-// lanes, each with 16 bytes of O and of dO, so a warp takes 32 / that rows
-// (4 at bf16 D 64) with full 16-byte loads; the lanes of a row reduce by
-// shuffles in a fixed order
+// lanes (at most 32), each with 16 bytes of O and of dO a load, so a warp
+// takes 32 / that rows (4 at bf16 D 64) with full 16-byte loads; a row
+// wider than a warp's loads (fp32 D 256) takes kLoads loads a lane; the
+// lanes of a row reduce by shuffles in a fixed order
+template <typename T, int D>
+struct DeltaShape {
+  static constexpr int kVec = 16 / sizeof(T);                       // elements a load
+  static constexpr int kLanes = D / kVec < 32 ? D / kVec : 32;      // lanes a row
+  static constexpr int kLoads = D / (kVec * kLanes);                // loads a lane
+};
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
                        float* __restrict__ delta, int rows) {
-  constexpr int kVec = 16 / sizeof(T);        // elements a lane loads
-  constexpr int kLanes = D / kVec;            // lanes a row
+  using S = DeltaShape<T, D>;
+  constexpr int kVec = S::kVec;
+  constexpr int kLanes = S::kLanes;
   const int lane = threadIdx.x & 31;
   const int row = ((blockIdx.x * kThreads + threadIdx.x) >> 5) * (32 / kLanes) + lane / kLanes;
   const int c = (lane % kLanes) * kVec;
   float acc = 0.f;
   if (row < rows) {
 #pragma unroll
-    for (int i = 0; i < kVec; i += 4) {
-      const float4 a = load4(out + (size_t)row * D + c + i);
-      const float4 b = load4(dout + (size_t)row * D + c + i);
-      acc += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-    }
+    for (int l = 0; l < S::kLoads; ++l)
+#pragma unroll
+      for (int i = 0; i < kVec; i += 4) {
+        const float4 a = load4(out + (size_t)row * D + l * kLanes * kVec + c + i);
+        const float4 b = load4(dout + (size_t)row * D + l * kLanes * kVec + c + i);
+        acc += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+      }
   }
 #pragma unroll
   for (int off = kLanes / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -955,14 +1015,222 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// fp32 at D 256: a [D][kLT] K^T / V^T pair beside the [kB][D + 4] Q / dO
+// pair would take 301 KB, so both kernels below stage D in chunks of 64
+// columns ([64][kLT] tiles, ~105 KB in all): S and dP sum over the chunks,
+// then each chunk of the output is one more pass over its columns.  Their
+// tiles, patches and masks are the kernels' above.
+constexpr int kC = 64;             // columns a chunk
+constexpr int kChunkOut = 2;       // dK / dV chunks a block: at D 256 two blocks share a key tile
+
+struct SmemChunked {
+  // dK / dV: Q, dO, K^T, V^T chunks, P, dS [64][kLT]; dQ: Q, dO, K^T, V^T
+  // chunks, dS^T (and the K chunk in Q's place); lse, delta [kB]
+  static constexpr size_t kBytes = sizeof(float) * (6 * kB * kLT + 2 * kB);
+};
+
+// S = Q K^T and dP = dO V^T for a (q tile, key tile) pair, summed over D's
+// chunks (the previous tile's reads of the chunk buffers must be done)
+template <int D>
+__device__ __forceinline__ void chunked_scores(const float* qg, int q_valid, const float* dog,
+                                               const float* kg, const float* vg, int k_valid,
+                                               float* sA, float* sB, float* sKt, float* sVt,
+                                               int tr, int tc, float (&s)[4][4],
+                                               float (&dp)[4][4]) {
+  zero(s);
+  zero(dp);
+#pragma unroll 1
+  for (int c = 0; c < D / kC; ++c) {
+    __syncthreads();   // the previous chunk's reads are done
+    stage_cols<kC, false>(qg + kC * c, D, q_valid, sA, kLT);
+    stage_cols<kC, false>(dog + kC * c, D, q_valid, sB, kLT);
+    stage_cols<kC, true>(kg + kC * c, D, k_valid, sKt, kLT);
+    stage_cols<kC, true>(vg + kC * c, D, k_valid, sVt, kLT);
+    __syncthreads();
+    patch_abt_add<kC>(sA, kLT, sKt, tr, tc, s);
+    patch_abt_add<kC>(sB, kLT, sVt, tr, tc, dp);
+  }
+}
+
+// (b) at D 256: dK, dV columns 128 z .. 128 z + 127 of one (b, kv head, key tile)
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_chunked_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              float* __restrict__ dk, float* __restrict__ dv, int hq, int hkv,
+                              int sq, int sk, float scale, int causal, int window,
+                              int q_offset) {
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sdO = sQ + kB * kLT;
+  float* sKt = sdO + kB * kLT;
+  float* sVt = sKt + kC * kLT;
+  float* sP = sVt + kC * kLT;
+  float* sdS = sP + kB * kLT;
+  float* sLse = sdS + kB * kLT;
+  float* sDelta = sLse + kB;
+
+  const int tid = threadIdx.x;
+  const int tr = tid >> 4;
+  const int tc = tid & 15;
+  const int bkv = blockIdx.y;
+  const int b = bkv / hkv;
+  const int group = hq / hkv;
+  const int k0 = blockIdx.x * kB;
+  const int k_valid = min(kB, sk - k0);
+  const int c_first = blockIdx.z * kChunkOut;     // this block's first output chunk
+  const float* kg = k + ((size_t)bkv * sk + k0) * D;
+  const float* vg = v + ((size_t)bkv * sk + k0) * D;
+
+  float dk_acc[kChunkOut][4][4], dv_acc[kChunkOut][4][4];
+#pragma unroll
+  for (int c = 0; c < kChunkOut; ++c) {
+    zero(dk_acc[c]);
+    zero(dv_acc[c]);
+  }
+
+  const int nq = (sq + kB - 1) / kB;
+  for (int g = 0; g < group; ++g) {
+    const int bh = b * hq + (bkv % hkv) * group + g;
+    for (int qt = 0; qt < nq; ++qt) {
+      const int q0 = qt * kB;
+      if (!tile_needed(q0 + q_offset, k0, causal, window)) continue;   // uniform
+      const int q_valid = min(kB, sq - q0);
+      const float* qg = q + ((size_t)bh * sq + q0) * D;
+      const float* dog = dout + ((size_t)bh * sq + q0) * D;
+      float s[4][4], dp[4][4];
+      chunked_scores<D>(qg, q_valid, dog, kg, vg, k_valid, sQ, sdO, sKt, sVt, tr, tc, s, dp);
+      stage_rows(lse + (size_t)bh * sq + q0, q_valid, sLse);
+      stage_rows(delta + (size_t)bh * sq + q0, q_valid, sDelta);
+      __syncthreads();
+      probs_and_dscores(s, dp, sLse, sDelta, q0, k0, tr, tc, sq, sk, scale, causal, window,
+                        q_offset);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        store4(sP + (4 * tr + i) * kLT + 4 * tc, make_float4(s[i][0], s[i][1], s[i][2], s[i][3]));
+        store4(sdS + (4 * tr + i) * kLT + 4 * tc,
+               make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]));
+      }
+#pragma unroll
+      for (int c = 0; c < kChunkOut; ++c) {
+        __syncthreads();   // P / dS written; the previous chunk's reads are done
+        stage_cols<kC, false>(qg + kC * (c_first + c), D, q_valid, sQ, kLT);
+        stage_cols<kC, false>(dog + kC * (c_first + c), D, q_valid, sdO, kLT);
+        __syncthreads();
+        patch_atb<kC>(sP, sdO, kLT, tr, tc, dv_acc[c]);    // dV += P^T dO
+        patch_atb<kC>(sdS, sQ, kLT, tr, tc, dk_acc[c]);    // dK += dS^T Q
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + 4 * tr + i;
+    if (key >= sk) continue;
+    const size_t base = ((size_t)bkv * sk + key) * D + kC * c_first + 4 * tc;
+#pragma unroll
+    for (int c = 0; c < kChunkOut; ++c) {
+      store4(dk + base + kC * c, make_float4(dk_acc[c][i][0], dk_acc[c][i][1], dk_acc[c][i][2],
+                                             dk_acc[c][i][3]));
+      store4(dv + base + kC * c, make_float4(dv_acc[c][i][0], dv_acc[c][i][1], dv_acc[c][i][2],
+                                             dv_acc[c][i][3]));
+    }
+  }
+}
+
+// (c) at D 256: dQ for one (b, q head, q tile)
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_chunked_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            float* __restrict__ dq, int hq, int hkv, int sq, int sk, float scale,
+                            int causal, int window, int q_offset) {
+  constexpr int NC = D / kC;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);    // a Q chunk, then a K chunk for dQ
+  float* sdO = sQ + kB * kLT;
+  float* sKt = sdO + kB * kLT;
+  float* sVt = sKt + kC * kLT;
+  float* sdSt = sVt + kC * kLT;
+  float* sLse = sdSt + kB * kLT;
+  float* sDelta = sLse + kB;
+
+  const int tid = threadIdx.x;
+  const int tr = tid >> 4;
+  const int tc = tid & 15;
+  const int bh = blockIdx.y;
+  const int kv_bh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;   // heaviest causal tiles first
+  const int q_valid = min(kB, sq - q0);
+  const float* qg = q + ((size_t)bh * sq + q0) * D;
+  const float* dog = dout + ((size_t)bh * sq + q0) * D;
+  stage_rows(lse + (size_t)bh * sq + q0, q_valid, sLse);
+  stage_rows(delta + (size_t)bh * sq + q0, q_valid, sDelta);
+
+  float dq_acc[NC][4][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) zero(dq_acc[c]);
+
+  const int nk = (sk + kB - 1) / kB;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kB;
+    if (!tile_needed(q0 + q_offset, k0, causal, window)) continue;   // uniform
+    const int k_valid = min(kB, sk - k0);
+    const float* kg = k + ((size_t)kv_bh * sk + k0) * D;
+    float s[4][4], dp[4][4];
+    chunked_scores<D>(qg, q_valid, dog, kg, v + ((size_t)kv_bh * sk + k0) * D, k_valid, sQ, sdO,
+                      sKt, sVt, tr, tc, s, dp);
+    probs_and_dscores(s, dp, sLse, sDelta, q0, k0, tr, tc, sq, sk, scale, causal, window,
+                      q_offset);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      store4(sdSt + (4 * tc + j) * kLT + 4 * tr,
+             make_float4(dp[0][j], dp[1][j], dp[2][j], dp[3][j]));
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      __syncthreads();   // dS^T written; the previous chunk's reads are done
+      stage_cols<kC, false>(kg + kC * c, D, k_valid, sQ, kLT);
+      __syncthreads();
+      patch_atb<kC>(sdSt, sQ, kLT, tr, tc, dq_acc[c]);     // dQ += dS K
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * tr + i;
+    if (row >= sq) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      store4(dq + ((size_t)bh * sq + row) * D + kC * c + 4 * tc,
+             make_float4(dq_acc[c][i][0], dq_acc[c][i][1], dq_acc[c][i][2], dq_acc[c][i][3]));
+  }
+}
+
 template <typename T, int D>
 cudaError_t launch_delta(const void* out, const void* dout, float* delta, int rows,
                          cudaStream_t stream) {
-  constexpr int kRowsPerBlock = kThreads / 32 * (32 / (D * (int)sizeof(T) / 16));
+  constexpr int kRowsPerBlock = kThreads / 32 * (32 / DeltaShape<T, D>::kLanes);
   flash_bwd_delta_kernel<T, D><<<(rows + kRowsPerBlock - 1) / kRowsPerBlock, kThreads, 0,
                                  stream>>>(static_cast<const T*>(out),
                                            static_cast<const T*>(dout), delta, rows);
   return cudaGetLastError();
+}
+
+// The fp32 kernels for head dim D (only the chosen form is instantiated).
+// The chunked form gives the same bits at D 64 and 128 but restages K^T /
+// V^T for every q tile and Q / dO for every key tile: 13-23% slower there
+// on an H100 (scripts/time_attention_bwd.py), so it is kept to D 256.
+template <int D>
+auto dkdv_kernel() {
+  if constexpr (D > 128) return flash_bwd_dkdv_chunked_kernel<D>;
+  else return flash_bwd_dkdv_kernel<D>;
+}
+template <int D>
+auto dq_kernel() {
+  if constexpr (D > 128) return flash_bwd_dq_chunked_kernel<D>;
+  else return flash_bwd_dq_kernel<D>;
 }
 
 template <int D>
@@ -976,22 +1244,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
   const float* tdo = static_cast<const float*>(dout);
   cudaError_t err = launch_delta<float, D>(out, dout, delta, b * hq * sq, stream);
   if (err != cudaSuccess) return err;
-
-  auto dkdv = flash_bwd_dkdv_kernel<D>;
-  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)Smem<D>::kDkdv);
+  // fp32 D 256 takes the chunked kernels: the others' tiles do not fit
+  constexpr bool kChunked = D > 128;
+  constexpr size_t dkdv_smem = kChunked ? SmemChunked::kBytes : Smem<D>::kDkdv;
+  constexpr size_t dq_smem = kChunked ? SmemChunked::kBytes : Smem<D>::kDq;
+  const dim3 dkdv_grid((sk + kB - 1) / kB, b * hkv, kChunked ? D / (kC * kChunkOut) : 1);
+  const dim3 dq_grid((sq + kB - 1) / kB, b * hq);
+  auto dkdv = dkdv_kernel<D>();
+  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dkdv_smem);
   if (err != cudaSuccess) return err;
-  dkdv<<<dim3((sk + kB - 1) / kB, b * hkv), kThreads, Smem<D>::kDkdv, stream>>>(
+  dkdv<<<dkdv_grid, kThreads, dkdv_smem, stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), hq, hkv,
       sq, sk, scale, causal, window, q_offset);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto dqk = flash_bwd_dq_kernel<D>;
-  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)Smem<D>::kDq);
+  auto dqk = dq_kernel<D>();
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem);
   if (err != cudaSuccess) return err;
-  dqk<<<dim3((sq + kB - 1) / kB, b * hq), kThreads, Smem<D>::kDq, stream>>>(
+  dqk<<<dq_grid, kThreads, dq_smem, stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<float*>(dq), hq, hkv, sq, sk, scale, causal,
       window, q_offset);
   return cudaGetLastError();
@@ -1034,11 +1305,15 @@ __device__ __forceinline__ uint64_t mn_desc(uint32_t tile, int kk, int rows) {
   return sw128_desc(tile + kk * 16 * kRowBytes, rows * kRowBytes, 1024);
 }
 
-// (b) dK / dV: one block per (b, kv head, 128 keys)
+// (b) dK / dV: one block per (b, kv head, 128 keys, kDO output columns)
 template <int D>
 struct Dkdv {
   static constexpr int kBK = 128;                 // keys a block: two warpgroups x 64
   static constexpr int kBQ = D == 64 ? 128 : 32;  // q rows a streamed tile (registers at D 128)
+  // dK / dV columns a block: at D 256 two blocks share a key tile, each
+  // accumulating half of the columns (64 + 64 registers, as at D 128) and
+  // recomputing S^T and dP^T over all of D
+  static constexpr int kDO = D == 256 ? 128 : D;
   static constexpr int kStages = 3;
   static constexpr int kPanels = D / 64;
   static constexpr int kKVBytes = kBK * D * 2;    // the K or the V block
@@ -1057,6 +1332,7 @@ struct Dkdv {
   static constexpr int kBar = kDelta + kStages * kRowSlot;  // kv_full, full[], empty[]
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages);
   static constexpr size_t kAlloc = kBytes + 1024;           // slack to align the base
+  static_assert(kAlloc <= 232448, "a block takes at most 227 KB of shared memory");
 };
 
 template <int D>
@@ -1071,8 +1347,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             int sq, int sk, float scale, int causal, int window, int q_offset) {
   using L = Dkdv<D>;
   constexpr int BQ = L::kBQ;
+  constexpr int DO = L::kDO;
   using ScoreMma = Wgmma<BQ>;   // S^T, dP^T: 64 keys x BQ q rows
-  using GradMma = Wgmma<D>;     // dV, dK: 64 keys x D
+  using GradMma = Wgmma<DO>;    // dV, dK: 64 keys x DO of the D columns
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -1091,6 +1368,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int group = hq / hkv;
   const int bh0 = (bkv / hkv) * hq + (bkv % hkv) * group;    // the group's first q head
   const int k0 = blockIdx.y * L::kBK;   // key block 0 first: causal, it sees every q tile
+  const int c0 = blockIdx.z * DO;       // the first of this block's dK / dV columns
   // q tiles the forward's block-skip test keeps for these keys (positions
   // q0 + q_offset ..): causal, the tile's last position at or past k0; a
   // window, its first position before the last key + window
@@ -1154,10 +1432,11 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const float scale_log2 = scale * kLog2e;
   const uint32_t ka = sK + wg * 64 * kRowBytes;   // this warpgroup's rows of K and V
   const uint32_t va = sV + wg * 64 * kRowBytes;
+  const uint32_t c_off = (c0 / 64) * BQ * kRowBytes;   // column c0's panel of a Q / dO tile
 
-  float dk_acc[D / 2], dv_acc[D / 2], st[BQ / 2], dpt[BQ / 2];
+  float dk_acc[DO / 2], dv_acc[DO / 2], st[BQ / 2], dpt[BQ / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < DO / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BQ / 2; ++i) st[i] = dpt[i] = 0.f;
   mbar_wait(kv_full, 0);
@@ -1226,7 +1505,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int kk = 0; kk < D / 16; ++kk)
         ScoreMma::ss(dpt, k_desc(va, kk, L::kBK), k_desc(dos, kk, BQ), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) GradMma::rs(dv_acc, pa[kk], mn_desc(dos, kk, BQ));
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        GradMma::rs(dv_acc, pa[kk], mn_desc(dos + c_off, kk, BQ));
       wgmma_commit();
       wgmma_wait<0>();
       reg_fence(dpt);
@@ -1249,7 +1529,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
       reg_fence(dk_acc);
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) GradMma::rs(dk_acc, da[kk], mn_desc(qs, kk, BQ));
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        GradMma::rs(dk_acc, da[kk], mn_desc(qs + c_off, kk, BQ));
       wgmma_commit();
       wgmma_wait<0>();
       reg_fence(dk_acc);
@@ -1258,14 +1539,15 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) mbar_arrive(empty(s));
   }
 
-  // dK and dV of keys key0 and key0 + 8 (those below Sk), rounded to bf16 once
+  // dK and dV of keys key0 and key0 + 8 (those below Sk), columns c0 ..
+  // c0 + DO - 1, rounded to bf16 once
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int key = key0 + 8 * h;
     if (key >= sk) continue;
-    const size_t row = ((size_t)bkv * sk + key) * D + col_lane;
+    const size_t row = ((size_t)bkv * sk + key) * D + c0 + col_lane;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DO / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(dk + row + 8 * j) =
           __floats2bfloat162_rn(dk_acc[4 * j + 2 * h], dk_acc[4 * j + 2 * h + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dv + row + 8 * j) =
@@ -1278,7 +1560,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 template <int D>
 struct Dq {
   static constexpr int kBM = 128;                 // q rows a block: two warpgroups x 64
-  static constexpr int kBN = D == 64 ? 128 : 64;  // keys a streamed K / V tile
+  // keys a streamed K / V tile: dQ's accumulator takes D / 2 registers, the
+  // scores 2 x kBN / 2; at D 256 the 128-row Q and dO tiles take 128 KB
+  static constexpr int kBN = D == 64 ? 128 : D == 128 ? 64 : 32;
   static constexpr int kStages = 3;
   static constexpr int kPanels = D / 64;
   static constexpr int kQBytes = kBM * D * 2;     // Q or dO
@@ -1290,6 +1574,7 @@ struct Dq {
   static constexpr int kBar = kV + kStages * kTileBytes;    // q_full, k_full[], v_full[], empty[]
   static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages);
   static constexpr size_t kAlloc = kBytes + 1024;
+  static_assert(kAlloc <= 232448, "a block takes at most 227 KB of shared memory");
 };
 
 template <int D>
@@ -1501,7 +1786,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)KV::kAlloc);
   if (err != cudaSuccess) return err;
-  dkdv<<<dim3(b * hkv, (sk + KV::kBK - 1) / KV::kBK), kThreads, KV::kAlloc, stream>>>(
+  dkdv<<<dim3(b * hkv, (sk + KV::kBK - 1) / KV::kBK, D / KV::kDO), kThreads, KV::kAlloc,
+         stream>>>(
       tq, tk, tv, tdo, tlse, tdelta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), hq, hkv,
       sq, sk, scale, causal, window, q_offset);
   err = cudaGetLastError();
@@ -1524,38 +1810,43 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
 
 }  // namespace bwd_tc
 
+// fn(std::integral_constant<int, D>{}) for the head dims the kernels take
+template <typename Fn>
+cudaError_t by_head_dim(int d, Fn fn) {
+  switch (d) {
+    case 64: return fn(std::integral_constant<int, 64>{});
+    case 128: return fn(std::integral_constant<int, 128>{});
+    case 256: return fn(std::integral_constant<int, 256>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32 (SIMT kernel), 1 = bfloat16 (wgmma + TMA kernel); q, k, v
-// and out share it; d in {64, 128}.  ``lse`` ([B, Hq, Sq] fp32) may be null.
-// The caller guarantees contiguous [B, H, S, D] tensors, 16-byte aligned
-// pointers, hq % hkv == 0 and b * hq <= 65535.  Returns a cudaError_t.
+// and out share it; d in {64, 128, 256}.  ``lse`` ([B, Hq, Sq] fp32) may be
+// null.  The caller guarantees contiguous [B, H, S, D] tensors, 16-byte
+// aligned pointers, hq % hkv == 0 and b * hq <= 65535.  Returns a cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                    float* lse, int b, int hq, int hkv, int sq, int sk, int d,
                                    float scale, int causal, int window, int q_offset,
                                    int dtype, void* stream) {
   if (b <= 0 || sq <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = d == 64 ? simt::launch<64>(q, k, v, out, lse, b, hq, hkv, sq, sk, scale, causal,
-                                     window, q_offset, s)
-                  : simt::launch<128>(q, k, v, out, lse, b, hq, hkv, sq, sk, scale, causal,
+  return static_cast<int>(by_head_dim(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    return dtype == 0 ? simt::launch<D>(q, k, v, out, lse, b, hq, hkv, sq, sk, scale, causal,
+                                        window, q_offset, s)
+                      : tc::launch<D>(q, k, v, out, lse, b, hq, hkv, sq, sk, scale, causal,
                                       window, q_offset, s);
-  } else {
-    err = d == 64 ? tc::launch<64>(q, k, v, out, lse, b, hq, hkv, sq, sk, scale, causal,
-                                   window, q_offset, s)
-                  : tc::launch<128>(q, k, v, out, lse, b, hq, hkv, sq, sk, scale, causal,
-                                    window, q_offset, s);
-  }
-  return static_cast<int>(err);
+  }));
 }
 
 // The backward of flash_attention_fwd: dq [B, Hq, Sq, D], dk / dv [B, Hkv, Sk, D]
 // from q, k, v, the forward's out and lse, and dout; dtype 0 = float32 (SIMT),
 // 1 = bfloat16 (wgmma + TMA).  ``delta`` is a caller's
 // fp32 scratch of B * Hq * Sq floats.  Same dtypes, shapes and guarantees as
-// the forward; d in {64, 128}.  Returns a cudaError_t.
+// the forward; d in {64, 128, 256}.  Returns a cudaError_t.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* out, const void* dout, const float* lse,
                                    float* delta, void* dq, void* dk, void* dv, int b, int hq,
@@ -1563,17 +1854,11 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    int window, int q_offset, int dtype, void* stream) {
   if (b <= 0 || sq <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = d == 64 ? bwd::launch<64>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, hq, hkv, sq,
-                                    sk, scale, causal, window, q_offset, s)
-                  : bwd::launch<128>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, hq, hkv, sq,
-                                     sk, scale, causal, window, q_offset, s);
-  } else {
-    err = d == 64 ? bwd_tc::launch<64>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, hq, hkv,
+  return static_cast<int>(by_head_dim(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    return dtype == 0 ? bwd::launch<D>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, hq, hkv,
                                        sq, sk, scale, causal, window, q_offset, s)
-                  : bwd_tc::launch<128>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, hq,
-                                        hkv, sq, sk, scale, causal, window, q_offset, s);
-  }
-  return static_cast<int>(err);
+                      : bwd_tc::launch<D>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, hq,
+                                          hkv, sq, sk, scale, causal, window, q_offset, s);
+  }));
 }

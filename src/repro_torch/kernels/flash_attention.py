@@ -26,7 +26,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,

@@ -38,6 +38,7 @@ import torch
 from repro_torch import configs
 from repro_torch.configs.base import ArchConfig, ParallelConfig, ShapeConfig
 from repro_torch.core import p2p
+from repro_torch.core import stage as stage_lib
 from repro_torch.devices import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
@@ -52,27 +53,32 @@ def _launches() -> Dict[str, int]:
             "rmsnorm": rmsnorm.launches, "wkv6": wkv6.launches}
 
 
-def expected_serve_launches(arch: ArchConfig, m: int, gen: int
-                            ) -> Dict[str, Dict[str, int]]:
-    """Kernel launches the serving path implies, per prefill and over the
-    ``gen - 1`` decode steps, for a layout without identity padding.
+def expected_serve_launches(arch: ArchConfig, pcfg: ParallelConfig, m: int,
+                            gen: int) -> Dict[str, Dict[str, int]]:
+    """Kernel launches the serving path implies under ``pcfg``, per prefill
+    and over the ``gen - 1`` decode steps.
 
-    dense and encdec: one attention per layer and micro-batch in prefill,
-    and one more per decoder layer of an enc-dec (its cross-attention);
-    decode attention is plain torch.  RMSNorm, where the arch's norm is
-    one: three per layer in prefill (the cache fill normalizes again), one
-    more per cross-attention, and the head's; two per layer a decode step
-    (one more per cross-attention) and the head's.  LayerNorm (whisper)
-    launches no kernel.  ssm: one WKV and one group RMSNorm per layer and
-    micro-batch (the block and head norms are LayerNorms)."""
-    layers = arch.n_layers + arch.enc_layers
-    lm, steps = layers * m, gen - 1
+    Every slot of the stage layout runs its layer, an identity-padding slot
+    too (gated by its mask; deepseek-7b's 30 layers fill 32 slots at pipe
+    16), and decode runs every slot but the encoder layers.  dense, vlm
+    and encdec: one attention per slot and micro-batch in prefill, and one
+    more per decoder layer of an enc-dec (its cross-attention); decode
+    attention is plain torch.  RMSNorm, where the arch's norm is one: three
+    per slot in prefill (the cache fill normalizes again), one more per
+    cross-attention, and the head's; two per slot a decode step (one more
+    per cross-attention) and the head's.  LayerNorm (whisper) launches no
+    kernel.  ssm: one WKV and one group RMSNorm per slot and micro-batch
+    (the block and head norms are LayerNorms)."""
+    slots = stage_lib.partition_layout(
+        arch.n_layers + arch.enc_layers, pcfg.pipe * pcfg.virtual_stages,
+        pcfg.partition or None).mask.size
+    lm, steps = slots * m, gen - 1
     if arch.family == "ssm":
         return {"prefill": {"flash_attention": 0, "rmsnorm": lm, "wkv6": lm},
                 "decode": {"flash_attention": 0, "rmsnorm": steps * lm,
                            "wkv6": steps * lm}}
     cross = arch.n_layers * m if arch.is_encdec else 0
-    dec = arch.n_layers * m                  # layers a decode step runs
+    dec = (slots - arch.enc_layers) * m       # the slots a decode step runs
     rms = int(arch.norm == "rms")
     return {"prefill": {"flash_attention": lm + cross,
                         "rmsnorm": rms * (3 * lm + cross + 1), "wkv6": 0},
@@ -81,14 +87,23 @@ def expected_serve_launches(arch: ArchConfig, m: int, gen: int
                        "wkv6": 0}}
 
 
+VISION_PATCHES = 256      # patch embeddings a vision-stub prompt carries
+
+
 def prompt_batch(arch: ArchConfig, prompts: torch.Tensor, dtype,
                  generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """The prefill batch for ``prompts`` [B, S]: ``tokens``, or an
     enc-dec's ``frames`` (N(0, 1) x 0.1 from ``generator``, [B, S, d]) and
-    the prompts as ``dec_tokens``."""
+    the prompts as ``dec_tokens``.  A vision-stub arch (pixtral) also gets
+    ``patches``: [B, 256, d] in ``dtype``, N(0, 1) from ``generator`` cast
+    and then times 0.1, as the reference's serve makes them."""
+    B, S = prompts.shape
+    if arch.frontend == "vision_stub":
+        patches = torch.randn(B, VISION_PATCHES, arch.d_model,
+                              generator=generator, device=prompts.device)
+        return {"tokens": prompts, "patches": patches.to(dtype) * 0.1}
     if not arch.is_encdec:
         return {"tokens": prompts}
-    B, S = prompts.shape
     frames = torch.randn(B, S, arch.d_model, generator=generator,
                          device=prompts.device) * 0.1
     return {"frames": frames.to(dtype), "dec_tokens": prompts}

@@ -300,8 +300,9 @@ def build_prefill_step(model: LMModel, pcfg: ParallelConfig, devices: Any,
     """prefill_step(params, cache, batch) -> (last_token_logits, cache).
 
     ``cache`` (from ``model.init_cache``) is filled in place and returned.
-    ``batch`` holds ``tokens``, or an enc-dec's ``frames`` and
-    ``dec_tokens``; the encoder memory reaches the decoder stages as skips
+    ``batch`` holds ``tokens`` (and a vision stub's ``patches``), or an
+    enc-dec's ``frames`` and ``dec_tokens``; the encoder memory reaches the
+    decoder stages as skips
     (``model.skips()``).  With a pipe ``group`` this process runs one
     rank: ``params`` and ``cache`` are its share (``model.init(...,
     rank=)``, ``model.init_cache(..., rank=)``), rank 0 embeds ``batch``

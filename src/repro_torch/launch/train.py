@@ -158,9 +158,10 @@ def model_flops_per_step(arch: ArchConfig, seq_len: int, batch: int) -> float:
     forward, whose FLOPs are 2 per matmul weight per token plus what is not
     a weight product.
 
-    dense and enc-dec: the attention projections, the MLP (three matrices
-    for SwiGLU, two for GELU), an enc-dec decoder's cross-attention
-    projections and the head, tied or not; plus the attention products,
+    dense, vlm and enc-dec: the attention projections, the MLP (three
+    matrices for SwiGLU and GeGLU, two for GELU), an enc-dec decoder's
+    cross-attention projections and the head, tied or not; plus the
+    attention products,
     2 x 2 x hd x Hq per visible (query, key) pair: S (S + 1) / 2 a sequence
     for causal self-attention, S x S for an encoder's self-attention and a
     decoder's cross-attention (the memory has S frames).
@@ -181,7 +182,7 @@ def model_flops_per_step(arch: ArchConfig, seq_len: int, batch: int) -> float:
     a = arch.attn
     enc, dec = arch.enc_layers, arch.n_layers
     attn_w = d * a.head_dim * 2 * (a.n_heads + a.n_kv_heads)
-    mlp_w = (3 if arch.act == "silu" else 2) * d * arch.d_ff
+    mlp_w = (3 if arch.act in ("silu", "geglu") else 2) * d * arch.d_ff
     cross = dec if arch.is_encdec else 0
     weights = (enc + dec) * (attn_w + mlp_w) + cross * attn_w \
         + d * arch.vocab
@@ -192,8 +193,8 @@ def model_flops_per_step(arch: ArchConfig, seq_len: int, batch: int) -> float:
 
 def model_batch(batch: Dict[str, torch.Tensor], dtype: torch.dtype
                 ) -> Dict[str, torch.Tensor]:
-    """A batch with its float leaves (an enc-dec's ``frames``) in the model
-    dtype; token ids stay."""
+    """A batch with its float leaves (an enc-dec's ``frames``, a vision
+    stub's ``patches``) in the model dtype; token ids stay."""
     return {k: v.to(dtype) if v.is_floating_point() else v
             for k, v in batch.items()}
 
@@ -210,7 +211,8 @@ def train(arch: ArchConfig, pcfg: ParallelConfig, *, seq_len: int, batch: int,
           group: Optional[PipeGroup] = None) -> Dict[str, Any]:
     """Train ``steps`` steps from random weights (``seed``) on
     :class:`SyntheticLM` batches (``seed``; an enc-dec's hold ``frames``,
-    ``dec_tokens`` and ``labels``), or on its first batch every step with
+    ``dec_tokens`` and ``labels``, a vision stub's also 256 ``patches``),
+    or on its first batch every step with
     ``fixed_batch``.  Returns one record per step (its metrics as
     floats, ``step_s`` on the host clock around the synchronized step, and
     the kernel launches of that step), the executor's buffer high-water

@@ -8,8 +8,9 @@ flags) as host scalars.  Prefill and decode write each layer's cache in
 place: the stage program hands them views into the resident caches and
 drops what they return.  The encoder-decoder (whisper) shares the dense
 functions, as in the reference: a layer with ``cross`` set also attends to
-the encoder ``memory``.  The other families (moe, hybrid, vlm) are later
-slices of the port (ROADMAP A8).
+the encoder ``memory``; so does the vlm (pixtral), whose vision stub is
+the embedding's (``LMModel.embed_inputs``).  The other families (moe,
+hybrid) are later slices of the port (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -44,16 +45,12 @@ def check_ported(arch: ArchConfig):
     if arch.family not in FAMILIES:
         raise NotImplementedError(
             f"{arch.name}: the {arch.family!r} family is not ported yet "
-            "(ROADMAP A8); the port runs the dense, encdec and ssm families")
-    if arch.frontend not in ("none", "audio_stub") \
-            or arch.name.startswith("gemma"):
-        raise NotImplementedError(
-            f"{arch.name}: the vision stub and gemma's embedding scale are "
-            "not ported yet (ROADMAP A8)")
+            f"(ROADMAP A8); the port runs the {', '.join(FAMILIES)} "
+            "families")
 
 
 # ---------------------------------------------------------------------------
-# Dense (smollm / llama3 / deepseek) and enc-dec (whisper)
+# Dense (smollm / gemma / llama3 / deepseek / pixtral) and enc-dec (whisper)
 # ---------------------------------------------------------------------------
 
 def dense_init(generator, arch: ArchConfig, dtype, device):
@@ -314,6 +311,8 @@ FAMILIES = {
               dense_prefill),
     "encdec": (dense_init, dense_apply, dense_decode, dense_cache_proto,
                dense_prefill),
+    "vlm": (dense_init, dense_apply, dense_decode, dense_cache_proto,
+            dense_prefill),
     "ssm": (rwkv_init, rwkv_apply, rwkv_decode, rwkv_cache_proto,
             rwkv_prefill),
 }

@@ -21,8 +21,8 @@ from repro_torch.kernels.ref import NEG_INF, _expand_kv
 def _check_kind(what: str, got: str, ported: tuple) -> None:
     if got not in ported:
         raise NotImplementedError(
-            f"{what}={got!r} is not ported yet (only {ported}): the "
-            "GeGLU archs are ROADMAP A8")
+            f"{what}={got!r} is not ported (only {ported}): no arch of "
+            "the reference uses it")
 
 
 # ---------------------------------------------------------------------------
@@ -204,11 +204,15 @@ def attn_decode(p, x, cache, a: AttentionConfig, *,
 # MLPs
 # ---------------------------------------------------------------------------
 
+MLP_ACTS = ("silu", "geglu", "gelu")
+
+
 def mlp_init(generator, d: int, f: int, act: str, dtype, device, *,
              out_scale=1.0):
-    """SwiGLU's three matrices, or GELU's two (``wu``, ``wd``)."""
-    _check_kind("act", act, ("silu", "gelu"))
-    if act == "silu":
+    """SwiGLU's and GeGLU's three matrices, or GELU's two (``wu``,
+    ``wd``)."""
+    _check_kind("act", act, MLP_ACTS)
+    if act in ("silu", "geglu"):
         return {"wg": dense_init(generator, d, f, dtype, device),
                 "wu": dense_init(generator, d, f, dtype, device),
                 "wd": dense_init(generator, f, d, dtype, device, out_scale)}
@@ -217,9 +221,13 @@ def mlp_init(generator, d: int, f: int, act: str, dtype, device, *,
 
 
 def mlp_apply(p, x, act: str):
-    """SwiGLU, (silu(x wg) * (x wu)) wd; or gelu(x wu) wd with GELU's tanh
-    approximation (``jax.nn.gelu``'s default, which the reference takes)."""
-    _check_kind("act", act, ("silu", "gelu"))
+    """SwiGLU, (silu(x wg) * (x wu)) wd; GeGLU (gemma), (gelu(x wg) *
+    (x wu)) wd; or gelu(x wu) wd.  GELU takes its tanh approximation
+    (``jax.nn.gelu``'s default, which the reference takes)."""
+    _check_kind("act", act, MLP_ACTS)
     if act == "silu":
         return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    if act == "geglu":
+        return (F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wu"])) \
+            @ p["wd"]
     return F.gelu(x @ p["wu"], approximate="tanh") @ p["wd"]

@@ -1,6 +1,6 @@
 """LM assembly: params, stacked stages, embed / head, caches.
 
-Counterpart of :mod:`repro.models.lm` for the dense, enc-dec and ssm
+Counterpart of :mod:`repro.models.lm` for the dense, vlm, enc-dec and ssm
 families.  Blocks are stacked ``[n_stages, L_per_stage]`` for the pipeline
 (identity-padded per :func:`repro_torch.core.stage.partition_layout`);
 embed and head run outside the pipeline.  Parameters are nested dicts of
@@ -114,11 +114,9 @@ class LMModel:
         ``rank`` gives it."""
         a, dev = self.arch, self.device
         if rank is None:
-            layer_ps = [self.block_init(generator, a, self.dtype, dev)
-                        for _ in range(self.total_layers)]
-            stages = stage_lib.stack_layer_params(
-                layer_ps, self.n_stages, self.pcfg.partition or None)
-            del layer_ps
+            stages = stage_lib.place_layers(
+                (self.block_init(generator, a, self.dtype, dev)
+                 for _ in range(self.total_layers)), self.layout.slot_layer)
         else:
             stages = self._init_rank_stages(generator, rank)
         emb = {"tok": (L.randn(generator, (a.vocab, a.d_model), dev)
@@ -237,24 +235,41 @@ class LMModel:
         return sinusoidal(torch.arange(n, device=self.device),
                           self.arch.d_model, self.dtype)
 
+    def _scaled(self, h):
+        """gemma's embedding scale (``arch.embed_scale``), sqrt(d_model) as
+        a scalar of the model dtype: 45.25 in bf16 at d 2048."""
+        if not self.arch.embed_scale:
+            return h
+        return h * torch.tensor(self.arch.d_model ** 0.5, dtype=self.dtype,
+                                device=h.device)
+
     def embed_inputs(self, emb, batch) -> Dict[str, torch.Tensor]:
         """batch -> fresh stage-0 input tree [B, ...].  Enc-dec: ``h`` is
         the frames (the stub frontend's embeddings) plus positions,
-        ``dec_h`` the decoder tokens' embeddings plus positions."""
-        if self.arch.is_encdec:
+        ``dec_h`` the decoder tokens' embeddings plus positions.  The vision
+        stub (pixtral): a batch's ``patches`` [B, P, d] (precomputed patch
+        embeddings) replace the first min(P, S) token rows."""
+        a = self.arch
+        if a.is_encdec:
             h = batch["frames"].to(self.dtype)
             h = h + self._positions(h.shape[1])[None]
             dec = _embed_lookup(emb["tok"], batch["dec_tokens"], self.dtype)
             dec = dec + self._positions(dec.shape[1])[None]
             return {"h": h, "dec_h": dec}
-        return {"h": _embed_lookup(emb["tok"], batch["tokens"], self.dtype)}
+        h = self._scaled(_embed_lookup(emb["tok"], batch["tokens"],
+                                       self.dtype))
+        if a.frontend == "vision_stub" and "patches" in batch:
+            p = batch["patches"].to(self.dtype)
+            n = min(p.shape[1], h.shape[1])
+            h = torch.cat([p[:, :n], h[:, n:]], 1)
+        return {"h": h}
 
     def embed_decode(self, emb, tokens, pos: int):
         """Embed one decode token at absolute position ``pos``: RoPE archs
         and the ssm family add no positions here, the others sinusoidal
         ones."""
         a = self.arch
-        h = _embed_lookup(emb["tok"], tokens, self.dtype)
+        h = self._scaled(_embed_lookup(emb["tok"], tokens, self.dtype))
         if a.family != "ssm" and (a.is_encdec
                                   or not (a.attn and a.attn.use_rope)):
             h = h + sinusoidal(torch.tensor([pos], device=h.device),

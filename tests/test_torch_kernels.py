@@ -102,7 +102,8 @@ def test_rmsnorm_plain_vs_pallas(jx, shape, dtype):
 # Flash attention
 # ---------------------------------------------------------------------------
 
-HEADS = [(15, 5), (4, 2), (4, 4)]
+# (Hq, Hkv, D): GQA 3:1 and 2:1 and MHA at D 64; gemma-2b's MQA 8:1 at D 256
+HEADS = [(15, 5, 64), (4, 2, 64), (4, 4, 64), (8, 1, 256)]
 # (Sq, Sk, causal, window, q_offset): ragged Sq against 32-blocks, a later
 # query chunk (q_offset > 0, Sq < Sk), sliding windows with and without causal
 MASKS = [(40, 40, True, 0, 0), (40, 40, False, 0, 0), (40, 40, True, 16, 0),
@@ -121,7 +122,8 @@ def _qkv(hq, hkv, sq, sk, d=64, b=1, seed=0):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_plain_vs_pallas(jx, heads, mask, dtype):
     sq, sk, causal, window, q_offset = mask
-    qn, kn, vn = _qkv(*heads, sq, sk)
+    hq, hkv, d = heads
+    qn, kn, vn = _qkv(hq, hkv, sq, sk, d=d)
     (q, jq), (k, jk), (v, jv) = (_pair(jx, a, dtype) for a in (qn, kn, vn))
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     got = flash_attention(q, k, v, **kw)          # CPU -> plain version
@@ -198,10 +200,11 @@ def test_rmsnorm_kernel_vs_plain(cuda_device, d, rows, dtype):
                                   (100, 300, True, 0, 200),
                                   (2048, 2048, True, 0, 0),
                                   (4096, 4096, True, 0, 0)])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_kernel_vs_plain(cuda_device, heads, mask, d, dtype):
-    """Sq = 100 is ragged against both kernels' q tiles (64 fp32, 128 bf16)."""
+    """Sq = 100 is ragged against both kernels' q tiles (64 fp32, 128 bf16);
+    D 256 streams 64-key tiles in bf16."""
     torch.backends.cuda.matmul.allow_tf32 = False
     sq, sk, causal, window, q_offset = mask
     dt = DTYPES[dtype]
@@ -292,14 +295,15 @@ def _assert_bwd_close(got, want, dtype, what):
 @pytest.mark.parametrize("s", [100, 192, 256, 2048, 4096])
 @pytest.mark.parametrize("mask", [(True, 0), (False, 0), (True, 128),
                                   (True, 100)])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_bwd_kernel_vs_plain(cuda_device, heads, s, mask, d,
                                              dtype):
     """dq / dk / dv and the forward's lse on the card against the plain
     backward on the same inputs; S = 100 and 192 are ragged against the
     128-row / 128-key tiles, a window of 100 straddles them, GQA 3:1 and 5:1
-    sum dk / dv over each kv head's group."""
+    sum dk / dv over each kv head's group; at D 256 two blocks split each
+    key tile's dK / dV columns (bf16) or D is staged in chunks (fp32)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     causal, window = mask
     dt = DTYPES[dtype]

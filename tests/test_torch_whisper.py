@@ -557,7 +557,7 @@ def test_serve_attention_calls_match_formula(monkeypatch):
                                 arch.d_model, arch.vocab))
     logits, cache = prefill(params, cache, {k: batch[k] for k in
                                             ("frames", "dec_tokens")})
-    want = expected_serve_launches(arch, m, gen)
+    want = expected_serve_launches(arch, pcfg, m, gen)
     assert calls["flash_attention"] == want["prefill"]["flash_attention"] \
         == (arch.enc_layers + 2 * arch.n_layers) * m
     for _ in range(gen - 1):
