@@ -12,8 +12,9 @@ line is printed):
 2. build    the three CUDA sources from ``src/repro_torch/kernels/csrc``
             with ``nvcc`` for sm_90a, in parallel; per kernel function, the
             count of wgmma (HGMMA) and mma.sync (HMMA) instructions in the
-            SASS: the bf16 attention forward, dQ and dK/dV kernels must hold
-            HGMMA (the backward ones no HMMA), the chunked WKV passes HMMA
+            SASS: the bf16 attention forward, dQ and dK/dV kernels (the
+            head_dim-256 backward's own two among them) must hold HGMMA
+            (the backward ones no HMMA), the chunked WKV passes HMMA
             (the backward's chunk pass too); each kernel's registers and
             spills (no WKV or backward kernel, the WKV-6 backward's among
             them, may spill) and any wgmma that ptxas serialised;
@@ -37,7 +38,8 @@ line is printed):
    backward the attention and RMSNorm backward kernels against their plain
             versions over a grid that holds the training path's shapes, and
             again at every timed shape, the bf16 attention backward twice
-            at the training call (bitwise equal), the autograd checks (the
+            at smollm's and gemma-2b's training calls (bitwise equal), the
+            autograd checks (the
             Functions' outputs carry a grad_fn, WKV-6's too); the WKV-6
             backward through its Function against autograd through the
             plain version, every gradient (dr, dk, dv, dw, du, ds0), H 32,
@@ -54,7 +56,9 @@ line is printed):
             achieved TFLOP/s and the bound's share of the time; the
             attention backward also at whisper-tiny's q [2,6,4096,64],
             non-causal and causal, and at gemma-2b's q [2,8,4096,256]
-            (its grid holds head_dim 256 too);
+            (its grid holds head_dim 256 too), there also by kernel
+            (delta, dK / dV, the q-head slices' sum, dQ) from a profiler
+            trace;
 4. port     the same weights through the kernels on the card and through
             the plain versions on the CPU, prefill + 4 decode steps, logits
             compared: smollm-360m at full width, 4 layers, pipe 2, fp32;
@@ -287,6 +291,14 @@ def device_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_name(name: str) -> str:
+    """A kernel's demangled name without its return type, namespaces and
+    arguments: ``flash_bwd_delta_kernel<__nv_bfloat16, 256>``."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    base, bracket, args = name.split("(")[0].partition("<")
+    return base.split("::")[-1] + bracket + args
+
+
 def kernel_us(torch, fn, iters: int):
     """Device µs per call of each kernel that ``fn`` launches, by name, from
     a profiler trace of ``iters`` calls."""
@@ -300,7 +312,7 @@ def kernel_us(torch, fn, iters: int):
     per = {}
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
-            key = evt.name[:60]
+            key = kernel_name(evt.name)
             per[key] = per.get(key, 0.0) + evt.device_time / iters
     return per
 
@@ -382,6 +394,8 @@ SASS_GATES = {
     "flash_fwd_wgmma_kernel": {"HGMMA": True},
     "flash_bwd_dkdv_wgmma_kernel": {"HGMMA": True, "HMMA": False},
     "flash_bwd_dq_wgmma_kernel": {"HGMMA": True, "HMMA": False},
+    "flash_bwd_dkdv_d256_kernel": {"HGMMA": True, "HMMA": False},
+    "flash_bwd_dq_d256_kernel": {"HGMMA": True, "HMMA": False},
     "wkv6_update_kernel": {"HMMA": True},
     "wkv6_out_kernel": {"HMMA": True},
     "wkv6_bwd_update_kernel": {"HMMA": True},
@@ -754,8 +768,8 @@ def phase_backward(torch):
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
-        flash_attention_cuda)
+        bwd_head_slices, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_plain, flash_attention_cuda)
     from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd,
                                              rmsnorm_bwd_plain)
     from repro_torch.kernels.wkv6 import (uses_chunked_form, wkv6, wkv6_bwd,
@@ -808,21 +822,26 @@ def phase_backward(torch):
                 raise AssertionError(f"attention backward disagrees: {res}, "
                                      f"lse {lse_err}")
 
-    # -- the bf16 backward at the training call, twice on the same inputs:
-    #    no atomics, so dq, dk and dv are bitwise equal -----------------------
-    q = randn(2, 15, 4096, 64, dtype=torch.bfloat16)
-    k, v = (randn(2, 5, 4096, 64, dtype=torch.bfloat16) for _ in range(2))
-    do = randn(2, 15, 4096, 64, dtype=torch.bfloat16)
-    out, lse = flash_attention_cuda(q, k, v, return_lse=True)
-    first = flash_attention_bwd(q, k, v, out, lse, do)
-    again = flash_attention_bwd(q, k, v, out, lse, do)
-    same = [bool(torch.equal(a, b)) for a, b in zip(first, again)]
-    emit({"check": "flash_attention_bwd_bitwise", "b": 2, "hq": 15, "hkv": 5,
-          "s": 4096, "d": 64, "dtype": "bfloat16",
-          "equal": dict(zip(("dq", "dk", "dv"), same)), "ok": all(same)})
-    if not all(same):
-        raise AssertionError(f"attention backward differs between calls: "
-                             f"{same}")
+    # -- the bf16 backward at smollm's and gemma-2b's training calls, twice
+    #    on the same inputs: no atomics (gemma's q-head slices are added in
+    #    slice order), so dq, dk and dv are bitwise equal ---------------------
+    for hq, hkv, d in ((15, 5, 64), (8, 1, 256)):
+        q = randn(2, hq, 4096, d, dtype=torch.bfloat16)
+        k, v = (randn(2, hkv, 4096, d, dtype=torch.bfloat16)
+                for _ in range(2))
+        do = randn(2, hq, 4096, d, dtype=torch.bfloat16)
+        out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+        first = flash_attention_bwd(q, k, v, out, lse, do)
+        again = flash_attention_bwd(q, k, v, out, lse, do)
+        same = [bool(torch.equal(a, b)) for a, b in zip(first, again)]
+        emit({"check": "flash_attention_bwd_bitwise", "b": 2, "hq": hq,
+              "hkv": hkv, "s": 4096, "d": d, "dtype": "bfloat16",
+              "head_slices": bwd_head_slices(q, k),
+              "equal": dict(zip(("dq", "dk", "dv"), same)), "ok": all(same)})
+        if not all(same):
+            raise AssertionError(f"attention backward differs between calls "
+                                 f"at D {d}: {same}")
+        del q, k, v, do, out, lse, first, again
 
     # -- RMSNorm: both widths compiled for the forward and a generic one;
     #    5 and 33 rows are ragged shares of the backward's grid, 1024 the
@@ -972,10 +991,13 @@ def phase_backward(torch):
     # -- timing: attention at q [1,15,S,64] causal (S 2048, 4096; bf16 and
     #    fp32) and at the training path's [2,15,4096,64] bf16; RMSNorm at
     #    [1,2048,960], [16,4096,960] and the path's [2,4096,960] bf16 ------
-    def attn_timing(b, sq, dname, hq=15, hkv=5, causal=True, d=64):
+    def attn_timing(b, sq, dname, hq=15, hkv=5, causal=True, d=64,
+                    split=False):
         """The backward at q [b, hq, sq, d], checked against its plain
         version and timed beside SDPA's backward and its bound; non-causal
-        work is every (query, key) pair, causal work the visible half."""
+        work is every (query, key) pair, causal work the visible half.
+        ``split`` adds each kernel's µs a call (delta, dK / dV, the slice
+        sum, dQ) from a profiler trace."""
         dt = dtypes[dname]
         q = randn(b, hq, sq, d, dtype=dt)
         k, v = (randn(b, hkv, sq, d, dtype=dt) for _ in range(2))
@@ -1010,6 +1032,10 @@ def phase_backward(torch):
             "shape": {"q": [b, hq, sq, d], "kv": [b, hkv, sq, d],
                       "causal": causal}, "dtype": dname, "flops": flops,
         }
+        if split:
+            rec["head_slices"] = bwd_head_slices(q, k, causal=causal)
+            rec["per_kernel_us"] = kernel_us(torch, lambda: flash_attention_bwd(
+                q, k, v, out, lse, do, **kw), 5)
         rec = with_rates(rec, flops)
         emit({"phase": "kernel_timing", **rec})
         return rec
@@ -1051,7 +1077,7 @@ def phase_backward(torch):
     for causal in (False, True):
         attn_timing(2, 4096, "bfloat16", hq=6, hkv=6, causal=causal)
     # gemma-2b's training call (micro-batch 2), MQA 8:1 at D 256
-    attn_timing(2, 4096, "bfloat16", hq=8, hkv=1, d=256)
+    attn_timing(2, 4096, "bfloat16", hq=8, hkv=1, d=256, split=True)
     norm_timing((1, 2048, D_MODEL))
     norm_timing((16, 4096, D_MODEL))
     norm_timing((2, 4096, 2048))          # rwkv6-1.6b's group norm, training

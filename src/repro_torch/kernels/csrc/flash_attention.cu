@@ -107,16 +107,18 @@
 //     TF32; a 256-thread block gives each thread a 4 x 4 patch of the 64 x 64
 //     score tile (row-major Q / dO against transposed K / V in shared memory,
 //     16-byte reads) and a 4 x (4 D / 64) patch of the tile it accumulates.
-//   At head_dim 256: the bf16 dK / dV kernel's accumulators would take 256
-//     registers a thread, so two blocks share each key tile, each owning 128
-//     of dK's and dV's columns: both recompute S^T and dP^T over all of D
-//     and take dV += P^T dO and dK += dS^T Q over their half (the same
-//     registers as at D 128); the dQ kernel streams 32-key K / V tiles
-//     (its Q and dO tiles take 128 KB).  Nine S x S x D products where the
-//     bound counts five.  The fp32 kernels stage D in chunks of 64 columns
+//   At head_dim 256 the bf16 kernels are a design of their own (namespace
+//     bwd_tc::d256): a dK / dV block holds 64 keys, one consumer warpgroup
+//     computes S^T, P^T and dV, the other dP^T, dS^T (from the bf16 P^T the
+//     first leaves in shared memory) and dK, so each score product is
+//     computed once; the dQ kernel takes 128 q rows a block with 64-key
+//     tiles; seven S x S x D products, as at D 64.  The dK / dV grid pairs
+//     causal key blocks j and n - 1 - j and splits a kv head's q-head group
+//     into slices, whose fp32 partials a fourth kernel adds in slice order.
+//     The fp32 kernels stage D in chunks of 64 columns
 //     (a [D][68] K^T beside a [64][D + 4] Q no longer fits): S and dP sum
 //     over the chunks, each output chunk is a further pass, and dK / dV
-//     split their columns between two blocks the same way.
+//     split their columns between two blocks.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -1305,15 +1307,12 @@ __device__ __forceinline__ uint64_t mn_desc(uint32_t tile, int kk, int rows) {
   return sw128_desc(tile + kk * 16 * kRowBytes, rows * kRowBytes, 1024);
 }
 
-// (b) dK / dV: one block per (b, kv head, 128 keys, kDO output columns)
+// (b) dK / dV: one block per (b, kv head, 128 keys); D 64 and 128 (D 256:
+// namespace d256 below)
 template <int D>
 struct Dkdv {
   static constexpr int kBK = 128;                 // keys a block: two warpgroups x 64
   static constexpr int kBQ = D == 64 ? 128 : 32;  // q rows a streamed tile (registers at D 128)
-  // dK / dV columns a block: at D 256 two blocks share a key tile, each
-  // accumulating half of the columns (64 + 64 registers, as at D 128) and
-  // recomputing S^T and dP^T over all of D
-  static constexpr int kDO = D == 256 ? 128 : D;
   static constexpr int kStages = 3;
   static constexpr int kPanels = D / 64;
   static constexpr int kKVBytes = kBK * D * 2;    // the K or the V block
@@ -1347,9 +1346,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             int sq, int sk, float scale, int causal, int window, int q_offset) {
   using L = Dkdv<D>;
   constexpr int BQ = L::kBQ;
-  constexpr int DO = L::kDO;
   using ScoreMma = Wgmma<BQ>;   // S^T, dP^T: 64 keys x BQ q rows
-  using GradMma = Wgmma<DO>;    // dV, dK: 64 keys x DO of the D columns
+  using GradMma = Wgmma<D>;     // dV, dK: 64 keys x D
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -1368,7 +1366,6 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int group = hq / hkv;
   const int bh0 = (bkv / hkv) * hq + (bkv % hkv) * group;    // the group's first q head
   const int k0 = blockIdx.y * L::kBK;   // key block 0 first: causal, it sees every q tile
-  const int c0 = blockIdx.z * DO;       // the first of this block's dK / dV columns
   // q tiles the forward's block-skip test keeps for these keys (positions
   // q0 + q_offset ..): causal, the tile's last position at or past k0; a
   // window, its first position before the last key + window
@@ -1432,11 +1429,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const float scale_log2 = scale * kLog2e;
   const uint32_t ka = sK + wg * 64 * kRowBytes;   // this warpgroup's rows of K and V
   const uint32_t va = sV + wg * 64 * kRowBytes;
-  const uint32_t c_off = (c0 / 64) * BQ * kRowBytes;   // column c0's panel of a Q / dO tile
 
-  float dk_acc[DO / 2], dv_acc[DO / 2], st[BQ / 2], dpt[BQ / 2];
+  float dk_acc[D / 2], dv_acc[D / 2], st[BQ / 2], dpt[BQ / 2];
 #pragma unroll
-  for (int i = 0; i < DO / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BQ / 2; ++i) st[i] = dpt[i] = 0.f;
   mbar_wait(kv_full, 0);
@@ -1506,7 +1502,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         ScoreMma::ss(dpt, k_desc(va, kk, L::kBK), k_desc(dos, kk, BQ), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        GradMma::rs(dv_acc, pa[kk], mn_desc(dos + c_off, kk, BQ));
+        GradMma::rs(dv_acc, pa[kk], mn_desc(dos, kk, BQ));
       wgmma_commit();
       wgmma_wait<0>();
       reg_fence(dpt);
@@ -1530,7 +1526,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       reg_fence(dk_acc);
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        GradMma::rs(dk_acc, da[kk], mn_desc(qs + c_off, kk, BQ));
+        GradMma::rs(dk_acc, da[kk], mn_desc(qs, kk, BQ));
       wgmma_commit();
       wgmma_wait<0>();
       reg_fence(dk_acc);
@@ -1539,15 +1535,14 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) mbar_arrive(empty(s));
   }
 
-  // dK and dV of keys key0 and key0 + 8 (those below Sk), columns c0 ..
-  // c0 + DO - 1, rounded to bf16 once
+  // dK and dV of keys key0 and key0 + 8 (those below Sk), rounded to bf16 once
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int key = key0 + 8 * h;
     if (key >= sk) continue;
-    const size_t row = ((size_t)bkv * sk + key) * D + c0 + col_lane;
+    const size_t row = ((size_t)bkv * sk + key) * D + col_lane;
 #pragma unroll
-    for (int j = 0; j < DO / 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(dk + row + 8 * j) =
           __floats2bfloat162_rn(dk_acc[4 * j + 2 * h], dk_acc[4 * j + 2 * h + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dv + row + 8 * j) =
@@ -1556,13 +1551,13 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// (c) dQ: one block per (b, q head, 128 q rows)
+// (c) dQ: one block per (b, q head, 128 q rows); D 64 and 128
 template <int D>
 struct Dq {
   static constexpr int kBM = 128;                 // q rows a block: two warpgroups x 64
   // keys a streamed K / V tile: dQ's accumulator takes D / 2 registers, the
-  // scores 2 x kBN / 2; at D 256 the 128-row Q and dO tiles take 128 KB
-  static constexpr int kBN = D == 64 ? 128 : D == 128 ? 64 : 32;
+  // scores 2 x kBN / 2
+  static constexpr int kBN = D == 64 ? 128 : 64;
   static constexpr int kStages = 3;
   static constexpr int kPanels = D / 64;
   static constexpr int kQBytes = kBM * D * 2;     // Q or dO
@@ -1762,11 +1757,641 @@ bool make_map_1d(tc::EncodeTiled encode, CUtensorMap* map, const float* ptr, siz
                 CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+// ---- (b) and (c) at head_dim 256 -------------------------------------------
+//
+// A 64 x 256 fp32 accumulator is 128 registers a thread of a warpgroup, so
+// dK and dV of 64 keys take both consumer warpgroups, one each.  Each
+// 64 x 64 tile's two score products are shared out, not repeated:
+// warpgroup 0 computes S^T = K Q^T, P^T and dV, warpgroup 1 dP^T = V dO^T,
+// dS^T (from the bf16 P^T that warpgroup 0 leaves in shared memory) and
+// dK.  dQ keeps a kernel of its own, 128 q rows a block, 64 a warpgroup
+// with all 256 columns.  Seven S x S x D products in all (4 in dK / dV, 3
+// in dQ), as at D 64.  The causal tail: the dK / dV grid pairs key block u
+// with n - 1 - u (each block then sees n + 1 q tiles of a head), and splits
+// a kv head's q-head group into the fewest slices that fill the card; with
+// more than one slice each block writes fp32 partials that
+// flash_bwd_dkdv_sum_kernel adds in slice order (no atomics: the same bits
+// every run).  The dK / dV kernel reads all its epilogue needs from shared
+// memory before it writes there: a load behind a store to shared memory
+// waits out the store, and an epilogue of 16 such steps was the kernel's
+// largest cost.
+namespace d256 {
+
+constexpr int D = 256;
+constexpr int kTile = 64;                       // keys and q rows a tile
+constexpr int kPanelBytes = kTile * kRowBytes;  // 64 rows x 64 bf16: 8 KB
+constexpr int kOpBytes = kTile * D * 2;         // a 64 x 256 bf16 tile: 32 KB
+constexpr int kStages = 2;                      // streamed tiles in flight
+constexpr int kTargetBlocks = 132;              // an H100's SMs
+
+// Descriptors of k16 step kk from step 0's (k_desc / mn_desc at kk = 0):
+// the start-address field moves by whole 16-byte units and never carries
+// out of its 14 bits (shared addresses stay below 232,448).  `opaque` keeps
+// the compiler from computing every step's descriptor ahead of a loop and
+// holding them in registers.
+__device__ __forceinline__ uint64_t k_step(uint64_t d0, int kk, int rows) {
+  return d0 + (((kk / 4) * rows * kRowBytes + (kk % 4) * 32) >> 4);
+}
+__device__ __forceinline__ uint64_t mn_step(uint64_t d0, int kk) {
+  return d0 + ((kk * 16 * kRowBytes) >> 4);
+}
+__device__ __forceinline__ uint64_t opaque(uint64_t d) {
+  asm volatile("" : "+l"(d));
+  return d;
+}
+
+// Causal without a window: key block u is paired with n - 1 - u.
+__host__ __device__ __forceinline__ bool paired(int causal, int window) {
+  return causal && window <= 0;
+}
+
+// q-head slices of the dK / dV grid: the fewest (a divisor of the group)
+// that give at least 7/8 of a wave of blocks.
+int dkdv_slices(int b, int hq, int hkv, int sk, int causal, int window) {
+  const int group = hq / hkv;
+  const int n_kb = (sk + kTile - 1) / kTile;
+  const long units = (long)b * hkv * (paired(causal, window) ? (n_kb + 1) / 2 : n_kb);
+  int ns = 1;
+  while (ns < group && units * ns * 8 < kTargetBlocks * 7) {
+    do ++ns; while (group % ns);
+  }
+  return ns;
+}
+
+// The fp32 partials follow delta at the next multiple of 64 floats.
+size_t part_offset(int b, int hq, int sq) { return ((size_t)b * hq * sq + 63) / 64 * 64; }
+
+struct DkdvLayout {
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kOpBytes;
+  static constexpr int kQ = kV + kOpBytes;              // stage s at kQ + s * kOpBytes
+  static constexpr int kdO = kQ + kStages * kOpBytes;
+  // P^T of stage s's tile for warpgroup 1: 16 bf16 pairs a thread of
+  // warpgroup 0, pair i of thread t at word 128 i + t
+  static constexpr int kPBytes = kTile * kTile * 2;
+  static constexpr int kP = kdO + kStages * kOpBytes;   // buffer s at kP + s * kPBytes
+  // a tile's lse and delta: a 1-d box from the 16-byte boundary at or
+  // before its first row, so 4 more
+  static constexpr int kRowBox = kTile + 4;
+  static constexpr int kRowSlot = (kRowBox * 4 + 127) / 128 * 128;
+  static constexpr int kLse = kP + kStages * kPBytes;
+  static constexpr int kDelta = kLse + kStages * kRowSlot;
+  static constexpr int kStageBytes = 2 * kOpBytes + 2 * kRowBox * 4;
+  // kv_full, kv_empty, full[], empty[], p_full[]
+  static constexpr int kBar = kDelta + kStages * kRowSlot;
+  static constexpr int kBytes = kBar + 8 * (2 + 3 * kStages);
+  static constexpr size_t kAlloc = kBytes + 1024;
+  static_assert(kAlloc <= 232448, "a block takes at most 227 KB of shared memory");
+};
+
+// (b) one block per (b, kv head, q-head slice) x (key block, or pair of
+// key blocks); K and V of 64 keys resident, (q head, 64-row q tile) items
+// streamed: Q, dO, lse and delta.  Warpgroup 0 computes S^T = K Q^T, P^T
+// and dV += P^T dO (all 256 columns, P^T as the register A operand);
+// warpgroup 1 computes dP^T = V dO^T, dS^T = P^T (dP^T - delta) scale from
+// the bf16 P^T that warpgroup 0 leaves in shared memory (barrier p_full),
+// and dK += dS^T Q the same way.  Neither waits for the other's products,
+// so one warpgroup's exponentials overlap the other's wgmma.
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_d256_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const __grid_constant__ CUtensorMap tlse,
+                           const __grid_constant__ CUtensorMap tdelta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           float* __restrict__ part, int hq, int hkv, int sq, int sk,
+                           float scale, int causal, int window, int q_offset, int slices) {
+  using L = DkdvLayout;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);     // the same bytes, generic
+  const float* s_lse = reinterpret_cast<const float*>(gbase + L::kLse);
+  const float* s_delta = reinterpret_cast<const float*>(gbase + L::kDelta);
+  const uint32_t sK = base + L::kK;
+  const uint32_t sV = base + L::kV;
+  auto sQ = [&](int s) { return base + L::kQ + s * kOpBytes; };
+  auto sdO = [&](int s) { return base + L::kdO + s * kOpBytes; };
+  auto s_p = [&](int s) { return reinterpret_cast<uint32_t*>(gbase + L::kP + s * L::kPBytes); };
+  const uint32_t kv_full = base + L::kBar;
+  const uint32_t kv_empty = kv_full + 8u;
+  auto full = [&](int s) { return kv_full + 8u * (2 + s); };
+  auto empty = [&](int s) { return kv_full + 8u * (2 + kStages + s); };
+  auto p_full = [&](int s) { return kv_full + 8u * (2 + 2 * kStages + s); };
+
+  const int tid = threadIdx.x;
+  const int bkv = blockIdx.x / slices;                    // b * hkv + kv head
+  const int slice = blockIdx.x % slices;
+  const int group = hq / hkv;
+  const int h_lo = slice * group / slices;
+  const int n_h = (slice + 1) * group / slices - h_lo;    // q heads of this slice
+  const int bh0 = (bkv / hkv) * hq + (bkv % hkv) * group + h_lo;
+  const int n_kb = (sk + kTile - 1) / kTile;
+  const int unit = blockIdx.y;
+  const int n_blocks = paired(causal, window) && n_kb - 1 - unit != unit ? 2 : 1;
+  const int nq = (sq + kTile - 1) / kTile;
+  // the r-th key block of this block, and the q tiles the forward's
+  // block-skip test keeps for it (causal: the tile's last position at or
+  // past k0; a window: its first position before the last key + window)
+  auto key0 = [&](int r) { return (r ? n_kb - 1 - unit : unit) * kTile; };
+  auto qt_lo = [&](int k0) { return causal ? max(0, floor_div(k0 - q_offset, kTile)) : 0; };
+  auto n_qt = [&](int k0) {
+    const int hi = window > 0 ? min(nq - 1, floor_div(k0 + kTile - 2 + window - q_offset, kTile))
+                              : nq - 1;
+    return max(0, hi - qt_lo(k0) + 1);
+  };
+  // Item i of key block r: q tile i / n_h, the slice's head i % n_h (the
+  // heads of a tile back to back).  A pair's first key block walks its q
+  // tiles down from the last, the second up from its first: at step t
+  // every block of a (b, slice) then reads q tile nq - 1 - t or t - 1 of
+  // the same heads (causal, Sq == Sk), so the blocks of a (b, slice) read
+  // two q tiles at a time.
+  auto q_tile = [&](int r, int lo, int n, int i) {
+    const int t = i / n_h;
+    return paired(causal, window) && r == 0 ? lo + n - 1 - t : lo + t;
+  };
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, kConsumers / 32);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers / 32);    // one arrival per consumer warp
+      mbar_init(p_full(s), 128);               // every thread of warpgroup 0
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // ---- producer warpgroup: one thread issues every copy; K and V of a
+    //      key block once the consumers are done with the last one, then its
+    //      (q head, q tile) items ----
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == kConsumers) {
+      for (int r = 0, it = 0; r < n_blocks; ++r) {
+        const int k0 = key0(r);
+        const int lo = qt_lo(k0), n = n_qt(k0);
+        if (r > 0) mbar_wait(kv_empty, 0);
+        mbar_arrive_expect_tx(kv_full, 2 * kOpBytes);
+        for (int p = 0; p < D / 64; ++p) {
+          tma_load_3d(sK + p * kPanelBytes, &tk, kv_full, 64 * p, k0, bkv);
+          tma_load_3d(sV + p * kPanelBytes, &tv, kv_full, 64 * p, k0, bkv);
+        }
+        for (int i = 0; i < n_h * n; ++i, ++it) {
+          const int s = it % kStages;
+          const int bh = bh0 + i % n_h;
+          const int q0 = q_tile(r, lo, n, i) * kTile;
+          mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(full(s), L::kStageBytes);
+          for (int p = 0; p < D / 64; ++p) {
+            tma_load_3d(sQ(s) + p * kPanelBytes, &tq, full(s), 64 * p, q0, bh);
+            tma_load_3d(sdO(s) + p * kPanelBytes, &tdo, full(s), 64 * p, q0, bh);
+          }
+          const int row_box = (bh * sq + q0) & ~3;
+          tma_load_1d(base + L::kLse + s * L::kRowSlot, &tlse, full(s), row_box);
+          tma_load_1d(base + L::kDelta + s * L::kRowSlot, &tdelta, full(s), row_box);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  // ---- consumers: rows of a score tile are keys, its columns q rows;
+  //      warpgroup 0 accumulates dV, warpgroup 1 dK ----
+  const int wg = tid / 128;
+  const int t = tid % 128;
+  const int lane = tid % 32;
+  const int r_lo = 16 * (t / 32) + lane / 4;       // this thread's rows: r_lo, r_lo + 8
+  const int col_lane = 2 * (lane % 4);
+  const float scale_log2 = scale * kLog2e;
+  const uint32_t sa = wg ? sV : sK;                // A of S^T (warpgroup 0) or dP^T (1)
+
+  float acc[D / 2], sc[kTile / 2];                 // dV (warpgroup 0) or dK (1); a score tile
+#pragma unroll
+  for (int i = 0; i < kTile / 2; ++i) sc[i] = 0.f;
+
+  for (int r = 0, it = 0; r < n_blocks; ++r) {
+    const int k0 = key0(r);
+    const int lo = qt_lo(k0), n = n_qt(k0);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    mbar_wait(kv_full, r & 1);
+    for (int i = 0; i < n_h * n; ++i, ++it) {
+      const int s = it % kStages;
+      const uint32_t ph = (it / kStages) & 1;
+      const int q0 = q_tile(r, lo, n, i) * kTile;
+      const int p0 = q0 + q_offset;                      // the tile's first q position
+      const int row_off = (bh0 + i % n_h) * sq + q0;     // lse / delta of its rows
+      // the q tiles in range all see some of these keys; one that straddles
+      // a mask edge, Sq or Sk is masked (past Sq, lse and delta are another
+      // head's)
+      const bool edge = q0 + kTile > sq || k0 + kTile > sk || (causal && p0 < k0 + kTile - 1) ||
+                        (window > 0 && p0 + kTile - 1 - k0 >= window);
+      const float* per_col = (wg ? s_delta : s_lse) + s * (L::kRowSlot / 4) + (row_off & 3);
+      uint32_t* const sp = s_p(s);
+      mbar_wait(full(s), ph);
+      // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (1), both operands K-major
+      const uint64_t ad = opaque(k_desc(sa, 0, kTile));
+      const uint64_t bd = opaque(k_desc(wg ? sdO(s) : sQ(s), 0, kTile));
+      wgmma_fence();
+      reg_fence(sc);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<64>::ss(sc, k_step(ad, kk, kTile), k_step(bd, kk, kTile), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(sc);
+      // this thread's 16 columns' lse (warpgroup 0) or delta (1), all read
+      // before any store to shared memory (loads behind a store would each
+      // wait out the one before)
+      float rv[16];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        rv[2 * j] = per_col[8 * j + col_lane];
+        rv[2 * j + 1] = per_col[8 * j + col_lane + 1];
+      }
+      // pk[2 j + h]: the bf16 pair of columns 8 j + col_lane (+1), row
+      // r_lo + 8 h; pk[4 kk .. 4 kk + 3] is the A fragment of k16 step kk
+      uint32_t pk[16];
+      if (wg == 0) {
+        // P^T = 2^(S^T scale log2 e - lse log2 e), masked (no branch among
+        // the exponentials); to warpgroup 1 through shared memory
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = 8 * j + col_lane;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float pv0 = ex2(fmaf(sc[4 * j + 2 * h], scale_log2, -rv[2 * j] * kLog2e));
+            float pv1 = ex2(fmaf(sc[4 * j + 2 * h + 1], scale_log2, -rv[2 * j + 1] * kLog2e));
+            if (edge) {
+              const int key = k0 + r_lo + 8 * h;
+              if (!visible(q0 + c, p0 + c, key, sq, sk, causal, window)) pv0 = 0.f;
+              if (!visible(q0 + c + 1, p0 + c + 1, key, sq, sk, causal, window)) pv1 = 0.f;
+            }
+            pk[2 * j + h] = pack_bf16(pv0, pv1);
+          }
+        }
+#pragma unroll
+        for (int x = 0; x < 16; ++x) sp[128 * x + t] = pk[x];
+        mbar_arrive(p_full(s));
+      } else {
+        // dS^T = P^T (dP^T - delta) scale, from warpgroup 0's bf16 P^T
+        mbar_wait(p_full(s), ph);
+#pragma unroll
+        for (int x = 0; x < 16; ++x) pk[x] = sp[128 * x + t];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 pf =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pk[2 * j + h]));
+            pk[2 * j + h] = pack_bf16(pf.x * (sc[4 * j + 2 * h] - rv[2 * j]) * scale,
+                                      pf.y * (sc[4 * j + 2 * h + 1] - rv[2 * j + 1]) * scale);
+          }
+      }
+      // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1): A from registers,
+      // dO / Q read MN-major, all 256 columns
+      const uint64_t gd = opaque(mn_desc(wg ? sQ(s) : sdO(s), 0, kTile));
+      wgmma_fence();
+      reg_fence(acc);
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        const uint32_t a[4] = {pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2], pk[4 * kk + 3]};
+        Wgmma<D>::rs(acc, a, mn_step(gd, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
+    }
+
+    // keys k0 + r_lo and + 8 (those below Sk), all columns of dV
+    // (warpgroup 0) or dK (1): bf16 once, or this slice's fp32 partial
+    const size_t n_kv = (size_t)(gridDim.x / slices) * sk * D;   // elements of dK
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = k0 + r_lo + 8 * h;
+      if (key >= sk) continue;
+      const size_t at = ((size_t)bkv * sk + key) * D + col_lane;
+      if (part == nullptr) {
+        bf16* out = (wg ? dk : dv) + at;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      } else {
+        float* out = part + (wg ? slice : slices + slice) * n_kv + at;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<float2*>(out + 8 * j) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(kv_empty);
+  }
+}
+
+// dK and dV ([n] each) from the slices' fp32 partials (dK's slices, then
+// dV's), added in slice order and rounded to bf16 once; 4 elements a thread
+__global__ void __launch_bounds__(256)
+flash_bwd_dkdv_sum_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, size_t n, int slices) {
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= 2 * n) return;
+  const bool second = i >= n;
+  const size_t j = second ? i - n : i;
+  const float* src = part + (second ? slices * n : 0) + j;
+  float4 acc = *reinterpret_cast<const float4*>(src);
+  for (int s = 1; s < slices; ++s) {
+    const float4 x = *reinterpret_cast<const float4*>(src + s * n);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  bf16* dst = (second ? dv : dk) + j;
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(acc.x, acc.y);
+  *reinterpret_cast<__nv_bfloat162*>(dst + 2) = __floats2bfloat162_rn(acc.z, acc.w);
+}
+
+struct DqLayout {
+  static constexpr int kBM = 128;                        // q rows a block: two warpgroups x 64
+  static constexpr int kQ = 0;                           // 128 x 256 bf16: 64 KB
+  static constexpr int kdO = kQ + 2 * kOpBytes;
+  static constexpr int kK = kdO + 2 * kOpBytes;          // K slot s at kK + s * kOpBytes
+  static constexpr int kV = kK + 2 * kOpBytes;           // one V slot
+  static constexpr int kBar = kV + kOpBytes;             // q_full, k_full[2], k_empty[2], v_full, v_empty
+  static constexpr int kBytes = kBar + 8 * 7;
+  static constexpr size_t kAlloc = kBytes + 1024;
+  static_assert(kAlloc <= 232448, "a block takes at most 227 KB of shared memory");
+};
+
+// (c) one block per (b, q head, 128 q rows), heaviest causal tiles first.
+// Each consumer warpgroup owns 64 rows and all 256 of dQ's columns (128
+// registers), computes S = Q K^T and dP = dO V^T for them, P and dS in
+// registers, and dQ += dS K with dS as the register A operand (m64n256k16),
+// as at D 64 and 128.  Q and dO (128 KB) stay resident; 64-key tiles stream
+// through two K slots and one V slot (a V tile is done with after dP, a K
+// tile only after dQ), so the next K tile loads during a whole tile's work.
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_d256_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int hq, int hkv, int sq, int sk, float scale,
+                         int causal, int window, int q_offset) {
+  using L = DqLayout;
+  constexpr int BM = L::kBM;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::kQ;
+  const uint32_t sdO = base + L::kdO;
+  auto sK = [&](int s) { return base + L::kK + s * kOpBytes; };
+  const uint32_t sV = base + L::kV;
+  const uint32_t q_full = base + L::kBar;
+  auto k_full = [&](int s) { return q_full + 8u * (1 + s); };
+  auto k_empty = [&](int s) { return q_full + 8u * (3 + s); };
+  const uint32_t v_full = q_full + 8u * 5;
+  const uint32_t v_empty = q_full + 8u * 6;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int kv_bh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;   // heaviest causal tiles first
+  const int q_first = q0 + q_offset;
+  // the forward's block-skip bounds for 128 rows against 64-key tiles
+  int kt_hi = (sk + kTile - 1) / kTile - 1;
+  if (causal) kt_hi = min(kt_hi, floor_div(q_first + BM - 1, kTile));
+  const int kt_lo = window > 0 ? max(0, floor_div(q_first - window - kTile + 1, kTile) + 1) : 0;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(k_empty(s), kConsumers / 32);
+    }
+    mbar_init(v_full, 1);
+    mbar_init(v_empty, kConsumers / 32);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // ---- producer warpgroup: one thread issues every copy; tile t's K into
+    //      slot t % 2 once tile t - 2's dQ is done, its V once tile t - 1's
+    //      dP is ----
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == kConsumers) {
+      mbar_arrive_expect_tx(q_full, 4 * kOpBytes);
+      for (int p = 0; p < D / 64; ++p) {
+        tma_load_3d(sQ + p * BM * kRowBytes, &tq, q_full, 64 * p, q0, bh);
+        tma_load_3d(sdO + p * BM * kRowBytes, &tdo, q_full, 64 * p, q0, bh);
+      }
+      for (int it = 0, kt = kt_lo; kt <= kt_hi; ++it, ++kt) {
+        const int s = it % 2;
+        mbar_wait(k_empty(s), ((it / 2) & 1) ^ 1);
+        mbar_arrive_expect_tx(k_full(s), kOpBytes);
+        for (int p = 0; p < D / 64; ++p)
+          tma_load_3d(sK(s) + p * kPanelBytes, &tk, k_full(s), 64 * p, kt * kTile, kv_bh);
+        mbar_wait(v_empty, (it & 1) ^ 1);
+        mbar_arrive_expect_tx(v_full, kOpBytes);
+        for (int p = 0; p < D / 64; ++p)
+          tma_load_3d(sV + p * kPanelBytes, &tv, v_full, 64 * p, kt * kTile, kv_bh);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  // ---- consumers: warpgroup wg owns q rows q0 + 64 wg .. q0 + 64 wg + 63 ----
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int qw0 = q0 + 64 * wg;
+  const int pw0 = qw0 + q_offset;
+  const int row0 = qw0 + 16 * warp + lane / 4;    // this thread's rows: row0, row0 + 8
+  const int row1 = row0 + 8;
+  const int col_lane = 2 * (lane % 4);
+  const float scale_log2 = scale * kLog2e;
+  const float lse0 = row0 < sq ? lse[(size_t)bh * sq + row0] * kLog2e : 0.f;
+  const float lse1 = row1 < sq ? lse[(size_t)bh * sq + row1] * kLog2e : 0.f;
+  const float delta0 = row0 < sq ? delta[(size_t)bh * sq + row0] : 0.f;
+  const float delta1 = row1 < sq ? delta[(size_t)bh * sq + row1] : 0.f;
+  const uint32_t qa = sQ + wg * 64 * kRowBytes;   // this warpgroup's rows of Q and dO
+  const uint32_t doa = sdO + wg * 64 * kRowBytes;
+
+  float dq_acc[D / 2], sc[kTile / 2], dp[kTile / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kTile / 2; ++i) sc[i] = dp[i] = 0.f;
+  mbar_wait(q_full, 0);
+
+  for (int it = 0, kt = kt_lo; kt <= kt_hi; ++it, ++kt) {
+    const int s = it % 2;
+    const int k_first = kt * kTile;
+    const uint32_t ks = sK(s);
+    // a tile this warpgroup's rows cannot see at all is skipped (the last
+    // causal tile for warpgroup 0); one that straddles a mask edge, Sq or
+    // Sk is masked after the exponentials
+    const bool dead = qw0 >= sq || (causal && k_first > pw0 + 63) ||
+                      (window > 0 && k_first + kTile - 1 <= pw0 - window);
+    const bool edge = qw0 + 64 > sq || k_first + kTile > sk ||
+                      (causal && k_first + kTile - 1 > pw0) ||
+                      (window > 0 && k_first <= pw0 + 63 - window);
+    mbar_wait(k_full(s), (it / 2) & 1);
+    mbar_wait(v_full, it & 1);
+    if (!dead) {
+      // S = Q K^T and dP = dO V^T (K-major operands) as two groups; a
+      // tile's products are issued and awaited inside one branch
+      const uint64_t qd = opaque(k_desc(qa, 0, BM)), dod = opaque(k_desc(doa, 0, BM));
+      const uint64_t kd = opaque(k_desc(ks, 0, kTile)), vd = opaque(k_desc(sV, 0, kTile));
+      wgmma_fence();
+      reg_fence(sc);
+      reg_fence(dp);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<64>::ss(sc, k_step(qd, kk, BM), k_step(kd, kk, kTile), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<64>::ss(dp, k_step(dod, kk, BM), k_step(vd, kk, kTile), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      reg_fence(sc);
+      // P = 2^(S scale log2 e - lse log2 e), masked, kept as bf16 pairs (the
+      // dK / dV kernel forms dS from the same bf16 P; 16 registers, not 32,
+      // while dP lands)
+      uint32_t pk[kTile / 4];
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float pv0 = ex2(fmaf(sc[4 * j + 2 * h], scale_log2, h ? -lse1 : -lse0));
+          float pv1 = ex2(fmaf(sc[4 * j + 2 * h + 1], scale_log2, h ? -lse1 : -lse0));
+          if (edge) {
+            const int row = h ? row1 : row0;
+            const int key = k_first + 8 * j + col_lane;
+            if (!visible(row, row + q_offset, key, sq, sk, causal, window)) pv0 = 0.f;
+            if (!visible(row, row + q_offset, key + 1, sq, sk, causal, window)) pv1 = 0.f;
+          }
+          pk[2 * j + h] = pack_bf16(pv0, pv1);
+        }
+      wgmma_wait<0>();
+      reg_fence(dp);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(v_empty);
+      // dS = P (dP - delta) scale, then dQ += dS K with K read MN-major
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float dl = h ? delta1 : delta0;
+          const float2 pf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pk[2 * j + h]));
+          dp[4 * j + 2 * h] = pf.x * (dp[4 * j + 2 * h] - dl) * scale;
+          dp[4 * j + 2 * h + 1] = pf.y * (dp[4 * j + 2 * h + 1] - dl) * scale;
+        }
+      uint32_t da[kTile / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) to_a_frag(dp, kk, da[kk]);
+      const uint64_t kt_mn = opaque(mn_desc(ks, 0, kTile));
+      wgmma_fence();
+      reg_fence(dq_acc);
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) Wgmma<D>::rs(dq_acc, da[kk], mn_step(kt_mn, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dq_acc);
+    } else {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(v_empty);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(k_empty(s));
+  }
+
+  // dQ rows row0 and row1 (those below Sq), rounded to bf16 once
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = h ? row1 : row0;
+    if (row >= sq) continue;
+    bf16* out = dq + ((size_t)bh * sq + row) * D + col_lane;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+          __floats2bfloat162_rn(dq_acc[4 * j + 2 * h], dq_acc[4 * j + 2 * h + 1]);
+  }
+}
+
 cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
                    const void* dout, const float* lse, float* delta, void* dq, void* dk,
                    void* dv, int b, int hq, int hkv, int sq, int sk, float scale, int causal,
                    int window, int q_offset, cudaStream_t stream) {
+  const tc::EncodeTiled encode = tc::encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  cudaError_t err = bwd::launch_delta<bf16, D>(out, dout, delta, b * hq * sq, stream);
+  if (err != cudaSuccess) return err;
+
+  CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
+  const size_t rows = (size_t)b * hq * sq;
+  if (!tc::make_map(encode, &tq, q, b * hq, sq, D, kTile) ||
+      !tc::make_map(encode, &tdo, dout, b * hq, sq, D, kTile) ||
+      !tc::make_map(encode, &tk, k, b * hkv, sk, D, kTile) ||
+      !tc::make_map(encode, &tv, v, b * hkv, sk, D, kTile) ||
+      !make_map_1d(encode, &tlse, lse, rows, DkdvLayout::kRowBox) ||
+      !make_map_1d(encode, &tdelta, delta, rows, DkdvLayout::kRowBox))
+    return cudaErrorInvalidValue;
+
+  const int slices = dkdv_slices(b, hq, hkv, sk, causal, window);
+  float* part = slices > 1 ? delta + part_offset(b, hq, sq) : nullptr;
+  const int n_kb = (sk + kTile - 1) / kTile;
+  const int units = paired(causal, window) ? (n_kb + 1) / 2 : n_kb;
+  auto dkdv = flash_bwd_dkdv_d256_kernel;
+  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)DkdvLayout::kAlloc);
+  if (err != cudaSuccess) return err;
+  dkdv<<<dim3(b * hkv * slices, units), kThreads, DkdvLayout::kAlloc, stream>>>(
+      tq, tk, tv, tdo, tlse, tdelta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), part, hq,
+      hkv, sq, sk, scale, causal, window, q_offset, slices);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (part != nullptr) {
+    const size_t n = (size_t)b * hkv * sk * D;
+    const size_t threads = 2 * n / 4;
+    flash_bwd_dkdv_sum_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
+        part, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, slices);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+
+  constexpr int BM = DqLayout::kBM;
+  if (!tc::make_map(encode, &tq, q, b * hq, sq, D, BM) ||
+      !tc::make_map(encode, &tdo, dout, b * hq, sq, D, BM))
+    return cudaErrorInvalidValue;
+  auto dqk = flash_bwd_dq_d256_kernel;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)DqLayout::kAlloc);
+  if (err != cudaSuccess) return err;
+  dqk<<<dim3(b * hq, (sq + BM - 1) / BM), kThreads, DqLayout::kAlloc, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), hq, hkv, sq, sk, scale, causal,
+      window, q_offset);
+  return cudaGetLastError();
+}
+
+}  // namespace d256
+
+// D 64 and 128
+template <int D>
+cudaError_t launch_narrow(const void* q, const void* k, const void* v, const void* out,
+                          const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                          void* dv, int b, int hq, int hkv, int sq, int sk, float scale,
+                          int causal, int window, int q_offset, cudaStream_t stream) {
   const tc::EncodeTiled encode = tc::encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   cudaError_t err = bwd::launch_delta<bf16, D>(out, dout, delta, b * hq * sq, stream);
@@ -1786,8 +2411,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)KV::kAlloc);
   if (err != cudaSuccess) return err;
-  dkdv<<<dim3(b * hkv, (sk + KV::kBK - 1) / KV::kBK, D / KV::kDO), kThreads, KV::kAlloc,
-         stream>>>(
+  dkdv<<<dim3(b * hkv, (sk + KV::kBK - 1) / KV::kBK), kThreads, KV::kAlloc, stream>>>(
       tq, tk, tv, tdo, tlse, tdelta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), hq, hkv,
       sq, sk, scale, causal, window, q_offset);
   err = cudaGetLastError();
@@ -1806,6 +2430,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
       tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), hq, hkv, sq, sk, scale, causal,
       window, q_offset);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
+                   const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                   void* dv, int b, int hq, int hkv, int sq, int sk, float scale, int causal,
+                   int window, int q_offset, cudaStream_t stream) {
+  if constexpr (D == 256)
+    return d256::launch(q, k, v, out, dout, lse, delta, dq, dk, dv, b, hq, hkv, sq, sk, scale,
+                        causal, window, q_offset, stream);
+  else
+    return launch_narrow<D>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, hq, hkv, sq, sk,
+                            scale, causal, window, q_offset, stream);
 }
 
 }  // namespace bwd_tc
@@ -1844,9 +2481,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 
 // The backward of flash_attention_fwd: dq [B, Hq, Sq, D], dk / dv [B, Hkv, Sk, D]
 // from q, k, v, the forward's out and lse, and dout; dtype 0 = float32 (SIMT),
-// 1 = bfloat16 (wgmma + TMA).  ``delta`` is a caller's
-// fp32 scratch of B * Hq * Sq floats.  Same dtypes, shapes and guarantees as
-// the forward; d in {64, 128, 256}.  Returns a cudaError_t.
+// 1 = bfloat16 (wgmma + TMA).  ``delta`` is a caller's fp32 scratch of
+// B * Hq * Sq floats, and where flash_attention_bwd_slices gives more than
+// one slice also, from B * Hq * Sq rounded up to a multiple of 64, the dK
+// and dV partials: 2 * slices * B * Hkv * Sk * D floats.  Same dtypes,
+// shapes and guarantees as the forward; d in {64, 128, 256}.  Returns a
+// cudaError_t.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* out, const void* dout, const float* lse,
                                    float* delta, void* dq, void* dk, void* dv, int b, int hq,
@@ -1861,4 +2501,13 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                       : bwd_tc::launch<D>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, hq,
                                           hkv, sq, sk, scale, causal, window, q_offset, s);
   }));
+}
+
+// q-head slices over which the bf16 head_dim-256 dK / dV kernel splits each
+// kv head's group for this call (their fp32 partials are summed in slice
+// order); 1 for every other call.  Same arguments as flash_attention_bwd.
+extern "C" int flash_attention_bwd_slices(int b, int hq, int hkv, int sk, int d, int causal,
+                                          int window, int dtype) {
+  if (d != 256 || dtype != 1 || b <= 0 || hkv <= 0) return 1;
+  return bwd_tc::d256::dkdv_slices(b, hq, hkv, sk, causal, window);
 }

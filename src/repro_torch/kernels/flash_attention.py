@@ -125,11 +125,35 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     return (out, lse) if return_lse else out
 
 
+def bwd_scratch_floats(B: int, Hq: int, Hkv: int, Sq: int, Sk: int, D: int,
+                       slices: int) -> int:
+    """fp32 scratch of the backward: delta's B * Hq * Sq floats, and with
+    more than one q-head slice (bf16 at D 256) the dK and dV partials after
+    them, from the next multiple of 64 (``flash_attention_bwd``'s layout)."""
+    rows = B * Hq * Sq
+    if slices == 1:
+        return rows
+    return -(-rows // 64) * 64 + 2 * slices * B * Hkv * Sk * D
+
+
+def bwd_head_slices(q, k, *, causal: bool = True, window: int = 0) -> int:
+    """q-head slices of the kernels' dK / dV sums for this call (1 but for
+    bf16 at D 256, where the card's kernel picks them to fill the SMs)."""
+    B, Hq, _, D = q.shape
+    _, Hkv, Sk, _ = k.shape
+    fn = build.load("flash_attention").flash_attention_bwd_slices
+    fn.argtypes = build.c_args("i", "i", "i", "i", "i", "i", "i", "i")
+    fn.restype = build.ctypes.c_int
+    return int(fn(B, Hq, Hkv, Sk, D, int(bool(causal)), int(window or 0),
+                  _DTYPES[q.dtype]))
+
+
 def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True,
                              window: int = 0, q_offset: int = 0,
                              scale: Optional[float] = None):
-    """Launch the backward of ``csrc/flash_attention.cu`` (three kernels, one
-    launch counted); returns (dq, dk, dv) in q's dtype."""
+    """Launch the backward of ``csrc/flash_attention.cu`` (three kernels, or
+    at bf16 D 256 with several q-head slices four, one launch counted);
+    returns (dq, dk, dv) in q's dtype."""
     tensors = (q, k, v, out, lse, dout)
     build.on_one_card(tensors, "flash_attention_bwd_cuda")
     check_bwd_inputs(q, k, v, out, lse, dout, q_offset)
@@ -138,7 +162,9 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0:
         return dq, dk, dv
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    slices = bwd_head_slices(q, k, causal=causal, window=window)
+    delta = torch.empty(bwd_scratch_floats(B, Hq, Hkv, Sq, Sk, D, slices),
+                        dtype=torch.float32, device=q.device)
     build.aligned(tensors + (dq, dk, dv, delta), "flash_attention_bwd_cuda")
     scale = float(scale if scale is not None else D ** -0.5)
     lib = build.load("flash_attention")

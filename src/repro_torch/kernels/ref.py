@@ -125,13 +125,17 @@ def mha_blocked_fwd(q, k, v, *, causal: bool = True, window: int = 0,
 
 def mha_blocked_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                     window: int = 0, q_offset: int = 0,
-                    scale: Optional[float] = None, block_k: int = 512):
+                    scale: Optional[float] = None, block_k: int = 512,
+                    head_slices: int = 1):
     """Flash-attention backward (the reference's ``_mha_core_bwd``).
 
     Per KV block, P is recomputed from the saved log-sum-exp,
     ``delta = rowsum(dO * O)``, ``dS = P (dO V^T - delta) * scale``;
     dq accumulates over blocks, dk = dS^T q and dv = P^T dO per block, all in
-    fp32.  GQA: dk and dv are summed over each kv head's query group.
+    fp32.  GQA: dk and dv are summed over each kv head's query group; with
+    ``head_slices`` > 1 as the bf16 D-256 kernel sums them (its
+    ``flash_attention_bwd_slices``): the group cut into that many runs of
+    heads (run s from s * g // n), each run summed, then the runs in order.
     Returns (dq, dk, dv) in the dtypes of q, k, v."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -159,8 +163,19 @@ def mha_blocked_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
         dq = dq + torch.einsum("bhqk,bhkd->bhqd", ds, kb)
         dks.append(torch.einsum("bhqk,bhqd->bhkd", ds, qf))
     g = Hq // Hkv
-    dk = torch.cat(dks, 2).reshape(B, Hkv, g, Sk, -1).sum(2)
-    dv = torch.cat(dvs, 2).reshape(B, Hkv, g, Sk, -1).sum(2)
+    if g % head_slices:
+        raise ValueError(f"head_slices {head_slices} must divide the group "
+                         f"{g}")
+    cuts = [s * g // head_slices for s in range(head_slices + 1)]
+
+    def group_sum(parts):
+        per_head = torch.cat(parts, 2).reshape(B, Hkv, g, Sk, -1)
+        total = per_head[:, :, cuts[0]:cuts[1]].sum(2)
+        for lo, hi in zip(cuts[1:-1], cuts[2:]):
+            total = total + per_head[:, :, lo:hi].sum(2)
+        return total
+
+    dk, dv = group_sum(dks), group_sum(dvs)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

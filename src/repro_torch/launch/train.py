@@ -332,6 +332,12 @@ def main():
                     help="fused schedules: fold micro-batch gradients in "
                          "micro order or in schedule order")
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--constant-lr", action="store_true",
+                    help="no warmup and no decay (chip_smoke.py's train "
+                         "phases); default: warmup over min(20, steps), "
+                         "cosine to 0.1 lr")
+    ap.add_argument("--fixed-batch", action="store_true",
+                    help="train on the first batch every step")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", action="store_true",
@@ -369,9 +375,10 @@ def main():
                       residuals=args.residuals, grad_reduce=args.grad_reduce)
     pcfg = pcfg.with_(n_micro=args.n_micro
                       or configs.derive_n_micro(shape, pcfg))
-    ocfg = optim.OptimizerConfig(lr=args.lr, warmup_steps=min(20, args.steps),
-                                 total_steps=args.steps,
-                                 dynamic_loss_scale=not args.smoke)
+    sched = (dict(warmup_steps=0, min_lr_ratio=1.0) if args.constant_lr
+             else dict(warmup_steps=min(20, args.steps)))
+    ocfg = optim.OptimizerConfig(lr=args.lr, total_steps=args.steps,
+                                 dynamic_loss_scale=not args.smoke, **sched)
     dev = resolve_device(args.device)
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "cpu")
@@ -382,7 +389,7 @@ def main():
           f"{str(dtype).split('.')[-1]} on {where}{procs}", flush=True)
     job = dict(arch=arch, pcfg=pcfg, seq_len=args.seq_len, batch=args.batch,
                steps=args.steps, dtype=dtype, seed=args.seed, ocfg=ocfg,
-               trace=args.trace)
+               fixed_batch=args.fixed_batch, trace=args.trace)
     if not args.nproc:
         _report(train(device=dev, **job), dev)
         return

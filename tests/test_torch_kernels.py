@@ -302,8 +302,9 @@ def test_flash_attention_bwd_kernel_vs_plain(cuda_device, heads, s, mask, d,
     """dq / dk / dv and the forward's lse on the card against the plain
     backward on the same inputs; S = 100 and 192 are ragged against the
     128-row / 128-key tiles, a window of 100 straddles them, GQA 3:1 and 5:1
-    sum dk / dv over each kv head's group; at D 256 two blocks split each
-    key tile's dK / dV columns (bf16) or D is staged in chunks (fp32)."""
+    sum dk / dv over each kv head's group; at D 256 the bf16 kernels split
+    the columns between two warpgroups and the group into q-head slices, and
+    the fp32 ones stage D in chunks."""
     torch.backends.cuda.matmul.allow_tf32 = False
     causal, window = mask
     dt = DTYPES[dtype]
@@ -326,16 +327,19 @@ def test_flash_attention_bwd_kernel_vs_plain(cuda_device, heads, s, mask, d,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("heads", [(15, 5), (4, 4)])
+@pytest.mark.parametrize("heads", [(15, 5), (4, 4), (8, 1)])
+@pytest.mark.parametrize("d", [64, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_attention_bwd_is_bitwise_deterministic(cuda_device, heads,
+def test_flash_attention_bwd_is_bitwise_deterministic(cuda_device, heads, d,
                                                       dtype):
     """No atomics: two calls on the same inputs give the same dq, dk and dv
-    bit for bit (the GQA sums run in one block, in a fixed order)."""
+    bit for bit (the GQA sums run in one block, in a fixed order; bf16 at
+    D 256 splits MQA 8:1's group into q-head slices whose fp32 partials are
+    added in slice order)."""
     dt = DTYPES[dtype]
     q, k, v = (torch.from_numpy(a).to(cuda_device, dt)
-               for a in _qkv(*heads, 1000, 1000, b=2))
-    do = torch.from_numpy(_qkv(*heads, 1000, 1000, b=2, seed=1)[0]).to(
+               for a in _qkv(*heads, 1000, 1000, d=d, b=2))
+    do = torch.from_numpy(_qkv(*heads, 1000, 1000, d=d, b=2, seed=1)[0]).to(
         cuda_device, dt)
     out, lse = flash_attention_cuda(q, k, v, return_lse=True)
     first = flash_attention_bwd(q, k, v, out, lse, do)
@@ -536,6 +540,13 @@ def test_wkv6_on_cpu_differentiates_through_the_plain_version():
     ("void (anonymous namespace)::bwd_tc::flash_bwd_dkdv_wgmma_kernel<64>("
      "CUtensorMap_st, CUtensorMap_st, ...)", "flash_attention_bwd (ours)"),
     ("void (anonymous namespace)::bwd_tc::flash_bwd_dq_wgmma_kernel<128>("
+     "CUtensorMap_st, CUtensorMap_st, ...)", "flash_attention_bwd (ours)"),
+    ("(anonymous namespace)::bwd_tc::d256::flash_bwd_dkdv_d256_kernel("
+     "CUtensorMap_st, CUtensorMap_st, ...)", "flash_attention_bwd (ours)"),
+    ("(anonymous namespace)::bwd_tc::d256::flash_bwd_dkdv_sum_kernel(float "
+     "const*, __nv_bfloat16*, __nv_bfloat16*, unsigned long, int)",
+     "flash_attention_bwd (ours)"),
+    ("(anonymous namespace)::bwd_tc::d256::flash_bwd_dq_d256_kernel("
      "CUtensorMap_st, CUtensorMap_st, ...)", "flash_attention_bwd (ours)"),
     ("void (anonymous namespace)::rmsnorm_bwd_kernel<__nv_bfloat16, 960>("
      "__nv_bfloat16 const*, ...)", "rmsnorm_bwd (ours)"),

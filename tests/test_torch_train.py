@@ -75,25 +75,52 @@ def _assert_tree_close(got, want, tag, **tol):
 # ---------------------------------------------------------------------------
 
 # (B, Hq, Hkv, S, D, causal, window): GQA 3:1 causal, a sliding window over
-# GQA 2:1, full attention; block_k 16 so the blocked loops take several blocks
+# GQA 2:1, full attention, gemma-2b's head layout (MQA 8:1 at D 256);
+# block_k 16 so the blocked loops take several blocks
 ATTN_CASES = [(2, 3, 1, 40, 16, True, 0), (1, 4, 2, 48, 16, True, 12),
-              (1, 2, 2, 24, 16, False, 0)]
+              (1, 2, 2, 24, 16, False, 0), (1, 8, 1, 40, 256, True, 0)]
 
 
-@pytest.mark.parametrize("case", ATTN_CASES, ids=["gqa3-causal", "window",
-                                                  "full"])
-def test_attention_backward_vs_jax_vjp(case):
+def _attn_vjp_case(case):
+    """Seeded numpy q, k, v, dO for ``case`` and ``jax.vjp`` of the JAX plain
+    reference's blocked attention at them (block_k 16)."""
     B, hq, hkv, S, D, causal, window = case
     rng = np.random.default_rng(0)
     qn = rng.normal(size=(B, hq, S, D)).astype(np.float32)
     kn, vn = (rng.normal(size=(B, hkv, S, D)).astype(np.float32)
               for _ in range(2))
     don = rng.normal(size=qn.shape).astype(np.float32)
-    kw = dict(causal=causal, window=window)
-
     out_j, vjp = jax.vjp(lambda a, b, c: jref.mha_blocked(
-        a, b, c, block_k=16, **kw), qn, kn, vn)
-    want = [np.asarray(g) for g in vjp(don)]
+        a, b, c, block_k=16, causal=causal, window=window), qn, kn, vn)
+    return (qn, kn, vn, don), out_j, [np.asarray(g) for g in vjp(don)]
+
+
+@pytest.mark.parametrize("slices", [2, 4, 8])
+def test_attention_backward_head_slices_vs_jax_vjp(slices):
+    """The plain mirror of the bf16 D-256 kernel's dK / dV sum order (the
+    q-head group in ``slices`` runs, each summed, then the runs in order) at
+    gemma-2b's head layout against ``jax.vjp``; dq is untouched by it."""
+    case = ATTN_CASES[-1]
+    (qn, kn, vn, don), _, want = _attn_vjp_case(case)
+    kw = dict(causal=case[5], window=case[6], block_k=16)
+    q, k, v, do = (_t(a) for a in (qn, kn, vn, don))
+    out, lse = ref.mha_blocked_fwd(q, k, v, **kw)
+    whole = ref.mha_blocked_bwd(q, k, v, out, lse, do, **kw)
+    sliced = ref.mha_blocked_bwd(q, k, v, out, lse, do, head_slices=slices,
+                                 **kw)
+    assert torch.equal(sliced[0], whole[0])
+    for g, w, name in zip(sliced, want, "qkv"):
+        np.testing.assert_allclose(g.numpy(), w, **TOL, err_msg=f"d{name}")
+    with pytest.raises(ValueError, match="divide"):
+        ref.mha_blocked_bwd(q, k, v, out, lse, do, head_slices=3, **kw)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=["gqa3-causal", "window",
+                                                  "full", "mqa8-d256"])
+def test_attention_backward_vs_jax_vjp(case):
+    B, hq, hkv, S, D, causal, window = case
+    kw = dict(causal=causal, window=window)
+    (qn, kn, vn, don), out_j, want = _attn_vjp_case(case)
     _, lse_j = jref._mha_blocked_fwd_pass(
         qn, jref._expand_kv(kn, hq), jref._expand_kv(vn, hq), causal=causal,
         window=window or None, q_offset=0, scale=D ** -0.5, block_k=16,
