@@ -24,15 +24,22 @@ line is printed):
             its serial form,
             with masked tails and decays that underflow to 0; attention
             at head_dim 64, 128 and 256 (gemma-2b's: causal, non-causal
-            and windowed, MQA 8:1 and MHA, both dtypes), and at the
+            and windowed, MQA 8:1 and MHA, both dtypes), windowed GQA at
+            mixtral's (D 128, 32:8, window 4,096), hymba's (D 64, 25:5,
+            window 1,024) and a D-128 window shorter than S, and at the
             training path's q [2,15,4096,64] with the lse the
-            backward reads), then timed at
+            backward reads; RMSNorm also at D 1,600, 4,096 and 6,144),
+            then timed at
             the serving paths' shapes beside its plain version and one
             library call where PyTorch has one (the yardstick only); RMSNorm
             at both paths' widths (960 and 2048); attention also at
             whisper-tiny's training call, q [2,6,4096,64], non-causal and
-            causal, gemma-2b's q [2,8,4096,256] (kv 1 head, causal) and
-            deepseek-7b's prefill q [1,32,2048,128]; WKV also at one
+            causal, gemma-2b's q [2,8,4096,256] (kv 1 head, causal),
+            deepseek-7b's prefill q [1,32,2048,128] and the training calls
+            of mixtral-8x7b (q [2,32,4096,128], kv 8, window 4,096) and
+            hymba-1.5b (q [2,25,4096,64], kv 5, window 1,024), each beside
+            SDPA at the same mask; RMSNorm at D 1,600 and 4,096; WKV also
+            at one
             decode step and at rwkv6's training call [2,32,4096,64], and
             by kernel from a profiler trace;
    backward the attention and RMSNorm backward kernels against their plain
@@ -55,8 +62,11 @@ line is printed):
             same backward (SDPA's, F.rms_norm's: yardsticks only), with the
             achieved TFLOP/s and the bound's share of the time; the
             attention backward also at whisper-tiny's q [2,6,4096,64],
-            non-causal and causal, and at gemma-2b's q [2,8,4096,256]
-            (its grid holds head_dim 256 too), there also by kernel
+            non-causal and causal, at mixtral's and hymba's training calls
+            (the grid holds their windows and heads too; RMSNorm at
+            [2,4096,1600] and [2,4096,4096]), and at gemma-2b's q
+            [2,8,4096,256] (its grid holds head_dim 256 too), there also
+            by kernel
             (delta, dK / dV, the q-head slices' sum, dQ) from a profiler
             trace;
 4. port     the same weights through the kernels on the card and through
@@ -67,13 +77,19 @@ line is printed):
             width, 2 layers (tp 1), pipe 2, seq 256, fp32, the
             GPipe loss and every gradient leaf compared (each leaf also
             within 1e-4 of its own largest entry); then the fused F+B
-            executor the same way (``train_fused_gpu_vs_cpu``, batch 4):
+            executor the same way (``train_fused_gpu_vs_cpu``, smollm-360m
+            cut to 4 layers, batch 4, so every virtual stage of
+            interleaved:2 holds a layer):
             1f1b (m 2), zb with residuals "reuse" under remat "none" and
             "full" (m 4) and interleaved:2 (m 2), and 1f1b against
             gpipe_tasked on the card, bitwise equal but for the embedding's
             leaf; then gemma-2b at full width, 2 layers, pipe 2, fp32
             (prompt and seq 256): serving and the GPipe loss and every
             gradient, where the fp32 head_dim-256 kernels meet the CPU;
+            mixtral-8x7b (prompt and seq 128) and hymba-1.5b the same way,
+            where the MoE dispatch, the SSM scan and the windowed D-128 and
+            D-64 kernels meet the CPU (weights drawn on the card, gaps
+            taken on the card);
 5. serve    the main paths, each with the launch counters set to 0 just
             before it and read just after, through
             ``repro_torch.launch.serve.serve`` on one card with batch 8
@@ -81,8 +97,10 @@ line is printed):
             32 layers, bf16, pipe 16, data 1; rwkv6-1.6b, all 24 layers,
             bf16, pipe 8, tp 1, data 1; gemma-2b (18 layers, pipe 2),
             deepseek-7b (30 layers in 32 slots, pipe 16), pixtral-12b (40
-            layers, pipe 8, 256 patch embeddings a prompt) and llama3-405b
-            at full width cut to 4 layers (pipe 4), tp 1.  The counters
+            layers, pipe 8, 256 patch embeddings a prompt), llama3-405b
+            at full width cut to 4 layers (pipe 4), mixtral-8x7b cut to 16
+            layers (pipe 8), dbrx-132b cut to 4 (pipe 4) and hymba-1.5b
+            (32 layers, pipe 16, per-layer windows), tp 1.  The counters
             must equal what each path implies;
 6. train    the training main path with the counters set to 0 just before
             and read just after, through ``repro_torch.launch.train.train``:
@@ -99,7 +117,10 @@ line is printed):
             8, tp 1, gpipe and 1f1b), with the WKV-6 backward's share of
             the traced step's device time; then gemma-2b the same way (18
             layers, pipe 2, tp 1: ``train`` and ``train_fused`` records
-            with ``"arch": "gemma-2b"``), and ``fused_bitwise``: one grad
+            with ``"arch": "gemma-2b"``), mixtral-8x7b (2 layers, pipe 2,
+            lr 5e-5, a workaround: ``TRAIN_LR``) and hymba-1.5b (32 layers, pipe 16; 3
+            steps and a traced fourth: ``TRAIN_STEPS``) the same way, and
+            ``fused_bitwise``: one grad
             call of gemma-2b at that size through 1f1b and through
             gpipe_tasked under deterministic algorithms, the loss and
             every gradient bitwise equal;
@@ -147,7 +168,8 @@ line is printed):
             pipe 8 and at PARALLEL_OPTIMIZED's pipe 2 (four micro-batches a
             rank, rotated), gpipe and 1f1b: the loss and every gradient
             bitwise equal, the stream stash high-water equal to the plan's;
-            5 train steps each at pipe 8, losses bitwise equal; the
+            5 train steps of 1f1b at pipe 8, losses and grad norms bitwise
+            equal (gpipe's streaming is held by its grad calls); the
             prefill's logits bitwise equal;
 15. wire    the wire codec, 1f1b at pipe 8, 5 steps and a traced sixth
             under fp32, bf16 (bitwise equal to fp32 on this bf16 model),
@@ -161,7 +183,8 @@ line is printed):
             compressor's device ms;
 17. dist_train  stages in their own processes: four pipe ranks spawned on
             the one card (gloo; every hop crosses pinned host memory), one
-            group for every case: smollm-360m at full width and depth (32
+            group for every case of this phase and of ``dist_serve`` (one
+            spawn, after the single-process runs of both): smollm-360m at full width and depth (32
             layers, seq 4096, batch 16, m 8, remat "full", bf16), pipe 4,
             1f1b under the spmd and the mpmd send discipline and
             gpipe_tasked under spmd, a grad call and 3 AdamW steps each;
@@ -186,8 +209,8 @@ line is printed):
             gradient's SHA-256 and the step-1 loss equal, the park and
             route high-water equal to the forward plan's, one cotangent
             hop for each chain and portal hop;
-18. dist_serve  serving with one process per pipe rank: four ranks on the
-            card, each holding its own stages' weights and caches,
+18. dist_serve  serving with one process per pipe rank: the four ranks of
+            ``dist_train``'s group, each holding its own stages' weights and caches,
             through ``launch.serve.serve(group=)``: smollm-360m and
             rwkv6-1.6b (tp 1) cut to 8 layers, and whisper-tiny (8
             blocks, 2048 frames) at pipe 4, batch 8, prompt 2048, 32
@@ -213,7 +236,6 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -256,7 +278,31 @@ KERNELS = ("flash_attention", "rmsnorm", "wkv6", "flash_attention_bwd",
 # pipe 8, tp cut to 1); llama3-405b at full width cut to 4 layers (pipe 4,
 # one a stage): its 126 (~810 GB of bf16 weights) do not fit one card
 DENSE_SERVE = ("gemma-2b", "deepseek-7b", "pixtral-12b", "llama3-405b")
-SERVE_LAYERS = {"llama3-405b": 4}
+# The MoE and hybrid archs, served: mixtral-8x7b at full width cut to 16 of
+# its 32 layers (2.9 GB of bf16 weights a layer; pipe 8), dbrx-132b to 4 of
+# 40 (6.5 GB a layer; pipe 4), hymba-1.5b whole (pipe 16); trained:
+# mixtral at 2 layers, pipe 2 (16 B a parameter: ~51 GB), hymba whole
+MOE_HYBRID = ("mixtral-8x7b", "dbrx-132b", "hymba-1.5b")
+SERVE_CUT = {"llama3-405b": dict(n_layers=4),
+             "mixtral-8x7b": dict(n_layers=16),
+             "dbrx-132b": dict(n_layers=4, pipe=4)}
+TRAIN_CUT = {"mixtral-8x7b": dict(n_layers=2, pipe=2)}
+# The train phases' AdamW lr (constant, no warmup), 5e-4 but for
+# mixtral-8x7b, a workaround: at 5e-4 its 2-layer cut's curve on one fixed
+# batch rises (11.01, 13.27, 35.54, 20.95, 12.83; 1e-4 rises at steps 2-3
+# too) and the last-below-first gate fails; at 5e-5 it falls at every
+# step.  Why it rises is open (ROADMAP C5): ``train_gpu_vs_cpu`` holds
+# one step's fp32 gradients to the CPU, not a bf16 curve
+TRAIN_LR = {"mixtral-8x7b": 5e-5}
+# Steps before the traced one: 5, but 3 for hymba-1.5b, whose ~6.5 s
+# steps (the SSM scan's elementwise kernels) would take the script past
+# its time limit
+TRAIN_STEPS = {"hymba-1.5b": 3}
+# RMSNorm widths of hymba-1.5b, mixtral-8x7b and dbrx-132b
+WIDE_NORMS = (1600, 4096, 6144)
+# (window, hq, hkv, d): mixtral's attention, a D-128 window shorter than
+# the sequences it meets (its key tiles skipped), hymba's
+WINDOWED = ((4096, 32, 8, 128), (1000, 32, 8, 128), (1024, 25, 5, 64))
 
 
 def emit(obj) -> None:
@@ -322,6 +368,23 @@ def with_rates(rec, flops):
     measured time) and its bound share (bound over time)."""
     return rec | {"tflops": flops / (rec["ms"] * 1e-3) / 1e12,
                   "bound_share": rec["bound_ms"] / rec["ms"]}
+
+
+def sdpa_call(torch, q, k, v, causal: bool, window: int = 0):
+    """``F.scaled_dot_product_attention`` at the kernel's mask, as a
+    thunk: ``is_causal`` where the window covers the sequence, else a
+    boolean mask of the window (k and v then repeated to q's heads, since
+    a masked GQA call has no fused form)."""
+    import torch.nn.functional as F
+    sq, hq, hkv = q.shape[2], q.shape[1], k.shape[1]
+    if not causal or not 0 < window < sq:
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=hq != hkv)
+    i = torch.arange(sq, device=q.device)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    if hq != hkv:
+        k, v = (t.repeat_interleave(hq // hkv, 1) for t in (k, v))
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
 def max_err(torch, got, want) -> float:
@@ -461,6 +524,7 @@ def phase_kernels(torch):
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
     from repro_torch.kernels.wkv6 import (uses_chunked_form, wkv6,
                                           wkv6_plain)
+    from repro_torch.launch.train import visible_pairs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -474,8 +538,9 @@ def phase_kernels(torch):
     # -- RMSNorm grid: smollm's width, rwkv6's group norm (both compiled for
     #    their D) and a width that takes the kernel's generic-D form; 1024
     #    rows are the fused schedules' head norm (one micro-batch), 8192 the
-    #    gpipe path's layers and head chunks --------------------------------
-    for d in (D_MODEL, 2048, 448):
+    #    gpipe path's layers and head chunks; hymba's, mixtral's and dbrx's
+    #    widths (1,600, 4,096, 6,144) -----------------------------------------
+    for d in (D_MODEL, 2048, 448) + WIDE_NORMS:
         for rows in (1, 8, 1024, 2048, 8192):
             for dname, dt in dtypes.items():
                 x = randn(rows, d, dtype=dt) * 2
@@ -508,6 +573,13 @@ def phase_kernels(torch):
               for sq, sk, q_offset in ((100, 100, 0), (1000, 1000, 0),
                                        (100, 300, 200))
               for hq, hkv in ((8, 1), (4, 4))]
+    # windowed GQA: mixtral's (D 128, 32:8, window 4,096), a D-128 window
+    # shorter than the sequence (key tiles skipped), hymba's (D 64, 25:5,
+    # window 1,024)
+    cases += [(1, window, sq, sk, q_offset, hq, hkv, d)
+              for window, hq, hkv, d in WINDOWED
+              for sq, sk, q_offset in ((100, 100, 0), (2048, 2048, 0),
+                                       (100, 300, 200))]
     for causal, window, sq, sk, q_offset, hq, hkv, d in cases:
         for dname, dt in dtypes.items():
             q = randn(1, hq, sq, d, dtype=dt)
@@ -629,46 +701,47 @@ def phase_kernels(torch):
 
     norm = norm_timing(D_MODEL)           # smollm-360m
     norm_rwkv = norm_timing(2048)         # rwkv6-1.6b's group norm
+    norm_wide = [norm_timing(d) for d in WIDE_NORMS[:2]]   # hymba, mixtral
 
-    def attn_timing(b, hq, hkv, sq, causal, iters, d=64):
+    def attn_timing(b, hq, hkv, sq, causal, iters, d=64, window=0):
         """The bf16 forward at q [b, hq, sq, d], checked against its plain
         version (and its lse, at the training calls) and timed beside SDPA
-        (the yardstick only) and its bound; non-causal work is every
-        (query, key) pair, causal work the visible half."""
+        at the same mask (the yardstick only) and its bound; non-causal
+        work is every (query, key) pair, causal work the visible ones
+        (``visible_pairs`` under ``window``)."""
         q = randn(b, hq, sq, d, dtype=torch.bfloat16)
         k = randn(b, hkv, sq, d, dtype=torch.bfloat16)
         v = randn(b, hkv, sq, d, dtype=torch.bfloat16)
-        got, lse = flash_attention_cuda(q, k, v, causal=causal,
-                                        return_lse=True)
-        want, want_lse = ref.mha_blocked_fwd(q, k, v, causal=causal)
+        kw = dict(causal=causal, window=window)
+        got, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        want, want_lse = ref.mha_blocked_fwd(q, k, v, **kw)
         err = max_err(torch, got, want)
         lse_err = max_err(torch, lse, want_lse)
         tol = ATTN_TOL["bfloat16"]
         if not (torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
                 and lse_err <= LSE_TOL):
             raise AssertionError(f"flash_attention disagrees at q {[b, hq, sq]}"
-                                 f" causal {causal}: {err}, lse {lse_err}")
-        pairs = sq * (sq + 1) // 2 if causal else sq * sq
+                                 f" {kw}: {err}, lse {lse_err}")
+        pairs = visible_pairs(sq, window) if causal else sq * sq
         flops = 4 * d * hq * b * pairs                  # q k^T and p v
         nbytes = 2 * d * b * sq * (hq + hkv + hkv + hq)
+        lib = sdpa_call(torch, q, k, v, causal, window)
         rec = {
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:36",
             "max_abs_err": err, "lse_max_abs_err": lse_err,
-            "ms": device_ms(torch, lambda: flash_attention(
-                q, k, v, causal=causal), iters),
+            "ms": device_ms(torch, lambda: flash_attention(q, k, v, **kw),
+                            iters),
             "plain_ms": device_ms(torch, lambda: flash_attention_plain(
-                q, k, v, causal=causal), 2 if sq > 2048 else 10),
-            "library_ms": device_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal, enable_gqa=hq != hkv), iters),
+                q, k, v, **kw), 2 if sq > 2048 else 10),
+            "library_ms": device_ms(torch, lib, iters),
             "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
                                   flops / PEAK_BF16_FLOPS),
             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                          >= flops / PEAK_BF16_FLOPS else "operations"),
             "shape": {"q": [b, hq, sq, d], "kv": [b, hkv, sq, d],
-                      "causal": causal},
+                      "causal": causal, "window": window},
             "dtype": "bfloat16", "flops": flops,
         }
         return with_rates(rec, flops)
@@ -680,6 +753,12 @@ def phase_kernels(torch):
             | {"call": "gemma-2b training"},
             attn_timing(1, 32, 32, 2048, True, 20, d=128)
             | {"call": "deepseek-7b prefill"}]
+    # the training calls (micro-batch 2) of mixtral-8x7b (GQA 32:8 at D 128,
+    # window 4,096) and hymba-1.5b (25:5 at D 64, window 1,024)
+    wide += [attn_timing(2, 32, 8, 4096, True, 20, d=128, window=4096)
+             | {"call": "mixtral-8x7b training"},
+             attn_timing(2, 25, 5, 4096, True, 20, window=1024)
+             | {"call": "hymba-1.5b training"}]
     # whisper-tiny's training call (m 8: micro-batch 2), 6 heads over 6:
     # the encoder's self- and every cross-attention non-causal, the
     # decoder's self-attention causal
@@ -731,7 +810,8 @@ def phase_kernels(torch):
                decode_ms=device_ms(torch, lambda: wkv6(*dec), 500),
                decode_bound_ms=1e3 * dec_bytes / HBM_BYTES_PER_S)
     wkv_train = wkv_timing(2, 4096, False, 1) | {"call": "rwkv6-1.6b training"}
-    for rec in (norm, norm_rwkv, attn, *whisper, *wide, wkv, wkv_train):
+    for rec in (norm, norm_rwkv, *norm_wide, attn, *whisper, *wide, wkv,
+                wkv_train):
         emit({"phase": "kernel_timing", **rec})
     return {"rmsnorm": norm, "flash_attention": attn, "wkv6": wkv}
 
@@ -774,6 +854,7 @@ def phase_backward(torch):
                                              rmsnorm_bwd_plain)
     from repro_torch.kernels.wkv6 import (uses_chunked_form, wkv6, wkv6_bwd,
                                           wkv6_bwd_plain)
+    from repro_torch.launch.train import visible_pairs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -792,6 +873,9 @@ def phase_backward(torch):
              for causal, window in ((True, 0), (False, 0), (True, 128),
                                     (True, 100))]
     cases.append((2, 15, 5, 4096, 64, True, 0))       # the training path's
+    # windowed GQA: mixtral's, a D-128 window shorter than S, hymba's
+    cases += [(1, hq, hkv, sq, d, True, window)
+              for window, hq, hkv, d in WINDOWED for sq in (100, 2048)]
     # D = 256 (gemma-2b): MQA 8:1 and MHA over the same masks and lengths
     cases += [(b, hq, hkv, sq, 256, causal, window)
               for b, hq, hkv in ((1, 8, 1), (2, 4, 4))
@@ -846,7 +930,7 @@ def phase_backward(torch):
     # -- RMSNorm: both widths compiled for the forward and a generic one;
     #    5 and 33 rows are ragged shares of the backward's grid, 1024 the
     #    fused schedules' head norm ------------------------------------------
-    for d in (D_MODEL, 2048, 448):
+    for d in (D_MODEL, 2048, 448) + WIDE_NORMS:
         for rows in (1, 3, 5, 33, 1024, 2048, 8192):
             for dname, dt in dtypes.items():
                 x = randn(rows, d, dtype=dt) * 2
@@ -992,25 +1076,25 @@ def phase_backward(torch):
     #    fp32) and at the training path's [2,15,4096,64] bf16; RMSNorm at
     #    [1,2048,960], [16,4096,960] and the path's [2,4096,960] bf16 ------
     def attn_timing(b, sq, dname, hq=15, hkv=5, causal=True, d=64,
-                    split=False):
+                    split=False, window=0):
         """The backward at q [b, hq, sq, d], checked against its plain
-        version and timed beside SDPA's backward and its bound; non-causal
-        work is every (query, key) pair, causal work the visible half.
-        ``split`` adds each kernel's µs a call (delta, dK / dV, the slice
-        sum, dQ) from a profiler trace."""
+        version and timed beside SDPA's backward at the same mask and its
+        bound; non-causal work is every (query, key) pair, causal work the
+        visible ones (``visible_pairs`` under ``window``).  ``split`` adds
+        each kernel's µs a call (delta, dK / dV, the slice sum, dQ) from a
+        profiler trace."""
         dt = dtypes[dname]
         q = randn(b, hq, sq, d, dtype=dt)
         k, v = (randn(b, hkv, sq, d, dtype=dt) for _ in range(2))
         do = randn(b, hq, sq, d, dtype=dt)
-        kw = dict(causal=causal)
+        kw = dict(causal=causal, window=window)
         out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
         err = checked_max_err(torch, dname, "flash_attention_bwd", zip(
             flash_attention_bwd(q, k, v, out, lse, do, **kw),
             flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)))
         qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-        sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
-                                              enable_gqa=hq != hkv)
-        pairs = sq * (sq + 1) // 2 if causal else sq * sq
+        sdpa = sdpa_call(torch, qg, kg, vg, causal, window)()
+        pairs = visible_pairs(sq, window) if causal else sq * sq
         flops = 5 * 2 * d * hq * b * pairs
         nbytes = (q.element_size() * d * b * sq * (4 * hq + 4 * hkv)
                   + 4 * b * hq * sq)
@@ -1030,7 +1114,8 @@ def phase_backward(torch):
             "bound_by": ("operations" if flops / peak >= nbytes / HBM_BYTES_PER_S
                          else "bytes"),
             "shape": {"q": [b, hq, sq, d], "kv": [b, hkv, sq, d],
-                      "causal": causal}, "dtype": dname, "flops": flops,
+                      "causal": causal, "window": window}, "dtype": dname,
+            "flops": flops,
         }
         if split:
             rec["head_slices"] = bwd_head_slices(q, k, causal=causal)
@@ -1081,9 +1166,21 @@ def phase_backward(torch):
     norm_timing((1, 2048, D_MODEL))
     norm_timing((16, 4096, D_MODEL))
     norm_timing((2, 4096, 2048))          # rwkv6-1.6b's group norm, training
+    # the training calls (micro-batch 2) of mixtral-8x7b and hymba-1.5b
+    attn_timing(2, 4096, "bfloat16", hq=32, hkv=8, d=128, window=4096)
+    attn_timing(2, 4096, "bfloat16", hq=25, hkv=5, window=1024)
+    for d in WIDE_NORMS[:2]:
+        norm_timing((2, 4096, d))
     return {"flash_attention_bwd": attn_timing(2, 4096, "bfloat16"),
             "rmsnorm_bwd": norm_timing((2, 4096, D_MODEL)),
             "wkv6_bwd": wkv_rec}
+
+
+def card_generator(torch):
+    """The generator the GPU-vs-CPU phases draw their weights from: seed 0
+    on the card (a CPU generator takes ~25 s for mixtral-8x7b's 3.2 B
+    parameters at 2 layers); the weights are then moved to each side."""
+    return torch.Generator(device="cuda").manual_seed(0)
 
 
 def serve_gaps(torch, arch, pcfg, prompt: int, batch: int = 2,
@@ -1102,7 +1199,7 @@ def serve_gaps(torch, arch, pcfg, prompt: int, batch: int = 2,
     pshape = ShapeConfig("p", prompt, batch, "prefill")
     dshape = ShapeConfig("d", prompt + n_dec + 1, batch, "decode")
     params_cpu = LMModel(arch, pcfg, dtype=torch.float32, device="cpu").init(
-        torch.Generator().manual_seed(0))
+        card_generator(torch))
     gen = torch.Generator().manual_seed(1)
     prompts = torch.randint(0, arch.vocab, (batch, prompt), generator=gen)
     pbatch = prompt_batch(arch, prompts, torch.float32, gen)
@@ -1195,7 +1292,7 @@ def phase_train_port(torch, arch_name: str = "smollm-360m",
     data = {k: torch.randint(0, arch.vocab, (batch, seq), generator=g)
             for k in ("tokens", "labels")}
     params_cpu = LMModel(arch, pcfg, dtype=torch.float32, device="cpu").init(
-        torch.Generator().manual_seed(0))
+        card_generator(torch))
     runs = {}
     for dev in ("cpu", "cuda"):
         model = LMModel(arch, pcfg, dtype=torch.float32, device=dev)
@@ -1204,12 +1301,17 @@ def phase_train_port(torch, arch_name: str = "smollm-360m",
         loss = steps.build_loss_fn(model, pcfg, model.device)(
             params, {k: v.to(dev) for k, v in data.items()})
         grads = torch.autograd.grad(loss, leaves)
-        runs[dev] = (loss.detach().cpu(), [gr.cpu() for gr in grads])
+        # compared on the card: the gaps of mixtral's 3.2 B gradients
+        # take tens of seconds on the host
+        runs[dev] = (loss.detach().cuda(), [gr.cuda() for gr in grads])
+        del params, leaves, loss, grads
     paths = [p for p, _ in tree_items(params_cpu)]
     errs, tops, bad = grad_gaps(torch, paths, runs["cuda"], runs["cpu"])
+    card_loss = float(runs["cuda"][0])
+    del runs
     emit({"phase": "train_gpu_vs_cpu", "arch": arch.name,
           "n_layers": n_layers, "pipe": 2, "n_micro": 2, "batch": batch,
-          "seq": seq, "dtype": "float32", "loss": float(runs["cuda"][0]),
+          "seq": seq, "dtype": "float32", "loss": card_loss,
           "max_abs_err": errs, "max_abs_ref": tops, "tol": PORT_TOL,
           "rel_tol": GRAD_REL, "ok": not bad})
     if bad:
@@ -1435,20 +1537,20 @@ def phase_train(torch, schedule: str = "gpipe",
     park and route high-water must equal the plan's ``depth`` /
     ``g_depth``; rwkv6-1.6b (pipe 8, tp 2 cut to 1, as served) is phase
     ``rwkv6_train``, which also reports the WKV-6 backward's share of the
-    traced step's device time."""
-    from repro_torch import configs
+    traced step's device time; gemma-2b (pipe 2), mixtral-8x7b (2 layers,
+    pipe 2: ``TRAIN_CUT``) and hymba-1.5b (32 layers, pipe 16) are
+    ``train`` / ``train_fused`` records with their ``"arch"``."""
     from repro_torch.core.plan import plan_for
     from repro_torch.launch.train import (expected_train_launches,
                                           launches, train)
     from repro_torch.models.lm import LMModel
     from repro_torch.optim.optimizers import OptimizerConfig
 
-    arch = configs.get_arch(arch_name)
-    pcfg = configs.get_parallel(arch_name).with_(
-        data=1, tp=1, n_micro=8, remat="full", schedule=schedule)
-    seq, batch, n_steps = 4096, 16, 5
-    ocfg = OptimizerConfig(lr=5e-4, warmup_steps=0, min_lr_ratio=1.0,
-                           dynamic_loss_scale=True)
+    arch, pcfg = cut_config(arch_name, TRAIN_CUT)
+    pcfg = pcfg.with_(n_micro=8, remat="full", schedule=schedule)
+    seq, batch, n_steps = 4096, 16, TRAIN_STEPS.get(arch_name, 5)
+    ocfg = OptimizerConfig(lr=TRAIN_LR.get(arch_name, 5e-4), warmup_steps=0,
+                           min_lr_ratio=1.0, dynamic_loss_scale=True)
     train_counters()
     res = train(arch, pcfg, seq_len=seq, batch=batch, steps=n_steps,
                 device="cuda", dtype=torch.bfloat16, seed=0, ocfg=ocfg,
@@ -1457,7 +1559,7 @@ def phase_train(torch, schedule: str = "gpipe",
     hist = res["history"]
     want = expected_train_launches(pcfg, arch, seq)
     warm = sorted(r["step_s"] for r in hist[1:])
-    step_s = warm[len(warm) // 2]                  # median of steps 2..5
+    step_s = warm[len(warm) // 2]          # median of steps 2..n_steps
     skips = LMModel(arch, pcfg, device="meta").skips()
     tplan = plan_for(schedule if schedule != "gpipe" else "gpipe_fwd",
                      pcfg.n_micro, pcfg.pipe, skips=skips,
@@ -1489,10 +1591,11 @@ def phase_train(torch, schedule: str = "gpipe",
                "3 x (2 x matmul weights x tokens + 2 x 2 x K x V x heads x "
                "layers x tokens for the WKV recurrence) over the step time "
                "and 989 TFLOP/s" if arch.family == "ssm" else
-               "3 x (2 x matmul weights x tokens + 2 x 2 x hd x Hq x "
-               "visible (q, k) pairs: S (S + 1) / 2 causal, S x S for the "
-               "encoder and cross-attention) over the step time and 989 "
-               "TFLOP/s"),
+               "3 x (2 x matmul weights x tokens (a moe layer's top_k "
+               "experts and router) + 2 x 2 x hd x Hq x visible (q, k) "
+               "pairs: sum of min(i + 1, window) causal, S x S for the "
+               "encoder and cross-attention + a hybrid's scan, 2 x 2 x hd x "
+               "N a token and head) over the step time and 989 TFLOP/s"),
            "wkv6_bwd_share_of_device_ms": (
                fam.get("wkv6_bwd (ours)", 0.0) / res["trace"]["device_ms"]
                if res["trace"]["device_ms"] else None),
@@ -1508,7 +1611,7 @@ def phase_train(torch, schedule: str = "gpipe",
     if not all(math.isfinite(x) for x in losses + rec["grad_norms"]):
         raise AssertionError(f"non-finite training: {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"step-5 loss {losses[-1]} not below step 1's "
+        raise AssertionError(f"last loss {losses[-1]} not below step 1's "
                              f"{losses[0]}")
     per_step = [r["launches"] for r in hist] + [res["trace"]["launches"]]
     if any(n != want for n in per_step) or totals != {
@@ -1809,10 +1912,11 @@ def phase_hetero_memory(torch):
                              f"is not finite: {losses}")
 
 
-def phase_serve(torch, arch_name: str, n_layers: Optional[int] = None):
+def phase_serve(torch, arch_name: str):
     """One main path: counters set to 0 just before, read just after, and
-    held to ``launch.serve.expected_serve_launches``; ``n_layers`` cuts
-    the arch's depth (full width), the config's pipe and layout kept."""
+    held to ``launch.serve.expected_serve_launches``; ``SERVE_CUT`` cuts
+    an arch's depth (full width) and may set its pipe, the config's
+    otherwise."""
     from repro_torch import configs
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
@@ -1824,11 +1928,8 @@ def phase_serve(torch, arch_name: str, n_layers: Optional[int] = None):
                 "wkv6": wkv6}
     # serving runs none
     backward = (flash_attention_bwd, rmsnorm_bwd, wkv6_bwd)
-    arch = configs.get_arch(arch_name)
-    full_layers = arch.n_layers
-    if n_layers is not None:
-        arch = dataclasses.replace(arch, n_layers=n_layers)
-    pcfg = configs.get_parallel(arch_name).with_(data=1, tp=1)
+    arch, pcfg = cut_config(arch_name, SERVE_CUT)
+    full_layers = configs.get_arch(arch_name).n_layers
     batch, prompt, gen = 8, 2048, 32
     for fn in (*counters.values(), *backward):
         fn.launches = 0
@@ -2031,8 +2132,10 @@ def phase_stream(torch, runs: dict):
     each rotation) and pipe 2 (PARALLEL_OPTIMIZED: four slots a rank, so
     the rotation carries micro-batches), gpipe and 1f1b: the loss and every
     gradient of one grad call bitwise equal, 1f1b's stream stash
-    high-water equal to the plan's; at pipe 8, 5 train steps each, losses
-    bitwise equal, step ms and peak; the prefill's logits (batch 8, m 8,
+    high-water equal to the plan's; at pipe 8, 5 train steps of 1f1b
+    (the wire phase's fp32 cell) each way, losses and grad norms bitwise
+    equal, step ms and peak (gpipe's streaming is held by its grad
+    calls at both pipes); the prefill's logits (batch 8, m 8,
     2048 frames and a 2048-token prompt) bitwise equal.  Launch counters
     set to 0 just before and read just after, held to the formulas."""
     from repro_torch import configs
@@ -2072,17 +2175,15 @@ def phase_stream(torch, runs: dict):
                     bad.append(f"{key}: launches {[r[4] for r in pair]} "
                                f"!= {want}")
                 torch.cuda.empty_cache()
-        for schedule in ("gpipe", "1f1b"):
-            pair = [whisper_train(torch, whisper_pcfg(
-                8, schedule=schedule, stream_inputs=s), runs,
-                trace=schedule == "1f1b" and not s)[1]
-                for s in (False, True)]
-            curves[schedule] = pair
-            if pair[0]["losses"] != pair[1]["losses"] \
-                    or pair[0]["grad_norms"] != pair[1]["grad_norms"]:
-                bad.append(f"{schedule}: streamed curve {pair[1]['losses']}"
-                           f" != replicated {pair[0]['losses']}")
-            torch.cuda.empty_cache()
+        pair = [whisper_train(torch, whisper_pcfg(
+            8, schedule="1f1b", stream_inputs=s), runs, trace=not s)[1]
+            for s in (False, True)]
+        curves["1f1b"] = pair
+        if pair[0]["losses"] != pair[1]["losses"] \
+                or pair[0]["grad_norms"] != pair[1]["grad_norms"]:
+            bad.append(f"1f1b: streamed curve {pair[1]['losses']}"
+                       f" != replicated {pair[0]['losses']}")
+        torch.cuda.empty_cache()
         logits = []
         for s in (False, True):
             pcfg = whisper_pcfg(8, stream_inputs=s)
@@ -2498,21 +2599,21 @@ def dist_run_hetero(torch, case, group, device: str = "cuda"):
 
 
 def dist_rank(rank: int, nproc: int, init_method: str, out_dir: str,
-              cases, device: str, phase: str = "dist_train") -> None:
-    """A pipe rank of ``dist_train`` or ``dist_serve`` (a spawned
-    process): every case in the group, its records to
-    ``out_dir/rank<r>.json``."""
+              cases, device: str) -> None:
+    """A pipe rank of ``dist_train`` and ``dist_serve`` (a spawned
+    process): every ``(phase, case)`` of ``cases`` in the group, the
+    records to ``out_dir/rank<r>.json`` by case name."""
     import torch
     from repro_torch.launch import mesh
 
-    run = {"dist_train": dist_run, "dist_serve": serve_run}[phase]
+    run = {"dist_train": dist_run, "dist_serve": serve_run}
     group = mesh.init_pipe_group(rank, nproc, init_method, device=device,
                                  timeout_s=DIST_HOP_TIMEOUT_S)
     out = {}
     try:
         with deterministic(torch):
-            for case in cases:
-                out[case["name"]] = run(torch, case, group, device)
+            for phase, case in cases:
+                out[case["name"]] = run[phase](torch, case, group, device)
                 if group.device.type == "cuda":
                     torch.cuda.empty_cache()
     finally:
@@ -2618,39 +2719,30 @@ def dist_gates(torch, case, ranks, one):
     return bad
 
 
-def phase_dist_train(torch, device: str = "cuda", cases=None):
-    """``dist_train``: four pipe ranks in four processes on the one card
-    (gloo, hops through pinned host memory), every case against the
-    single-process run of the same config, seed and batch on the card
-    (deterministic algorithms in both).  ``device`` and ``cases`` are for
-    a rehearsal on the CPU at a small size."""
-    import tempfile
-    from repro_torch.launch import mesh
+def dist_train_one(torch, cases, device: str):
+    """Each ``dist_train`` case's single-process run on ``device`` (one per
+    config: spmd and mpmd share theirs)."""
+    one = {}
+    for case in cases:
+        key = (case["arch"], case["pcfg"].with_(executor="spmd"))
+        if key not in one:
+            one[key] = dist_run(torch, case, None, device)
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    return one
 
-    cases = cases or dist_cases()
-    one, t0 = {}, time.perf_counter()
 
-    def key(case):                 # one process: spmd and mpmd the same
-        return case["arch"], case["pcfg"].with_(executor="spmd")
-    with deterministic(torch):
-        for case in cases:
-            if key(case) not in one:
-                one[key(case)] = dist_run(torch, case, None, device)
-                if device == "cuda":
-                    torch.cuda.empty_cache()
-    t_one = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as out_dir:
-        mesh.spawn(dist_rank, DIST_RANKS, (out_dir, cases, device),
-                   timeout_s=DIST_TIMEOUT_S)
-        saved = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
-                 for r in range(DIST_RANKS)]
-    t_group = time.perf_counter() - t0
+def dist_train_report(torch, cases, saved, one, t_one, t_group):
+    """``dist_train``'s gates and records: four pipe ranks in four
+    processes on the one card (gloo, hops through pinned host memory),
+    every case against the single-process run of the same config, seed
+    and batch on the card (deterministic algorithms in both).  Returns
+    the launch totals and the failures by case."""
     totals = {k: 0 for k in KERNELS}
     bad = {}
     for case in cases:
         ranks = [s[case["name"]] for s in saved]
-        ref = one[key(case)]
+        ref = one[case["arch"], case["pcfg"].with_(executor="spmd")]
         bad[case["name"]] = dist_gates(torch, case, ranks, ref)
         for g in ranks:
             for rec in [g["launches"]] + g.get("step_launches", []):
@@ -2691,10 +2783,7 @@ def phase_dist_train(torch, device: str = "cuda", cases=None):
           "group_s": t_group, "launches": totals,
           "spmd_vs_mpmd": "bitwise" if len(pair) == 2
           and pair[0] == pair[1] else "not compared or differ"})
-    failed = {k: v for k, v in bad.items() if v}
-    if failed:
-        raise AssertionError(f"dist_train: {failed}")
-    return totals
+    return totals, bad
 
 
 # ---------------------------------------------------------------------------
@@ -2805,30 +2894,12 @@ def serve_gates(torch, case, ranks, one):
     return bad
 
 
-def phase_dist_serve(torch, device: str = "cuda", cases=None):
-    """``dist_serve``: four pipe ranks in four processes on the one card
-    (gloo, hops through pinned host memory), each holding its own stages'
-    weights and caches, serving every case of ``dist_serve_cases`` against
-    one process at the same pipe (deterministic algorithms in both)."""
-    import tempfile
-    from repro_torch.launch import mesh
-
-    cases = cases or dist_serve_cases()
-    one, t0 = {}, time.perf_counter()
-    with deterministic(torch):
-        for case in cases:
-            one[case["name"]] = serve_run(torch, case, None, device)
-            if device == "cuda":
-                torch.cuda.empty_cache()
-    t_one = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as out_dir:
-        mesh.spawn(dist_rank, DIST_RANKS,
-                   (out_dir, cases, device, "dist_serve"),
-                   timeout_s=DIST_TIMEOUT_S)
-        saved = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
-                 for r in range(DIST_RANKS)]
-    t_group = time.perf_counter() - t0
+def dist_serve_report(torch, cases, saved, one, t_one, t_group):
+    """``dist_serve``'s gates and records: four pipe ranks in four
+    processes on the one card (gloo, hops through pinned host memory),
+    each holding its own stages' weights and caches, serving every case
+    against one process at the same pipe (deterministic algorithms in
+    both).  Returns the launch totals and the failures by case."""
     totals = {k: 0 for k in KERNELS}
     bad = {}
     for case in cases:
@@ -2864,13 +2935,66 @@ def phase_dist_serve(torch, device: str = "cuda", cases=None):
               "unequal": bad[case["name"]]})
     emit({"phase": "dist_serve", "one_process_s": t_one,
           "group_s": t_group, "launches": totals})
-    failed = {k: v for k, v in bad.items() if v}
+    return totals, bad
+
+
+def phase_dist(torch, device: str = "cuda", train_cases=None,
+               serve_cases=None):
+    """``dist_train`` and ``dist_serve`` in one group of four pipe ranks
+    (one spawn: the ranks reach the card and meet once), after the
+    single-process runs they are held to.  ``device`` and the cases are
+    for a rehearsal on the CPU at a small size.  Returns the launch
+    totals of both."""
+    import tempfile
+    from repro_torch.launch import mesh
+
+    train_cases = train_cases or dist_cases()
+    serve_cases = serve_cases or dist_serve_cases()
+    t_one = {}
+    with deterministic(torch):
+        t0 = time.perf_counter()
+        one_train = dist_train_one(torch, train_cases, device)
+        t_one["dist_train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        one_serve = {}
+        for case in serve_cases:
+            one_serve[case["name"]] = serve_run(torch, case, None, device)
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        t_one["dist_serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        mesh.spawn(dist_rank, DIST_RANKS,
+                   (out_dir, [("dist_train", c) for c in train_cases]
+                    + [("dist_serve", c) for c in serve_cases], device),
+                   timeout_s=DIST_TIMEOUT_S)
+        saved = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+                 for r in range(DIST_RANKS)]
+    t_group = time.perf_counter() - t0
+    totals, bad = dist_train_report(torch, train_cases, saved, one_train,
+                                    t_one["dist_train"], t_group)
+    serve_totals, serve_bad = dist_serve_report(
+        torch, serve_cases, saved, one_serve, t_one["dist_serve"], t_group)
+    add(totals, serve_totals)
+    failed = {k: v for k, v in (bad | serve_bad).items() if v}
     if failed:
-        raise AssertionError(f"dist_serve: {failed}")
+        raise AssertionError(f"dist: {failed}")
     return totals
 
 
 PHASE_SECONDS = {}
+
+
+def cut_config(arch_name: str, cuts: dict):
+    """The arch at full width and its config (tp and data cut to 1), depth
+    and pipe cut where ``cuts`` names the arch."""
+    from repro_torch import configs
+    cut = cuts.get(arch_name, {})
+    arch = configs.get_arch(arch_name)
+    if "n_layers" in cut:
+        arch = dataclasses.replace(arch, n_layers=cut["n_layers"])
+    pcfg = configs.get_parallel(arch_name).with_(data=1, tp=1)
+    return arch, pcfg.with_(pipe=cut.get("pipe", pcfg.pipe))
 
 
 def timed(name: str, fn, *args):
@@ -2912,17 +3036,27 @@ def main() -> int:
     timed("port_gpu_vs_cpu gemma-2b", phase_port, torch, "gemma-2b", 2, 256)
     timed("train_gpu_vs_cpu gemma-2b", phase_train_port, torch, "gemma-2b",
           2, 256)
+    # mixtral-8x7b and hymba-1.5b the same way: the MoE dispatch, the SSM
+    # scan and the windowed D-128 / D-64 kernels in fp32 meet the CPU
+    # (mixtral at seq 128: its CPU side is the longest of these phases)
+    for arch_name, seq in (("mixtral-8x7b", 128), ("hymba-1.5b", 256)):
+        timed(f"port_gpu_vs_cpu {arch_name}", phase_port, torch, arch_name,
+              2, seq)
+        timed(f"train_gpu_vs_cpu {arch_name}", phase_train_port, torch,
+              arch_name, 2, seq)
+        torch.cuda.empty_cache()
     launches = {k: 0 for k in KERNELS}
     for arch_name in ("smollm-360m", "rwkv6-1.6b"):
         add(launches, timed(f"serve {arch_name}", phase_serve, torch,
                             arch_name))
-    # the dense-block archs at full size (llama3-405b at full width, cut to
-    # 4 layers: SERVE_LAYERS)
-    for arch_name in DENSE_SERVE:
+    # the dense-block, MoE and hybrid archs at full width (cut in depth
+    # where SERVE_CUT says)
+    for arch_name in DENSE_SERVE + MOE_HYBRID:
         add(launches, timed(f"serve {arch_name}", phase_serve, torch,
-                            arch_name, SERVE_LAYERS.get(arch_name)))
+                            arch_name))
         torch.cuda.empty_cache()
-    for arch_name in ("smollm-360m", "rwkv6-1.6b", "gemma-2b"):
+    for arch_name in ("smollm-360m", "rwkv6-1.6b", "gemma-2b",
+                      "mixtral-8x7b", "hymba-1.5b"):
         for schedule in ("gpipe", "1f1b"):
             add(launches, timed(f"train {arch_name} {schedule}", phase_train,
                                 torch, schedule, arch_name))
@@ -2954,9 +3088,7 @@ def main() -> int:
                         runs, fp32))
     runs.clear()
     torch.cuda.empty_cache()
-    add(launches, timed("dist_train", phase_dist_train, torch))
-    torch.cuda.empty_cache()
-    add(launches, timed("dist_serve", phase_dist_serve, torch))
+    add(launches, timed("dist", phase_dist, torch))
     kernels = []
     for kname in KERNELS:
         rec = timing[kname]

@@ -26,17 +26,17 @@ def attention(q, k, v, *, causal=True, window=None, q_offset: int = 0,
 
     ``causal`` and ``window`` are static Python values here: the port runs
     each layer eagerly and passes its per-layer values (whisper's causal
-    flag) as host scalars, so the traced forms the reference also takes
-    never reach it.  The reference never sets ``kv_len`` on any path;
-    hymba's per-layer windows are a later slice."""
+    flag, hymba's per-layer window) as host scalars, so the traced forms
+    the reference also takes never reach it.  The reference never sets
+    ``kv_len`` on any path."""
     if kv_len is not None or isinstance(causal, torch.Tensor):
         raise NotImplementedError(
             "kv_len and tensor causal flags are not taken: the port passes "
             "per-layer values as host scalars")
     if isinstance(window, torch.Tensor):
         raise NotImplementedError(
-            "per-layer attention windows (hymba) are not ported yet: "
-            "ROADMAP A8")
+            "a tensor window is not taken: the port passes each layer's "
+            "window as a host int")
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=bool(causal), window=int(window or 0),
                            q_offset=q_offset)

@@ -60,15 +60,17 @@ def expected_serve_launches(arch: ArchConfig, pcfg: ParallelConfig, m: int,
 
     Every slot of the stage layout runs its layer, an identity-padding slot
     too (gated by its mask; deepseek-7b's 30 layers fill 32 slots at pipe
-    16), and decode runs every slot but the encoder layers.  dense, vlm
-    and encdec: one attention per slot and micro-batch in prefill, and one
-    more per decoder layer of an enc-dec (its cross-attention); decode
-    attention is plain torch.  RMSNorm, where the arch's norm is one: three
-    per slot in prefill (the cache fill normalizes again), one more per
-    cross-attention, and the head's; two per slot a decode step (one more
-    per cross-attention) and the head's.  LayerNorm (whisper) launches no
-    kernel.  ssm: one WKV and one group RMSNorm per slot and micro-batch
-    (the block and head norms are LayerNorms)."""
+    16), and decode runs every slot but the encoder layers.  dense, vlm,
+    moe, hybrid and encdec: one attention per slot and micro-batch in
+    prefill, and one more per decoder layer of an enc-dec (its
+    cross-attention); decode attention is plain torch.  RMSNorm, where the
+    arch's norm is one: three per slot in prefill (the cache fill
+    normalizes again; two for hybrid, whose attention, SSM and cache fill
+    share one), one more per cross-attention, and the head's; two per slot
+    a decode step (one more per cross-attention) and the head's.
+    LayerNorm (whisper) launches no kernel.  ssm: one WKV and one group
+    RMSNorm per slot and micro-batch (the block and head norms are
+    LayerNorms)."""
     slots = stage_lib.partition_layout(
         arch.n_layers + arch.enc_layers, pcfg.pipe * pcfg.virtual_stages,
         pcfg.partition or None).mask.size
@@ -80,8 +82,10 @@ def expected_serve_launches(arch: ArchConfig, pcfg: ParallelConfig, m: int,
     cross = arch.n_layers * m if arch.is_encdec else 0
     dec = (slots - arch.enc_layers) * m       # the slots a decode step runs
     rms = int(arch.norm == "rms")
+    per_slot = 2 if arch.family == "hybrid" else 3
     return {"prefill": {"flash_attention": lm + cross,
-                        "rmsnorm": rms * (3 * lm + cross + 1), "wkv6": 0},
+                        "rmsnorm": rms * (per_slot * lm + cross + 1),
+                        "wkv6": 0},
             "decode": {"flash_attention": 0,
                        "rmsnorm": rms * steps * (2 * dec + cross + 1),
                        "wkv6": 0}}

@@ -72,7 +72,9 @@ def stage_kernel_calls(arch: ArchConfig, pcfg: ParallelConfig):
     micro-batch's forward makes, and whether the head's norm is an RMSNorm.
 
     Every slot of the stage's layout runs its layer (an identity-padding
-    slot too, gated by its mask).  A dense or enc-dec layer: one attention,
+    slot too, gated by its mask).  A dense, vlm, moe, hybrid or enc-dec
+    layer: one attention (a hybrid's attention half; the MoE dispatch
+    and the SSM scan are plain torch),
     a second on a layer whose ``cross`` flag is set, and its norms (two,
     three with ``cross``) where the arch's norm is RMSNorm (LayerNorm is
     plain torch: no kernel).  An ssm (RWKV-6) layer: one WKV-6 and one
@@ -153,28 +155,41 @@ def expected_train_launches(pcfg: ParallelConfig, arch: ArchConfig,
             "wkv6": (runs * W - wkv[-1]) * m, "wkv6_bwd": grads * W * m}
 
 
+def visible_pairs(seq: int, window: int) -> int:
+    """(query, key) pairs causal attention over ``seq`` positions sees
+    under ``window`` (0 = unlimited): the sum over i of min(i + 1, w)."""
+    w = window if 0 < window < seq else seq
+    return w * (w + 1) // 2 + (seq - w) * w
+
+
 def model_flops_per_step(arch: ArchConfig, seq_len: int, batch: int) -> float:
     """Model FLOPs of one training step (recompute not counted): 3 x the
     forward, whose FLOPs are 2 per matmul weight per token plus what is not
     a weight product.
 
-    dense, vlm and enc-dec: the attention projections, the MLP (three
-    matrices for SwiGLU and GeGLU, two for GELU), an enc-dec decoder's
-    cross-attention projections and the head, tied or not; plus the
-    attention products,
-    2 x 2 x hd x Hq per visible (query, key) pair: S (S + 1) / 2 a sequence
-    for causal self-attention, S x S for an encoder's self-attention and a
-    decoder's cross-attention (the memory has S frames).
+    dense, vlm, moe, hybrid and enc-dec: the attention projections, the MLP
+    (three matrices for SwiGLU and GeGLU, two for GELU; a moe layer's
+    top_k experts of three matrices each and its router, d x E), a hybrid
+    layer's SSM projections (``w_in``, ``w_bc``, ``w_dt``, ``w_out``), an
+    enc-dec decoder's cross-attention projections and the head, tied or
+    not; plus the attention products, 2 x 2 x hd x Hq per visible (query,
+    key) pair: :func:`visible_pairs` a sequence for causal self-attention
+    under each layer's window (``blocks.layer_windows``), S x S for an
+    encoder's self-attention and a decoder's cross-attention (the memory
+    has S frames); and a hybrid layer's scan, 2 x 2 x hd x N a token and
+    head (the state update and the read, as two products).
 
     ssm (RWKV-6): per layer the time mix's five D x D projections (r, k, v,
     the gate g and the output), its decay LoRA (D x 64 and 64 x D), the
     channel mix's D x F, F x D and D x D, and the head; plus the WKV
     recurrence, 2 x 2 x K x V per token and head (the read ``r (S + u k v)``
     and the state update ``diag(w) S + k v``, as two products)."""
-    d, tokens = arch.d_model, seq_len * batch
+    from repro_torch.models.blocks import (RWKV_HEAD, RWKV_LORA,
+                                           layer_windows)
+    from repro_torch.models.layers import ssm_heads
+    d, f, tokens = arch.d_model, arch.d_ff, seq_len * batch
     if arch.family == "ssm":
-        from repro_torch.models.blocks import RWKV_HEAD, RWKV_LORA
-        layer = 5 * d * d + 2 * d * RWKV_LORA + 2 * d * arch.d_ff + d * d
+        layer = 5 * d * d + 2 * d * RWKV_LORA + 2 * d * f + d * d
         weights = arch.n_layers * layer + d * arch.vocab
         recurrence = arch.n_layers * (d // RWKV_HEAD) * 2 * 2 \
             * RWKV_HEAD * RWKV_HEAD * tokens
@@ -182,13 +197,24 @@ def model_flops_per_step(arch: ArchConfig, seq_len: int, batch: int) -> float:
     a = arch.attn
     enc, dec = arch.enc_layers, arch.n_layers
     attn_w = d * a.head_dim * 2 * (a.n_heads + a.n_kv_heads)
-    mlp_w = (3 if arch.act in ("silu", "geglu") else 2) * d * arch.d_ff
+    if arch.moe is not None:
+        mlp_w = arch.moe.top_k * 3 * d * f + d * arch.moe.n_experts
+    else:
+        mlp_w = (3 if arch.act in ("silu", "geglu") else 2) * d * f
+    scan = 0
+    if arch.family == "hybrid":
+        s = arch.ssm
+        H = ssm_heads(d, s)
+        mlp_w += d * H * (2 * s.head_dim + 2 * s.state_dim + 1)
+        scan = dec * H * 2 * 2 * s.head_dim * s.state_dim * tokens
     cross = dec if arch.is_encdec else 0
     weights = (enc + dec) * (attn_w + mlp_w) + cross * attn_w \
         + d * arch.vocab
-    pairs = dec * seq_len * (seq_len + 1) // 2 + (enc + cross) * seq_len ** 2
+    windows = layer_windows(arch, enc + dec)[enc:]
+    pairs = sum(visible_pairs(seq_len, int(w)) for w in windows) \
+        + (enc + cross) * seq_len ** 2
     attn = batch * 2 * 2 * a.head_dim * a.n_heads * pairs
-    return 3.0 * (2.0 * weights * tokens + attn)
+    return 3.0 * (2.0 * weights * tokens + attn + scan)
 
 
 def model_batch(batch: Dict[str, torch.Tensor], dtype: torch.dtype

@@ -1,5 +1,6 @@
-"""Blocks of the ``dense``, ``encdec`` and ``ssm`` (RWKV-6) families
-(counterpart of ``repro.models.blocks``).
+"""Blocks of every family of the reference: ``dense`` (and ``vlm``,
+``encdec``), ``moe``, ``ssm`` (RWKV-6) and ``hybrid`` (counterpart of
+``repro.models.blocks``).
 
 A family exposes init / apply / decode / cache_proto / prefill so the LM
 assembly and the pipeline stage program stay family-agnostic.  ``consts``
@@ -9,13 +10,15 @@ place: the stage program hands them views into the resident caches and
 drops what they return.  The encoder-decoder (whisper) shares the dense
 functions, as in the reference: a layer with ``cross`` set also attends to
 the encoder ``memory``; so does the vlm (pixtral), whose vision stub is
-the embedding's (``LMModel.embed_inputs``).  The other families (moe,
-hybrid) are later slices of the port (ROADMAP A8).
+the embedding's (``LMModel.embed_inputs``).  Every layer reads its
+window from ``consts`` as a host int (:func:`layer_windows`'s rule),
+where the reference traces it for an arch with per-layer windows.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -24,29 +27,36 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 
+GLOBAL_WINDOW = 32768
+"""The window of a hybrid arch's 'global' attention layers (the
+reference's ``blocks.GLOBAL_WINDOW``): per-stage caches are stacked, so
+every layer's ring takes one shape and the global layers share the SWA
+ring layout with this larger window.  Exact up to 32k positions."""
+
+
 def _res(h, mask, delta):
     """Residual add gated by the identity-padding mask (dtype-preserving)."""
     return h + (delta.float() * mask).to(h.dtype)
 
 
-def _window_arg(arch: ArchConfig, consts):
-    """Static int window for uniform layouts (mixed layouts: ROADMAP A8)."""
+def layer_windows(arch: ArchConfig, n_layers: int) -> np.ndarray:
+    """Each layer's attention window (0 = unlimited), the reference's rule
+    (``LMModel.consts``): the arch's window on every layer of an SWA or
+    mixed layout, ``GLOBAL_WINDOW`` on a mixed layout's ``global_layers``."""
+    window = np.zeros(n_layers, np.int32)
     a = arch.attn
-    if a is None:
-        return None
-    if a.global_layers:
-        raise NotImplementedError("per-layer attention windows (hymba) are "
-                                  "not ported yet: ROADMAP A8")
-    return int(a.window) if a.kind == "swa" else None
+    if a is not None and (a.kind == "swa" or a.global_layers):
+        window[:] = a.window
+        for g in a.global_layers:
+            if g < n_layers:
+                window[g] = GLOBAL_WINDOW
+    return window
 
 
-def check_ported(arch: ArchConfig):
-    """Raise for an architecture this slice of the port cannot run."""
-    if arch.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{arch.name}: the {arch.family!r} family is not ported yet "
-            f"(ROADMAP A8); the port runs the {', '.join(FAMILIES)} "
-            "families")
+def _window_arg(consts):
+    """The layer's window as a host int, None where unlimited (0): the
+    ``consts["window"]`` that :func:`layer_windows` gave the layer."""
+    return int(consts["window"]) or None
 
 
 # ---------------------------------------------------------------------------
@@ -85,7 +95,7 @@ def dense_apply(p, h, consts, arch: ArchConfig, memory=None):
     a = arch.attn
     mask = consts["mask"]
     causal = consts["causal"] if arch.is_encdec else None
-    win = _window_arg(arch, consts)
+    win = _window_arg(consts)
     attn = L.attn_apply(p["attn"], L.norm_apply(p["ln1"], h, arch.norm), a,
                         window=win, causal=causal)
     h = _res(h, mask, attn)
@@ -100,7 +110,7 @@ def dense_apply(p, h, consts, arch: ArchConfig, memory=None):
 def dense_decode(p, h, consts, arch: ArchConfig, cache):
     a = arch.attn
     mask = consts["mask"]
-    win = _window_arg(arch, consts)
+    win = _window_arg(consts)
     attn, cache["self"] = L.attn_decode(
         p["attn"], L.norm_apply(p["ln1"], h, arch.norm), cache["self"], a,
         window=win)
@@ -182,6 +192,54 @@ def dense_prefill(p, h, consts, arch: ArchConfig, cache, memory=None
                                                  a.head_dim)
         cache["cross"] = _fill_kv(cache["cross"], mk, mv)
     return h2, cache
+
+
+# ---------------------------------------------------------------------------
+# MoE (mixtral / dbrx): dense attention + routed experts
+# ---------------------------------------------------------------------------
+
+def moe_init(generator, arch: ArchConfig, dtype, device):
+    out_scale = (2 * arch.n_layers) ** -0.5
+    return {
+        "ln1": L.norm_init(arch.d_model, arch.norm, dtype, device),
+        "attn": L.attn_init(generator, arch.d_model, arch.attn, dtype, device,
+                            out_scale=out_scale),
+        "ln2": L.norm_init(arch.d_model, arch.norm, dtype, device),
+        "moe": L.moe_init(generator, arch.d_model, arch.d_ff, arch.moe, dtype,
+                          device, out_scale=out_scale),
+    }
+
+
+def moe_apply(p, h, consts, arch: ArchConfig, memory=None):
+    mask = consts["mask"]
+    attn = L.attn_apply(p["attn"], L.norm_apply(p["ln1"], h, arch.norm),
+                        arch.attn, window=_window_arg(consts))
+    h = _res(h, mask, attn)
+    out, _ = L.moe_apply(p["moe"], L.norm_apply(p["ln2"], h, arch.norm),
+                         arch.moe)
+    return _res(h, mask, out)
+
+
+def moe_decode(p, h, consts, arch: ArchConfig, cache):
+    """One token; the experts' groups are the whole micro-batch (B * 1
+    tokens), as in the reference."""
+    mask = consts["mask"]
+    attn, cache["self"] = L.attn_decode(
+        p["attn"], L.norm_apply(p["ln1"], h, arch.norm), cache["self"],
+        arch.attn, window=_window_arg(consts))
+    h = _res(h, mask, attn)
+    out, _ = L.moe_apply(p["moe"], L.norm_apply(p["ln2"], h, arch.norm),
+                         arch.moe, group_size=h.shape[0] * h.shape[1])
+    return _res(h, mask, out), cache
+
+
+def moe_prefill(p, h, consts, arch: ArchConfig, cache, memory=None):
+    hn = L.norm_apply(p["ln1"], h, arch.norm)
+    cache["self"] = _fill_self_cache(p["attn"], hn, arch.attn, cache["self"])
+    return moe_apply(p, h, consts, arch), cache
+
+
+moe_cache_proto = dense_cache_proto
 
 
 # ---------------------------------------------------------------------------
@@ -306,6 +364,72 @@ def rwkv_cache_proto(arch: ArchConfig, batch: int, max_len: int, dtype
             "last_cm": ((batch, 1, d), dtype)}
 
 
+# ---------------------------------------------------------------------------
+# Hybrid (hymba): parallel attention + SSM heads, then MLP
+# ---------------------------------------------------------------------------
+
+def hybrid_init(generator, arch: ArchConfig, dtype, device):
+    out_scale = (2 * arch.n_layers) ** -0.5
+    return {
+        "ln1": L.norm_init(arch.d_model, arch.norm, dtype, device),
+        "attn": L.attn_init(generator, arch.d_model, arch.attn, dtype, device,
+                            out_scale=out_scale),
+        "ssm": L.ssm_init(generator, arch.d_model, arch.ssm, dtype, device),
+        "ln2": L.norm_init(arch.d_model, arch.norm, dtype, device),
+        "mlp": L.mlp_init(generator, arch.d_model, arch.d_ff, arch.act, dtype,
+                          device, out_scale=out_scale),
+    }
+
+
+def _hybrid_mix(p, h, mask, attn, ssm, arch: ArchConfig):
+    """The mean of the attention and SSM halves as the residual, then the
+    MLP."""
+    h = _res(h, mask, 0.5 * (attn.float() + ssm.float()))
+    mlp = L.mlp_apply(p["mlp"], L.norm_apply(p["ln2"], h, arch.norm), arch.act)
+    return _res(h, mask, mlp)
+
+
+def hybrid_apply(p, h, consts, arch: ArchConfig, memory=None):
+    x = L.norm_apply(p["ln1"], h, arch.norm)
+    attn = L.attn_apply(p["attn"], x, arch.attn,
+                        window=_window_arg(consts))
+    ssm, _ = L.ssm_scan(p["ssm"], x, arch.ssm)
+    return _hybrid_mix(p, h, consts["mask"], attn, ssm, arch)
+
+
+def hybrid_decode(p, h, consts, arch: ArchConfig, cache):
+    x = L.norm_apply(p["ln1"], h, arch.norm)
+    attn, cache["self"] = L.attn_decode(p["attn"], x, cache["self"],
+                                        arch.attn,
+                                        window=_window_arg(consts))
+    ssm, state = L.ssm_decode(p["ssm"], x, cache["state"], arch.ssm)
+    cache["state"].copy_(state)
+    return _hybrid_mix(p, h, consts["mask"], attn, ssm, arch), cache
+
+
+def hybrid_prefill(p, h, consts, arch: ArchConfig, cache, memory=None):
+    x = L.norm_apply(p["ln1"], h, arch.norm)
+    cache["self"] = _fill_self_cache(p["attn"], x, arch.attn, cache["self"])
+    attn = L.attn_apply(p["attn"], x, arch.attn,
+                        window=_window_arg(consts))
+    ssm, state = L.ssm_scan(p["ssm"], x, arch.ssm)
+    cache["state"].copy_(state)
+    return _hybrid_mix(p, h, consts["mask"], attn, ssm, arch), cache
+
+
+def hybrid_cache_proto(arch: ArchConfig, batch: int, max_len: int, dtype
+                       ) -> Dict[str, Any]:
+    """A ring of min(max_len, the largest window) slots (GLOBAL_WINDOW where
+    the arch has global layers) and the SSM state [batch, H, hd, N] fp32."""
+    a, s = arch.attn, arch.ssm
+    slots = min(max_len, max(a.window, GLOBAL_WINDOW) if a.global_layers
+                else (a.window or max_len))
+    kv = ((batch, slots, a.n_kv_heads, a.head_dim), dtype)
+    return {"self": {"k": kv, "v": kv, "len": ((), torch.int32)},
+            "state": ((batch, L.ssm_heads(arch.d_model, s), s.head_dim,
+                       s.state_dim), torch.float32)}
+
+
 FAMILIES = {
     "dense": (dense_init, dense_apply, dense_decode, dense_cache_proto,
               dense_prefill),
@@ -313,6 +437,9 @@ FAMILIES = {
                dense_prefill),
     "vlm": (dense_init, dense_apply, dense_decode, dense_cache_proto,
             dense_prefill),
+    "moe": (moe_init, moe_apply, moe_decode, moe_cache_proto, moe_prefill),
     "ssm": (rwkv_init, rwkv_apply, rwkv_decode, rwkv_cache_proto,
             rwkv_prefill),
+    "hybrid": (hybrid_init, hybrid_apply, hybrid_decode, hybrid_cache_proto,
+               hybrid_prefill),
 }

@@ -1,10 +1,11 @@
-"""Model primitives: norms, RoPE, attention (self and cross), MLP.
+"""Model primitives: norms, RoPE, attention (self and cross), the MLPs,
+the MoE dispatch and the selective SSM.
 
-Counterpart of :mod:`repro.models.layers` (the dense, enc-dec and ssm
-subset).  Per-layer constants (identity-pad mask, window, causal flag) are
-host values here: the port runs each layer eagerly, so what the reference
-keeps as traced data is a Python scalar.  The reference's sharding
-constraints have no counterpart on one card and are left out.
+Counterpart of :mod:`repro.models.layers`.  Per-layer constants
+(identity-pad mask, window, causal flag) are host values here: the port
+runs each layer eagerly, so what the reference keeps as traced data is a
+Python scalar.  The reference's sharding constraints have no counterpart
+on one card and are left out.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import AttentionConfig
+from repro_torch.configs.base import AttentionConfig, MoEConfig, SSMConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF, _expand_kv
 
@@ -231,3 +232,220 @@ def mlp_apply(p, x, act: str):
         return (F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wu"])) \
             @ p["wd"]
     return F.gelu(x @ p["wu"], approximate="tanh") @ p["wd"]
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k router + capacity dispatch)
+# ---------------------------------------------------------------------------
+
+def moe_init(generator, d: int, f: int, m: MoEConfig, dtype, device, *,
+             out_scale=1.0):
+    """The router [d, E] (fp32 whatever the model dtype, as in the
+    reference) and the experts' SwiGLU matrices [E, d, f], [E, f, d]."""
+    E, std = m.n_experts, d ** -0.5
+    return {
+        "router": dense_init(generator, d, E, torch.float32, device),
+        "wg": (randn(generator, (E, d, f), device) * std).to(dtype),
+        "wu": (randn(generator, (E, d, f), device) * std).to(dtype),
+        "wd": (randn(generator, (E, f, d), device) * std * out_scale
+               ).to(dtype),
+    }
+
+
+def moe_capacity(g: int, m: MoEConfig) -> int:
+    """Slots an expert takes a group of ``g`` tokens: ``g k cf / E`` by
+    Python's ``round`` (half to even), at least 1."""
+    return int(max(1, round(g * m.top_k * m.capacity_factor / m.n_experts)))
+
+
+def moe_group(T: int, group_size: int) -> int:
+    """Tokens a dispatch group holds: the largest divisor of ``T`` that is
+    at most ``group_size``."""
+    g = max(1, min(group_size, T))
+    while T % g:
+        g -= 1
+    return g
+
+
+def moe_apply(p, x, m: MoEConfig, *, group_size: int = 512):
+    """Capacity-factor token dispatch (reference ``layers.moe_apply``).
+
+    The B * S tokens form groups of :func:`moe_group` tokens; in each group
+    the fp32 router's softmax picks the top-k experts of a token (ties to
+    the lower index, as ``jax.lax.top_k``), their weights renormalised to
+    sum 1; an expert takes :func:`moe_capacity` tokens, slot 0 of every
+    token first, then slot 1, in token order, and drops the rest.  The
+    dispatch and combine are the reference's dense one-hot products
+    ([G, g, E, cap]): batched matrix products, so the backward is
+    deterministic on the card (no atomic scatter).  Returns (out [B, S, D]
+    in x's dtype, router logits [G, g, E] fp32)."""
+    B, S, D = x.shape
+    E, k = m.n_experts, m.top_k
+    g = moe_group(B * S, group_size)
+    G = B * S // g
+    xt = x.reshape(G, g, D)
+    cap = moe_capacity(g, m)
+
+    logits = xt.float() @ p["router"].float()
+    gates = torch.softmax(logits, -1)                           # [G, g, E]
+    # a stable descending sort keeps the lower expert first among equals
+    idx = torch.sort(gates.detach(), stable=True, dim=-1,
+                     descending=True).indices[..., :k]          # [G, g, k]
+    vals = torch.gather(gates, -1, idx)
+    vals = vals / vals.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    slots = torch.arange(cap, device=x.device)
+    combine = torch.zeros((G, g, E, cap), dtype=torch.float32,
+                          device=x.device)
+    counts = torch.zeros((G, E), dtype=torch.float32, device=x.device)
+    for slot in range(k):
+        oh = F.one_hot(idx[..., slot], E).float()               # [G, g, E]
+        pos_all = oh.cumsum(1) - oh + counts[:, None, :]
+        pos = (oh * pos_all).sum(-1)                            # [G, g]
+        keep = (pos < cap).float()
+        counts = counts + (oh * keep[..., None]).sum(1)
+        ohc = (pos.long()[..., None] == slots).float()          # [G, g, cap]
+        combine = combine + (vals[..., slot] * keep)[..., None, None] \
+            * (oh[..., :, None] * ohc[..., None, :])
+    dispatch = (combine > 0).to(x.dtype)                        # [G,g,E,cap]
+
+    ein = torch.einsum("gsec,gsd->gecd", dispatch, xt)
+    h = F.silu(torch.einsum("gecd,edf->gecf", ein, p["wg"])) \
+        * torch.einsum("gecd,edf->gecf", ein, p["wu"])
+    eo = torch.einsum("gecf,efd->gecd", h, p["wd"])
+    out = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), eo)
+    return out.reshape(B, S, D), logits
+
+
+def moe_aux_loss(logits, m: MoEConfig):
+    """Switch-style load-balancing loss: E * sum(mean gate * top-1 share).
+    No block calls it, as in the reference."""
+    gates = torch.softmax(logits.float(), -1)
+    dims = tuple(range(gates.dim() - 1))
+    me = gates.mean(dim=dims)
+    ce = F.one_hot(gates.argmax(-1), m.n_experts).float().mean(dim=dims)
+    return m.n_experts * (me * ce).sum()
+
+
+# ---------------------------------------------------------------------------
+# Selective SSM (Mamba-style head group; hymba's SSM half)
+# ---------------------------------------------------------------------------
+
+SSM_CHUNK = 32      # time steps a chunk of the scan combines in closed form
+
+
+def ssm_heads(d: int, s: SSMConfig) -> int:
+    return s.n_heads or d // s.head_dim
+
+
+def ssm_init(generator, d: int, s: SSMConfig, dtype, device):
+    """The reference's tree; ``a_log`` [H, N] and ``dskip`` [H, 1] fp32."""
+    H = ssm_heads(d, s)
+    return {
+        "w_in": dense_init(generator, d, H * s.head_dim, dtype, device),
+        "w_bc": dense_init(generator, d, H * 2 * s.state_dim, dtype, device),
+        "w_dt": dense_init(generator, d, H, dtype, device),
+        "a_log": torch.zeros((H, s.state_dim), dtype=torch.float32,
+                             device=device),
+        "w_out": dense_init(generator, H * s.head_dim, d, dtype, device),
+        "dskip": torch.full((H, 1), 0.1, dtype=torch.float32, device=device),
+    }
+
+
+def _ssm_inputs(p, x, s: SSMConfig):
+    """Projections of x [B, S, D]: xh [B, S, H, hd] fp32, B and C [B, S, H,
+    N] fp32, dt [B, S, H] fp32 (softplus), in the reference's dtypes."""
+    B, S, D = x.shape
+    H, hd, N = ssm_heads(D, s), s.head_dim, s.state_dim
+    xh = (x @ p["w_in"]).reshape(B, S, H, hd).float()
+    bc = (x @ p["w_bc"]).reshape(B, S, H, 2 * N).float()
+    dt = F.softplus((x @ p["w_dt"]).float())
+    return xh, bc[..., :N], bc[..., N:], dt
+
+
+def _segsum(x):
+    """x [..., T] -> [..., T, T]: sum_{j < k <= i} x[k] at [i, j] where
+    i >= j, else 0.  Summed afresh for each j (a masked cumsum), not as a
+    difference of two running sums, which would cancel."""
+    T = x.shape[-1]
+    strict = torch.ones((T, T), dtype=torch.bool, device=x.device).tril(-1)
+    return x[..., :, None].expand(*x.shape, T).masked_fill(
+        ~strict, 0.0).cumsum(-2)
+
+
+def ssm_scan(p, x, s: SSMConfig, state0=None):
+    """x: [B, S, D] -> (y [B, S, D], state [B, H, hd, N] fp32).
+
+    The recurrence h_t = exp(-dt_t A) h_{t-1} + dt_t x_t B_t^T (A =
+    exp(a_log), a decay per head and state entry), y_t = h_t C_t + dskip
+    x_t of the reference (whose associative scan this replaces), in fp32
+    and in chunks of ``SSM_CHUNK`` steps: inside a chunk the steps combine
+    in closed form (the Mamba-2 "SSD" form): the decay from step s to step
+    t is exp(-A sum_{s<k<=t} dt_k), and since its log factors into A times
+    a sum of dt, the sums are taken over dt alone ([L, L] a chunk and head)
+    and only the decays carry the state axis N.  Each chunk's end state,
+    and from them every chunk's start state, come the same way over
+    chunks, so there is no loop over time.  S need not divide by the
+    chunk: the tail is padded with dt = 0 (decay 1, no input).  Memory: a
+    few [B, H, S, L, N] fp32 tensors a call, two of them kept for the
+    backward (the reference keeps the [B, S, H, hd, N] scan)."""
+    B, S, D = x.shape
+    H, hd, N = ssm_heads(D, s), s.head_dim, s.state_dim
+    xh, Bm, Cm, dt = _ssm_inputs(p, x, s)
+    L = SSM_CHUNK
+    nc = -(-S // L)
+    pad = nc * L - S
+
+    def chunks(t):          # [B, S, H, X] -> [B, H, nc, L, X]
+        t = F.pad(t, (0, 0, 0, 0, 0, pad))
+        return t.reshape(B, nc, L, H, -1).permute(0, 3, 1, 2, 4)
+
+    neg_a = -torch.exp(p["a_log"])[:, None, None, :]      # [H, 1, 1, N]
+    dtc = chunks(dt[..., None])[..., 0]               # [B, H, nc, L]
+    xc = chunks(xh)                                   # [B, H, nc, L, hd]
+    bdt = chunks(Bm * dt[..., None])                  # [B, H, nc, L, N]
+    cc = chunks(Cm)
+    tril = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    # inside a chunk: y_t += sum_{s<=t} (sum_n C_t decay(s -> t) B_s dt_s) x_s,
+    # the state axis ahead of (t, s) so the sum over it is a sum of rows
+    decay = torch.exp(_segsum(dtc)[:, :, :, None]
+                      * neg_a[..., 0, :, None, None])  # [B, H, nc, N, L, L]
+    pair = cc.transpose(3, 4)[..., :, None] * bdt.transpose(3, 4)[..., None, :]
+    mix = (decay * pair).sum(3)
+    y = torch.einsum("bhcts,bhcsd->bhctd", mix.masked_fill(~tril, 0.0), xc)
+    # each chunk's own contribution to the state at its end
+    own = torch.einsum("bhcns,bhcsd->bhcdn",
+                       decay[..., -1, :] * bdt.transpose(3, 4), xc)
+    # across chunks: the state at each chunk's end, then at its start
+    cum = dtc.cumsum(3)
+    tot = cum[..., -1]                                # [B, H, nc]
+    lower = torch.ones((nc, nc), dtype=torch.bool,
+                       device=x.device).tril()[..., None]
+    carry = torch.exp(_segsum(tot)[..., None] * neg_a) * lower
+    end = torch.einsum("bhcjn,bhjdn->bhcdn", carry, own)
+    start = F.pad(end[:, :, :-1], (0, 0, 0, 0, 1, 0))
+    last = end[:, :, -1]
+    if state0 is not None:
+        before = F.pad(tot.cumsum(2), (1, 0))[..., None] * neg_a[:, 0]
+        start = start + torch.exp(before[:, :, :-1])[..., None, :] \
+            * state0[:, :, None]
+        last = last + torch.exp(before[:, :, -1])[..., None, :] * state0
+    y = y + torch.einsum("bhctn,bhcdn->bhctd",
+                         cc * torch.exp(cum[..., None] * neg_a), start)
+    y = y.permute(0, 2, 3, 1, 4).reshape(B, nc * L, H, hd)[:, :S]
+    y = y + xh * p["dskip"]
+    y = y.reshape(B, S, H * hd).to(x.dtype)
+    return y @ p["w_out"], last
+
+
+def ssm_decode(p, x, state, s: SSMConfig):
+    """One step of the recurrence. x: [B, 1, D]; state: [B, H, hd, N]
+    fp32.  Returns (y [B, 1, D], the new state)."""
+    B = x.shape[0]
+    xh, Bm, Cm, dt = _ssm_inputs(p, x, s)
+    decay = torch.exp(-dt[..., None] * torch.exp(p["a_log"]))[:, 0]
+    inc = (dt[..., None, None] * xh[..., :, None] * Bm[..., None, :])[:, 0]
+    state = decay[..., None, :] * state + inc
+    y = torch.einsum("bhdn,bhn->bhd", state, Cm[:, 0]) + xh[:, 0] * p["dskip"]
+    y = y.reshape(B, 1, -1).to(x.dtype)
+    return y @ p["w_out"], state

@@ -1,7 +1,7 @@
 """LM assembly: params, stacked stages, embed / head, caches.
 
-Counterpart of :mod:`repro.models.lm` for the dense, vlm, enc-dec and ssm
-families.  Blocks are stacked ``[n_stages, L_per_stage]`` for the pipeline
+Counterpart of :mod:`repro.models.lm`, for every family of the
+reference.  Blocks are stacked ``[n_stages, L_per_stage]`` for the pipeline
 (identity-padded per :func:`repro_torch.core.stage.partition_layout`);
 embed and head run outside the pipeline.  Parameters are nested dicts of
 tensors with the reference's tree layout, so weights move across from JAX
@@ -77,7 +77,6 @@ class LMModel:
 
     def __post_init__(self):
         a = self.arch
-        B.check_ported(a)
         self.device = resolve_device(self.device)
         self.total_layers = a.n_layers + a.enc_layers
         self.n_stages = self.pcfg.pipe * self.pcfg.virtual_stages
@@ -174,16 +173,14 @@ class LMModel:
         """Per-layer constants on the [n_stages, L_per_stage] slot grid.
 
         Host arrays: the port reads one scalar per layer.  Padding slots
-        take the identity defaults (mask 0, causal 1, cross 0, dec_active
-        1), as in the reference."""
+        take the identity defaults (mask 0, window 0, causal 1, cross 0,
+        dec_active 1), as in the reference; ``window`` is
+        :func:`B.layer_windows`'s."""
         a = self.arch
         tl = self.total_layers
-        window = np.zeros(tl, np.int32)
-        if a.attn is not None and a.attn.kind == "swa":
-            window[:] = a.attn.window
         sc = self.layout.scatter
         c = {"mask": np.asarray(self.layer_mask, np.float32),
-             "window": sc(window, 0)}
+             "window": sc(B.layer_windows(a, tl), 0)}
         if a.is_encdec:
             causal = np.ones(tl, np.int32)
             cross = np.zeros(tl, np.float32)

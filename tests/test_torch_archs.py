@@ -14,7 +14,7 @@ leaf and three greedy decode steps against the JAX ``build_prefill_step`` /
 S 16, so both the patch prefix and the token rows are held.  Beside them:
 gemma's bf16 embedding scale bitwise the reference's, the four parameter
 trees at full width (on the meta device) against ``jax.eval_shape``,
-the model-FLOPs count of GeGLU, and what still raises naming ROADMAP A8.
+and the model-FLOPs count of GeGLU.
 Each arch's JAX runs are made once, in the module fixture.
 """
 import dataclasses
@@ -38,7 +38,6 @@ from repro_torch.core import stage as stage_lib
 from repro_torch.interop import params_from_jax, to_tensor
 from repro_torch.launch import steps
 from repro_torch.launch.train import model_flops_per_step
-from repro_torch.models import blocks
 from repro_torch.models.lm import LMModel
 from repro_torch.tree import tree_items
 
@@ -73,14 +72,16 @@ def _batch(arch, rng, batch):
     return out
 
 
-def _jax_train(name):
-    """The oracle's loss and grads at pipe 1 on one seeded batch."""
+def _jax_train(name, m=M):
+    """The oracle's loss and grads at pipe 1 (m micro-batches) on one
+    seeded batch."""
     arch = jconfigs.smoke_arch(name)
-    pcfg = jconfigs.smoke_parallel(name).with_(n_micro=M)
+    pcfg = jconfigs.smoke_parallel(name).with_(n_micro=m)
     model = JLMModel(arch, pcfg, dtype=jnp.float32)
-    params = model.init(jax.random.PRNGKey(0))
+    # jitted: eager jax.random compiles once per leaf shape
+    params = jax.jit(model.init)(jax.random.PRNGKey(0))
     batch = _batch(arch, np.random.default_rng(0), BATCH)
-    loss, grads = jax.jit(jax.value_and_grad(_oracle_loss_fn(model, M)))(
+    loss, grads = jax.jit(jax.value_and_grad(_oracle_loss_fn(model, m)))(
         params, jax.tree.map(jnp.asarray, batch))
     return {"params": jax.device_get(params), "batch": batch,
             "loss": float(loss), "grads": jax.device_get(grads)}
@@ -116,14 +117,16 @@ def _jax_serve(name, params):
 
 
 class _JaxRuns:
-    """Each arch's JAX runs, made at first use and kept for the module."""
+    """Each arch's JAX runs, made at first use and kept for the module;
+    training at ``m`` micro-batches."""
 
-    def __init__(self):
+    def __init__(self, m=M):
+        self.m = m
         self._train, self._serve = {}, {}
 
     def train(self, name):
         if name not in self._train:
-            self._train[name] = _jax_train(name)
+            self._train[name] = _jax_train(name, self.m)
         return self._train[name]
 
     def serve(self, name):
@@ -256,7 +259,7 @@ def test_serve_launch_formula_counts_identity_padding(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# gemma's embedding scale, the full-width trees, GeGLU's FLOPs, what raises
+# gemma's embedding scale, the full-width trees, GeGLU's FLOPs
 # ---------------------------------------------------------------------------
 
 def test_gemma_embedding_scale_is_bitwise_the_reference_in_bf16():
@@ -335,19 +338,3 @@ def test_model_flops_count_geglu_as_three_matrices():
     assert flops - model_flops_per_step(gelu, seq, batch) == \
         3.0 * 2.0 * arch.n_layers * arch.d_model * arch.d_ff * seq * batch
     assert 1.0e15 < flops < 1.1e15        # ~1.05 PFLOP a step
-
-
-
-
-@pytest.mark.parametrize("case", ["moe", "hybrid", "per_layer_window"])
-def test_unported_families_still_name_a8(case):
-    """MoE (mixtral) and hybrid (hymba) archs, and hymba's per-layer windows
-    reaching the dense blocks, raise naming ROADMAP A8."""
-    with pytest.raises(NotImplementedError, match="A8"):
-        if case == "per_layer_window":
-            blocks._window_arg(configs.smoke_arch("hymba-1.5b"), {})
-        else:
-            name = "mixtral-8x7b" if case == "moe" else "hymba-1.5b"
-            assert configs.get_arch(name).family == case
-            LMModel(configs.smoke_arch(name), configs.smoke_parallel(name),
-                    device="cpu")
