@@ -96,11 +96,12 @@ line is printed):
             (m = 8), prompt 2048 and 32 generated tokens: smollm-360m, all
             32 layers, bf16, pipe 16, data 1; rwkv6-1.6b, all 24 layers,
             bf16, pipe 8, tp 1, data 1; gemma-2b (18 layers, pipe 2),
-            deepseek-7b (30 layers in 32 slots, pipe 16), pixtral-12b (40
-            layers, pipe 8, 256 patch embeddings a prompt), llama3-405b
+            deepseek-7b cut to 15 layers in 16 slots (pipe 16: a padded
+            layout), pixtral-12b cut to 24 layers (pipe 8, 256 patch
+            embeddings a prompt), llama3-405b
             at full width cut to 4 layers (pipe 4), mixtral-8x7b cut to 16
             layers (pipe 8), dbrx-132b cut to 4 (pipe 4) and hymba-1.5b
-            (32 layers, pipe 16, per-layer windows), tp 1.  The counters
+            cut to 16 layers (pipe 8, per-layer windows), tp 1.  The counters
             must equal what each path implies;
 6. train    the training main path with the counters set to 0 just before
             and read just after, through ``repro_torch.launch.train.train``:
@@ -118,8 +119,10 @@ line is printed):
             the traced step's device time; then gemma-2b the same way (18
             layers, pipe 2, tp 1: ``train`` and ``train_fused`` records
             with ``"arch": "gemma-2b"``), mixtral-8x7b (2 layers, pipe 2,
-            lr 5e-5, a workaround: ``TRAIN_LR``) and hymba-1.5b (32 layers, pipe 16; 3
-            steps and a traced fourth: ``TRAIN_STEPS``) the same way, and
+            lr 5e-5, a workaround: ``TRAIN_LR``) and hymba-1.5b (16 of
+            its 32 layers, pipe 8: its global layers 0 and 15 and the
+            windowed ones between; 3 steps and a traced fourth:
+            ``TRAIN_STEPS``) the same way, and
             ``fused_bitwise``: one grad
             call of gemma-2b at that size through 1f1b and through
             gpipe_tasked under deterministic algorithms, the loss and
@@ -187,7 +190,9 @@ line is printed):
             spawn, after the single-process runs of both): smollm-360m at full width and depth (32
             layers, seq 4096, batch 16, m 8, remat "full", bf16), pipe 4,
             1f1b under the spmd and the mpmd send discipline and
-            gpipe_tasked under spmd, a grad call and 3 AdamW steps each;
+            gpipe_tasked under spmd, a grad call and 3 AdamW steps each,
+            and gpipe streamed (the shards rotate as values, rank 0 takes
+            their cotangents into its own inputs), a grad call;
             whisper-tiny (all 8 blocks), pipe 4, 1f1b, streamed, int8-ef
             wire, its portal routes, a grad call.  Against the
             single-process run of each config, seed and batch on the card
@@ -211,7 +216,7 @@ line is printed):
             hop for each chain and portal hop;
 18. dist_serve  serving with one process per pipe rank: the four ranks of
             ``dist_train``'s group, each holding its own stages' weights and caches,
-            through ``launch.serve.serve(group=)``: smollm-360m and
+            through ``launch.serve.serve(mesh_view=)``: smollm-360m and
             rwkv6-1.6b (tp 1) cut to 8 layers, and whisper-tiny (8
             blocks, 2048 frames) at pipe 4, batch 8, prompt 2048, 32
             tokens, bf16.  Against one process at pipe 4: the tokens and
@@ -219,7 +224,30 @@ line is printed):
             ranks equal to the path's formula, each rank's cache bytes its
             share of ``cache_protos``, 31 token hops from the last rank to
             rank 0; prefill ms, decode tok/s, peak and cache GiB per rank
-            beside one process's ("4 processes time-slicing one card").
+            beside one process's ("4 processes time-slicing one card");
+19. dist_mesh  data, FSDP and tensor parallelism: the four ranks of that
+            spawn laid out again as each case's ``(pod, data, pipe, tp)``
+            mesh (``mesh_cases``): smollm-360m whole at data 2 x pipe 2
+            with FSDP, 2 AdamW steps of gpipe with the stage weights
+            joined once a step, 2 of 1f1b joined at each application, 1
+            of 1f1b with FSDP off; whisper-tiny whole at tp 2 x pipe 2,
+            streamed, 1f1b, 2 steps, and served (batch 8, 2048 frames, 32
+            tokens), and at 2 blocks of full width in fp32 (seq 256) a
+            grad call; mixtral-8x7b at full width, 1 layer, tp 2 x data
+            2, 2 steps at lr 5e-5.  Gates: each replica pair's weights
+            bitwise equal after every step, 1f1b's with FSDP on and off
+            bitwise equal, gpipe's and 1f1b's losses within bf16 ``TOL``,
+            the step-1 loss within bf16 ``TOL`` of one process (smollm at
+            pipe 2, whisper streamed at pipe 2, mixtral at 1 layer; run
+            and freed before the spawn), the fp32 whisper loss and every
+            gradient block within 1e-3 of one process's, each rank's
+            resident bytes of weights and AdamW state equal to the
+            placement's count, the launches over the ranks equal to data
+            x tp times the path's formula, each serving rank's cache its
+            kv heads' share; per rank and case the collectives' calls,
+            bytes and host-clock wait by class (tp sum, data reduce, FSDP
+            gather), peak memory and step ms ("4 processes time-slicing
+            one card": not a speed figure).
 
 The kernels summary line, then the card's ``nvidia-smi`` name and power
 limit, then the last line ``{"ok": true, "device": {...}}``.  It imports
@@ -280,13 +308,24 @@ KERNELS = ("flash_attention", "rmsnorm", "wkv6", "flash_attention_bwd",
 DENSE_SERVE = ("gemma-2b", "deepseek-7b", "pixtral-12b", "llama3-405b")
 # The MoE and hybrid archs, served: mixtral-8x7b at full width cut to 16 of
 # its 32 layers (2.9 GB of bf16 weights a layer; pipe 8), dbrx-132b to 4 of
-# 40 (6.5 GB a layer; pipe 4), hymba-1.5b whole (pipe 16); trained:
-# mixtral at 2 layers, pipe 2 (16 B a parameter: ~51 GB), hymba whole
+# 40 (6.5 GB a layer; pipe 4), hymba-1.5b to 16 of 32 (pipe 8, as it
+# trains); trained: mixtral at 2 layers, pipe 2 (16 B a parameter: ~51 GB),
+# hymba at 16
 MOE_HYBRID = ("mixtral-8x7b", "dbrx-132b", "hymba-1.5b")
+# hymba-1.5b at 16 of its 32 layers, pipe 8: its global-attention layers 0
+# and 15 and windowed ones between, half the SSM scan's time
+HYMBA_CUT = dict(n_layers=16, pipe=8)
+# deepseek-7b cut to 15 layers in 16 slots at its pipe 16 (a padded
+# layout, as its 30 in 32 are), pixtral-12b to 24 of 40 layers and hymba,
+# for the script's clock
 SERVE_CUT = {"llama3-405b": dict(n_layers=4),
+             "deepseek-7b": dict(n_layers=15),
+             "pixtral-12b": dict(n_layers=24),
              "mixtral-8x7b": dict(n_layers=16),
-             "dbrx-132b": dict(n_layers=4, pipe=4)}
-TRAIN_CUT = {"mixtral-8x7b": dict(n_layers=2, pipe=2)}
+             "dbrx-132b": dict(n_layers=4, pipe=4),
+             "hymba-1.5b": HYMBA_CUT}
+TRAIN_CUT = {"mixtral-8x7b": dict(n_layers=2, pipe=2),
+             "hymba-1.5b": HYMBA_CUT}
 # The train phases' AdamW lr (constant, no warmup), 5e-4 but for
 # mixtral-8x7b, a workaround: at 5e-4 its 2-layer cut's curve on one fixed
 # batch rises (11.01, 13.27, 35.54, 20.95, 12.83; 1e-4 rises at steps 2-3
@@ -294,9 +333,9 @@ TRAIN_CUT = {"mixtral-8x7b": dict(n_layers=2, pipe=2)}
 # step.  Why it rises is open (ROADMAP C5): ``train_gpu_vs_cpu`` holds
 # one step's fp32 gradients to the CPU, not a bf16 curve
 TRAIN_LR = {"mixtral-8x7b": 5e-5}
-# Steps before the traced one: 5, but 3 for hymba-1.5b, whose ~6.5 s
-# steps (the SSM scan's elementwise kernels) would take the script past
-# its time limit
+# Steps before the traced one: 5, but 3 for hymba-1.5b, whose ~4.5 s steps
+# (the SSM scan's elementwise kernels) would take the script past its time
+# limit
 TRAIN_STEPS = {"hymba-1.5b": 3}
 # RMSNorm widths of hymba-1.5b, mixtral-8x7b and dbrx-132b
 WIDE_NORMS = (1600, 4096, 6144)
@@ -1538,7 +1577,7 @@ def phase_train(torch, schedule: str = "gpipe",
     ``g_depth``; rwkv6-1.6b (pipe 8, tp 2 cut to 1, as served) is phase
     ``rwkv6_train``, which also reports the WKV-6 backward's share of the
     traced step's device time; gemma-2b (pipe 2), mixtral-8x7b (2 layers,
-    pipe 2: ``TRAIN_CUT``) and hymba-1.5b (32 layers, pipe 16) are
+    pipe 2: ``TRAIN_CUT``) and hymba-1.5b (16 layers, pipe 8) are
     ``train`` / ``train_fused`` records with their ``"arch"``."""
     from repro_torch.core.plan import plan_for
     from repro_torch.launch.train import (expected_train_launches,
@@ -2017,8 +2056,9 @@ def train_counters():
 
 def whisper_pcfg(pipe: int, **kw):
     """whisper-tiny's PARALLEL (pipe 8) or PARALLEL_OPTIMIZED (pipe 2, which
-    asks for stream_inputs), tp, data and dp2 cut to 1 (A9), m 8, remat
-    "full", streaming off unless ``kw`` turns it on."""
+    asks for stream_inputs), tp, data and dp2 cut to 1 (one process; the
+    mesh cases run tp 2), m 8, remat "full", streaming off unless ``kw``
+    turns it on."""
     from repro_torch import configs
     cfg = configs.get_parallel("whisper-tiny", optimized=pipe == 2)
     return cfg.with_(pipe=pipe, tp=1, data=1, dp2=1, n_micro=8,
@@ -2441,7 +2481,8 @@ def dist_cases():
     """The cases the four ranks run, in order: smollm-360m at full width
     and depth (32 layers, seq 4096, batch 16, m 8, remat "full", bf16),
     pipe 4, under each (schedule, executor) of ``DIST_SMOLLM`` (gpipe's
-    backward is autograd's, across the processes); whisper-tiny (all 8
+    backward is autograd's, across the processes) and gpipe streamed (its
+    grad call); whisper-tiny (all 8
     blocks), pipe 4, 1f1b, streamed, int8-ef wire; the U-Net (5, 64) at
     192 x 192, batch 32, pipe 4, m 8, fp32, gpipe with its portals,
     through ``launch.train_hetero``."""
@@ -2453,6 +2494,11 @@ def dist_cases():
     cases = [dict(name=f"smollm-{s}-{e}", arch="smollm-360m",
                   pcfg=smollm.with_(schedule=s, executor=e), seq=4096,
                   batch=16, steps=DIST_STEPS) for s, e in DIST_SMOLLM]
+    # streamed gpipe across processes (ROADMAP A4d): one grad call
+    cases.append(dict(name="smollm-gpipe-stream", arch="smollm-360m",
+                      pcfg=smollm.with_(schedule="gpipe",
+                                        stream_inputs=True),
+                      seq=4096, batch=16, steps=0))
     cases.append(dict(name="whisper-1f1b-stream-int8-ef", arch="whisper-tiny",
                       pcfg=whisper_pcfg(DIST_RANKS, schedule="1f1b",
                                         stream_inputs=True, wire="int8-ef"),
@@ -2484,12 +2530,13 @@ def _dist_peak_gib(torch, dev) -> float:
             if dev.type == "cuda" else 0.0)
 
 
-def dist_run(torch, case, group, device: str = "cuda"):
-    """One case, as pipe rank ``group.rank`` or (``group`` None) in one
-    process: weights from seed 0 (the rank's share), one fixed batch; a
+def dist_run(torch, case, view, device: str = "cuda"):
+    """One case, as a pipe rank of the pipe group's mesh ``view`` or
+    (``view`` None) in one process: weights from seed 0 (the rank's
+    share), one fixed batch; a
     grad call (its loss, the SHA-256 of every gradient leaf, per rank of
     the whole model's when in one process, the buffer high-water and
-    hops, the kernel launches, the peak), then with a group ``steps``
+    hops, the kernel launches, the peak), then in the group ``steps``
     AdamW steps (losses, step ms, launches, and the embedding's digest
     after them)."""
     from repro_torch import configs
@@ -2501,21 +2548,19 @@ def dist_run(torch, case, group, device: str = "cuda"):
     from repro_torch.optim import optimizers as optim
 
     if "mcfg" in case:
-        return dist_run_hetero(torch, case, group, device)
+        return dist_run_hetero(torch, case, view, device)
     arch, pcfg = case.get("arch_cfg") or configs.get_arch(case["arch"]), \
         case["pcfg"]
-    dev = torch.device(device) if group is None else group.device
-    model = LMModel(arch, pcfg, dtype=torch.bfloat16, device=dev)
+    dev = torch.device(device) if view is None else view.device
+    model = LMModel(arch, pcfg, dtype=torch.bfloat16, device=dev, mesh=view)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(0),
-                        rank=None if group is None else group.rank)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
     data = DataConfig(seed=0, vocab=arch.vocab, seq_len=case["seq"],
                       global_batch=case["batch"])
     batch = model_batch(to_device(SyntheticLM(data, arch).batch_at(0), dev),
                         torch.bfloat16)
-    grad_fn = steps.build_grad_fn(model, pcfg, model.stage_devices,
-                                  group=group)
+    grad_fn = steps.build_grad_fn(model, pcfg, model.stage_devices)
     fns = train_counters()
     _dist_sync(torch, dev)
     t0 = time.perf_counter()
@@ -2526,7 +2571,7 @@ def dist_run(torch, case, group, device: str = "cuda"):
            "launches": {k: fn.launches for k, fn in fns.items()},
            "park": grad_fn.park_info,
            "peak_gib": _dist_peak_gib(torch, dev)}
-    if group is None:
+    if view is None:
         out["digests"] = [digests(torch, model.rank_share(grads, r))
                           for r in range(pcfg.pipe)]
         return out
@@ -2537,8 +2582,7 @@ def dist_run(torch, case, group, device: str = "cuda"):
     opt = optim.init(ocfg, params)
     step = steps.build_train_step(
         model, pcfg, model.stage_devices,
-        ShapeConfig("train", case["seq"], case["batch"], "train"), ocfg,
-        group=group)
+        ShapeConfig("train", case["seq"], case["batch"], "train"), ocfg)
     out.update(losses=[], step_ms=[], step_launches=[])
     for _ in range(case["steps"]):
         fns = train_counters()
@@ -2554,26 +2598,26 @@ def dist_run(torch, case, group, device: str = "cuda"):
     return out
 
 
-def dist_run_hetero(torch, case, group, device: str = "cuda"):
-    """The U-Net case, as pipe rank ``group.rank`` or (``group`` None) in
+def dist_run_hetero(torch, case, view, device: str = "cuda"):
+    """The U-Net case, as a pipe rank of ``view`` or (``view`` None) in
     one process, through ``launch.train_hetero``: a grad call
     (``hetero_grad_call``) on ``build_problem``'s weights from seed 0 and
     its fixed batch (the loss on the last rank,
     the SHA-256 of every gradient leaf, per rank of the whole model's when
     in one process, the buffer high-water and hops, the launches, the
-    peak), then ``train_hetero(..., group=)`` for ``steps`` SGD steps
+    peak), then ``train_hetero(..., mesh_view=)`` for ``steps`` SGD steps
     from the same weights (losses, step ms)."""
     from repro_torch.launch import train_hetero as TH
     from repro_torch.models import pipeline_hetero as PH
 
     pcfg = case["pcfg"]
-    dev = torch.device(device) if group is None else group.device
+    dev = torch.device(device) if view is None else view.device
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     _, prog, stages, x, y = TH.build_problem(
-        case["mcfg"], pcfg, batch=case["batch"], device=dev, group=group)
+        case["mcfg"], pcfg, batch=case["batch"], device=dev, mesh_view=view)
     park = {}
-    call = PH.hetero_grad_call(prog, pcfg, park, group=group)
+    call = PH.hetero_grad_call(prog, pcfg, park, mesh_view=view)
     fns = train_counters()
     _dist_sync(torch, dev)
     t0 = time.perf_counter()
@@ -2583,7 +2627,7 @@ def dist_run_hetero(torch, case, group, device: str = "cuda"):
            "grad_ms": (time.perf_counter() - t0) * 1e3,
            "launches": {k: fn.launches for k, fn in fns.items()},
            "park": park, "peak_gib": _dist_peak_gib(torch, dev)}
-    if group is None:
+    if view is None:
         out["digests"] = [digests(torch, dict(enumerate(
             grads[r::pcfg.pipe]))) for r in range(pcfg.pipe)]
     else:
@@ -2591,7 +2635,7 @@ def dist_run_hetero(torch, case, group, device: str = "cuda"):
     del grads, prog, stages, call
     res = TH.train_hetero(case["mcfg"], pcfg, batch=case["batch"],
                           steps=case["steps"], device=dev,
-                          ocfg=TH.sgd(HETERO_LR), group=group)
+                          ocfg=TH.sgd(HETERO_LR), mesh_view=view)
     out.update(losses=[r["loss"] for r in res["history"]],
                step_ms=[r["step_s"] * 1e3 for r in res["history"]],
                peak_gib=_dist_peak_gib(torch, dev))
@@ -2600,24 +2644,28 @@ def dist_run_hetero(torch, case, group, device: str = "cuda"):
 
 def dist_rank(rank: int, nproc: int, init_method: str, out_dir: str,
               cases, device: str) -> None:
-    """A pipe rank of ``dist_train`` and ``dist_serve`` (a spawned
-    process): every ``(phase, case)`` of ``cases`` in the group, the
+    """A rank of ``dist_train``, ``dist_serve`` and ``dist_mesh`` (a
+    spawned process): every ``(phase, case)`` of ``cases``, in the pipe
+    group of four or (``dist_mesh``) on the case's mesh of the four, the
     records to ``out_dir/rank<r>.json`` by case name."""
     import torch
     from repro_torch.launch import mesh
 
-    run = {"dist_train": dist_run, "dist_serve": serve_run}
-    group = mesh.init_pipe_group(rank, nproc, init_method, device=device,
-                                 timeout_s=DIST_HOP_TIMEOUT_S)
+    run = {"dist_train": dist_run, "dist_serve": serve_run,
+           "dist_mesh": mesh_run}
+    view = mesh.init_pipe_group(rank, nproc, init_method, device=device,
+                                timeout_s=DIST_HOP_TIMEOUT_S)
     out = {}
     try:
         with deterministic(torch):
             for phase, case in cases:
-                out[case["name"]] = run[phase](torch, case, group, device)
-                if group.device.type == "cuda":
+                if phase == "dist_mesh":
+                    case = dict(case, out_dir=out_dir)
+                out[case["name"]] = run[phase](torch, case, view, device)
+                if view.device.type == "cuda":
                     torch.cuda.empty_cache()
     finally:
-        mesh.destroy_pipe_group(group)
+        mesh.destroy_pipe_group(view)
     (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
 
 
@@ -2813,10 +2861,10 @@ def dist_serve_cases():
             for a in DIST_SERVE]
 
 
-def serve_run(torch, case, group, device: str = "cuda"):
-    """One serving case through ``launch.serve.serve``, as pipe rank
-    ``group.rank`` or (``group`` None) in one process: weights from seed
-    0 (the rank's share), prompts from seed 1.  Where the logits land
+def serve_run(torch, case, view, device: str = "cuda"):
+    """One serving case through ``launch.serve.serve``, as a pipe rank of
+    ``view`` or (``view`` None) in one process: weights from seed 0 (the
+    rank's share), prompts from seed 1.  Where the logits land
     (the last rank): the tokens, the logits' SHA-256, whether they are
     finite; everywhere: the launches, cache bytes, prefill ms, decode
     tok/s, the peak, and in a group the hops and high-water."""
@@ -2830,7 +2878,7 @@ def serve_run(torch, case, group, device: str = "cuda"):
     train_counters()
     res = serve(arch, case["pcfg"], prompt_len=case["prompt"],
                 gen=case["gen"], batch=case["batch"], device=device,
-                dtype=torch.bfloat16, seed=0, group=group)
+                dtype=torch.bfloat16, seed=0, mesh_view=view)
     out = {"launches": res["launches"], "n_micro": res["n_micro"],
            "cache_bytes": res["cache_bytes"],
            "prefill_ms": res["prefill_s"] * 1e3,
@@ -2844,7 +2892,7 @@ def serve_run(torch, case, group, device: str = "cuda"):
                    logits=digests(torch, {"logits": lg})["logits"],
                    logits_shape=list(lg.shape),
                    finite=bool(torch.isfinite(lg).all()))
-    if group is not None:
+    if view is not None:
         out.update(hops=res["hops"], park=res["park"])
     return out
 
@@ -2939,19 +2987,31 @@ def dist_serve_report(torch, cases, saved, one, t_one, t_group):
 
 
 def phase_dist(torch, device: str = "cuda", train_cases=None,
-               serve_cases=None):
-    """``dist_train`` and ``dist_serve`` in one group of four pipe ranks
-    (one spawn: the ranks reach the card and meet once), after the
-    single-process runs they are held to.  ``device`` and the cases are
-    for a rehearsal on the CPU at a small size.  Returns the launch
-    totals of both."""
+               serve_cases=None, mesh_case_list=None):
+    """``dist_train``, ``dist_serve`` and ``dist_mesh`` in one spawn of
+    four ranks (they reach the card and meet once; the mesh cases lay the
+    four out again, case by case), after the single-process runs they are
+    held to (mixtral-8x7b's, ~27 GB of weights and state, freed before the
+    spawn).  ``device`` and the cases are for a rehearsal on the CPU at a
+    small size.  Returns the launch totals of all three."""
     import tempfile
     from repro_torch.launch import mesh
 
-    train_cases = train_cases or dist_cases()
-    serve_cases = serve_cases or dist_serve_cases()
+    train_cases = dist_cases() if train_cases is None else train_cases
+    serve_cases = dist_serve_cases() if serve_cases is None else serve_cases
+    mesh_case_list = mesh_cases() if mesh_case_list is None \
+        else mesh_case_list
     t_one = {}
+    one_mesh = {}
     with deterministic(torch):
+        t0 = time.perf_counter()
+        for case in mesh_case_list:
+            if case["kind"] != "serve" and case["name"] not in (
+                    "smollm-pd2-1f1b", "smollm-pd2-1f1b-replicated"):
+                one_mesh[case["name"]] = mesh_one(torch, case, device)
+                if device == "cuda":
+                    torch.cuda.empty_cache()
+        t_one["dist_mesh"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         one_train = dist_train_one(torch, train_cases, device)
         t_one["dist_train"] = time.perf_counter() - t0
@@ -2966,20 +3026,455 @@ def phase_dist(torch, device: str = "cuda", train_cases=None,
     with tempfile.TemporaryDirectory() as out_dir:
         mesh.spawn(dist_rank, DIST_RANKS,
                    (out_dir, [("dist_train", c) for c in train_cases]
-                    + [("dist_serve", c) for c in serve_cases], device),
+                    + [("dist_serve", c) for c in serve_cases]
+                    + [("dist_mesh", c) for c in mesh_case_list], device),
                    timeout_s=DIST_TIMEOUT_S)
         saved = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
                  for r in range(DIST_RANKS)]
-    t_group = time.perf_counter() - t0
+        t_group = time.perf_counter() - t0
+        mesh_totals, mesh_bad = mesh_report(torch, mesh_case_list, saved,
+                                            one_mesh, out_dir)
     totals, bad = dist_train_report(torch, train_cases, saved, one_train,
                                     t_one["dist_train"], t_group)
     serve_totals, serve_bad = dist_serve_report(
         torch, serve_cases, saved, one_serve, t_one["dist_serve"], t_group)
     add(totals, serve_totals)
-    failed = {k: v for k, v in (bad | serve_bad).items() if v}
+    add(totals, mesh_totals)
+    emit({"phase": "dist_mesh", "one_process_s": t_one["dist_mesh"],
+          "group_s": t_group})
+    failed = {k: v for k, v in (bad | serve_bad | mesh_bad).items() if v}
     if failed:
         raise AssertionError(f"dist: {failed}")
     return totals
+
+
+# ---------------------------------------------------------------------------
+# dist_mesh: data, FSDP and tensor parallelism over the four ranks
+# ---------------------------------------------------------------------------
+
+# tests/test_oracle.py's bf16 TOL: one replica's math against a mesh's
+MESH_TOL = dict(rtol=2e-2, atol=2e-2)
+MESH_FP32_REL = 1e-3      # fp32: each grad leaf's gap over its largest entry
+MESH_SEQ, MESH_BATCH, MESH_M = 4096, 16, 8
+MESH_FP32_SEQ, MESH_FP32_BATCH = 256, 8
+MESH_LR = {"mixtral-8x7b": 5e-5}
+# a train case against one process past its first loss: the step-1 grad
+# norm and the step-2 loss (after one AdamW step), each relative to one
+# process's, about 2-3x the largest gaps measured on an H100 (mixtral's
+# 4.8e-3 and 2.9e-4; smollm's 2.4e-4 and 1.3e-4, whisper's 4e-6)
+MESH_NORM_RTOL, MESH_LOSS2_RTOL = 1e-2, 1e-3
+
+
+def _mesh_ocfg(case):
+    from repro_torch.optim import optimizers as optim
+    return optim.OptimizerConfig(lr=MESH_LR.get(case["arch"], 5e-4),
+                                 warmup_steps=0, min_lr_ratio=1.0,
+                                 dynamic_loss_scale=True)
+
+
+def mesh_cases(archs=None, seq: int = MESH_SEQ, batch: int = MESH_BATCH,
+               fp32_seq: int = MESH_FP32_SEQ,
+               fp32_batch: int = MESH_FP32_BATCH,
+               serve=(SERVE_BATCH, SERVE_PROMPT, SERVE_GEN)):
+    """The cases the four ranks run, each on its own mesh of them
+    (``archs`` replaces a full arch by name, for a rehearsal at a small
+    size): (a) smollm-360m whole (32 layers, seq 4096, batch 16, m 8,
+    bf16) at data 2 x pipe 2 with FSDP, 2 AdamW steps through gpipe with
+    the stage weights joined once a step, 2 through 1f1b joined at each
+    application, 1 through 1f1b with FSDP off; (b) whisper-tiny whole at tp
+    2 x pipe 2, streamed, 1f1b, 2 steps, served (batch 8, 2048 frames, 32
+    tokens), and cut to 2 blocks of full width in fp32 at seq 256 for a
+    grad call; (c) mixtral-8x7b at full width cut to 1 layer, tp 2 (4
+    experts, 16 of 32 query and 4 of 8 kv heads, 16,000 of the vocab a
+    rank) x data 2, pipe 1, batch 8 (m 4), gpipe with the weights joined
+    once a step, lr 5e-5, 2 steps (its weights hashed after the last)."""
+    from repro_torch import configs
+    archs = archs or {}
+
+    def arch(name, **cut):
+        a = archs.get(name) or configs.get_arch(name)
+        return dataclasses.replace(a, **cut) if cut else a
+
+    def pcfg(name, **kw):
+        return configs.get_parallel(name).with_(
+            dp2=1, pod=1, n_micro=MESH_M, remat="full", **kw)
+
+    smollm = pcfg("smollm-360m", pipe=2, data=2, tp=1)
+    whisper = pcfg("whisper-tiny", pipe=2, data=1, tp=2, schedule="1f1b",
+                   stream_inputs=True)
+    # the experts joined once a step: at each application (16 a step:
+    # m 8, each recomputed) they cross the host 11.7 GB a rank, 49-52 s
+    mixtral = pcfg("mixtral-8x7b", pipe=1, data=2, tp=2, schedule="gpipe",
+                   gather_weights_once=True)
+    common = dict(seq=seq, batch=batch)
+    b, prompt, gen = serve
+    return [
+        dict(name="smollm-pd2-gpipe-once", kind="train", arch="smollm-360m",
+             arch_cfg=arch("smollm-360m"), steps=2, **common,
+             pcfg=smollm.with_(schedule="gpipe", gather_weights_once=True)),
+        dict(name="smollm-pd2-1f1b", kind="train", arch="smollm-360m",
+             arch_cfg=arch("smollm-360m"), steps=2, **common,
+             pcfg=smollm.with_(schedule="1f1b")),
+        dict(name="smollm-pd2-1f1b-replicated", kind="train",
+             arch="smollm-360m", arch_cfg=arch("smollm-360m"), steps=1,
+             **common, pcfg=smollm.with_(schedule="1f1b", fsdp=False)),
+        dict(name="whisper-pt2-1f1b-stream", kind="train",
+             arch="whisper-tiny", arch_cfg=arch("whisper-tiny"), steps=2,
+             pcfg=whisper, **common),
+        dict(name="whisper-pt2-fp32", kind="grads", arch="whisper-tiny",
+             arch_cfg=arch("whisper-tiny", n_layers=1, enc_layers=1),
+             pcfg=whisper, seq=fp32_seq, batch=fp32_batch, fp32=True),
+        dict(name="whisper-pt2-serve", kind="serve", arch="whisper-tiny",
+             arch_cfg=arch("whisper-tiny"), pcfg=whisper.with_(
+                 stream_inputs=False), batch=b, prompt=prompt, gen=gen),
+        dict(name="mixtral-td2", kind="train", arch="mixtral-8x7b",
+             arch_cfg=arch("mixtral-8x7b", n_layers=1), steps=2,
+             pcfg=mixtral.with_(n_micro=MESH_M // 2), digest_last=True,
+             seq=seq, batch=batch // 2),
+    ]
+
+
+def _one_replica(pcfg):
+    """A mesh case's config in one process: data and tp 1."""
+    return pcfg.with_(data=1, tp=1, pod=1, dp2=1)
+
+
+def _mesh_batch(torch, case, arch, dev, dtype, replica=0, replicas=1):
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLM,
+                                           replica_slice, to_device)
+    from repro_torch.launch.train import model_batch
+    data = DataConfig(seed=0, vocab=arch.vocab, seq_len=case["seq"],
+                      global_batch=case["batch"])
+    return model_batch(to_device(replica_slice(
+        SyntheticLM(data, arch).batch_at(0), replica, replicas), dev), dtype)
+
+
+def mesh_one(torch, case, device: str = "cuda"):
+    """A mesh case's reference in one process: the same weights (seed 0)
+    and whole batch at the case's pipe, data and tp 1.  A ``grads`` case:
+    the grad call's loss and every gradient leaf (on the host); a
+    ``train`` case: its first two AdamW steps (``_mesh_ocfg``), each
+    step's loss and grad norm."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import LMModel
+    from repro_torch.optim import optimizers as optim
+    from repro_torch.tree import tree_items
+    arch, pcfg = case["arch_cfg"], _one_replica(case["pcfg"])
+    dtype = torch.float32 if case.get("fp32") else torch.bfloat16
+    dev = torch.device(device)
+    model = LMModel(arch, pcfg, dtype=dtype, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    batch = _mesh_batch(torch, case, arch, dev, dtype)
+    if case["kind"] == "grads":
+        loss, grads = steps.build_grad_fn(model, pcfg, model.stage_devices)(
+            params, batch)
+        return {"loss": float(loss),
+                "grads": {k: v.detach().cpu()
+                          for k, v in tree_items(grads)}}
+    ocfg = _mesh_ocfg(case)
+    opt = optim.init(ocfg, params)
+    step = steps.build_train_step(
+        model, pcfg, model.stage_devices,
+        ShapeConfig("train", case["seq"], case["batch"], "train"), ocfg)
+    out = {"losses": [], "grad_norms": []}
+    for _ in range(min(case["steps"], 2)):
+        params, opt, metrics = step(params, opt, batch)
+        out["losses"].append(float(metrics["loss"]))
+        out["grad_norms"].append(float(metrics["grad_norm"]))
+    out["loss"] = out["losses"][0]
+    return out
+
+
+def mesh_run(torch, case, view, device: str = "cuda"):
+    """One mesh case as one of the four ranks, laid out as the case's mesh
+    (``launch.mesh.mesh_groups``): the rank's blocks of the seed-0 weights
+    and its replica's rows of the fixed batch (``view``, the four ranks'
+    pipe group, is not used).  A ``train`` case takes its
+    AdamW steps (each step's loss, grad norm, ms, launches and the SHA-256
+    of every weight leaf joined over FSDP); a ``grads`` case one grad call
+    (its gradients saved under ``case["out_dir"]``); a ``serve`` case
+    serves through ``launch.serve.serve(mesh_view=)``.  Each reports the
+    rank's coordinates, resident bytes against the placement's count,
+    collectives per class and peak memory."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import mesh, steps
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import placement_bytes
+    from repro_torch.models.lm import LMModel
+    from repro_torch.optim import optimizers as optim
+    from repro_torch.tree import tree_items, tree_leaves
+
+    view = mesh.mesh_groups(case["pcfg"], device=device,
+                            timeout_s=DIST_HOP_TIMEOUT_S)
+    dev, arch, pcfg = view.device, case["arch_cfg"], case["pcfg"]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = {"coords": view.coords}
+    if case["kind"] == "serve":
+        train_counters()
+        res = serve(arch, pcfg, prompt_len=case["prompt"], gen=case["gen"],
+                    batch=case["batch"], device=device, dtype=torch.bfloat16,
+                    seed=0, mesh_view=view)
+        out.update(launches=res["launches"], n_micro=res["n_micro"],
+                   cache_bytes=res["cache_bytes"],
+                   prefill_ms=res["prefill_s"] * 1e3,
+                   decode_tok_per_s=res["decode_tok_per_s"],
+                   collectives=res["collectives"],
+                   peak_gib=_dist_peak_gib(torch, dev))
+        if res["logits"] is not None:
+            lg = res["logits"]
+            out.update(logits_shape=list(lg.shape),
+                       finite=bool(torch.isfinite(lg).all()),
+                       tokens=res["tokens"].tolist())
+        return out
+    dtype = torch.float32 if case.get("fp32") else torch.bfloat16
+    model = LMModel(arch, pcfg, dtype=dtype, device=dev, mesh=view)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    batch = _mesh_batch(torch, case, arch, dev, dtype, view.replica,
+                        view.replicas)
+    if case["kind"] == "grads":         # the weights alone
+        out["resident_bytes"] = sum(a.nbytes for a in tree_leaves(params))
+        out["placement_bytes"] = placement_bytes(model, state_bytes=0)
+        fns = train_counters()
+        view.reset_stats()
+        loss, grads = steps.build_grad_fn(model, pcfg, model.stage_devices)(
+            params, batch)
+        out.update(loss=float(loss),
+                   launches={k: fn.launches for k, fn in fns.items()},
+                   collectives=view.stats(), specs=model.specs,
+                   peak_gib=_dist_peak_gib(torch, dev))
+        torch.save({k: v.detach().cpu() for k, v in tree_items(grads)},
+                   Path(case["out_dir"]) / f"{case['name']}-{view.rank}.pt")
+        return out
+    ocfg = _mesh_ocfg(case)
+    opt = optim.init(ocfg, params)
+    out["resident_bytes"] = sum(a.nbytes for t in (params, opt.mu, opt.nu,
+                                                   opt.master)
+                                for a in tree_leaves(t))
+    out["placement_bytes"] = placement_bytes(model)
+    step = steps.build_train_step(
+        model, pcfg, model.stage_devices,
+        ShapeConfig("train", case["seq"], case["batch"], "train"), ocfg)
+    out.update(losses=[], grad_norms=[], step_ms=[], step_launches=[],
+               weights=[], collectives=[])
+    for _ in range(case["steps"]):
+        fns = train_counters()
+        view.reset_stats()
+        _dist_sync(torch, dev)
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        out["losses"].append(float(metrics["loss"]))           # waits
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["grad_norms"].append(float(metrics["grad_norm"]))
+        out["step_launches"].append({k: fn.launches
+                                     for k, fn in fns.items()})
+        out["collectives"].append(view.stats())
+        last = len(out["losses"]) == case["steps"]
+        if last or not case.get("digest_last"):
+            out["weights"].append(digests(torch, model.gather_fsdp(params)))
+    out["peak_gib"] = _dist_peak_gib(torch, dev)
+    return out
+
+
+def mesh_gates(torch, case, ranks, one, out_dir):
+    """Why the four ranks' run of a mesh case disagrees with one replica
+    in one process, with itself or with the path's counts, as a list."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import mesh_shape
+    from repro_torch.launch.serve import expected_serve_launches
+    from repro_torch.launch.train import expected_train_launches
+    from repro_torch.models.lm import LMModel
+    from repro_torch.tree import tree_items
+
+    arch, pcfg = case["arch_cfg"], case["pcfg"]
+    D, T = pcfg.data * pcfg.pod * pcfg.dp2, pcfg.tp
+    bad = []
+    if case["kind"] == "serve":
+        one_cfg = _one_replica(pcfg)
+        m = ranks[0]["n_micro"]
+        want = expected_serve_launches(arch, one_cfg, m, case["gen"])
+        summed = {ph: {k: sum(g["launches"][ph][k] for g in ranks)
+                       for k in want[ph]} for ph in want}
+        if summed != {ph: {k: D * T * n for k, n in w.items()}
+                      for ph, w in want.items()}:
+            bad.append(f"launches {summed} != {D * T} x the path's {want}")
+        meta = LMModel(arch, one_cfg.with_(n_micro=m), dtype=torch.bfloat16,
+                       device="meta")
+        dshape = ShapeConfig("d", case["prompt"] + case["gen"],
+                             case["batch"], "decode")
+        for g in ranks:
+            share = meta.init_cache(dshape, m, filled=False,
+                                    rank=g["coords"]["pipe"])
+            nbytes = sum(a.numel() * a.element_size() // (
+                T if p.endswith(("/k", "/v")) else 1)
+                for p, a in tree_items(share))
+            if g["cache_bytes"] != nbytes:
+                bad.append(f"rank {g['coords']} cache {g['cache_bytes']} B, "
+                           f"its kv heads' share {nbytes} B")
+            if g["coords"]["pipe"] == pcfg.pipe - 1 and not (
+                    g.get("finite") and g.get("logits_shape")
+                    == [case["batch"] // D, 1, arch.vocab]):
+                bad.append(f"logits not finite [B, 1, V] on {g['coords']}")
+        return bad
+    for g in ranks:
+        if g["resident_bytes"] != g["placement_bytes"]:
+            bad.append(f"rank {g['coords']} holds {g['resident_bytes']} B, "
+                       f"the placement {g['placement_bytes']} B")
+    want = expected_train_launches(_one_replica(pcfg), arch, case["seq"])
+    calls = ([g["launches"] for g in ranks] if case["kind"] == "grads"
+             else None)
+    per_call = ([calls] if calls else
+                [[g["step_launches"][i] for g in ranks]
+                 for i in range(case["steps"])])
+    for recs in per_call:
+        summed = {k: sum(r[k] for r in recs) for k in want}
+        if summed != {k: D * T * n for k, n in want.items()}:
+            bad.append(f"launches {summed} != {D * T} x the path's {want}")
+    if case["kind"] == "grads":
+        loss = ranks[0]["loss"]
+        if abs(loss - one["loss"]) > MESH_FP32_REL * abs(one["loss"]):
+            bad.append(f"loss {loss} vs one process {one['loss']}")
+        model = LMModel(arch, _one_replica(pcfg), dtype=torch.float32,
+                        device="meta")
+        shape = mesh_shape(pcfg)
+        for r, g in enumerate(ranks):
+            got = torch.load(Path(out_dir) / f"{case['name']}-{r}.pt")
+            c = g["coords"]
+            share = model.rank_share(_nest(one["grads"]), c["pipe"])
+            specs = dict(tree_items(g["specs"]))
+            for p, w in tree_items(share):
+                w = sharding.shard(w, specs[p], c, shape,
+                                   skip=("pipe", "data", "pod"))
+                gap = float((got[p].float() - w.float()).abs().max())
+                scale = max(float(w.abs().max()), 1e-30)
+                if gap > MESH_FP32_REL * scale:
+                    bad.append(f"rank {r} {p}: gap {gap:.3g} over "
+                               f"{scale:.3g}")
+        return bad
+    losses = ranks[0]["losses"]
+    if any(g["losses"] != losses for g in ranks):
+        bad.append("ranks report different losses")
+    if not all(map(math.isfinite, losses)):
+        bad.append(f"losses {losses} not finite")
+    if one is not None:
+        if abs(losses[0] - one["loss"]) > \
+                MESH_TOL["atol"] + MESH_TOL["rtol"] * abs(one["loss"]):
+            bad.append(f"step 1 loss {losses[0]} vs one process "
+                       f"{one['loss']}")
+        gap = _mesh_gaps(ranks[0], one)
+        if gap["grad_norm_1"] > MESH_NORM_RTOL:
+            bad.append(f"step 1 grad norm {ranks[0]['grad_norms'][0]} vs "
+                       f"one process {one['grad_norms'][0]}")
+        if gap.get("loss_2", 0.0) > MESH_LOSS2_RTOL:
+            bad.append(f"step 2 loss {losses[1]} vs one process "
+                       f"{one['losses'][1]}")
+    by_coord = {}
+    for g in ranks:
+        c = g["coords"]
+        by_coord.setdefault((c["pipe"], c["tp"]), []).append(g["weights"])
+    for key, reps in by_coord.items():
+        if any(w != reps[0] for w in reps):
+            bad.append(f"the replicas of (pipe, tp) {key} hold different "
+                       "weights after a step")
+    return bad
+
+
+def _mesh_gaps(got, one) -> dict:
+    """A train case's relative gaps to one process: the step-1 grad norm
+    and (where both took a second step) the step-2 loss."""
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+    out = {"grad_norm_1": rel(got["grad_norms"][0], one["grad_norms"][0])}
+    if len(got["losses"]) > 1 and len(one["losses"]) > 1:
+        out["loss_2"] = rel(got["losses"][1], one["losses"][1])
+    return out
+
+
+def _nest(flat):
+    """``{"a/b": x}`` -> ``{"a": {"b": x}}``."""
+    out = {}
+    for p, v in flat.items():
+        keys = p.split("/")
+        d = out
+        for k in keys[:-1]:
+            d = d.setdefault(k, {})
+        d[keys[-1]] = v
+    return out
+
+
+def mesh_report(torch, cases, saved, one, out_dir):
+    """``dist_mesh``'s gates and records, and the cross-case gates of (a):
+    1f1b with FSDP on and off bitwise after its step, gpipe (weights
+    joined once a step) and 1f1b within bf16 ``TOL`` of each other.
+    Returns the launch totals and the failures by case."""
+    totals = {k: 0 for k in KERNELS}
+    bad = {}
+    for case in cases:
+        ranks = [s[case["name"]] for s in saved]
+        bad[case["name"]] = mesh_gates(torch, case, ranks,
+                                       one.get(case["name"]), out_dir)
+        for g in ranks:
+            recs = (list(g["launches"].values()) if case["kind"] == "serve"
+                    else [g["launches"]] if case["kind"] == "grads"
+                    else g["step_launches"])
+            for rec in recs:
+                for k, n in rec.items():
+                    totals[k] += n
+        pcfg = case["pcfg"]
+        emit({"phase": "dist_mesh", "case": case["name"],
+              "arch": case["arch"], "kind": case["kind"],
+              "layers": case["arch_cfg"].n_layers
+              + case["arch_cfg"].enc_layers,
+              "mesh": {"data": pcfg.data, "pipe": pcfg.pipe, "tp": pcfg.tp},
+              "schedule": pcfg.schedule, "fsdp": pcfg.fsdp,
+              "gather_weights_once": pcfg.gather_weights_once,
+              "stream_inputs": pcfg.stream_inputs,
+              "seq": case.get("seq"), "batch": case["batch"],
+              "n_micro": pcfg.n_micro,
+              "dtype": "float32" if case.get("fp32") else "bfloat16",
+              "where": f"{DIST_RANKS} processes time-slicing one card",
+              "coords": [g["coords"] for g in ranks],
+              "losses": ranks[0].get("losses") or ranks[0].get("loss"),
+              "one_process_loss": (one.get(case["name"]) or {}).get("loss"),
+              "grad_norms": ranks[0].get("grad_norms"),
+              "one_process_losses": (one.get(case["name"]) or {}).get(
+                  "losses"),
+              "one_process_grad_norms": (one.get(case["name"]) or {}).get(
+                  "grad_norms"),
+              "rel_gaps_to_one_process": (
+                  _mesh_gaps(ranks[0], one[case["name"]])
+                  if case["kind"] == "train" and case["name"] in one
+                  else None),
+              "step_ms_per_rank": [g.get("step_ms") for g in ranks],
+              "resident_bytes_per_rank": [g.get("resident_bytes")
+                                          for g in ranks],
+              "placement_bytes_per_rank": [g.get("placement_bytes")
+                                           for g in ranks],
+              "peak_gib_per_rank": [g["peak_gib"] for g in ranks],
+              "collectives_per_rank": [g["collectives"] for g in ranks],
+              "cache_bytes_per_rank": [g.get("cache_bytes") for g in ranks],
+              "prefill_ms_per_rank": [g.get("prefill_ms") for g in ranks],
+              "decode_tok_per_s": ranks[-1].get("decode_tok_per_s"),
+              "unequal": bad[case["name"]]})
+    names = {c["name"] for c in cases}
+    if {"smollm-pd2-1f1b", "smollm-pd2-1f1b-replicated"} <= names:
+        a = [s["smollm-pd2-1f1b"]["weights"][0] for s in saved]
+        b = [s["smollm-pd2-1f1b-replicated"]["weights"][0] for s in saved]
+        if a != b:
+            bad["fsdp_vs_replicated"] = [
+                "1f1b's weights after a step differ with FSDP on and off"]
+    if {"smollm-pd2-1f1b", "smollm-pd2-gpipe-once"} <= names:
+        x = saved[0]["smollm-pd2-1f1b"]["losses"]
+        y = saved[0]["smollm-pd2-gpipe-once"]["losses"]
+        if any(abs(p - q) > MESH_TOL["atol"] + MESH_TOL["rtol"] * abs(q)
+               for p, q in zip(x, y)):
+            bad["gpipe_vs_1f1b"] = [f"1f1b losses {x} vs gpipe {y}"]
+    emit({"phase": "dist_mesh", "launches": totals,
+          "fsdp_vs_replicated": "bitwise"
+          if not bad.get("fsdp_vs_replicated") else "differ"})
+    return totals, bad
 
 
 PHASE_SECONDS = {}

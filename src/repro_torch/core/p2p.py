@@ -64,7 +64,7 @@ from __future__ import annotations
 import json
 import time
 import zlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -103,14 +103,19 @@ def cotangent_stream(stream: str) -> str:
 
 @dataclass
 class PipeGroup:
-    """One pipe rank's view of its process group
-    (:func:`repro_torch.launch.mesh.init_pipe_group`): its rank, the
-    group's size (the pipe degree), the device its stages run on and the
-    ``torch.distributed`` group the hops use."""
+    """One pipe rank's view of its process group (the ``pipe`` axis of
+    :func:`repro_torch.launch.mesh.init_mesh_groups`'s mesh view, or of
+    ``init_pipe_group``'s): its rank, the
+    group's size (the pipe degree), the device its stages run on, the
+    ``torch.distributed`` group the hops use and ``peers``, the global
+    rank of every pipe rank (empty: the pipe group is the world, pipe rank
+    ``r`` is global rank ``r``).  ``torch.distributed``'s point-to-point
+    calls and ``broadcast`` name global ranks: :meth:`glob` maps."""
     rank: int
     size: int
     device: torch.device
     group: Any = None                 # None: the default (world) group
+    peers: Tuple[int, ...] = ()
 
     @property
     def first(self) -> bool:
@@ -119,6 +124,110 @@ class PipeGroup:
     @property
     def last(self) -> bool:
         return self.rank == self.size - 1
+
+    def glob(self, r: int) -> int:
+        """The global rank of pipe rank ``r``."""
+        return self.peers[r] if self.peers else r
+
+
+@dataclass
+class AxisGroup:
+    """One mesh axis as this rank sees it
+    (:func:`repro_torch.launch.mesh.init_mesh_groups`): its coordinate on
+    the axis, the axis's size, the ``torch.distributed`` group of the ranks
+    that differ from this one on the axis alone (None at size 1) and their
+    global ranks by coordinate.
+
+    Its collectives move every rank's tensor through the host (gloo takes
+    host tensors; a leaf crosses as its bytes, so any dtype does) and fold
+    in coordinate order, so every rank that holds a result gets the same
+    bits, whatever order gloo's own reductions would take.  Each call is
+    counted under its class in :attr:`stats`: ``calls``, ``bytes`` (what
+    this rank received from its peers in a call, summed) and ``wait_s``
+    (the host clock inside the call)."""
+    name: str
+    rank: int
+    size: int
+    device: torch.device
+    group: Any = None
+    peers: Tuple[int, ...] = ()
+    stats: Dict[str, Dict[str, float]] = field(default_factory=dict)
+
+    def gather(self, x: torch.Tensor, cls: str) -> List[torch.Tensor]:
+        """Every rank's ``x`` (one shape and dtype on all), in coordinate
+        order, on ``x``'s device; this rank's is ``x`` itself."""
+        if self.size == 1:
+            return [x]
+        import torch.distributed as dist
+        t0 = time.perf_counter()
+        x = x.detach()
+        host = _as_bytes(x.contiguous()).cpu()
+        parts = [torch.empty_like(host) for _ in range(self.size)]
+        dist.all_gather(parts, host, group=self.group)
+        out = [x if r == self.rank else parts[r].to(x.device).view(
+            x.dtype).reshape(x.shape) for r in range(self.size)]
+        self._count(cls, (self.size - 1) * host.numel(), t0)
+        return out
+
+    def _count(self, cls: str, nbytes: int, t0: float) -> None:
+        st = self.stats.setdefault(cls, {"calls": 0, "bytes": 0,
+                                         "wait_s": 0.0})
+        st["calls"] += 1
+        st["bytes"] += nbytes
+        st["wait_s"] += time.perf_counter() - t0
+
+    def sum(self, x: torch.Tensor, cls: str, *,
+            mean: bool = False) -> torch.Tensor:
+        """The sum (``mean``: the mean) of every rank's ``x``, folded in
+        fp32 in coordinate order and cast back to ``x``'s dtype."""
+        if self.size == 1:
+            return x
+        parts = self.gather(x, cls)
+        acc = parts[0].float()
+        for p in parts[1:]:
+            acc = acc + p.float()
+        if mean:
+            acc = acc / self.size
+        return acc.to(x.dtype)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int, cls: str, *,
+                       mean: bool = False) -> torch.Tensor:
+        """This rank's block (``x`` split evenly along ``dim``) of the sum
+        (``mean``: the mean) of every rank's ``x``: each rank sends every
+        peer that peer's block (one all-to-all through the host) and folds
+        the blocks it receives in fp32 in coordinate order, cast back to
+        ``x``'s dtype; the bits are those of :meth:`sum`'s block."""
+        if self.size == 1:
+            return x
+        import torch.distributed as dist
+        t0 = time.perf_counter()
+        blocks = [b.contiguous() for b in x.detach().chunk(self.size, dim)]
+        host = torch.cat([_as_bytes(b) for b in blocks]).cpu()
+        got = torch.empty_like(host)
+        dist.all_to_all_single(got, host, group=self.group)
+        mine = blocks[self.rank]
+        n = host.numel() // self.size
+        acc = None
+        for r in range(self.size):
+            p = mine if r == self.rank else got[r * n:(r + 1) * n].to(
+                x.device).view(x.dtype).reshape(mine.shape)
+            acc = p.float() if acc is None else acc + p.float()
+        if mean:
+            acc = acc / self.size
+        self._count(cls, (self.size - 1) * n, t0)
+        return acc.to(x.dtype)
+
+    def cat(self, x: torch.Tensor, dim: int, cls: str) -> torch.Tensor:
+        """Every rank's block of a tensor split evenly along ``dim``, joined:
+        the whole tensor."""
+        if self.size == 1:
+            return x
+        return torch.cat(self.gather(x, cls), dim)
+
+    def block(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block of ``x`` split evenly along ``dim``."""
+        n = x.shape[dim] // self.size
+        return x.narrow(dim, self.rank * n, n)
 
 
 def hop_node(wire):
@@ -365,7 +474,8 @@ class P2PHop:
         if nbytes:
             msgs.append(buf)
         tg = _stream_tag(stream)
-        works = [self.dist.isend(x, dst, group=self.group.group, tag=tg)
+        peer = self.group.glob(dst)
+        works = [self.dist.isend(x, peer, group=self.group.group, tag=tg)
                  for x in msgs]
         self.inflight.setdefault(stream, []).append((works, msgs))
         st = self.stats[payload_class(stream)]
@@ -417,14 +527,15 @@ class P2PHop:
         """One payload from ``src``, and the indices of the wire leaves
         whose sender waits for their cotangent."""
         tg = _stream_tag(stream)
+        peer = self.group.glob(src)
         t0 = time.perf_counter()
         pre = torch.empty(4, dtype=torch.int64)
-        self.dist.irecv(pre, src, group=self.group.group, tag=tg).wait()
+        self.dist.irecv(pre, peer, group=self.group.group, tag=tg).wait()
         micro, stage, hlen, nbytes = (int(x) for x in pre.tolist())
         key = (stream, src, stage)
         if hlen:
             hbuf = torch.empty(hlen, dtype=torch.uint8)
-            self.dist.irecv(hbuf, src, group=self.group.group, tag=tg).wait()
+            self.dist.irecv(hbuf, peer, group=self.group.group, tag=tg).wait()
             self.recv_layouts[key] = json.loads(bytes(hbuf.tolist()))
         layout = self.recv_layouts.get(key)
         if layout is None:
@@ -436,7 +547,7 @@ class P2PHop:
                                f"from rank {src} do not fill its layout")
         buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=self.pin)
         if nbytes:
-            self.dist.irecv(buf, src, group=self.group.group, tag=tg).wait()
+            self.dist.irecv(buf, peer, group=self.group.group, tag=tg).wait()
         self.stats[payload_class(stream)]["wait_s"] += \
             time.perf_counter() - t0
         offset = [0]
@@ -634,10 +745,12 @@ class Backprop:
 def group_loss(group: PipeGroup, loss):
     """The last rank's loss on every rank (0-d fp32 on its device; the
     others pass anything, None included)."""
+    if group.size == 1:
+        return loss
     import torch.distributed as dist
     buf = (loss.detach().float().reshape(1).cpu() if group.last
            else torch.zeros(1, dtype=torch.float32))
-    dist.broadcast(buf, src=group.size - 1, group=group.group)
+    dist.broadcast(buf, src=group.glob(group.size - 1), group=group.group)
     return loss if group.last else buf[0].to(group.device)
 
 

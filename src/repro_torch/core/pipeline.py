@@ -76,10 +76,10 @@ keeps each rank's own stages' caches; under autograd the forward
 executor's hops carry their cotangents back (:class:`p2p.Backprop`), so
 autograd's reverse clock-cycle crosses the processes.
 
-What raises: data and tensor parallelism (A9,
-:func:`check_single_replica`), an ``int8-ef`` wire under autograd in the
-forward executor (:func:`check_plan`), and streamed inputs under autograd
-in the forward executor across processes (ROADMAP A4d).
+Either executor runs one data-parallel replica of one model shard: the
+mesh's other axes (data, FSDP, ``tp``) live in the model and the step
+(``models.lm``, ``launch.steps``).  What raises: an ``int8-ef`` wire under
+autograd in the forward executor (:func:`check_plan`).
 """
 from __future__ import annotations
 
@@ -116,16 +116,6 @@ class TickCtx:
 #       -> (carry_out, skips_out: dict, resident_out)
 # ``carry`` is None on stage 0, which reads ``ctx.fresh`` instead.
 StageApplyFn = Callable[..., Tuple[Any, Dict[str, Any], Any]]
-
-
-def check_single_replica(cfg: ParallelConfig) -> None:
-    """The port runs one replica of one model copy: tp, data, pod and dp2
-    1."""
-    if (cfg.tp, cfg.data, cfg.pod, cfg.dp2) != (1, 1, 1, 1):
-        raise NotImplementedError(
-            f"tp={cfg.tp}, data={cfg.data}, pod={cfg.pod}, dp2={cfg.dp2}: "
-            "tensor and data parallelism are not ported yet (ROADMAP A9); "
-            "pass tp=1, data=1, pod=1, dp2=1")
 
 
 def check_plan(tplan: plan_lib.TaskPlan, cfg: ParallelConfig, *,
@@ -287,6 +277,22 @@ class _Wire:
     def dec(self, stream: str, wire, proto):
         return wire if proto is None else self.codecs[stream].dec(wire,
                                                                   proto)
+
+
+class _FromStream(torch.autograd.Function):
+    """Stage 0's streamed input on rank 0 of a pipe group under autograd:
+    forward the value the shard rotations brought (``landed``, an exact
+    copy), backward its cotangent to the slice of rank 0's own inputs it
+    was cut from (``origin``).  Stage 0, the stream's one reader, runs on
+    rank 0, which holds those inputs: the cotangents never travel."""
+
+    @staticmethod
+    def forward(ctx, landed, origin):
+        return landed.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
 
 
 class _Stream:
@@ -622,9 +628,9 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
     Under grad mode pass a :class:`p2p.Backprop` and differentiate with
     its ``grad``: each hop's cotangent comes back through it, counted
     under ``hops["cotangent"]`` as it ships.  Streamed inputs under grad
-    across processes are ROADMAP A4d and raise.
+    rotate as values; rank 0 sends their cotangents to its own inputs
+    (:class:`_FromStream`).
     """
-    check_single_replica(cfg)
     if tplan.has_backward:
         raise ValueError("plans with backward tasks run through "
                          "run_pipeline_grad_tasks (pipeline_grad_call)")
@@ -638,13 +644,6 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
     streaming = _streaming(tplan, cfg)
     devices, hop = _hop(tplan, cfg, devices, group)
     if group is not None and grad:
-        if streaming:
-            raise NotImplementedError(
-                "stream_inputs in the forward executor under autograd "
-                "across processes: the shards' rotations would carry their "
-                "cotangents back too, not ported yet (ROADMAP A4d); stream "
-                "with a fused schedule (1f1b, gpipe_tasked, interleaved:v, "
-                "zb) or without a group")
         if backprop is None:
             raise ValueError("the forward executor under grad in a pipe "
                              "group needs a p2p.Backprop to carry the "
@@ -694,6 +693,10 @@ def run_pipeline_tasks(stage_apply: StageApplyFn,
             if r == 0:
                 fresh = (stream.read(t, tplan, i) if stream else
                          tree_map(lambda a: a[i].to(devices[r]), inputs_mb))
+                if stream and group is not None and grad:
+                    fresh = tree_map(
+                        lambda v, o: _FromStream.apply(v, o[i])
+                        if o.requires_grad else v, fresh, inputs_mb)
             ctx = TickCtx(stage=r, micro=i, valid=True, t=t, fresh=fresh,
                           n_stages=tplan.n_stages, n_micro=m)
             wrapped = checkpointing.wrap_stage_for_micro(
@@ -772,7 +775,6 @@ def pipeline_call(stage_apply: StageApplyFn,
     differentiates its own roots (the loss on the last rank, nothing
     elsewhere) and the cotangents cross between the processes.
     """
-    check_single_replica(cfg)
     if cfg.virtual_stages > 1:
         raise ValueError("interleaved schedules are train-only; forward "
                          "execution runs the clock-cycle plan")
@@ -881,7 +883,6 @@ def run_pipeline_grad_tasks(stage_apply: StageApplyFn,
     ``per_route`` high-water and ``hops``: per payload class the hops this
     rank sent, their bytes and its host-clock wait.
     """
-    check_single_replica(cfg)
     if not tplan.has_backward:
         raise ValueError("forward-only plans run through run_pipeline_tasks")
     check_plan(tplan, cfg)
@@ -1149,7 +1150,6 @@ def pipeline_grad_call(stage_apply: StageApplyFn,
     tick ahead; the two give bitwise equal results.  ``devices`` is then
     ignored: every stage of the rank runs on ``group.device``.
     """
-    check_single_replica(cfg)
     checkpointing.check_policy(cfg.remat)
     tplan = plan_lib.plan_for(cfg.schedule, cfg.n_micro, cfg.pipe,
                               skips=skips, portals=cfg.portals,

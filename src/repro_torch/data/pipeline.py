@@ -6,7 +6,8 @@ exactly as the reference draws it, so both packages see the same batches bit
 for bit.  Zipfian token ids, document boundaries every ~``doc_len`` tokens,
 labels = next token.  The prefetch thread moves each batch to the device
 (``.to(device, non_blocking=True)`` from pinned host memory on a card).
-Sharding a batch over data-parallel replicas is not ported (ROADMAP A9).
+Over data-parallel replicas each one moves only its slice of every batch
+to its device (:func:`make_sharded_loader`).
 """
 from __future__ import annotations
 
@@ -133,8 +134,29 @@ def make_loader(cfg: DataConfig, device: DeviceLike, arch=None,
                       lambda b: to_device(b, device), cfg.prefetch)
 
 
-def make_sharded_loader(*args, **kwargs):
-    """Per-replica batch shards over (pod, data): not ported yet."""
-    raise NotImplementedError(
-        "sharding batches over data-parallel replicas is not ported yet: "
-        "ROADMAP A9; use make_loader for one replica")
+def replica_slice(batch: Dict[str, np.ndarray], replica: int,
+                  replicas: int) -> Dict[str, np.ndarray]:
+    """Replica ``replica``'s rows of a batch: the leading dim split over
+    ``replicas`` in order (the reference's ``batch_specs``, leading dim
+    over ``(pod, data)``); the slices concatenate to the batch."""
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % replicas:
+            raise ValueError(f"batch {v.shape[0]} of {k!r} does not split "
+                             f"over {replicas} replicas")
+        n = v.shape[0] // replicas
+        out[k] = v[replica * n:(replica + 1) * n]
+    return out
+
+
+def make_sharded_loader(cfg: DataConfig, device: DeviceLike, replica: int,
+                        replicas: int, arch=None,
+                        start_step: int = 0) -> Prefetcher:
+    """One data-parallel replica's loader (reference
+    ``make_sharded_loader``): each ``(seed, step)`` batch drawn on the host
+    as :class:`SyntheticLM` draws it, and only this replica's slice
+    (:func:`replica_slice`) moved to ``device``."""
+    ds = SyntheticLM(cfg, arch)
+    return Prefetcher(ds.stream(start_step),
+                      lambda b: to_device(replica_slice(b, replica, replicas),
+                                          device), cfg.prefetch)

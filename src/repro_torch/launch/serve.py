@@ -3,14 +3,15 @@
 Counterpart of :mod:`repro.launch.serve`.  Both phases run the forward-only
 GPipe clock-cycle plan through ``pipeline_call``; the resident caches (ring
 KV caches, or RWKV-6 states) are read and updated on each stage's forward
-ticks, per micro-batch slot.  The full configs run with ``data=1`` and
-``tp=1`` (the port has no tensor parallelism): all pipeline stages on the
-one card given by ``--device`` (the default ``cuda``; ``cpu`` runs the plain
-versions of the kernels), in this process or, with ``--nproc R`` (pipe R),
-one pipe rank in each of R spawned processes joined over gloo
-(:mod:`repro_torch.launch.mesh`), each holding its own stages' weights and
-caches; the last rank samples and sends each token to rank 0, which embeds
-it for the next decode step.
+ticks, per micro-batch slot.  Every stage runs on the one card given by
+``--device`` (the default ``cuda``; ``cpu`` runs the plain versions of the
+kernels), in this process or, with ``--nproc N``, one rank of the
+``(data, pipe, tp)`` mesh in each of N spawned processes joined over gloo
+(:mod:`repro_torch.launch.mesh`; ``tp`` from the config, ``--data``
+replicas, pipe ``N / (data * tp)``), each holding its own stages' weights
+(its ``tp`` blocks) and caches (its kv heads, its replica's slice of the
+batch); the last pipe rank samples and sends each token to rank 0, which
+embeds it for the next decode step.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --prompt-len 2048 \\
         --gen 32 --batch 8
@@ -127,7 +128,7 @@ def _add_hops(total: Dict[str, Dict[str, float]], hops) -> None:
 def serve(arch: ArchConfig, pcfg: ParallelConfig, *, prompt_len: int,
           gen: int, batch: int, device="cuda", dtype=torch.bfloat16,
           seed: int = 0, temperature: float = 0.0,
-          group: Optional[p2p.PipeGroup] = None) -> Dict[str, Any]:
+          mesh_view: Optional[mesh.MeshView] = None) -> Dict[str, Any]:
     """Prefill a random prompt batch, then decode ``gen - 1`` more tokens.
 
     Weights come from ``seed``, prompts (and an enc-dec's frames,
@@ -135,20 +136,27 @@ def serve(arch: ArchConfig, pcfg: ParallelConfig, *, prompt_len: int,
     generated tokens, the last logits and the timings; ``launches`` holds
     the kernel launches of the prefill and of all decode steps.
 
-    With a pipe ``group`` (:func:`repro_torch.launch.mesh.init_pipe_group`)
-    this process serves its rank's share on ``group.device`` (``device``
-    is ignored): its stages' weights (``LMModel.init(..., rank=)``) and
-    caches (``init_cache(..., rank=)``).  Every rank draws the same
-    prompts, so the last rank's sampler state is one process's; rank 0
-    embeds, the last rank samples and sends each token to rank 0 (the
-    ``token`` hop class).  ``tokens``, ``logits`` and the timings are the
-    last rank's (None elsewhere, but the timings: each rank's own, the
-    clocks started together); ``launches``, ``cache_bytes``, ``hops``
-    (per payload class over the prefill and every decode step) and
-    ``park`` (each plan's high-water) are this rank's, and every rank gets
-    ``ranks``: per rank those, its peak memory on a card, and the last
-    rank's tokens."""
-    dev = resolve_device(device) if group is None else group.device
+    On a mesh (``mesh_view``, :func:`repro_torch.launch.mesh.
+    init_mesh_groups`, or a pipe group's, :func:`~repro_torch.launch.mesh.
+    init_pipe_group`) this process serves its rank's blocks on
+    ``mesh_view.device`` (``device`` is ignored): its pipe rank's stages,
+    the weights joined over the FSDP axes once, its ``tp`` blocks kept,
+    its kv heads' caches, and its replica's rows of the prompts.  Every
+    rank draws the same prompts, so the last pipe rank's sampler state is
+    one process's; pipe rank 0 embeds, the last samples and sends each
+    token to pipe rank 0 (the ``token`` hop class).  ``tokens`` (the
+    replica's), ``logits`` and the timings are the last pipe rank's (None
+    elsewhere, but the timings: each rank's own, the clocks started
+    together); ``launches``, ``cache_bytes``, ``hops`` (per payload class
+    over the prefill and every decode step), ``park`` (each plan's
+    high-water) and ``collectives`` are this rank's, and every rank gets
+    ``ranks``: per rank of the world those, its peak memory on a card,
+    and its tokens."""
+    world = mesh_view
+    group = None
+    if world is not None and world.pipe.size > 1:
+        group = world.pipe
+    dev = resolve_device(device) if world is None else world.device
     rank = None if group is None else group.rank
     first = group is None or group.first
     last = group is None or group.last
@@ -156,28 +164,33 @@ def serve(arch: ArchConfig, pcfg: ParallelConfig, *, prompt_len: int,
     pshape = ShapeConfig("prefill", prompt_len, batch, "prefill")
     dshape = ShapeConfig("decode", max_len, batch, "decode")
     pcfg = pcfg.with_(n_micro=configs.derive_n_micro(pshape, pcfg))
-    model = LMModel(arch, pcfg, dtype=dtype, device=dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(seed),
-                        rank=rank)
+    model = LMModel(arch, pcfg, dtype=dtype, device=dev, mesh=mesh_view)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    if mesh_view is not None:
+        params = model.gather_fsdp(params)
     park_p: Dict[str, Any] = {}
     park_d: Dict[str, Any] = {}
     prefill = steps.build_prefill_step(model, pcfg, model.stage_devices,
-                                       pshape, park_info=park_p, group=group)
+                                       pshape, park_info=park_p)
     decode = steps.build_serve_step(model, pcfg, model.stage_devices, dshape,
-                                    park_info=park_d, group=group)
+                                    park_info=park_d)
     cache = model.init_cache(dshape, pcfg.n_micro, filled=False, rank=rank)
     tok_gen = torch.Generator(device=dev).manual_seed(seed + 1)
     prompts = torch.randint(0, arch.vocab, (batch, prompt_len),
                             generator=tok_gen, device=dev)
     pbatch = prompt_batch(arch, prompts, dtype, tok_gen)
-    hop = None if group is None or group.size == 1 else p2p.P2PHop(group)
+    if mesh_view is not None:
+        n = batch // mesh_view.replicas
+        lo = mesh_view.replica * n
+        pbatch = {k: v[lo:lo + n] for k, v in pbatch.items()}
+    hop = None if group is None else p2p.P2PHop(group)
     hops = {c: {"hops": 0, "bytes": 0, "wait_s": 0.0} for c in p2p.CLASSES}
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    if group is not None:
+    if world is not None:
         import torch.distributed as dist
         _sync(dev)
-        dist.barrier(group=group.group)          # start the clocks together
+        dist.barrier()                           # start the clocks together
 
     l0 = _launches()
     _sync(dev)
@@ -231,7 +244,9 @@ def serve(arch: ArchConfig, pcfg: ParallelConfig, *, prompt_len: int,
     }
     if dev.type == "cuda":
         out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
-    if group is not None:
+    if mesh_view is not None:
+        out["collectives"] = mesh_view.stats()
+    if world is not None:
         import torch.distributed as dist
         out["hops"] = hops
         out["park"] = {"prefill": dict(park_p, hops=None),
@@ -239,9 +254,9 @@ def serve(arch: ArchConfig, pcfg: ParallelConfig, *, prompt_len: int,
         mine = {k: out[k] for k in ("launches", "cache_bytes", "hops",
                                     "park", "prefill_s", "decode_s",
                                     "decode_tok_per_s", "peak_mem_bytes",
-                                    "tokens") if k in out}
-        out["ranks"] = [None] * group.size
-        dist.all_gather_object(out["ranks"], mine, group=group.group)
+                                    "tokens", "collectives") if k in out}
+        out["ranks"] = [None] * dist.get_world_size()
+        dist.all_gather_object(out["ranks"], mine)
     return out
 
 
@@ -257,20 +272,15 @@ def main():
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--nproc", type=int, default=0,
-                    help="run each pipe rank in its own process (pipe = "
-                         "nproc), over gloo")
+                    help="run each rank of the (data, pipe, tp) mesh in its "
+                         "own process, over gloo: the world size (pipe = "
+                         "nproc / (data * tp))")
+    ap.add_argument("--data", type=int, default=1,
+                    help="data-parallel replicas of the --nproc mesh")
     args = ap.parse_args()
 
-    if args.smoke:
-        arch = configs.smoke_arch(args.arch)
-        pcfg = configs.smoke_parallel(args.arch)
-        dtype = torch.float32
-    else:
-        arch = configs.get_arch(args.arch)
-        pcfg = configs.get_parallel(args.arch).with_(data=1, tp=1)
-        dtype = torch.bfloat16
-    if args.nproc:
-        pcfg = pcfg.with_(pipe=args.nproc)
+    from repro_torch.launch.train import mesh_config
+    arch, pcfg, dtype = mesh_config(args)
     dev = resolve_device(args.device)
     job = dict(arch=arch, pcfg=pcfg, prompt_len=args.prompt_len,
                gen=args.gen, batch=args.batch, dtype=dtype, seed=args.seed,
@@ -289,17 +299,17 @@ def main():
 
 def _rank_main(rank: int, nproc: int, init_method: str, device: str,
                job: Dict[str, Any], args) -> None:
-    """One pipe rank of ``--nproc``: join the group, serve, and on rank 0
-    print the group's records."""
-    group = mesh.init_pipe_group(rank, nproc, init_method, device=device,
-                                 pcfg=job["pcfg"])
+    """One rank of ``--nproc``: join the mesh, serve, and on rank 0 print
+    the world's records."""
+    view = mesh.init_mesh_groups(rank, nproc, init_method, job["pcfg"],
+                                 device=device)
     try:
-        res = serve(group=group, **job)
+        res = serve(mesh_view=view, **job)
         _check_finite(res)
-        if group.first:
-            _report(res, group.device, args)
+        if rank == 0:
+            _report(res, view.device, args)
     finally:
-        mesh.destroy_pipe_group(group)
+        mesh.destroy_pipe_group(view.pipe)
 
 
 def _report(res: Dict[str, Any], dev: torch.device, args) -> None:

@@ -4,13 +4,15 @@ scheduler (``--schedule 1f1b``, ``gpipe_tasked``, ``interleaved:v``, ``zb``).
 
 Counterpart of :mod:`repro.launch.train`'s loop.  All pipeline stages sit on
 the one card given by ``--device`` (the default ``cuda``; ``cpu`` runs the
-plain versions of the kernels), in this process or, with ``--nproc R``
-(pipe R, any schedule: gpipe's autograd backward crosses the processes
-too), one pipe rank in each of R spawned processes joined over gloo
-(:mod:`repro_torch.launch.mesh`); the full configs run
-with ``data=1`` and ``tp=1``.  The reference's ``ElasticTrainer``
-supervisor (async checkpoints, injected faults, elastic re-plan) is
-ROADMAP A11: its flags raise.
+plain versions of the kernels), in this process or, with ``--nproc N``
+(any schedule: gpipe's autograd backward crosses the processes too), one
+rank of the ``(pod, data, pipe, tp)`` mesh in each of N spawned
+processes joined over gloo (:mod:`repro_torch.launch.mesh`): ``tp`` from
+the config, ``--data`` replicas (1 by default),
+pipe ``N / (data * tp)``.  In one process the configs run at ``data=1``
+and ``tp=1``.  The reference's ``ElasticTrainer`` supervisor (async
+checkpoints, injected faults, elastic re-plan) is ROADMAP A11: its flags
+raise.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --steps 5 --seq-len 4096 --batch 16 --n-micro 8
@@ -39,16 +41,16 @@ from repro_torch import configs
 from repro_torch.configs.base import (REMAT_POLICIES, RESIDUAL_MODES,
                                       ArchConfig, ParallelConfig,
                                       ShapeConfig)
-from repro_torch.core.p2p import PipeGroup
 from repro_torch.core.pipeline import WIRE_CODEC_RANGE
-from repro_torch.data.pipeline import (DataConfig, SyntheticLM, make_loader,
+from repro_torch.data.pipeline import (DataConfig, SyntheticLM,
+                                       make_sharded_loader, replica_slice,
                                        to_device)
 from repro_torch.devices import resolve_device
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
 from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
-from repro_torch.launch import mesh
+from repro_torch.launch import mesh, sharding
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models.lm import LMModel
 from repro_torch.optim import optimizers as optim
@@ -230,11 +232,32 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def placement_bytes(model: LMModel, *, with_ef: bool = False,
+                    state_bytes: int = 12) -> int:
+    """Bytes the placement gives this mesh rank of the weights and their
+    AdamW state (``state_bytes`` a parameter: two fp32 moments and the
+    fp32 master; and the fp32 error-feedback residual with ``with_ef``):
+    each leaf's block, counted from the whole tree's shapes on the meta
+    device."""
+    pipe = model.mesh.pipe
+    meta = LMModel(model.arch, model.pcfg, dtype=model.dtype, device="meta")
+    share = meta.init(torch.Generator(),
+                      rank=pipe.rank if pipe.size > 1 else None)
+    total = 0
+    for leaf, spec in zip(tree_leaves(share), tree_leaves(model.specs)):
+        n = 1
+        for d in sharding.local_shape(tuple(leaf.shape), spec,
+                                      model.mesh.shape):
+            n *= d
+        total += n * (leaf.element_size() + state_bytes + 4 * with_ef)
+    return total
+
+
 def train(arch: ArchConfig, pcfg: ParallelConfig, *, seq_len: int, batch: int,
           steps: int, device="cuda", dtype=torch.bfloat16, seed: int = 0,
           ocfg: Optional[optim.OptimizerConfig] = None,
           fixed_batch: bool = False, trace: bool = False,
-          group: Optional[PipeGroup] = None) -> Dict[str, Any]:
+          mesh_view: Optional[mesh.MeshView] = None) -> Dict[str, Any]:
     """Train ``steps`` steps from random weights (``seed``) on
     :class:`SyntheticLM` batches (``seed``; an enc-dec's hold ``frames``,
     ``dec_tokens`` and ``labels``, a vision stub's also 256 ``patches``),
@@ -252,36 +275,44 @@ def train(arch: ArchConfig, pcfg: ParallelConfig, *, seq_len: int, batch: int,
     compressor (``TRACED_RANGES``) as ``trace``; that step is not in
     ``history``.
 
-    With a pipe ``group`` (:func:`repro_torch.launch.mesh.init_pipe_group`;
-    any schedule) this process trains its rank's share on
-    ``group.device`` (``device`` is ignored): every rank reads the same
-    batches, each record's metrics are the group's (one loss, one grad
-    norm) and its ``step_s`` and launches this rank's, and ``park_info``
-    is this rank's (its ``buffer_slots`` and per-class ``hops``).  Every
-    rank also gets ``ranks``: per rank its ``peak_mem_bytes`` (on a
-    card), ``park_info`` and ``step_s``."""
-    dev = resolve_device(device) if group is None else group.device
-    if trace and (dev.type != "cuda" or group is not None):
+    On a mesh (``mesh_view``, :func:`repro_torch.launch.mesh.
+    init_mesh_groups`, or a pipe group's, :func:`~repro_torch.launch.mesh.
+    init_pipe_group`; any schedule) this process trains its rank's blocks
+    on ``mesh_view.device`` (``device`` is ignored), on its replica's
+    slice of every batch (``make_sharded_loader``): each record's metrics
+    are the mesh's (the mean loss over the replicas, one grad norm) and
+    its ``step_s`` and launches this rank's, and ``park_info`` is this
+    rank's (its ``buffer_slots`` and per-class ``hops``).  Every rank also
+    reports ``resident_bytes`` (its weights and optimizer state as they
+    lie), ``placement_bytes`` (the placement's count of them) and
+    ``collectives`` (per class: calls, bytes and host-clock wait, over
+    all the steps), and gets ``ranks``: per rank of the world those, its
+    ``peak_mem_bytes`` (on a card), ``park_info`` and ``step_s``."""
+    dev = resolve_device(device) if mesh_view is None else mesh_view.device
+    if trace and (dev.type != "cuda" or mesh_view is not None):
         raise ValueError("trace profiles the card from one process: pass a "
                          "CUDA device and no pipe group")
     ocfg = ocfg or optim.OptimizerConfig()
     shape = ShapeConfig("train", seq_len, batch, "train")
-    model = LMModel(arch, pcfg, dtype=dtype, device=dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(seed),
-                        rank=None if group is None else group.rank)
-    opt = optim.init(ocfg, params,
-                     with_ef=pcfg.grad_compression == "int8_ef")
+    model = LMModel(arch, pcfg, dtype=dtype, device=dev, mesh=mesh_view)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    with_ef = pcfg.grad_compression == "int8_ef"
+    opt = optim.init(ocfg, params, with_ef=with_ef)
     step = steps_lib.build_train_step(model, pcfg, model.stage_devices, shape,
-                                      ocfg, group=group)
+                                      ocfg)
     data = DataConfig(seed=seed, vocab=arch.vocab, seq_len=seq_len,
                       global_batch=batch)
     loader = None
+    rep = (0, 1) if mesh_view is None else (mesh_view.replica,
+                                            mesh_view.replicas)
     if fixed_batch:
-        batches = itertools.repeat(model_batch(
-            to_device(SyntheticLM(data, arch).batch_at(0), dev), dtype))
+        batches = itertools.repeat(model_batch(to_device(replica_slice(
+            SyntheticLM(data, arch).batch_at(0), *rep), dev), dtype))
     else:
-        loader = make_loader(data, dev, arch)
+        loader = make_sharded_loader(data, dev, *rep, arch)
         batches = (model_batch(b, dtype) for b in loader)
+    if mesh_view is not None:
+        mesh_view.reset_stats()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     history = []
@@ -318,13 +349,20 @@ def train(arch: ArchConfig, pcfg: ParallelConfig, *, seq_len: int, batch: int,
         out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
     if trace:
         out["trace"] = traced
-    if group is not None:
+    if mesh_view is not None:
+        out["collectives"] = mesh_view.stats()
+        kept = [params, opt.mu, opt.nu, opt.master] + ([opt.ef] if with_ef
+                                                       else [])
+        out["resident_bytes"] = sum(a.nbytes for t in kept
+                                    for a in tree_leaves(t))
+        out["placement_bytes"] = placement_bytes(model, with_ef=with_ef)
         import torch.distributed as dist
-        mine = {k: out[k] for k in ("park_info", "peak_mem_bytes")
-                if k in out}
+        mine = {k: out[k] for k in ("park_info", "peak_mem_bytes",
+                                    "collectives", "resident_bytes",
+                                    "placement_bytes") if k in out}
         mine["step_s"] = [rec["step_s"] for rec in history]
-        out["ranks"] = [None] * group.size
-        dist.all_gather_object(out["ranks"], mine, group=group.group)
+        out["ranks"] = [None] * dist.get_world_size()
+        dist.all_gather_object(out["ranks"], mine)
     return out
 
 
@@ -369,8 +407,12 @@ def main():
     ap.add_argument("--trace", action="store_true",
                     help="profile one more step: device ms by kernel family")
     ap.add_argument("--nproc", type=int, default=0,
-                    help="run each pipe rank in its own process (pipe = "
-                         "nproc; any schedule, gpipe included), over gloo")
+                    help="run each rank of the (data, pipe, tp) mesh in its "
+                         "own process, over gloo: the world size (pipe = "
+                         "nproc / (data * tp); any schedule, gpipe "
+                         "included)")
+    ap.add_argument("--data", type=int, default=1,
+                    help="data-parallel replicas of the --nproc mesh")
     # the reference's ElasticTrainer flags (ROADMAP A11)
     ap.add_argument("--ckpt-dir")
     ap.add_argument("--ckpt-every", type=int)
@@ -383,19 +425,7 @@ def main():
             f"{_elastic_flags(args)}: checkpoints, fault injection and "
             "elastic restarts (ElasticTrainer) are not ported yet: ROADMAP A11")
 
-    if args.smoke:
-        arch = configs.smoke_arch(args.arch)
-        pcfg = configs.smoke_parallel(args.arch)
-        dtype = torch.float32
-    else:
-        arch = configs.get_arch(args.arch)
-        pcfg = configs.get_parallel(args.arch).with_(data=1, tp=1)
-        dtype = torch.bfloat16
-    if args.nproc and args.pipe not in (0, args.nproc):
-        raise ValueError(f"--nproc {args.nproc} runs pipe {args.nproc}, "
-                         f"not --pipe {args.pipe}")
-    if args.pipe or args.nproc:
-        pcfg = pcfg.with_(pipe=args.pipe or args.nproc)
+    arch, pcfg, dtype = mesh_config(args, args.pipe)
     shape = ShapeConfig("train", args.seq_len, args.batch, "train")
     pcfg = pcfg.with_(remat=args.remat, schedule=args.schedule,
                       residuals=args.residuals, grad_reduce=args.grad_reduce)
@@ -409,7 +439,8 @@ def main():
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "cpu")
     procs = (f" in {args.nproc} processes (gloo)" if args.nproc else "")
-    print(f"[train] {arch.name}: pipe={pcfg.pipe} m={pcfg.n_micro} "
+    print(f"[train] {arch.name}: data={pcfg.data} pipe={pcfg.pipe} "
+          f"tp={pcfg.tp} m={pcfg.n_micro} "
           f"schedule={pcfg.schedule} remat={pcfg.remat} "
           f"seq={args.seq_len} batch={args.batch} "
           f"{str(dtype).split('.')[-1]} on {where}{procs}", flush=True)
@@ -427,18 +458,49 @@ def main():
     mesh.spawn(_rank_main, args.nproc, (args.device, job), timeout_s=None)
 
 
+def mesh_config(args, pipe: int = 0):
+    """``(arch, pcfg, dtype)`` of the CLI's flags: the smoke arch in fp32 or
+    the full one in bf16; in one process data and tp 1, with ``--nproc``
+    the config's tp, ``--data`` replicas and pipe the rest of the world.
+    ``pipe`` (the train CLI's ``--pipe``; 0: none) overrides the config's
+    pipe degree in one process and must agree with the world's."""
+    if args.smoke:
+        arch = configs.smoke_arch(args.arch)
+        pcfg = configs.smoke_parallel(args.arch)
+        dtype = torch.float32
+    else:
+        arch = configs.get_arch(args.arch)
+        pcfg = configs.get_parallel(args.arch)
+        dtype = torch.bfloat16
+    pcfg = pcfg.with_(pod=1, dp2=1, data=args.data,
+                      tp=pcfg.tp if args.nproc else 1)
+    if not args.nproc:
+        if args.data != 1:
+            raise ValueError("--data needs --nproc: one process a rank")
+        return arch, pcfg.with_(pipe=pipe or pcfg.pipe), dtype
+    if args.nproc % (pcfg.data * pcfg.tp):
+        raise ValueError(f"--nproc {args.nproc} is not a mesh of data "
+                         f"{pcfg.data} x tp {pcfg.tp}")
+    world_pipe = args.nproc // (pcfg.data * pcfg.tp)
+    if pipe not in (0, world_pipe):
+        raise ValueError(f"--nproc {args.nproc} at data {pcfg.data} and tp "
+                         f"{pcfg.tp} runs pipe {world_pipe}, not --pipe "
+                         f"{pipe}")
+    return arch, pcfg.with_(pipe=world_pipe), dtype
+
+
 def _rank_main(rank: int, nproc: int, init_method: str, device: str,
                job: Dict[str, Any]) -> None:
-    """One pipe rank of ``--nproc``: join the group, train, and on rank 0
-    print the group's records."""
-    group = mesh.init_pipe_group(rank, nproc, init_method, device=device,
-                                 pcfg=job["pcfg"])
+    """One rank of ``--nproc``: join the mesh, train, and on rank 0 print
+    the world's records."""
+    view = mesh.init_mesh_groups(rank, nproc, init_method, job["pcfg"],
+                                 device=device)
     try:
-        res = train(group=group, **job)
-        if group.first:
-            _report(res, group.device)
+        res = train(mesh_view=view, **job)
+        if rank == 0:
+            _report(res, view.device)
     finally:
-        mesh.destroy_pipe_group(group)
+        mesh.destroy_pipe_group(view.pipe)
 
 
 def _report(res: Dict[str, Any], dev: torch.device) -> None:
@@ -454,9 +516,14 @@ def _report(res: Dict[str, Any], dev: torch.device) -> None:
         for r, rec in enumerate(res["ranks"]):
             peak = (f"peak memory {rec['peak_mem_bytes'] / 2**30:.2f} GiB, "
                     if "peak_mem_bytes" in rec else "")
-            print(f"[train] rank {r}: {peak}"
-                  f"buffer high-water {rec['park_info']['buffer_slots']}, "
-                  f"hops {json.dumps(rec['park_info']['hops'])}")
+            slots = rec["park_info"].get("buffer_slots")
+            mem = (f"resident {rec['resident_bytes']} B (placement "
+                   f"{rec['placement_bytes']} B), "
+                   if "resident_bytes" in rec else "")
+            print(f"[train] rank {r}: {peak}{mem}"
+                  f"buffer high-water {slots}, "
+                  f"hops {json.dumps(rec['park_info'].get('hops'))}, "
+                  f"collectives {json.dumps(rec.get('collectives'))}")
     else:
         print(f"[train] buffer high-water per rank {res['park_info']}")
     if dev.type == "cuda" and "ranks" not in res:

@@ -59,6 +59,18 @@ def _window_arg(consts):
     return int(consts["window"]) or None
 
 
+def _tp(consts, part: str):
+    """The ``tp`` axis ``part`` (``attn``, ``mlp``, ``moe``) splits over
+    (``consts["mesh"]``, a :class:`layers.LayerMesh`), or None."""
+    lm = consts.get("mesh")
+    return None if lm is None else getattr(lm, part)
+
+
+def _replicas(consts) -> int:
+    lm = consts.get("mesh")
+    return 1 if lm is None else lm.replicas
+
+
 # ---------------------------------------------------------------------------
 # Dense (smollm / gemma / llama3 / deepseek / pixtral) and enc-dec (whisper)
 # ---------------------------------------------------------------------------
@@ -97,13 +109,14 @@ def dense_apply(p, h, consts, arch: ArchConfig, memory=None):
     causal = consts["causal"] if arch.is_encdec else None
     win = _window_arg(consts)
     attn = L.attn_apply(p["attn"], L.norm_apply(p["ln1"], h, arch.norm), a,
-                        window=win, causal=causal)
+                        window=win, causal=causal, tp=_tp(consts, "attn"))
     h = _res(h, mask, attn)
     if arch.is_encdec and _cross(consts, memory):
         x = L.attn_apply(p["xattn"], L.norm_apply(p["lnx"], h, arch.norm), a,
-                         memory=memory, causal=0)
+                         memory=memory, causal=0, tp=_tp(consts, "attn"))
         h = _res(h, mask * consts["cross"], x)
-    mlp = L.mlp_apply(p["mlp"], L.norm_apply(p["ln2"], h, arch.norm), arch.act)
+    mlp = L.mlp_apply(p["mlp"], L.norm_apply(p["ln2"], h, arch.norm), arch.act,
+                      tp=_tp(consts, "mlp"))
     return _res(h, mask, mlp)
 
 
@@ -113,13 +126,15 @@ def dense_decode(p, h, consts, arch: ArchConfig, cache):
     win = _window_arg(consts)
     attn, cache["self"] = L.attn_decode(
         p["attn"], L.norm_apply(p["ln1"], h, arch.norm), cache["self"], a,
-        window=win)
+        window=win, tp=_tp(consts, "attn"))
     h = _res(h, mask, attn)
     if arch.is_encdec and consts.get("cross"):
         x, _ = L.attn_decode(p["xattn"], L.norm_apply(p["lnx"], h, arch.norm),
-                             cache["cross"], a, cross=True)
+                             cache["cross"], a, cross=True,
+                             tp=_tp(consts, "attn"))
         h = _res(h, mask * consts["cross"], x)
-    mlp = L.mlp_apply(p["mlp"], L.norm_apply(p["ln2"], h, arch.norm), arch.act)
+    mlp = L.mlp_apply(p["mlp"], L.norm_apply(p["ln2"], h, arch.norm), arch.act,
+                      tp=_tp(consts, "mlp"))
     return _res(h, mask, mlp), cache
 
 
@@ -213,10 +228,12 @@ def moe_init(generator, arch: ArchConfig, dtype, device):
 def moe_apply(p, h, consts, arch: ArchConfig, memory=None):
     mask = consts["mask"]
     attn = L.attn_apply(p["attn"], L.norm_apply(p["ln1"], h, arch.norm),
-                        arch.attn, window=_window_arg(consts))
+                        arch.attn, window=_window_arg(consts),
+                        tp=_tp(consts, "attn"))
     h = _res(h, mask, attn)
     out, _ = L.moe_apply(p["moe"], L.norm_apply(p["ln2"], h, arch.norm),
-                         arch.moe)
+                         arch.moe, tp=_tp(consts, "moe"),
+                         replicas=_replicas(consts))
     return _res(h, mask, out)
 
 
@@ -226,10 +243,12 @@ def moe_decode(p, h, consts, arch: ArchConfig, cache):
     mask = consts["mask"]
     attn, cache["self"] = L.attn_decode(
         p["attn"], L.norm_apply(p["ln1"], h, arch.norm), cache["self"],
-        arch.attn, window=_window_arg(consts))
+        arch.attn, window=_window_arg(consts), tp=_tp(consts, "attn"))
     h = _res(h, mask, attn)
+    n = _replicas(consts)
     out, _ = L.moe_apply(p["moe"], L.norm_apply(p["ln2"], h, arch.norm),
-                         arch.moe, group_size=h.shape[0] * h.shape[1])
+                         arch.moe, group_size=h.shape[0] * h.shape[1] * n,
+                         tp=_tp(consts, "moe"), replicas=n)
     return _res(h, mask, out), cache
 
 

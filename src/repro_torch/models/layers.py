@@ -4,12 +4,22 @@ the MoE dispatch and the selective SSM.
 Counterpart of :mod:`repro.models.layers`.  Per-layer constants
 (identity-pad mask, window, causal flag) are host values here: the port
 runs each layer eagerly, so what the reference keeps as traced data is a
-Python scalar.  The reference's sharding constraints have no counterpart
-on one card and are left out.
+Python scalar.
+
+Tensor parallelism (Megatron's splits, which the reference's sharding
+constraints ask GSPMD for): given a ``tp`` axis (``p2p.AxisGroup``), a
+layer runs its own heads, columns of the MLP or experts on weights that
+are already this rank's block, takes its input through
+:func:`tp_copy` (forward the identity, backward the sum over ``tp``) and
+returns its output through :func:`tp_reduce` (forward the sum over
+``tp``, backward the identity).  Each sum folds in tp-rank order, through
+the host, so every rank holds the same bits.  Without ``tp`` every layer
+is the single-device one.
 """
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +34,83 @@ def _check_kind(what: str, got: str, ported: tuple) -> None:
         raise NotImplementedError(
             f"{what}={got!r} is not ported (only {ported}): no arch of "
             "the reference uses it")
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the tp collectives as autograd functions
+# ---------------------------------------------------------------------------
+
+TP_SUM = "tp_sum"            # collective classes (``AxisGroup.stats``)
+TP_GATHER = "tp_gather"
+
+
+@dataclass(frozen=True)
+class LayerMesh:
+    """What a block's layers see of the mesh: the ``tp`` axis for each
+    sub-module whose work splits over it (None: the whole module on every
+    rank) and the data-parallel replicas, which a MoE dispatch group must
+    not straddle."""
+    attn: Any = None
+    mlp: Any = None
+    moe: Any = None
+    replicas: int = 1
+
+
+class _CopyToTP(torch.autograd.Function):
+    """A replicated value each tp rank uses for its own part of the work:
+    forward the identity, backward the sum of the ranks' cotangents."""
+
+    @staticmethod
+    def forward(ctx, tp, x):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.tp.sum(g.contiguous(), TP_SUM)
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """The sum of the tp ranks' partial outputs: forward the sum, backward
+    the identity (every rank holds the whole cotangent)."""
+
+    @staticmethod
+    def forward(ctx, tp, x):
+        return tp.sum(x.contiguous(), TP_SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+class _GatherTP(torch.autograd.Function):
+    """A leaf whose blocks lie over ``tp``, joined along ``dim`` for compute;
+    backward this rank's block of the cotangent, summed over ``tp`` first
+    when the ranks use the joined leaf for different work (``partial``)."""
+
+    @staticmethod
+    def forward(ctx, tp, x, dim, partial):
+        ctx.tp, ctx.dim, ctx.partial = tp, dim, partial
+        return tp.cat(x.contiguous(), dim, TP_GATHER)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        if ctx.partial:
+            g = ctx.tp.sum(g, TP_SUM)
+        return None, ctx.tp.block(g, ctx.dim).contiguous(), None, None
+
+
+def tp_copy(tp, x):
+    return x if tp is None or x is None else _CopyToTP.apply(tp, x)
+
+
+def tp_reduce(tp, x):
+    return x if tp is None else _ReduceFromTP.apply(tp, x)
+
+
+def tp_gather(tp, x, dim: int, partial: bool):
+    return _GatherTP.apply(tp, x, dim, partial)
 
 
 # ---------------------------------------------------------------------------
@@ -128,11 +215,14 @@ def _qkv(p, x, kv_src, a: AttentionConfig):
 
 
 def attn_apply(p, x, a: AttentionConfig, *, memory=None, window=None,
-               causal=None, pos=None, kv_len=None):
+               causal=None, pos=None, kv_len=None, tp=None):
     """Full-sequence attention (train / prefill); window 0/None = unlimited.
 
     With ``memory`` it is a cross-attention: K and V come from ``memory``
-    and take no RoPE.  ``causal`` is a host value (the layer's flag)."""
+    and take no RoPE.  ``causal`` is a host value (the layer's flag).
+    With ``tp`` the weights are this rank's heads (``a`` counts them) and
+    the output is summed over ``tp``."""
+    x, memory = tp_copy(tp, x), tp_copy(tp, memory)
     B, S, D = x.shape
     kv_src = memory if memory is not None else x
     q, k, v = _qkv(p, x, kv_src, a)
@@ -150,11 +240,11 @@ def attn_apply(p, x, a: AttentionConfig, *, memory=None, window=None,
     out = ops.attention(qt, kt, vt, causal=eff_causal, window=eff_window,
                         kv_len=kv_len)
     out = out.transpose(1, 2).reshape(B, S, a.n_heads * a.head_dim)
-    return out @ p["wo"]
+    return tp_reduce(tp, out @ p["wo"])
 
 
 def attn_decode(p, x, cache, a: AttentionConfig, *,
-                window: Optional[int] = None, cross: bool = False):
+                window: Optional[int] = None, cross: bool = False, tp=None):
     """One-token decode against a ring cache, updated in place.
 
     x: [B, 1, D]; cache: {"k","v": [B, slots, Hkv, hd], "len": 0-d int32}.
@@ -165,8 +255,10 @@ def attn_decode(p, x, cache, a: AttentionConfig, *,
     (slots >= seq) and SWA rings.  With ``cross`` the cache holds the
     memory's K and V, is never advanced, and is valid below ``len``.
     Plain torch, as the reference is plain jnp here.  Returns (out
-    [B, 1, D], cache).
+    [B, 1, D], cache).  With ``tp`` as in :func:`attn_apply`: the cache
+    holds this rank's kv heads.
     """
+    x = tp_copy(tp, x)
     B = x.shape[0]
     q = (x @ p["wq"]).reshape(B, 1, a.n_heads, a.head_dim)
     ln = cache["len"]
@@ -198,7 +290,7 @@ def attn_decode(p, x, cache, a: AttentionConfig, *,
     pw = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", pw, vt).to(x.dtype)
     out = out.transpose(1, 2).reshape(B, 1, a.n_heads * a.head_dim)
-    return out @ p["wo"], cache
+    return tp_reduce(tp, out @ p["wo"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -221,17 +313,22 @@ def mlp_init(generator, d: int, f: int, act: str, dtype, device, *,
             "wd": dense_init(generator, f, d, dtype, device, out_scale)}
 
 
-def mlp_apply(p, x, act: str):
+def mlp_apply(p, x, act: str, tp=None):
     """SwiGLU, (silu(x wg) * (x wu)) wd; GeGLU (gemma), (gelu(x wg) *
     (x wu)) wd; or gelu(x wu) wd.  GELU takes its tanh approximation
-    (``jax.nn.gelu``'s default, which the reference takes)."""
+    (``jax.nn.gelu``'s default, which the reference takes).  With ``tp``
+    the weights are this rank's columns of ``wg`` / ``wu`` and rows of
+    ``wd``, and the output is summed over ``tp``."""
     _check_kind("act", act, MLP_ACTS)
+    x = tp_copy(tp, x)
     if act == "silu":
-        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
-    if act == "geglu":
-        return (F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wu"])) \
+        y = (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    elif act == "geglu":
+        y = (F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wu"])) \
             @ p["wd"]
-    return F.gelu(x @ p["wu"], approximate="tanh") @ p["wd"]
+    else:
+        y = F.gelu(x @ p["wu"], approximate="tanh") @ p["wd"]
+    return tp_reduce(tp, y)
 
 
 # ---------------------------------------------------------------------------
@@ -267,7 +364,8 @@ def moe_group(T: int, group_size: int) -> int:
     return g
 
 
-def moe_apply(p, x, m: MoEConfig, *, group_size: int = 512):
+def moe_apply(p, x, m: MoEConfig, *, group_size: int = 512, tp=None,
+              replicas: int = 1):
     """Capacity-factor token dispatch (reference ``layers.moe_apply``).
 
     The B * S tokens form groups of :func:`moe_group` tokens; in each group
@@ -278,10 +376,26 @@ def moe_apply(p, x, m: MoEConfig, *, group_size: int = 512):
     dispatch and combine are the reference's dense one-hot products
     ([G, g, E, cap]): batched matrix products, so the backward is
     deterministic on the card (no atomic scatter).  Returns (out [B, S, D]
-    in x's dtype, router logits [G, g, E] fp32)."""
+    in x's dtype, router logits [G, g, E] fp32).
+
+    Over ``replicas`` data-parallel replicas the groups are cut from the
+    whole micro-batch, ``replicas`` times these tokens (``group_size``
+    counts it too), and each must lie whole inside one replica's slice,
+    or the capacity drops would differ from the reference's: that
+    raises.  With ``tp`` the experts are this rank's block of them
+    (``wg`` leads with ``E / tp``), every rank routes the whole group with
+    the whole fp32 router, runs its own experts and the combine is summed
+    over ``tp``."""
+    x = tp_copy(tp, x)
     B, S, D = x.shape
     E, k = m.n_experts, m.top_k
-    g = moe_group(B * S, group_size)
+    g = moe_group(B * S * replicas, group_size)
+    if (B * S) % g:
+        raise NotImplementedError(
+            f"a MoE dispatch group of {g} tokens straddles the "
+            f"{replicas} data-parallel replicas' slices of {B * S} tokens: "
+            "its capacity drops would differ from the reference's (ROADMAP "
+            "A9b); use a sequence the group divides, or data=1")
     G = B * S // g
     xt = x.reshape(G, g, D)
     cap = moe_capacity(g, m)
@@ -307,6 +421,9 @@ def moe_apply(p, x, m: MoEConfig, *, group_size: int = 512):
         ohc = (pos.long()[..., None] == slots).float()          # [G, g, cap]
         combine = combine + (vals[..., slot] * keep)[..., None, None] \
             * (oh[..., :, None] * ohc[..., None, :])
+    if tp is not None:                 # this rank's experts
+        n = p["wg"].shape[0]
+        combine = combine[:, :, tp.rank * n:(tp.rank + 1) * n]
     dispatch = (combine > 0).to(x.dtype)                        # [G,g,E,cap]
 
     ein = torch.einsum("gsec,gsd->gecd", dispatch, xt)
@@ -314,7 +431,7 @@ def moe_apply(p, x, m: MoEConfig, *, group_size: int = 512):
         * torch.einsum("gecd,edf->gecf", ein, p["wu"])
     eo = torch.einsum("gecf,efd->gecd", h, p["wd"])
     out = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), eo)
-    return out.reshape(B, S, D), logits
+    return tp_reduce(tp, out.reshape(B, S, D)), logits
 
 
 def moe_aux_loss(logits, m: MoEConfig):

@@ -12,9 +12,20 @@ layers the trailing ones; the per-layer constants carry ``causal`` /
 ``cross`` / ``dec_active`` / ``is_enc_last`` / ``is_dec_first`` flags as
 host scalars, and the encoder output reaches every decoder stage through
 one skip with a destination per decoder stage (paper §3.3.1, portals).
+
+On a mesh (``mesh``, a :class:`repro_torch.launch.mesh.MeshView`) a model
+holds this rank's block of every leaf (:meth:`LMModel.shard_params`, the
+placement of :mod:`repro_torch.launch.sharding`).  The FSDP axes are
+joined outside the blocks: by the train step, once a step, or at each
+stage application from memory-free stand-ins (:meth:`LMModel.bind_fsdp`).
+The ``tp`` axis stays split through the blocks (``arch_c`` counts this
+rank's heads); a leaf whose split does not fall on head boundaries is
+joined for compute (:meth:`LMModel._tp_local`), and the head's vocab lies
+over ``tp`` with a vocab-parallel cross-entropy.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -28,9 +39,30 @@ from repro_torch.core import stage as stage_lib
 from repro_torch.core.pipeline import TickCtx
 from repro_torch.core.skip import SkipSpec
 from repro_torch.devices import DeviceLike, resolve_device, stage_devices
+from repro_torch.launch import sharding
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.tree import tree_map
+
+
+FSDP_GATHER = "fsdp_gather"        # collective class of the FSDP joins
+
+
+class _Regather(torch.autograd.Function):
+    """A stage leaf joined over its FSDP axis at one application (ZeRO-3):
+    forward the join of the rank's block (``shard``), which ``standin``
+    (a memory-free ``[...]`` of the whole leaf's shape) stands for; its
+    cotangent goes to the stand-in whole, so the step accumulates the
+    gradient of the joined leaf exactly as with the weights joined once a
+    step."""
+
+    @staticmethod
+    def forward(ctx, standin, shard, axis, dim):
+        return axis.cat(shard.contiguous(), dim, FSDP_GATHER)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
 
 
 # positions per head-loss chunk: the reference's measured sweet spot
@@ -74,10 +106,17 @@ class LMModel:
     pcfg: ParallelConfig
     dtype: torch.dtype = torch.bfloat16
     device: DeviceLike = "cuda"
+    mesh: Any = None                  # a MeshView: this rank's blocks
 
     def __post_init__(self):
         a = self.arch
         self.device = resolve_device(self.device)
+        self.arch_c = a                 # what the blocks compute with
+        self.tp = self.lmesh = self._fsdp = None
+        self.specs: Optional[Dict[str, Any]] = None
+        self.fsdp_specs: Optional[Dict[str, Any]] = None
+        if self.mesh is not None:
+            self._init_mesh()
         self.total_layers = a.n_layers + a.enc_layers
         self.n_stages = self.pcfg.pipe * self.pcfg.virtual_stages
         self.layout = stage_lib.partition_layout(
@@ -95,6 +134,32 @@ class LMModel:
         else:
             self.enc_last_stage = self.dec_first_stage = -1
 
+    def _init_mesh(self):
+        """The tp splits (a sub-module splits where its heads, hidden
+        columns or experts divide by ``tp``; else it runs whole on every
+        rank), ``arch_c`` and the blocks' :class:`layers.LayerMesh`."""
+        a, m = self.arch, self.mesh
+        T = m.shape["tp"]
+        tp = m.axes["tp"] if T > 1 else None
+        if tp is not None and a.family in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                f"tp={T} for the {a.family} family ({a.name}): its heads "
+                "over tp are not ported yet (ROADMAP A9b); run it at tp=1")
+        at = a.attn
+        self.split = {"attn": at is not None and at.n_heads % T == 0,
+                      "mlp": a.d_ff % T == 0,
+                      "moe": a.moe is not None and a.moe.n_experts % T == 0}
+        if tp is not None and self.split["attn"]:
+            nq = at.n_heads // T
+            nkv = at.n_kv_heads // T if at.n_kv_heads % T == 0 else nq
+            self.arch_c = dataclasses.replace(a, attn=dataclasses.replace(
+                at, n_heads=nq, n_kv_heads=nkv))
+        self.tp = tp
+        on = {k: tp if (tp is not None and v) else None
+              for k, v in self.split.items()}
+        self.lmesh = L.LayerMesh(attn=on["attn"], mlp=on["mlp"],
+                                 moe=on["moe"], replicas=m.replicas)
+
     @property
     def stage_devices(self) -> List[torch.device]:
         """One device per stage (torchgpipe placement); all this model's."""
@@ -110,7 +175,15 @@ class LMModel:
         rank too when the head is tied to it) and ``head`` on the last
         rank.  Every layer is still drawn, in order, and dropped unless
         kept, so each kept tensor is bitwise what ``init`` without
-        ``rank`` gives it."""
+        ``rank`` gives it.  On a mesh, this rank's blocks of its pipe
+        rank's share (:meth:`shard_params`; ``rank`` is the mesh's)."""
+        if self.mesh is not None:
+            pipe = self.mesh.pipe
+            return self.shard_params(self._init_share(
+                generator, pipe.rank if pipe.size > 1 else None))
+        return self._init_share(generator, rank)
+
+    def _init_share(self, generator: torch.Generator, rank: Optional[int]):
         a, dev = self.arch, self.device
         if rank is None:
             stages = stage_lib.place_layers(
@@ -128,6 +201,111 @@ class LMModel:
         if rank is None:
             return out
         return {k: out[k] for k in self.rank_keys(rank)}
+
+    # ------------------------------------------------------------- placement
+    def param_specs(self, share) -> Dict[str, Any]:
+        """The placement of a pipe rank's ``share`` (or of the whole tree)
+        on this model's mesh (:func:`sharding.param_specs`; with
+        ``pcfg.fsdp`` off, or one replica, the data axes are dropped:
+        every replica holds its weights whole)."""
+        specs = sharding.param_specs(share, self.mesh.shape)
+        if not self.pcfg.fsdp or self.mesh.replicas == 1:
+            specs = tree_map(sharding.drop_fsdp, specs)
+        return specs
+
+    def shard_params(self, share):
+        """This rank's blocks of a pipe rank's ``share`` (clones: the share
+        can be freed); sets :attr:`specs` and :attr:`fsdp_specs` (the
+        placement with FSDP on, whose blocks the global norm folds
+        whatever ``pcfg.fsdp`` says: ``steps.norm_terms``)."""
+        self.specs = self.param_specs(share)
+        self.fsdp_specs = sharding.param_specs(share, self.mesh.shape)
+        return sharding.shard_tree(share, self.specs, self.mesh.coords,
+                                   self.mesh.shape)
+
+    def bind_fsdp(self, shards) -> None:
+        """Join the stage weights at each application (ZeRO-3): until the
+        next call, the stage tree the executor passes is one of stand-ins
+        whose FSDP leaves are joined from ``shards`` (this rank's blocks,
+        stacked ``[n_chunks, ...]``) inside every stage application, its
+        recompute included, and freed after it.  None unbinds."""
+        self._fsdp = shards
+
+    def _stage_compute(self, sp, stage: int):
+        """A stage's weights as its blocks compute with them: joined over
+        FSDP when bound (:meth:`bind_fsdp`), then over ``tp`` where a split
+        misses head boundaries (:meth:`_tp_local`)."""
+        if self._fsdp is not None:
+            c = stage // self.pcfg.pipe
+
+            def one(standin, shard, spec):
+                fg = sharding.fsdp_group(spec)
+                if fg is None:
+                    return standin           # a whole leaf: the leaf itself
+                d, group = fg
+                return _Regather.apply(standin, shard[c],
+                                       self.mesh.axes[group], d - 1)
+            sp = tree_map(one, sp, self._fsdp, self.specs["stages"])
+        if self.tp is not None:
+            sp = self._tp_local(sp, self.specs["stages"])
+        return sp
+
+    def _tp_local(self, tree, specs, path=()):
+        """The per-stage tree as this tp rank computes with it.  Where a
+        sub-module splits on head boundaries its blocks are the rank's own
+        and stay; a whole attention (``n_heads % tp``) joins its blocks,
+        whose cotangents every rank then holds whole; a split attention
+        whose kv heads do not divide joins ``wk`` / ``wv`` (or takes them
+        whole), their cotangents summed over ``tp``, and keeps the kv head
+        of each of its query heads; a split MoE joins its router the same
+        way."""
+        if isinstance(tree, dict):
+            return {k: self._tp_local(v, specs[k], path + (k,))
+                    for k, v in tree.items()}
+        d = sharding.axis_dim(specs, "tp")
+        d = None if d is None else d - 1          # the stage tree: no axis 0
+        name, tp = path[-1], self.tp
+        if "moe" in path and name == "router" and self.split["moe"]:
+            return L.tp_gather(tp, tree, d, True)
+        if "attn" not in path and "xattn" not in path:
+            return tree
+        at = self.arch.attn
+        if not self.split["attn"]:
+            return tree if d is None else L.tp_gather(tp, tree, d, False)
+        if name not in ("wk", "wv") or at.n_kv_heads % tp.size == 0:
+            return tree
+        full = (L.tp_copy(tp, tree) if d is None
+                else L.tp_gather(tp, tree, d, True))
+        nq, grp = self.arch_c.attn.n_heads, at.n_heads // at.n_kv_heads
+        idx = torch.tensor([(tp.rank * nq + h) // grp for h in range(nq)],
+                           device=full.device)
+        lead = full.shape[:-1]
+        return full.reshape(lead + (at.n_kv_heads, at.head_dim)).index_select(
+            -2, idx).reshape(lead + (nq * at.head_dim,))
+
+    def gather_fsdp(self, params):
+        """``params`` (this rank's blocks) whole over the FSDP axes: the
+        serving weights, joined once (the ``tp`` blocks stay)."""
+        out = dict(params)
+        for k in ("embed", "stages"):
+            if k in params:
+                out[k] = sharding.gather_stage_weights(params[k],
+                                                       self.specs[k],
+                                                       self.mesh)
+        return out
+
+    def _embed_table(self, emb):
+        """The token table whole: joined over ``tp`` where it lies there
+        (the FSDP axes are joined by the step)."""
+        tok = emb["tok"]
+        if self.tp is not None and sharding.axis_dim(
+                self.specs["embed"]["tok"], "tp") is not None:
+            tok = L.tp_gather(self.tp, tok, 1, False)
+        return tok
+
+    def vocab_parallel(self) -> bool:
+        """The head's vocab lies over ``tp`` (it divides)."""
+        return self.tp is not None and self.arch.vocab % self.tp.size == 0
 
     def rank_keys(self, rank: int) -> Tuple[str, ...]:
         """The top-level params pipe rank ``rank`` keeps: ``embed`` on rank
@@ -200,7 +378,10 @@ class LMModel:
         return c
 
     def _layer_consts(self, consts, stage: int, slot: int) -> Dict[str, Any]:
-        return {k: v[stage, slot].item() for k, v in consts.items()}
+        c = {k: v[stage, slot].item() for k, v in consts.items()}
+        if self.lmesh is not None:
+            c["mesh"] = self.lmesh
+        return c
 
     # ------------------------------------------------------------------ skips
     def skips(self) -> List[SkipSpec]:
@@ -250,11 +431,12 @@ class LMModel:
         if a.is_encdec:
             h = batch["frames"].to(self.dtype)
             h = h + self._positions(h.shape[1])[None]
-            dec = _embed_lookup(emb["tok"], batch["dec_tokens"], self.dtype)
+            dec = _embed_lookup(self._embed_table(emb), batch["dec_tokens"],
+                                self.dtype)
             dec = dec + self._positions(dec.shape[1])[None]
             return {"h": h, "dec_h": dec}
-        h = self._scaled(_embed_lookup(emb["tok"], batch["tokens"],
-                                       self.dtype))
+        h = self._scaled(_embed_lookup(self._embed_table(emb),
+                                       batch["tokens"], self.dtype))
         if a.frontend == "vision_stub" and "patches" in batch:
             p = batch["patches"].to(self.dtype)
             n = min(p.shape[1], h.shape[1])
@@ -266,7 +448,8 @@ class LMModel:
         and the ssm family add no positions here, the others sinusoidal
         ones."""
         a = self.arch
-        h = self._scaled(_embed_lookup(emb["tok"], tokens, self.dtype))
+        h = self._scaled(_embed_lookup(self._embed_table(emb), tokens,
+                                       self.dtype))
         if a.family != "ssm" and (a.is_encdec
                                   or not (a.attn and a.attn.use_rope)):
             h = h + sinusoidal(torch.tensor([pos], device=h.device),
@@ -296,11 +479,12 @@ class LMModel:
         latches ``h`` after the ``is_enc_last`` one; across stages ``mem``
         and ``dec_emb`` arrive as the ``mem`` / ``dec_in`` skips, and only
         stage 0 reads ``ctx.fresh``."""
-        model, a = self, self.arch
+        model, a = self, self.arch_c
         per_layer = "full" if self.pcfg.remat_layers else "none"
 
         def stage_apply(stage_params, carry, skips_in, resident,
                         ctx: TickCtx):
+            stage_params = model._stage_compute(stage_params, ctx.stage)
             first = ctx.stage == 0
             h = ctx.fresh["h"] if first else carry["h"]
             mem: Optional[torch.Tensor] = None
@@ -335,10 +519,11 @@ class LMModel:
         """Decode: each layer against its caches.  An encoder layer
         (``dec_active`` 0) is skipped: the reference runs it and keeps the
         old ``h`` and cache."""
-        model, a = self, self.arch
+        model, a = self, self.arch_c
 
         def stage_apply(stage_params, carry, skips_in, resident,
                         ctx: TickCtx):
+            stage_params = model._stage_compute(stage_params, ctx.stage)
             h = ctx.fresh["h"] if ctx.stage == 0 else carry["h"]   # [mb, 1, D]
             for l in range(model.L_per_stage):
                 c = model._layer_consts(consts, ctx.stage, l)
@@ -353,11 +538,22 @@ class LMModel:
 
     # ------------------------------------------------------------------- head
     def head_logits(self, params, h):
+        """Logits [..., V]; with the vocab over ``tp``, every rank's block
+        joined (serving)."""
+        logits = self._head_logits_local(params, h)
+        if self.vocab_parallel():
+            logits = self.tp.cat(logits, -1, L.TP_GATHER)
+        return logits
+
+    def _head_logits_local(self, params, h):
+        """Logits of this rank's vocab block (all of it off ``tp``)."""
         hn = L.norm_apply(params["head"]["norm"], h, self.arch.norm)
         w = params["head"].get("w")
-        if w is None:
-            w = params["embed"]["tok"].T       # tied embeddings
-        return hn @ w
+        vp = self.vocab_parallel()
+        if w is None:                          # tied embeddings
+            tok = self._embed_table(params["embed"])
+            w = (self.tp.block(L.tp_copy(self.tp, tok), 0) if vp else tok).T
+        return L.tp_copy(self.tp, hn) @ w if vp else hn @ w
 
     def head_loss(self, params, h, labels):
         """Chunked softmax cross-entropy over the sequence, mean over all
@@ -372,7 +568,9 @@ class LMModel:
         labels = labels.long()
 
         def chunk_ce(hx, lx):
-            logits = self.head_logits(params, hx).float()
+            logits = self._head_logits_local(params, hx).float()
+            if self.vocab_parallel():
+                return self._vocab_parallel_ce(logits, lx).sum()
             gold = torch.gather(logits, -1, lx[..., None])[..., 0]
             return (torch.logsumexp(logits, -1) - gold).sum()
 
@@ -382,6 +580,22 @@ class LMModel:
             total = total + ce(h[:, start:start + c], labels[:, start:start + c])
         return total / (Bsz * S)
 
+    def _vocab_parallel_ce(self, logits, labels):
+        """Cross-entropy of fp32 logits whose vocab lies over ``tp``
+        ([..., V / tp] here): the max over every rank's block (a constant
+        of the log-sum-exp), the sum of exponentials and the gold logit
+        (from the rank that holds it) each summed over ``tp`` in rank
+        order."""
+        tp = self.tp
+        n = logits.shape[-1]
+        m = torch.stack(tp.gather(logits.detach().amax(-1), L.TP_SUM)).amax(0)
+        se = L.tp_reduce(tp, torch.exp(logits - m[..., None]).sum(-1))
+        lo = labels - tp.rank * n
+        own = (lo >= 0) & (lo < n)
+        gold = torch.gather(logits, -1, lo.clamp(0, n - 1)[..., None])[..., 0]
+        gold = L.tp_reduce(tp, torch.where(own, gold, torch.zeros_like(gold)))
+        return torch.log(se) + m - gold
+
     # ----------------------------------------------------------------- caches
     def cache_protos(self, shape: ShapeConfig, n_micro: int, *,
                      rank: Optional[int] = None):
@@ -390,8 +604,18 @@ class LMModel:
         rank), only its stages' (``rank, rank + pipe, ...``):
         ``[n_stages // pipe, L_per_stage, m, mb, ...]``."""
         mb = shape.global_batch // n_micro
+        if self.mesh is not None:           # one replica's slice, its heads
+            if mb % self.mesh.replicas:
+                raise NotImplementedError(
+                    f"a micro-batch of {mb} over {self.mesh.replicas} "
+                    "replicas: the sequence-sharded decode cache (the "
+                    "reference's cache_specs(seq_shard=True)) is not "
+                    "ported yet (ROADMAP A9b); serve a batch the replicas "
+                    "divide")
+            mb //= self.mesh.replicas
         slots_len = shape.seq_len + 64
-        per_layer = self.block_cache_proto(self.arch, mb, slots_len, self.dtype)
+        per_layer = self.block_cache_proto(self.arch_c, mb, slots_len,
+                                           self.dtype)
         n = (self.n_stages if rank is None
              else len(range(rank, self.n_stages, self.pcfg.pipe)))
 

@@ -18,8 +18,8 @@ Skip connections crossing stage boundaries follow paper §3.3:
 
 On one card both do the same work (the hop is ``.to()`` onto the same
 device); what portals save, copies on the cards in between, needs stages on
-several cards.  Every schedule also runs one rank per process
-(``hetero_grad_call(..., group=...)``).
+several cards.  Every schedule also runs one rank of a ``(data, pipe)``
+mesh per process (``hetero_grad_call(..., mesh_view=...)``).
 
 The programs compute in fp32: :func:`hetero_forward` and the call of
 :func:`hetero_grad_call` run under :func:`fp32_math`, TF32 off in cuDNN and
@@ -139,7 +139,7 @@ def hetero_forward(program: HeteroProgram, pcfg: ParallelConfig, x_batch):
 
 def hetero_grad_call(program: HeteroProgram, pcfg: ParallelConfig,
                      park_info: Optional[Dict[str, Any]] = None, *,
-                     group: Optional[PipeGroup] = None):
+                     mesh_view=None):
     """Training call for a hetero program under ``pcfg.schedule``.
 
     Returns ``call(stage_params, x [B, ...], y [B, ...]) -> (loss, grads)``:
@@ -153,12 +153,46 @@ def hetero_grad_call(program: HeteroProgram, pcfg: ParallelConfig,
     plan; ``park_info`` (a dict) receives each call's buffer and route
     high-water.
 
-    With a pipe ``group`` the call runs one rank: it takes that rank's
-    stage trees in chunk order (``program.stage_params[rank::pipe]``) and
-    returns their grads, and the loss on the last rank (None on the
-    others).  Under ``"gpipe"`` the skips' and the chain's cotangents
-    cross the processes through :class:`p2p.Backprop`.
+    On a mesh (``mesh_view``, data and pipe parallelism) each replica
+    passes its slice of the batch and runs its pipe group.  With pipe > 1
+    the call runs one pipe rank: it takes that rank's stage trees in
+    chunk order (``program.stage_params[rank::pipe]``) and returns their
+    grads, and the loss on the last rank (None on the others); under
+    ``"gpipe"`` the skips' and the chain's cotangents cross the processes
+    through :class:`p2p.Backprop`.  With data > 1 the loss and every
+    gradient leaf are then averaged over the replicas, summed in replica
+    order (``AxisGroup.sum``), so every replica gets the same bits.
     """
+    if mesh_view is None:
+        return _grad_call(program, pcfg, park_info, None)
+    if mesh_view.shape["tp"] > 1:
+        raise NotImplementedError(
+            "tp > 1 for the heterogeneous models: their layers have no "
+            "tensor-parallel split (the reference's has none either)")
+    pipe = mesh_view.pipe
+    inner = _grad_call(program, pcfg, park_info,
+                       pipe if pipe.size > 1 else None)
+    rep = mesh_view.axes["replica"]
+    if rep.size == 1:
+        return inner
+
+    def mean_call(stage_params, x_batch, y_batch):
+        loss, grads = inner(stage_params, x_batch, y_batch)
+        if loss is not None:
+            loss = rep.sum(loss, "data_reduce", mean=True)
+        return loss, [tree_map(lambda g: rep.sum(g, "data_reduce",
+                                                 mean=True), p)
+                      for p in grads]
+
+    mean_call.tplan = inner.tplan
+    return mean_call
+
+
+def _grad_call(program: HeteroProgram, pcfg: ParallelConfig,
+               park_info: Optional[Dict[str, Any]],
+               group: Optional[PipeGroup]):
+    """:func:`hetero_grad_call` of one replica: every stage in this
+    process, or (``group``) one pipe rank's."""
     m = pcfg.n_micro
     first = group is None or group.first
     last = group is None or group.last

@@ -16,7 +16,7 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -88,8 +88,11 @@ def _norm(leaves) -> torch.Tensor:
 
 
 def _over_group(group, x: torch.Tensor, op) -> torch.Tensor:
-    """``op``-fold of every pipe rank's 0-d ``x`` in rank order: the same
-    bits on every rank (gathered through the host: gloo)."""
+    """``op``-fold of every rank's 0-d ``x`` in rank order over ``group``
+    (a pipe group, or a mesh axis): the same bits on every rank (gathered
+    through the host: gloo)."""
+    if group.size == 1:
+        return x
     import torch.distributed as dist
     host = x.detach().reshape(1).cpu()
     parts = [torch.empty_like(host) for _ in range(group.size)]
@@ -142,7 +145,8 @@ def _all_finite(grads, loss=None) -> torch.Tensor:
 
 def apply(cfg: OptimizerConfig, state: OptState, params, grads, *,
           loss: Optional[torch.Tensor] = None, group=None,
-          replicas: Tuple[str, ...] = ()) -> Tuple[Any, OptState, dict]:
+          norm_terms: Optional[Sequence[Optional[torch.Tensor]]] = None,
+          replica_group=None) -> Tuple[Any, OptState, dict]:
     """One optimizer step.  Returns (params, new_state, metrics).
 
     Params, master weights and moments are updated in place, one leaf at a
@@ -157,26 +161,33 @@ def apply(cfg: OptimizerConfig, state: OptState, params, grads, *,
     the scaled grads, which are then unscaled before clipping and the
     moments.
 
-    With a pipe ``group`` (:class:`repro_torch.core.p2p.PipeGroup`) each
-    rank passes its share of the params: the global norm sums every rank's
-    sum of squares in rank order, leaving out the top-level ``replicas``
-    of ``grads`` (a copy another rank owns: the last rank's tied
-    embedding), and the finiteness flag is the AND of every rank's, so
-    all ranks clip by one scale and skip or take a step together.  The
+    The global norm folds, in order, the fp32 sums of squares of
+    ``norm_terms`` (by default every leaf of ``grads``).  Across processes
+    each rank passes its share of the params and grads, and its terms of
+    one model copy: a term another replica computes is None here (0), and
+    over ``replica_group`` (a mesh axis) the replicas' terms are added
+    (exact: each is computed on one replica alone); the rank's fold is
+    then summed over ``group`` (a pipe group, or the ranks of one model
+    copy) in rank order.  The finiteness flag is the AND over both groups,
+    so all ranks clip by one scale and skip or take a step together.  The
     norm then sums in another order than one process does."""
     if cfg.name not in ("adamw", "sgd"):
         raise ValueError(f"unknown optimizer {cfg.name!r}")
     with torch.no_grad():
-        return _apply(cfg, state, params, grads, loss, group, replicas)
+        return _apply(cfg, state, params, grads, loss, group, norm_terms,
+                      replica_group)
 
 
-def _apply(cfg, state, params, grads, loss, group=None, replicas=()):
+def _apply(cfg, state, params, grads, loss, group=None, norm_terms=None,
+           replica_group=None):
     dyn = cfg.dynamic_loss_scale
     finite = (_all_finite(grads, loss) if cfg.skip_nonfinite or dyn
               else None)
-    if finite is not None and group is not None:
-        finite = _over_group(group, finite.to(torch.int32),
-                             torch.minimum) > 0
+    if finite is not None:
+        for g in (replica_group, group):
+            if g is not None:
+                finite = _over_group(g, finite.to(torch.int32),
+                                     torch.minimum) > 0
     inv = 1.0 / state.scale if dyn else None
 
     def unscaled(g):
@@ -186,13 +197,15 @@ def _apply(cfg, state, params, grads, loss, group=None, replicas=()):
     leaves = list(zip(tree_leaves(params), tree_leaves(grads),
                       tree_leaves(state.mu), tree_leaves(state.nu),
                       tree_leaves(state.master)))
-    if group is None:
-        gn = _norm(unscaled(g) for _, g, *_ in leaves)
-    else:
-        counted = [g for k, sub in grads.items() if k not in replicas
-                   for g in tree_leaves(sub)]
-        gn = torch.sqrt(_over_group(group, _sum_sq(map(unscaled, counted)),
-                                    torch.add))
+    terms = tree_leaves(grads) if norm_terms is None else norm_terms
+    zero = torch.zeros((), device=tree_leaves(grads)[0].device)
+    sums = [zero if t is None else torch.sum(torch.square(unscaled(t)))
+            for t in terms]
+    if replica_group is not None and replica_group.size > 1 and sums:
+        sums = list(replica_group.sum(torch.stack(sums), "norm").unbind())
+    sq = functools.reduce(torch.add, sums) if sums else zero
+    gn = torch.sqrt(sq if group is None else _over_group(group, sq,
+                                                          torch.add))
     clip = _clip_scale(gn, cfg.clip_norm) if cfg.clip_norm > 0 else None
     step = state.step + 1
     lr = schedule(cfg, step)

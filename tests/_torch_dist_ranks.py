@@ -123,6 +123,11 @@ def suite(name: str, nproc: int) -> List[Tuple[str, Dict[str, Any]]]:
         cases.append(("smollm-gpipe-mpmd", dict(
             kind="grads", arch="smollm-360m",
             pcfg=dict(schedule="gpipe", executor="mpmd"))))
+        # streamed inputs under autograd: the shards rotate as values and
+        # rank 0 sends the cotangents to its own inputs
+        cases.append(("smollm-gpipe-stream-spmd", dict(
+            kind="grads", arch="smollm-360m",
+            pcfg=dict(schedule="gpipe", stream_inputs=True))))
         cases.append(("whisper-serve-stream-spmd", dict(
             kind="serve", arch="whisper-tiny",
             pcfg=dict(stream_inputs=True))))
@@ -131,17 +136,26 @@ def suite(name: str, nproc: int) -> List[Tuple[str, Dict[str, Any]]]:
     return cases
 
 
-def _model(case, pipe: int):
+def _model(case, pipe: int, view=None):
+    """The case's model, on the pipe group's mesh ``view`` (None: one
+    process)."""
     arch = configs.smoke_arch(case["arch"])
     pcfg = _pcfg(case["arch"], pipe, **case["pcfg"])
-    return LMModel(arch, pcfg, dtype=torch.float32, device="cpu")
+    return LMModel(arch, pcfg, dtype=torch.float32, device="cpu", mesh=view)
 
 
-def _params(model, case, rank=None):
+def _whole(model, params):
+    """The rank's blocks of a whole ``params`` tree (itself in one
+    process)."""
+    if model.mesh is None:
+        return params
+    return model.shard_params(model.rank_share(params, model.mesh.pipe.rank))
+
+
+def _params(model, case):
     if "params" in case:                  # given whole (a JAX oracle's)
-        params = torch.load(case["params"])
-        return params if rank is None else model.rank_share(params, rank)
-    return model.init(torch.Generator().manual_seed(0), rank=rank)
+        return _whole(model, torch.load(case["params"]))
+    return model.init(torch.Generator().manual_seed(0))
 
 
 def _batch_of(model, case):
@@ -150,21 +164,20 @@ def _batch_of(model, case):
     return _batch(model.arch)
 
 
-def _grads(group, case, pipe: int):
-    model = _model(case, pipe)
-    grad_fn = steps.build_grad_fn(model, model.pcfg, "cpu", group=group)
-    loss, grads = grad_fn(_params(model, case, group and group.rank),
-                          _batch_of(model, case))
+def _grads(view, case, pipe: int):
+    model = _model(case, pipe, view)
+    grad_fn = steps.build_grad_fn(model, model.pcfg, "cpu")
+    loss, grads = grad_fn(_params(model, case), _batch_of(model, case))
     return {"loss": loss, "grads": grads, "park": dict(grad_fn.park_info)}
 
 
-def _train(group, case, pipe: int, n_steps: int = 2):
-    model = _model(case, pipe)
+def _train(view, case, pipe: int, n_steps: int = 2):
+    model = _model(case, pipe, view)
     ocfg = optim.OptimizerConfig(**OCFG)
     step = steps.build_train_step(model, model.pcfg, "cpu",
                                   ShapeConfig("t", SEQ, BATCH, "train"),
-                                  ocfg, group=group)
-    params = _params(model, case, group and group.rank)
+                                  ocfg)
+    params = _params(model, case)
     opt = optim.init(ocfg, params)
     batch = _batch_of(model, case)
     losses = []
@@ -174,9 +187,9 @@ def _train(group, case, pipe: int, n_steps: int = 2):
     return {"losses": losses, "params": params}
 
 
-def _fail(group, case, pipe: int):
+def _fail(view, case, pipe: int):
     """Rank 1 raises inside a stage mid-step; the others wait on it."""
-    model = _model(case, pipe)
+    model = _model(case, pipe, view)
     inner = model.make_stage_apply
     calls = [0]
 
@@ -185,58 +198,54 @@ def _fail(group, case, pipe: int):
 
         def stage_apply(*args):
             calls[0] += 1
-            if group.rank == 1 and calls[0] == FAIL_AFTER:
+            if view.pipe.rank == 1 and calls[0] == FAIL_AFTER:
                 raise RuntimeError("injected fault on pipe rank 1")
             return apply(*args)
         return stage_apply
     model.make_stage_apply = failing
-    steps.build_grad_fn(model, model.pcfg, "cpu", group=group)(
-        _params(model, case, group.rank), _batch_of(model, case))
+    steps.build_grad_fn(model, model.pcfg, "cpu")(
+        _params(model, case), _batch_of(model, case))
     return {}
 
 
-def _launch(group, case, pipe: int):
+def _launch(view, case, pipe: int):
     """``launch.train.train``, the entry point ``--nproc`` runs in each
     rank: two steps on the CPU."""
     model = _model(case, pipe)
     res = train_lib.train(model.arch, model.pcfg, seq_len=SEQ, batch=BATCH,
                           steps=2, device="cpu", dtype=torch.float32,
-                          ocfg=optim.OptimizerConfig(**OCFG), group=group)
+                          ocfg=optim.OptimizerConfig(**OCFG), mesh_view=view)
     return {"losses": [r["loss"] for r in res["history"]],
             "ranks": res.get("ranks")}
 
 
-def _serve(group, case, pipe: int):
+def _serve(view, case, pipe: int):
     """``launch.serve.serve``, what ``serve --nproc`` runs in each rank:
     a PROMPT-token batch of BATCH, GEN tokens greedy."""
     model = _model(case, pipe)
     res = serve_lib.serve(model.arch, model.pcfg, prompt_len=PROMPT,
                           gen=GEN, batch=BATCH, device="cpu",
-                          dtype=torch.float32, group=group)
+                          dtype=torch.float32, mesh_view=view)
     return {k: res.get(k) for k in ("tokens", "logits", "n_micro",
                                     "cache_bytes", "hops", "park", "ranks")}
 
 
-def _serve_jax(group, case, pipe: int):
+def _serve_jax(view, case, pipe: int):
     """Prefill and decode on the JAX reference's weights, prompts and
     tokens (numpy, ``case["ref"]``): the last rank's logits."""
-    model = _model(case, pipe)
+    model = _model(case, pipe, view)
     with open(case["ref"], "rb") as f:
         ref = pickle.load(f)
-    params = params_from_jax(ref["params"], arch=model.arch, src_pipe=1,
-                             pcfg=model.pcfg, device="cpu")
-    rank = None if group is None else group.rank
-    if rank is not None:
-        params = model.rank_share(params, rank)
+    params = _whole(model, params_from_jax(ref["params"], arch=model.arch,
+                                           src_pipe=1, pcfg=model.pcfg,
+                                           device="cpu"))
     batch, n_prompt = ref["prompts"].shape
     pshape = ShapeConfig("p", n_prompt, batch, "prefill")
     dshape = ShapeConfig("d", ref["decode_len"], batch, "decode")
-    prefill = steps.build_prefill_step(model, model.pcfg, "cpu", pshape,
-                                       group=group)
-    decode = steps.build_serve_step(model, model.pcfg, "cpu", dshape,
-                                    group=group)
+    prefill = steps.build_prefill_step(model, model.pcfg, "cpu", pshape)
+    decode = steps.build_serve_step(model, model.pcfg, "cpu", dshape)
     cache = model.init_cache(dshape, model.pcfg.n_micro, filled=False,
-                             rank=rank)
+                             rank=None if view is None else view.pipe.rank)
     logits, cache = prefill(params, cache,
                             {"tokens": torch.from_numpy(ref["prompts"])})
     out = {"prefill": logits, "decode": []}
@@ -253,7 +262,7 @@ def _hetero_pcfg(case, pipe: int) -> ParallelConfig:
     return ParallelConfig(pipe=pipe, tp=1, data=1, n_micro=M, **case["pcfg"])
 
 
-def _hetero(group, case, pipe: int):
+def _hetero(view, case, pipe: int):
     """A small U-Net, portals on: loss and every stage's grads."""
     model = UNetModel(UNET, pipe)
     pcfg = _hetero_pcfg(case, pipe)
@@ -264,9 +273,9 @@ def _hetero(group, case, pipe: int):
     x = torch.randn(BATCH, 3, UNET.img, UNET.img, generator=g)
     y = torch.randn(BATCH, 3, UNET.img, UNET.img, generator=g)
     park: Dict[str, Any] = {}
-    call = PH.hetero_grad_call(prog, pcfg, park, group=group)
-    stages = prog.stage_params if group is None else \
-        prog.stage_params[group.rank::pipe]
+    call = PH.hetero_grad_call(prog, pcfg, park, mesh_view=view)
+    stages = prog.stage_params if view is None else \
+        prog.stage_params[view.pipe.rank::pipe]
     loss, grads = call(stages, x, y)
     return {"loss": loss, "grads": grads, "park": park}
 
@@ -281,13 +290,13 @@ def run_rank(rank: int, nproc: int, init_method: str, out_dir: str,
     single-process runs of the cases ``k`` with ``k % nproc == rank``."""
     torch.set_num_threads(1)
     cases = extra or suite(suite_name, nproc)
-    group = mesh.init_pipe_group(rank, nproc, init_method, device="cpu",
-                                 timeout_s=60)
+    view = mesh.init_pipe_group(rank, nproc, init_method, device="cpu",
+                                timeout_s=60)
     try:
-        dist = {name: RUN[case["kind"]](group, case, nproc)
+        dist = {name: RUN[case["kind"]](view, case, nproc)
                 for name, case in cases}
     finally:
-        mesh.destroy_pipe_group(group)
+        mesh.destroy_pipe_group(view)
     ref = {name: RUN[case["kind"]](None, case, nproc)
            for k, (name, case) in enumerate(cases) if k % nproc == rank}
     torch.save({"dist": dist, "ref": ref},

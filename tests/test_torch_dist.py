@@ -20,18 +20,20 @@ keeps torch to one thread.  The cases:
   order), the params within ``TOL``, the two embedding copies bitwise
   equal; the same through ``launch.train.train`` (what ``--nproc`` runs),
   with every rank's records on every rank;
-* a U-Net's fused 1F1B at R = 2 (``hetero_grad_call`` with the group);
+* a U-Net's fused 1F1B at R = 2 (``hetero_grad_call`` on the group's mesh);
 * the forward executor under autograd (``schedule="gpipe"``, the
   cotangents crossing through ``p2p.Backprop``): smollm, whisper (and
   under a bf16 wire) and the U-Net with its portals at R = 2 under spmd
   and mpmd, whisper at R = 4 (``mem``'s three destinations, a carry the
-  first decoder stage drops): the loss and every gradient bitwise, the
+  first decoder stage drops), smollm streamed at R = 4 (the shards rotate
+  as values, rank 0 takes their cotangents into its own inputs): the loss
+  and every gradient bitwise, the
   park and route high-water equal to the forward plan's, chain and portal
   hops and bytes equal to ``plan_wire_report``'s, one cotangent hop per
   chain and portal hop; two AdamW steps and ``launch.train.train`` with
   gpipe, as for 1F1B;
-* serving with per-rank caches through ``launch.serve.serve(group=)``
-  (what ``serve --nproc`` runs): smollm (spmd, mpmd), rwkv6 and whisper
+* serving with per-rank caches through ``launch.serve.serve(mesh_view=)``
+  on a pipe group (what ``serve --nproc`` runs): smollm (spmd, mpmd), rwkv6 and whisper
   at R = 2, whisper streamed at R = 4: tokens and last logits bitwise
   equal to one process's, each rank's cache bytes its share of
   ``cache_protos``, one token hop a decode step, the chain and portal
@@ -324,9 +326,9 @@ def _check_launch_train(runs, name):
 
 @pytest.mark.parametrize("name, nproc", SERVE_CASES)
 def test_dist_serve_bitwise_equal_single_process(runs, name, nproc):
-    """``serve(group=)``: the last rank's tokens and last logits bitwise
-    one process's (the others return none); every rank gets every rank's
-    records and the last rank's tokens."""
+    """``serve(mesh_view=)`` on a pipe group: the last rank's tokens and
+    last logits bitwise one process's (the others return none); every rank
+    gets every rank's records and the last rank's tokens."""
     run = runs[(name, nproc)]
     ref, last = run["ref"], run["dist"][-1]
     assert np.array_equal(last["tokens"], ref["tokens"])
@@ -437,3 +439,8 @@ def test_specialize_equals_reference(schedule, residuals, m, n):
             else:
                 assert x == y, (r, field)
         assert a.buffer_slots() == b.buffer_slots()
+    # the per-rank buffer accounting over those programs
+    from repro.launch import sharding as jsharding
+    from repro_torch.launch import sharding as tsharding
+    assert tsharding.per_rank_buffer_bytes(got, 64, 16) == \
+        jsharding.per_rank_buffer_bytes(want, 64, 16)

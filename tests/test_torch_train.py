@@ -590,20 +590,43 @@ def _gpipe_in_group(**kw):
     arch = configs.smoke_arch(ARCH)
     pcfg = configs.smoke_parallel(ARCH).with_(pipe=2, schedule="gpipe", **kw)
     return steps.build_grad_fn(LMModel(arch, pcfg, dtype=torch.float32,
-                                       device="cpu"), pcfg, "cpu",
-                               group=_a_group())
+                                       device="cpu", mesh=_mesh_view(pcfg)),
+                               pcfg, "cpu")
 
 
-def _streamed_gpipe_in_group():
-    """Rank 0's call refuses before it would talk to rank 1."""
-    from repro_torch.core import p2p
-    from repro_torch.core.pipeline import pipeline_call
-    cfg = configs.smoke_parallel(ARCH).with_(pipe=2, n_micro=2,
-                                             stream_inputs=True)
-    call = pipeline_call(lambda *a: a, cfg=cfg, devices="cpu",
-                         group=_a_group())
-    with torch.enable_grad():
-        call([{}], {"h": torch.zeros(2, 1)}, backprop=p2p.Backprop())
+def _mesh_view(pcfg):
+    """A rank's view of a mesh, for what refuses one before it would talk
+    (no process group: every axis a stand-in without one)."""
+    from repro_torch.core.p2p import AxisGroup, PipeGroup
+    from repro_torch.launch import mesh
+    shape = mesh.mesh_shape(pcfg)
+    cpu = torch.device("cpu")
+    axes = {name: AxisGroup(name, 0, int(np.prod([shape[a] for a in ax])),
+                            cpu) for name, ax in mesh.GROUPS.items()}
+    return mesh.MeshView(0, shape, {a: 0 for a in mesh.AXES}, cpu, axes,
+                         PipeGroup(0, shape["pipe"], cpu))
+
+
+def _model_on_mesh(name, **kw):
+    pcfg = configs.smoke_parallel(name).with_(**kw)
+    return LMModel(configs.smoke_arch(name), pcfg, dtype=torch.float32,
+                   device="cpu", mesh=_mesh_view(pcfg))
+
+
+def _seq_sharded_cache():
+    """A micro-batch of 1 over 2 replicas: the slots would shard."""
+    model = _model_on_mesh(ARCH, data=2)
+    model.cache_protos(ShapeConfig("d", 8, 2, "decode"), 2)
+
+
+def _moe_group_straddles():
+    """Groups of 64 tokens cut from a micro-batch of 2 x 32 rows of 16
+    tokens over 2 replicas: each replica holds 32."""
+    from repro_torch.models import layers as L
+    arch = configs.smoke_arch("mixtral-8x7b")
+    p = L.moe_init(torch.Generator().manual_seed(0), arch.d_model, arch.d_ff,
+                   arch.moe, torch.float32, torch.device("cpu"))
+    L.moe_apply(p, torch.zeros(2, 16, arch.d_model), arch.moe, replicas=2)
 
 
 def _nccl_group():
@@ -621,16 +644,15 @@ def _train_cli(monkeypatch):
 
 
 UNPORTED = {
-    "tp2": (lambda mp: _pipe_call(tp=2), "A9"),
-    "data2": (lambda mp: _pipe_call(data=2), "A9"),
-    "pod2": (lambda mp: _pipe_call(pod=2), "A9"),
-    # whisper's PARALLEL_OPTIMIZED folds four data replicas into dp2
-    "dp2": (lambda mp: _pipe_call(dp2=4), "A9"),
-    "sharded_loader": (lambda mp: data.make_sharded_loader(), "A9"),
     "elastic_flags": (_train_cli, "A11"),
-    # stages in their own processes: streamed gpipe (A4d), NCCL (A4c)
-    "group_gpipe_stream": (lambda mp: _streamed_gpipe_in_group(), "A4d"),
+    # stages in their own processes over NCCL (A4c)
     "nccl": (lambda mp: _nccl_group(), "A4c"),
+    # what A9 left: heads over tp for the ssm and hybrid families, the
+    # sequence-sharded decode cache, a MoE group across replicas (A9b)
+    "rwkv6_tp2": (lambda mp: _model_on_mesh("rwkv6-1.6b", tp=2), "A9b"),
+    "hymba_tp2": (lambda mp: _model_on_mesh("hymba-1.5b", tp=2), "A9b"),
+    "seq_sharded_decode": (lambda mp: _seq_sharded_cache(), "A9b"),
+    "moe_group_straddles": (lambda mp: _moe_group_straddles(), "A9b"),
 }
 
 
@@ -662,6 +684,73 @@ def _two_steps(**kw):
         losses.append(float(metrics["loss"]))
     assert all(np.isfinite(losses)) and float(metrics["finite"]) == 1.0
     return losses, opt
+
+
+def _tp2_splits_heads():
+    model = _model_on_mesh("deepseek-7b", tp=2)
+    a, c = model.arch.attn, model.arch_c.attn
+    assert (c.n_heads, c.n_kv_heads) == (a.n_heads // 2, a.n_kv_heads // 2)
+    assert model.lmesh.attn is model.tp and model.lmesh.mlp is model.tp
+
+
+def _rank_layout(**kw):
+    """The reference's make_arch_mesh layout: tp innermost, dp2 folded
+    into data."""
+    from repro_torch.launch import mesh
+    pcfg = configs.smoke_parallel(ARCH).with_(pipe=2, tp=2, **kw)
+    grid = mesh.make_arch_mesh(pcfg)
+    P, D, R, T = grid.shape
+    for idx in np.ndindex(grid.shape):
+        pod, d, r, t = idx
+        assert grid[idx] == ((pod * D + d) * R + r) * T + t
+    return grid.shape
+
+
+def _sharded_loader_slices():
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    cfg = DataConfig(seed=3, vocab=100, seq_len=8, global_batch=4,
+                     prefetch=1)
+    whole = SyntheticLM(cfg).batch_at(0)
+    parts = []
+    for r in range(2):
+        loader = data.make_sharded_loader(cfg, "cpu", r, 2)
+        parts.append(next(loader))
+        loader.close()
+    for k, v in whole.items():
+        assert np.array_equal(np.concatenate([p[k].numpy() for p in parts]),
+                              v)
+
+
+def _stream_cotangent_to_origin():
+    """Streamed gpipe across processes: rank 0's stage-0 input stands for
+    the slice of its own inputs, which takes the cotangent."""
+    from repro_torch.core.pipeline import _FromStream
+    origin = torch.randn(3, 4, requires_grad=True)
+    landed = origin[1].detach().clone()
+    out = _FromStream.apply(landed, origin[1])
+    assert torch.equal(out, landed) and out.data_ptr() != landed.data_ptr()
+    g = torch.randn(4)
+    (got,) = torch.autograd.grad(out, origin, g)
+    assert torch.equal(got[1], g) and not got[0].any() and not got[2].any()
+
+
+# ROADMAP A9a and A4d, which raised above until they were ported: each
+# now builds (run across processes in tests/test_torch_parallel.py and
+# tests/test_torch_dist.py)
+MESH_PORTED = {
+    "tp2": _tp2_splits_heads,
+    "data2": lambda: _pipe_call(data=2),
+    "pod2": lambda: _rank_layout(pod=2, data=2),
+    # whisper's PARALLEL_OPTIMIZED folds four data replicas into dp2
+    "dp2": lambda: _rank_layout(data=1, dp2=4),
+    "sharded_loader": _sharded_loader_slices,
+    "group_gpipe_stream": _stream_cotangent_to_origin,
+}
+
+
+@pytest.mark.parametrize("case", sorted(MESH_PORTED))
+def test_mesh_features_build(case):
+    MESH_PORTED[case]()
 
 
 # ROADMAP A4b, which raised above until it was ported: the forward executor
